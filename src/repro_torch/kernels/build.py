@@ -1,0 +1,158 @@
+"""Build and load the hand-written CUDA kernels.
+
+The sources under `repro_torch/csrc/` are compiled with `nvcc` for `sm_90a`
+— one compiler process per source file, all started together — and linked
+into one shared library with a plain C interface, loaded through `ctypes`.
+The build happens at the first launch of any kernel, never at import, and
+goes into `build/repro_torch/` at the root of the checkout.  The library's
+file name carries a hash of the sources and flags, so a stale build is never loaded.
+A failed build raises; nothing falls back to the plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_PTR, _INT, _FLOAT, _I64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                            ctypes.c_longlong)
+# C signatures of the entry points (every pointer and the stream are void*)
+SIGNATURES = {
+    "repro_torch_rmsnorm": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _FLOAT, _PTR],
+    "repro_torch_flash_prefill": (
+        [_PTR] * 4 + [_INT] * 7 + [_I64] * 12
+        + [_INT, _INT, _FLOAT, _FLOAT, _INT, _INT, _INT, _PTR]),
+    "repro_torch_flash_decode": (
+        [_PTR] * 6 + [_INT] * 9 + [_I64] * 12
+        + [_INT, _FLOAT, _FLOAT, _INT, _INT, _PTR]),
+}
+
+
+def build_dir() -> Path:
+    # src/repro_torch/kernels/build.py -> the checkout's root
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def find_nvcc() -> str:
+    candidates = [shutil.which("nvcc")]
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(var):
+            candidates.append(os.path.join(os.environ[var], "bin", "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(looked on PATH, $CUDA_HOME and /usr/local/cuda)")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):  # .cu and .cuh
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> tuple[Path, float]:
+    """Compile (if this exact source set was not built yet) and return the
+    library's path and the seconds the build took (0.0 on a cache hit)."""
+    out_dir = build_dir()
+    lib_path = out_dir / f"librepro_torch_kernels_{source_hash()}.so"
+    if lib_path.exists():
+        return lib_path, 0.0
+    nvcc = find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    tag = f"{lib_path.stem}.{os.getpid()}"
+    procs = []
+    for src in sources():
+        obj = out_dir / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, obj, proc in procs:
+        out, _ = proc.communicate()
+        log.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    (out_dir / f"{lib_path.stem}.log").write_text("\n".join(log))
+    objs = [str(obj) for _, obj, _ in procs]
+    try:
+        if failed:
+            raise RuntimeError(
+                f"nvcc failed on {failed}:\n" + "\n".join(log)[-8000:])
+        tmp = out_dir / f"{tag}.so"
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *objs],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
+        os.replace(tmp, lib_path)  # atomic: a concurrent build loses nothing
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return lib_path, time.perf_counter() - t0
+
+
+def build_log() -> str:
+    """What nvcc / ptxas printed for the current sources ("" if not built)."""
+    path = build_dir() / f"librepro_torch_kernels_{source_hash()}.log"
+    return path.read_text() if path.exists() else ""
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    lib_path, _ = build()
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_launch(code: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if code != 0:
+        raise RuntimeError(f"{what}: kernel launch failed with CUDA error {code}")
+
+
+def dtype_code(dtype) -> int:
+    import torch
+
+    if dtype == torch.bfloat16:
+        return 0
+    if dtype == torch.float32:
+        return 1
+    raise TypeError(f"the CUDA kernels take bfloat16 and float32, not {dtype}")
+
+
+def check_operand(name: str, t, vec: int) -> None:
+    """The addressing the kernels rely on: unit stride in the last dim, every
+    other stride and the base address a multiple of one 16-byte vector."""
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}: last dimension must be contiguous, "
+                         f"strides {t.stride()}")
+    if any(s % vec for s in t.stride()[:-1]) or t.data_ptr() % 16:
+        raise ValueError(f"{name}: strides {t.stride()} / base address are not "
+                         f"16-byte aligned")

@@ -1,0 +1,155 @@
+"""Binding of the CUDA flash-decode kernel (`csrc/flash_decode.cu`) and the
+schedule oracles of the decode walk.
+
+The kernel replaces the reference's `flash_decode_fwd`: S >= 1 new q tokens
+against a cache that already holds them, with a per-request `index`, linear
+/ ring / windowed caches, widened q and paged pools.  The cache and q are
+read in the model layout through strides; the block table is resolved inside
+the kernel.  `decode_schedule` / `paged_decode_schedule` say which blocks one
+step streams; they are framework-free copies of the reference's oracles.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention.kernel import (
+    MAX_BLOCK_KV,
+    cdiv,
+    check_qkv,
+)
+
+
+# ---------------------------------------------------------------------------
+# Live-block interval + oracle
+# ---------------------------------------------------------------------------
+
+
+def _dec_hi(index: int, block_kv: int, T: int) -> int:
+    """One past the last live KV block: the block holding min(T, index+1)-1."""
+    return cdiv(max(1, min(T, index + 1)), block_kv)
+
+
+def _dec_lo(index: int, block_kv: int, window: int | None, hi: int) -> int:
+    """First live KV block (linear caches only: positions below the sliding
+    window are dead).  Ring caches pass window=None — the ring layout holds
+    only in-window positions by construction."""
+    if window is None:
+        return 0
+    return min(max(0, (index + 1 - window) // block_kv), hi - 1)
+
+
+def decode_steps_for(T: int, block_kv: int, window: int | None = None,
+                     q_span: int = 1) -> int:
+    """Max live KV blocks one decode step can stream, over all indices."""
+    nk = cdiv(T, block_kv)
+    if window is None:
+        return nk
+    span = window + q_span - 1
+    return max(1, min(nk, cdiv(max(span - 1, 1), block_kv) + 1))
+
+
+def decode_schedule(
+    T: int, index: int, block_kv: int, *,
+    window: int | None = None, pruned: bool = True, q_span: int = 1,
+) -> list[int]:
+    """KV blocks one decode step actually *streams* from a length-T cache:
+    [lo, hi) when pruned, every block otherwise.  With `q_span` > 1 the
+    interval covers the *last* stacked token (position index + q_span - 1)
+    while lo stays anchored on the first."""
+    nk = cdiv(T, block_kv)
+    if not pruned:
+        return list(range(nk))
+    hi = _dec_hi(int(index) + q_span - 1, block_kv, T)
+    lo = _dec_lo(int(index), block_kv, window, hi)
+    return list(range(int(lo), int(hi)))
+
+
+def page_block_kv(block_kv: int, page_size: int) -> int:
+    """Clamp a streamed-block size so it tiles the page exactly: a block must
+    never straddle a page boundary (adjacent logical pages are not adjacent in
+    the pool), so the effective block is the largest common divisor."""
+    return max(1, math.gcd(int(block_kv), int(page_size)))
+
+
+def paged_decode_schedule(
+    kv_len: int, index: int, block_kv: int, page_size: int, table,
+    *, window: int | None = None, pruned: bool = True, q_span: int = 1,
+) -> list[tuple[int, int]]:
+    """Physical (page, sub_block) pairs one decode step streams from the
+    pool — `decode_schedule` mapped through the request's block table."""
+    bkv = page_block_kv(block_kv, page_size)
+    spb = page_size // bkv
+    logical = decode_schedule(kv_len, index, bkv, window=window, pruned=pruned,
+                              q_span=q_span)
+    return [(int(table[jb // spb]), jb % spb) for jb in logical]
+
+
+# ---------------------------------------------------------------------------
+# Entry point (model layout)
+# ---------------------------------------------------------------------------
+
+
+def flash_decode_fwd(
+    q: torch.Tensor,      # (B, S, H, D): the S new tokens, read in place
+    k: torch.Tensor,      # (B, T, K, D) cache — or (P, page_size, K, D) pool
+    v: torch.Tensor,
+    index: torch.Tensor,  # (B,) int32 on the card: first new token's position
+    *,
+    window: int | None = None,  # linear caches only; ring passes None
+    softcap: float | None = None,
+    block_kv: int = MAX_BLOCK_KV,
+    pruned: bool = True,
+    tables: torch.Tensor | None = None,  # (B, num_blocks) int32 page table
+    kv_len: int | None = None,           # logical cache length (paged only)
+) -> torch.Tensor:
+    code = check_qkv(q, k, v)
+    B, S, H, D = q.shape
+    K = k.shape[2]
+    if index.shape != (B,) or index.dtype != torch.int32 \
+            or index.device != q.device or not index.is_contiguous():
+        raise ValueError(f"index must be contiguous int32 ({B},) on {q.device}")
+    block_kv = max(1, min(int(block_kv), MAX_BLOCK_KV))
+    if tables is not None:
+        if kv_len is None:
+            raise ValueError("paged flash_decode requires kv_len")
+        T = int(kv_len)
+        page_size = k.shape[1]
+        block_kv = page_block_kv(block_kv, page_size)
+        if tables.dtype != torch.int32 or tables.device != q.device \
+                or tables.ndim != 2 or not tables.is_contiguous():
+            raise ValueError("tables must be contiguous int32 (B, num_blocks) "
+                             f"on {q.device}")
+        if tables.shape[0] != B or tables.shape[1] * page_size < T:
+            raise ValueError(
+                f"block table {tuple(tables.shape)} cannot cover kv_len={T} at "
+                f"page_size={page_size} for batch {B}")
+        nb = tables.shape[1]
+        tables_ptr = tables.data_ptr()
+    else:
+        if k.shape[0] != B:
+            raise ValueError("q and cache batch sizes differ")
+        T = k.shape[1]
+        page_size, nb, tables_ptr = 0, 0, None
+    if T < 1:
+        raise ValueError("decode against an empty cache")
+    if B == 0 or S == 0:
+        raise ValueError("empty q: there is nothing to launch")
+    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    err = build.library().repro_torch_flash_decode(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        index.data_ptr(), tables_ptr, code,
+        B, S, T, H, K, D, nb, page_size,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        out.stride(0), out.stride(1), out.stride(2),
+        int(window) if window is not None else 0,
+        float(softcap) if softcap is not None else 0.0,
+        1.0 / math.sqrt(D), block_kv, int(bool(pruned)),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check_launch(err, "flash_decode")
+    return out

@@ -1,0 +1,143 @@
+"""Public wrappers for the flash-attention kernels.
+
+Both take model-layout tensors, (B, S, H, D) / (B, T, K, D), and hand them
+to the kernels as they are (the kernels address them through strides).  A
+tensor on the CPU takes the plain version; a CUDA tensor launches the kernel
+or raises — there is no fallback from one to the other.  Each wrapper counts
+its kernel launches in a plain integer `launches` attribute.
+
+Block sizes left unspecified (None) take the kernel's tile capacity; woven
+`flash_block_*` extras override and are clamped to that capacity.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention.decode import flash_decode_fwd
+from repro_torch.kernels.flash_attention.kernel import (
+    MAX_BLOCK_KV,
+    MAX_BLOCK_Q,
+    flash_attention_fwd,
+)
+from repro_torch.kernels.flash_attention.ref import attention_ref, decode_ref
+
+DEFAULT_BLOCK_Q = MAX_BLOCK_Q
+DEFAULT_BLOCK_KV = MAX_BLOCK_KV
+DEFAULT_BLOCK_KV_DEC = MAX_BLOCK_KV
+DEFAULT_PAGE_SIZE = 128
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,  # (B, T, K, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    block_q: int | None = None,
+    block_kv: int | None = None,
+    pruned: bool = True,
+) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             softcap=softcap)
+    if q.numel() == 0:
+        return torch.empty_like(q)  # nothing to launch, nothing counted
+    out = flash_attention_fwd(  # launches or raises
+        q, k, v, causal=causal, window=window, softcap=softcap,
+        block_q=DEFAULT_BLOCK_Q if block_q is None else block_q,
+        block_kv=DEFAULT_BLOCK_KV if block_kv is None else block_kv,
+        pruned=pruned)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0  # kernel launches made through this wrapper
+
+
+def paged_gather_kv(pk, pv, tables, kv_len: int):
+    """Materialize the logical (B, kv_len, K, D) K/V view of a page pool
+    through per-request block tables — the plain twin of the indirection the
+    paged `flash_decode` kernel performs.  Shared (prefix-cached) pages gather
+    exactly like exclusive ones: the table row is the only addressing."""
+    B, nb = tables.shape
+    ps = pk.shape[-3]  # pool layout (P, page_size, K, D)
+    tables = tables.to(torch.long)
+    k = pk[tables]  # (B, nb, page_size, K, D)
+    v = pv[tables]
+    k = k.reshape(B, nb * ps, *pk.shape[-2:])[:, :kv_len]
+    v = v.reshape(B, nb * ps, *pv.shape[-2:])[:, :kv_len]
+    return k, v
+
+
+# ---------------------------------------------------------------------------
+# Decode (a small block of new tokens against a cache) — the serving hot path
+# ---------------------------------------------------------------------------
+
+
+def _fold_decode_q(q, K):
+    """Model layout (B, S, H, D) -> the kernels' row order (B, K, S*G, D).
+
+    Heads h = kh*G + g fold into the (K, G) block/row split of the decode
+    kernel; with S > 1 the S tokens stack token-major so row r = token
+    r // G.  The CUDA kernel computes this addressing itself; the function
+    documents it and lets tests build the folded view."""
+    B, S, H, D = q.shape
+    G = H // K
+    qt = q.reshape(B, S, K, G, D)
+    qt = qt.movedim(2, 1)  # (B, K, S, G, D)
+    return qt.reshape(B, K, S * G, D)
+
+
+def _unfold_decode_o(out, B, S, H, D, K):
+    """Inverse of `_fold_decode_q`: (B, K, S*G, D) -> (B, S, H, D)."""
+    G = H // K
+    o = out.reshape(B, K, S, G, D)
+    o = o.movedim(1, 2)  # (B, S, K, G, D)
+    return o.reshape(B, S, H, D)
+
+
+def flash_decode(
+    q: torch.Tensor,        # (B, S, H, D) — the S >= 1 new tokens, post-RoPE
+    k_cache: torch.Tensor,  # (B, T, K, D) cache *with the new tokens written*,
+                            # or the (P, page_size, K, D) page pool when paged
+    v_cache: torch.Tensor,
+    index: torch.Tensor,    # () or (B,) int32: the *first* new token's position
+    *,
+    window: int | None = None,  # linear caches only; ring caches pass None
+    softcap: float | None = None,
+    block_kv: int | None = None,
+    pruned: bool = True,
+    tables: torch.Tensor | None = None,  # (B, num_blocks) int32 block tables
+    kv_len: int | None = None,           # logical cache length (paged only)
+) -> torch.Tensor:
+    """One decode step over a live-block-pruned cache; see decode.py.
+
+    With S > 1 q tokens (the widened-q variant) token s attends through
+    cache slot index + s.  Each q row runs the same online softmax over the
+    same block walk as a single-token call.  Passing `tables` selects the
+    paged layout: K/V are one shared page pool and every request's cache
+    blocks resolve through its block-table row.  The quantized-pool mode of
+    the reference (`k_scale` / `v_scale`) is not ported yet.
+    """
+    block_kv = DEFAULT_BLOCK_KV_DEC if block_kv is None else int(block_kv)
+    if q.device.type == "cpu":
+        return decode_ref(q, k_cache, v_cache, index, window=window,
+                          softcap=softcap, block_kv=block_kv, pruned=pruned,
+                          tables=tables, kv_len=kv_len)
+    if q.numel() == 0:
+        return torch.empty_like(q)  # nothing to launch, nothing counted
+    B = q.shape[0]
+    index = index.to(torch.int32).reshape(-1).expand(B).contiguous()
+    if tables is not None:
+        tables = tables.to(torch.int32).contiguous()
+    out = flash_decode_fwd(q, k_cache, v_cache, index, window=window,
+                           softcap=softcap, block_kv=block_kv, pruned=pruned,
+                           tables=tables, kv_len=kv_len)
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0  # kernel launches made through this wrapper

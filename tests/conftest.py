@@ -16,3 +16,8 @@ def rng():
 @pytest.fixture
 def key():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card; skipped where there is none")
