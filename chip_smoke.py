@@ -15,7 +15,10 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    rounding of the output (one bf16 step of a value at 4x the RMS is 3e-2 of
    the RMS), while a dropped KV block moves a long-context row by more.  It
    times both, times the one-call PyTorch library function where there is
-   one, and computes the least time the card could take (the roofline bound);
+   one, and computes the least time the card could take (the roofline bound).
+   The quantized mode of flash decode (int8 / fp8 pages with fp32 scales) is
+   held to its plain version, to the dense layout of the same codes bit for
+   bit, and to flash decode over the bf16 values it quantizes;
 4. serves the launchers' reduced configuration (head_dim 16) on the card and
    checks that the attention kernels were launched there too;
 5. serves full-width, full-depth yi-6b (random weights from a seed) through
@@ -24,7 +27,11 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    plain version ran, and compares logits with the same server woven to the
    plain (`eager`) implementations; then reads a few decode steps with
    `torch.profiler`: the device's busy and idle share of a step and the
-   kernels that take most of its time.
+   kernels that take most of its time;
+6. serves the same model through the main path proper, `serve_continuous`
+   and `serve_stream` over the paged pool — a bf16 and an int8 pool, prefix
+   sharing on and off, chunked prefill — with exact launch counts, and
+   profiles one continuous wave at batch 8 (`continuous_phase`).
 
 Any failed phase ends the run with a non-zero exit code.  The last line of
 the output is `{"ok": true, "device": {...}}`; the line before the card's
@@ -49,6 +56,10 @@ PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 # worst error of a kernel case, as a share of the RMS of the plain output
 BF16_TOL = 5e-2
 FP32_TOL = 1e-4
+# K2 over an int8 pool against K2 over the bf16 values it quantizes: worst
+# absolute error (the reference's bound for int8, benchmarks/quantized_cache.py
+# :53; fp8's error is printed, as the reference keeps it a tuning column)
+QUANT_VS_FP_TOL = 0.05
 # Full-depth bf16 logits of the kernel path against the plain path, as shares
 # of the largest logit: the worst logit within 2e-2, the root-mean-square
 # error within 1e-2 (an H100 reads 1.8e-2 and 4e-3).
@@ -201,10 +212,14 @@ def prefill_cases(torch, gen):
         ("ragged_S1000_bf16", 1000, 32, 4, 128, torch.bfloat16, {}, BF16_TOL, False),
         ("unpruned_S1000_bf16", 1000, 32, 4, 128, torch.bfloat16, dict(pruned=False), BF16_TOL, False),
         ("S512_H8_K2_D64_fp32", 512, 8, 2, 64, torch.float32, {}, FP32_TOL, False),
+        # the int8 pool's first prefill: bf16 q over the dequantized fp32 K/V
+        ("fp32_kv_S1024_bf16", 1024, 32, 4, 128, (torch.bfloat16, torch.float32), {},
+         BF16_TOL, False),
     ]:
+        dtype, kv_dtype = dtype if isinstance(dtype, tuple) else (dtype, dtype)
         q = torch.randn((1, S, H, D), generator=gen, device="cuda").to(dtype)
-        k = torch.randn((1, S, K, D), generator=gen, device="cuda").to(dtype)
-        v = torch.randn((1, S, K, D), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((1, S, K, D), generator=gen, device="cuda").to(kv_dtype)
+        v = torch.randn((1, S, K, D), generator=gen, device="cuda").to(kv_dtype)
         ref_kw = {a: b for a, b in kw.items() if a != "pruned"}
         got = flash_attention(q, k, v, causal=True, **kw)
         want = attention_ref(q, k, v, causal=True, **ref_kw)
@@ -213,7 +228,8 @@ def prefill_cases(torch, gen):
         ms = time_ms(torch, [lambda: flash_attention(q, k, v, causal=True, **kw)], 5)
         plain = time_ms(torch, [lambda: attention_ref(q, k, v, causal=True, **ref_kw)], 3)
         lib = None
-        if "softcap" not in kw:  # one library call; it has no softcap
+        # one library call; it has no softcap and takes one dtype
+        if "softcap" not in kw and kv_dtype == dtype:
             qt = q.transpose(1, 2)
             G = H // K
             kt = k.transpose(1, 2).repeat_interleave(G, dim=1)
@@ -229,7 +245,7 @@ def prefill_cases(torch, gen):
             del kt, vt
         pairs = live_pairs(S, S, True, kw.get("window"))
         flops = 4.0 * D * pairs * H
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        nbytes = 2 * q.numel() * q.element_size() + (k.numel() + v.numel()) * k.element_size()
         b_ms, b_by = bound(nbytes, flops, "bf16" if dtype == torch.bfloat16 else "fp32")
         cases.append(dict(case=name, main=main, max_abs_err=err, ref_rms=rms, ms=ms,
                           plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
@@ -350,11 +366,168 @@ def decode_cases(torch, gen):
     return cases
 
 
-def kernel_entry(name, source, replaces, cases, launches):
+def quantized_decode_cases(torch, gen):
+    """K2d: flash decode over int8 / fp8 codes with fp32 per-page scales, at
+    the K2 main case's shapes.  Each case is held against its plain version;
+    besides, a paged pool and a dense cache of the same codes and scales must
+    agree bit for bit (shuffled tables, dead pages poisoned), and the int8
+    output must stay within 0.05 of K2 over the bf16 values it quantizes
+    (the reference's bound, benchmarks/quantized_cache.py:53)."""
+    from repro_torch.kernels.flash_attention.decode import paged_decode_schedule
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_decode,
+        kv_scale_from_absmax,
+        quantize_kv_write,
+        resolve_cache_dtype,
+    )
+    from repro_torch.kernels.flash_attention.ref import decode_ref
+
+    B, T, H, K, D, ps = 8, 4096, 32, 4, 128, 128
+    nb = T // ps
+    ragged = [199, 511, 1023, 1500, 2047, 2999, 3500, 4095]
+
+    def quantize(x, dt):
+        """(B, T, K, D) values -> codes and their (B, NP, K) page scales."""
+        pages = x.float().reshape(B, nb, ps, K, D)
+        scale = kv_scale_from_absmax(pages.abs().amax(dim=(2, 4)), dt)
+        return quantize_kv_write(pages, scale[:, :, None, :], dt).reshape(B, T, K, D), scale
+
+    def to_pool(kc, ks, vc, vs, live_of):
+        """The same codes and scales as a shuffled page pool; every page that
+        no request's schedule names holds NaN scales and garbage codes.  The
+        pool is assembled through an int8 view (bytes are bytes)."""
+        P = B * nb + 16
+        perm = torch.randperm(P, generator=gen, device="cuda")[:B * nb]
+        tables = perm.reshape(B, nb).to(torch.int32)
+        live = live_of(tables.cpu().tolist())
+        dead = torch.tensor([p for p in range(P) if p not in live], device="cuda")
+        out = []
+        for codes, scale in ((kc, ks), (vc, vs)):
+            pool = torch.full((P, ps, K, D), 0x7f, device="cuda", dtype=torch.int8)
+            sc = torch.full((P, K), float("nan"), device="cuda")
+            pool[perm] = codes.view(torch.int8).reshape(B * nb, ps, K, D)
+            sc[perm] = scale.reshape(B * nb, K)
+            sc[dead] = float("nan")
+            out += [pool.view(codes.dtype), sc]
+        return (*out, tables)
+
+    cases = []
+    k = torch.randn((B, T, K, D), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((B, T, K, D), generator=gen, device="cuda").to(torch.bfloat16)
+    for name, dtype_name, S, main in [
+        ("paged_int8_T4096_page128", "int8", 1, True),
+        ("paged_float8_e4m3fn_T4096_page128", "float8_e4m3fn", 1, False),
+        ("paged_int8_q_span4_T4096_page128", "int8", 4, False),
+    ]:
+        dt = resolve_cache_dtype(dtype_name)
+        q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+        idx = [i - (S - 1) for i in ragged]
+        index = torch.tensor(idx, dtype=torch.int32, device="cuda")
+        kc, ks = quantize(k, dt)
+        vc, vs = quantize(v, dt)
+
+        def live_of(host_tables):
+            live = set()
+            for b, i in enumerate(idx):
+                live |= {p for p, _ in paged_decode_schedule(T, i, 64, ps, host_tables[b],
+                                                             q_span=S)}
+            return live
+
+        pk, pks, pv, pvs, tables = to_pool(kc, ks, vc, vs, live_of)
+        kw = dict(tables=tables, kv_len=T, k_scale=pks, v_scale=pvs)
+        got = flash_decode(q, pk, pv, index, **kw)
+        dense = flash_decode(q, kc, vc, index, k_scale=ks, v_scale=vs, scale_page=ps)
+        want = decode_ref(q, pk, pv, index, **kw)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: a dead page reached the output")
+        if not torch.equal(got, dense):
+            raise AssertionError(f"{name}: paged output differs from dense output")
+        err, rms = check_close(torch, name, got, want, BF16_TOL)
+        # against K2 over the bf16 values the codes quantize
+        fp = flash_decode(q, k, v, index)
+        vs_fp = (got.float() - fp.float()).abs().max().item()
+        if dtype_name == "int8" and not vs_fp <= QUANT_VS_FP_TOL:
+            raise AssertionError(f"{name}: {vs_fp} from the bf16 cache's output "
+                                 f"(bound {QUANT_VS_FP_TOL})")
+        ms = time_ms(torch, [lambda: flash_decode(q, pk, pv, index, **kw)], 20)
+        plain = time_ms(torch, [lambda: decode_ref(q, pk, pv, index, **kw)], 2)
+        slots = sum(max(0, max(1, min(T, i + S))) for i in idx)
+        pages = sum(-(-max(1, min(T, i + S)) // ps) for i in idx)
+        nbytes = (slots * K * D * 2 * pk.element_size() + pages * K * 2 * 4
+                  + 2 * q.numel() * q.element_size())
+        b_ms, b_by = bound(nbytes, 4.0 * D * slots * S * H, "bf16")
+        cases.append(dict(case=name, main=main, max_abs_err=err, ref_rms=rms, ms=ms,
+                          plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                          bitwise_equal_to_dense=True, max_abs_err_vs_bf16_cache=vs_fp))
+        del pk, pv, kc, vc
+
+    # a dense int8 cache, one scale row per 128 slots
+    dt = torch.int8
+    q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+    index = torch.tensor(ragged, dtype=torch.int32, device="cuda")
+    kc, ks = quantize(k, dt)
+    vc, vs = quantize(v, dt)
+    kw = dict(k_scale=ks, v_scale=vs, scale_page=ps)
+    got = flash_decode(q, kc, vc, index, **kw)
+    want = decode_ref(q, kc, vc, index, **kw)
+    torch.cuda.synchronize()
+    err, rms = check_close(torch, "dense_int8_scale_page128", got, want, BF16_TOL)
+    ms = time_ms(torch, [lambda: flash_decode(q, kc, vc, index, **kw)], 20)
+    cases.append(dict(case="dense_int8_scale_page128", main=False, max_abs_err=err,
+                      ref_rms=rms, ms=ms, plain_ms=None, bound_ms=None, bound_by=None,
+                      library_ms=None))
+    return cases
+
+
+def shared_prefill_identity(torch, gen) -> dict:
+    """The design property behind "a prefix-shared admission serves the same
+    tokens as an unshared one": the prefill kernel over a whole prompt and
+    the widened-q decode kernel over its suffix, against the prefix resident
+    in a shuffled page pool, walk the same 64-slot blocks with the same
+    online softmax — so the suffix rows agree bit for bit.  Checked at yi-6b's
+    shapes (prefix 1024, suffix 200), over a bf16 pool and an int8 pool (the
+    prefill kernel then reads the dequantized fp32 values, as the first
+    prefill of a quantized pool does)."""
+    from repro_torch.kernels.flash_attention.ops import (
+        dequantize_kv,
+        flash_attention,
+        flash_decode,
+    )
+    from repro_torch.runtime.pages import build_linear_pool, quantize_linear_pool
+
+    P, S, H, K, D = 1024, 1224, 32, 4, 128
+    q = torch.randn((1, S, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn((S, K, D), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((S, K, D), generator=gen, device="cuda").to(torch.bfloat16)
+    pk, pv, tables, _ = build_linear_pool([k], [v], 128, max_len=S, num_pages=24)
+    index = torch.tensor([P], dtype=torch.int32, device="cuda")
+    out = {}
+    for pool in ("bf16", "int8"):
+        if pool == "bf16":
+            kk, vv, kw = k[None], v[None], {}
+            ck, cv = pk, pv
+        else:
+            ck, cv, ksc, vsc = quantize_linear_pool(pk, pv, "int8")
+            kw = dict(k_scale=ksc, v_scale=vsc)
+            kk = dequantize_kv(ck, ksc[:, None, :]).reshape(-1, K, D)[None, :S]
+            vv = dequantize_kv(cv, vsc[:, None, :]).reshape(-1, K, D)[None, :S]
+        full = flash_attention(q, kk, vv, causal=True)
+        suffix = flash_decode(q[:, P:], ck, cv, index, tables=tables, kv_len=S, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(full[:, P:], suffix):
+            diff = (full[:, P:].float() - suffix.float()).abs().max().item()
+            raise AssertionError(f"{pool} pool: suffix-over-prefix rows differ from the "
+                                 f"whole-prompt prefill by up to {diff}")
+        out[f"{pool}_pool_suffix_rows_bitwise_equal"] = True
+    return out
+
+
+def kernel_entry(name, source, replaces, cases, launches, launches_by_run):
     main = next(c for c in cases if c["main"])
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches,
+        "launches": launches, "launches_by_run": launches_by_run,
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_err_over_ref_rms": max(c["max_abs_err"] / c["ref_rms"] for c in cases),
         "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
@@ -443,6 +616,253 @@ def reduced_phase(torch):
         raise AssertionError(f"reduced configuration: launches {got} != {expected}")
     if out.shape != (2, tokens) or out.min() < 0 or out.max() >= mcfg.vocab:
         raise AssertionError("reduced configuration: tokens of the wrong shape or range")
+
+
+def profile_wave(torch, gen, batch: int) -> tuple[dict, dict]:
+    """Where one continuous wave's time goes: `gen` (a `serve_stream`
+    generator) has just yielded a wave's closing event, so the next `next()`
+    runs the following wave whole and yields its first event only after the
+    wave's tokens are on the host (the device is done).  That call runs under
+    `torch.profiler`; returns the event and the reading."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        first = next(gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((_device_us(e), e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    return first, {
+        "wave": first["wave"], "batch_before": batch, "wave_wall_ms": wall_ms,
+        "device_busy_ms": busy_ms if busy_ms > 0 else None,
+        "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms > 0 else None,
+        "device_launches_per_wave": sum(r[1] for r in rows),
+        "top_kernels_ms": [{"kernel": key[:80], "ms": us / 1e3, "calls": count}
+                           for us, count, key in rows[:8]],
+    }
+
+
+def _device_us(event) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(event, attr):
+            return float(getattr(event, attr))
+    return 0.0
+
+
+def continuous_phase(torch, server) -> dict:
+    """The main path proper, at full width and depth: `serve_continuous` and
+    `serve_stream` over the paged pool, with a bf16 and an int8 pool.
+
+    Traffic: ten requests of 32 greedy tokens, max_batch 8.  Eight share a
+    1024-token system prefix, with distinct suffixes of 64..1024 tokens; the
+    last two are one identical prompt (the prefix and 100 more tokens).  Six
+    arrive at wave 0, two at wave 2 (admitted into the running batch), the
+    identical pair at wave 4: it waits for the first six to retire and is
+    admitted beside the two still decoding — a prefix-shared suffix prefill,
+    then a full-prompt re-score whose first decode write splits the shared
+    tail page copy-on-write.
+
+    Runs: (a) bf16 pool, sharing on; (b) sharing off; (c) int8 pool, sharing
+    on, twice; (d) (a) through `serve_stream` with prefill_chunk 512, its
+    tenth wave (eight decoding) profiled; and the prompts through
+    `serve_batch`; then `sharing_diagnostic`.  Gates: every outcome ok; tokens in range; each kernel's
+    launch counter moved by exactly what the server's own step counts say,
+    with no plain version run; (c) gives the same tokens twice; the int8
+    pool's peak bytes at most 0.55x the bf16 pool's; prefix hits >= 8 in
+    (a) and none in (b).  Printed, not gated: token agreement between runs,
+    wall time, TTFT and the largest gap per request, peak memory."""
+    import numpy as np
+
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_decode
+    from repro_torch.kernels.rmsnorm import ops as norm_ops
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+
+    mcfg = server.woven.program.cfg
+    layers, n = mcfg.num_layers, server.cfg.decode_tokens
+    rng = np.random.default_rng(1)
+    system = rng.integers(0, mcfg.vocab, 1024)
+    suffixes = [64, 200, 330, 460, 600, 730, 860, 1024]
+    prompts = [np.concatenate([system, rng.integers(0, mcfg.vocab, s)]) for s in suffixes]
+    twin = np.concatenate([system, rng.integers(0, mcfg.vocab, 100)])
+    prompts += [twin, twin.copy()]
+    arrivals = [0] * 6 + [2, 2, 4, 4]
+    kw = dict(max_batch=8, page_size=128, arrival_waves=arrivals)
+
+    def forbidden(*a, **k):
+        raise AssertionError("a plain version ran on the card's main path")
+
+    def counted(fn):
+        """Run `fn` with the launch counters at 0 and no plain version."""
+        saved = (attn_ops.attention_ref, attn_ops.decode_ref, norm_ops.rmsnorm_ref)
+        attn_ops.attention_ref = attn_ops.decode_ref = norm_ops.rmsnorm_ref = forbidden
+        flash_attention.launches = flash_decode.launches = rmsnorm.launches = 0
+        flash_decode.quantized_launches = 0
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            attn_ops.attention_ref, attn_ops.decode_ref, norm_ops.rmsnorm_ref = saved
+        return out, wall, {"flash_attention": flash_attention.launches,
+                           "flash_decode": flash_decode.launches,
+                           "flash_decode_quantized": flash_decode.quantized_launches,
+                           "rmsnorm": rmsnorm.launches}
+
+    def check_run(tag, out, counts, quantized):
+        bad = [o for o in server.last_outcomes if o["status"] != "ok"]
+        if bad or len(out) != len(prompts):
+            raise AssertionError(f"{tag}: outcomes {bad}")
+        for o in out:
+            if o.shape != (n,) or o.min() < 0 or o.max() >= mcfg.vocab:
+                raise AssertionError(f"{tag}: tokens of the wrong shape or range")
+        st = server.last_step_counts
+        calls = sum(st.values())
+        k2 = layers * (st["decode"] + st["suffix_prefill"] + st["rescore"])
+        want = {"flash_attention": layers * (st["probe"] + st["prefill"]),
+                "flash_decode": k2, "flash_decode_quantized": k2 if quantized else 0,
+                "rmsnorm": (2 * layers + 1) * calls}
+        log(f"continuous {tag}: launches {counts}, expected {want} from steps {st}")
+        if counts != want:
+            raise AssertionError(f"{tag}: launch counters {counts} != expected {want}")
+
+    runs, report = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for tag, share, dtype in (("a_bf16_shared", True, None), ("b_bf16_unshared", False, None),
+                              ("c_int8_shared", True, "int8"), ("c_int8_shared_again", True, "int8")):
+        server.cfg.cache_dtype = dtype
+        try:
+            out, wall, counts = counted(lambda: server.serve_continuous(
+                prompts, prefix_sharing=share, **kw))
+        finally:
+            server.cfg.cache_dtype = None
+        check_run(tag, out, counts, dtype is not None)
+        runs[tag] = out
+        report[tag] = {"wall_s": wall, "launches": counts, "steps": server.last_step_counts,
+                       "pool": server.last_pool_stats,
+                       "ttft_s": [o["ttft_s"] for o in server.last_outcomes],
+                       "tok_gap_max_s": [o["tok_gap_max_s"] for o in server.last_outcomes],
+                       "decode_step_s_mean": float(np.mean(server.decode_step_latencies))}
+
+    # (d): the event loop itself, chunked; its tenth wave (batch 8, every
+    # prompt resident by then) runs under the profiler
+    events, profiled = [], {}
+
+    def stream():
+        gen = server.serve_stream(prompts, prefill_chunk=512, **kw)
+        while True:
+            try:
+                if events and events[-1]["event"] == "wave" and events[-1]["wave"] == 9:
+                    ev, profiled["wave"] = profile_wave(torch, gen, events[-1]["batch"])
+                else:
+                    ev = next(gen)
+            except StopIteration as stop:
+                return stop.value
+            events.append(ev)
+
+    out, wall, counts = counted(stream)
+    # the same wave's neighbours ran without the profiler (batch 8, no
+    # admission): the wall time the idle share is read against
+    near = [e["dt_s"] for e in events if e["event"] == "wave"
+            and e["wave"] in (8, 9, 11, 12) and e["batch"] == 8]
+    wave = profiled["wave"]
+    if near and wave["device_busy_ms"]:
+        wave["unprofiled_wave_wall_ms"] = 1e3 * sum(near) / len(near)
+        wave["device_idle_share_unprofiled"] = \
+            1.0 - wave["device_busy_ms"] / wave["unprofiled_wave_wall_ms"]
+    check_run("d_stream_chunk512", out, counts, False)
+    runs["d_stream_chunk512"] = out
+    report["d_stream_chunk512"] = {
+        "wall_s": wall, "launches": counts, "steps": server.last_step_counts,
+        "prefill_chunk_events": sum(e["event"] == "prefill_chunk" for e in events)}
+    if not report["d_stream_chunk512"]["prefill_chunk_events"]:
+        raise AssertionError("the chunked stream ran no chunk")
+    batch_out, wall, _ = counted(lambda: server.serve_batch(prompts))
+    runs["serve_batch"] = batch_out
+    report["serve_batch"] = {"wall_s": wall}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    a, c = report["a_bf16_shared"]["pool"], report["c_int8_shared"]["pool"]
+    if any(not np.array_equal(x, y) for x, y in zip(runs["c_int8_shared"],
+                                                    runs["c_int8_shared_again"])):
+        raise AssertionError("the int8 pool gave other tokens on a second run")
+    ratio = c["peak_pool_hbm_bytes"] / a["peak_pool_hbm_bytes"]
+    if not ratio <= 0.55:
+        raise AssertionError(f"int8 pool peak bytes {ratio} of the bf16 pool's (bound 0.55)")
+    if a["prefix_hits"] < 8 or report["b_bf16_unshared"]["pool"]["prefix_hits"] != 0:
+        raise AssertionError(f"prefix hits {a['prefix_hits']} (a), "
+                             f"{report['b_bf16_unshared']['pool']['prefix_hits']} (b)")
+    if a["cow_splits"] < 1 or report["a_bf16_shared"]["steps"]["rescore"] != 1:
+        raise AssertionError("the identical pair was not re-scored and split")
+
+    def agree(x, y):
+        return float(np.mean([(p == q).mean() for p, q in zip(runs[x], runs[y])]))
+
+    summary = {
+        "model": "yi-6b", "layers": layers, "requests": len(prompts),
+        "prompt_tokens": [len(p) for p in prompts], "decode_tokens": n,
+        "token_agreement": {
+            "a_vs_b_shared_unshared": agree("a_bf16_shared", "b_bf16_unshared"),
+            "a_vs_serve_batch": agree("a_bf16_shared", "serve_batch"),
+            "d_vs_a_chunked_stream": agree("d_stream_chunk512", "a_bf16_shared"),
+            "c_vs_a_int8_vs_bf16": agree("c_int8_shared", "a_bf16_shared")},
+        "int8_over_bf16_peak_pool_bytes": ratio, "peak_memory_gb": peak_gb,
+        "runs": report,
+    }
+    log("continuous " + json.dumps(summary))
+    log("continuous-diagnostic " + json.dumps(sharing_diagnostic(torch, server, prompts)))
+    log("profile-wave " + json.dumps(profiled["wave"]))
+    return {tag: report[tag]["launches"] for tag in ("a_bf16_shared", "c_int8_shared")}
+
+
+def sharing_diagnostic(torch, server, prompts) -> dict:
+    """Where the shared and the unshared runs part (printed, not gated): the
+    first-token logits of each prefix sharer, admitted over its donor's pages
+    and admitted alone, and whether a GEMM row depends on the row count —
+    the prefill projections of a suffix-only and a whole-prompt admission
+    run at different M, as the decode GEMMs of batches of 8 and 10 do."""
+    from repro_torch.runtime.pages import PagedCacheManager
+
+    captured = {}
+    first_token = server._first_token
+
+    def capture(manager, rid, logits):
+        captured[rid] = logits[0, -1].float().clone()
+        return first_token(manager, rid, logits)
+
+    server._first_token = capture
+    try:
+        logits = {}
+        for share in (True, False):
+            manager = PagedCacheManager(256, 128, max_len=server.cfg.max_cache_len,
+                                        prefix_sharing=share)
+            captured.clear()
+            for rid in range(8):
+                server._paged_admit(manager, rid, prompts[rid], len(prompts[rid]) + 1, None)
+            logits[share] = dict(captured)
+            del manager
+    finally:
+        server._first_token = first_token
+    rows = []
+    for rid in range(1, 8):
+        a, b = logits[True][rid], logits[False][rid]
+        top2 = b.topk(2).values
+        rows.append({"rid": rid, "bitwise_equal": bool(torch.equal(a, b)),
+                     "max_abs_diff": (a - b).abs().max().item(),
+                     "argmax_equal": int(a.argmax()) == int(b.argmax()),
+                     "unshared_top2_margin": (top2[0] - top2[1]).item()})
+    gemm = {}
+    wq = server.params["blocks0"]["block"]["attn"]["wq"][0].to(torch.bfloat16)
+    x = torch.randn((1224, wq.shape[0]), device=wq.device).to(torch.bfloat16)
+    gemm["prefill_rows_1024_of_1224_vs_alone_200"] = bool(
+        torch.equal((x @ wq)[1024:], x[1024:] @ wq))
+    gemm["decode_rows_8_of_10_vs_alone_8"] = bool(torch.equal((x[:10] @ wq)[:8], x[:8] @ wq))
+    gemm["decode_rows_6_of_8_vs_alone_6"] = bool(torch.equal((x[:8] @ wq)[:6], x[:6] @ wq))
+    return {"first_token_logits_shared_vs_unshared": rows, "gemm_row_independence": gemm}
 
 
 def serve_phase(torch):
@@ -578,7 +998,7 @@ def serve_phase(torch):
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     log("serve " + json.dumps(summary))
-    return counts
+    return counts, server
 
 
 def main() -> int:
@@ -611,22 +1031,41 @@ def main() -> int:
     norm = rmsnorm_cases(torch, gen)
     pre = prefill_cases(torch, gen)
     dec = decode_cases(torch, gen)
-    for c in norm + pre + dec:
+    quant = quantized_decode_cases(torch, gen)
+    for c in norm + pre + dec + quant:
         log("kernel-case " + json.dumps({k: v for k, v in c.items() if k != "main"}))
+    log("shared-prefill-identity " + json.dumps(shared_prefill_identity(torch, gen)))
 
     reduced_phase(torch)
-    counts = serve_phase(torch)
+    serve_counts, server = serve_phase(torch)
+    cont = continuous_phase(torch, server)
+    del server
+    torch.cuda.empty_cache()
+
+    # `launches`: the continuous main path, bf16 pool (run a); the quantized
+    # mode over the int8 pool (run c).  Every counted run is listed beside.
+    a, c = cont["a_bf16_shared"], cont["c_int8_shared"]
+
+    def by_run(key):
+        return {"serve_and_serve_batch": serve_counts.get(key, 0),
+                "continuous_a_bf16": a[key], "continuous_c_int8": c[key]}
 
     kernels = [
         kernel_entry("flash_attention", "src/repro_torch/csrc/flash_prefill.cu",
                      "src/repro/kernels/flash_attention/kernel.py:490", pre,
-                     counts["flash_attention"]),
+                     a["flash_attention"], by_run("flash_attention")),
         kernel_entry("flash_decode", "src/repro_torch/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_attention/decode.py:454", dec,
-                     counts["flash_decode"]),
+                     a["flash_decode"], by_run("flash_decode")),
+        kernel_entry("flash_decode_quantized", "src/repro_torch/csrc/flash_decode.cu",
+                     "src/repro/kernels/flash_attention/decode.py:454", quant,
+                     c["flash_decode_quantized"], by_run("flash_decode_quantized")),
         kernel_entry("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
-                     "src/repro/kernels/rmsnorm/kernel.py:37", norm, counts["rmsnorm"]),
+                     "src/repro/kernels/rmsnorm/kernel.py:37", norm, a["rmsnorm"],
+                     by_run("rmsnorm")),
     ]
+    kernels[2]["library_ms_note"] = ("no single PyTorch call attends over an int8 "
+                                     "paged pool")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

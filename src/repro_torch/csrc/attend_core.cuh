@@ -8,6 +8,13 @@
 // range [lo, hi), so causal, sliding-window, ragged and per-request masks are
 // all the same comparison in logical slot space.
 //
+// K and V may have another element type than q and o: bf16 or fp32 values,
+// or int8 / fp8 (e4m3, e5m2) codes of a quantized cache.  A block of codes is
+// dequantized on the way into shared memory as float(code) * scale, with the
+// one fp32 scale of the page (per KV head) that holds the block — a block
+// never straddles a page — and the fp32 arithmetic that follows is the same
+// as for values.
+//
 // Thread layout: 16 threads along the KV block (TX) by RT/MR along the rows.
 // Scores are an MR x 4 register tile per thread, the output an MR x (D/16)
 // register tile (column c of a thread is tx + 16*c).  Shared rows are padded
@@ -18,6 +25,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -54,6 +62,27 @@ template <> struct Vec<float> {
   static __device__ __forceinline__ float from_float(float x) { return x; }
 };
 
+// One-byte codes of a quantized cache: 8 per 8-byte load, converted exactly
+// to fp32 (int8 and both fp8 formats are subsets of fp32).
+template <typename C>
+struct CodeVec {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void load(const C* p, float* out) {
+    uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const C* c = reinterpret_cast<const C*>(&raw);
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = static_cast<float>(c[i]);
+  }
+};
+template <> struct Vec<int8_t> : CodeVec<int8_t> {};
+template <> struct Vec<__nv_fp8_e4m3> : CodeVec<__nv_fp8_e4m3> {};
+template <> struct Vec<__nv_fp8_e5m2> : CodeVec<__nv_fp8_e5m2> {};
+
+// Whether an element type holds codes that need their page's scale.
+template <typename T> struct IsCode { static constexpr bool value = true; };
+template <> struct IsCode<__nv_bfloat16> { static constexpr bool value = false; };
+template <> struct IsCode<float> { static constexpr bool value = false; };
+
 // Floats of dynamic shared memory one block needs.
 template <int RT>
 __host__ __device__ inline size_t attend_smem_bytes(int D) {
@@ -65,17 +94,23 @@ __host__ __device__ inline size_t attend_smem_bytes(int D) {
 
 // Copy `rows` rows of D elements (row r at base + r * stride) into a padded
 // fp32 tile; rows outside [row_begin, row_end) are zero-filled and never read.
+// Codes of a quantized cache come out as float(code) * scale.
 template <typename T, int NT>
 __device__ __forceinline__ void load_tile(float* dst, const T* base, int64_t stride,
-                                          int rows, int row_begin, int row_end, int D) {
+                                          int rows, int row_begin, int row_end, int D,
+                                          float scale) {
   constexpr int N = Vec<T>::N;
-  const int cpr = D / N;  // 16-byte chunks per row
+  const int cpr = D / N;  // vector loads per row
   for (int c = threadIdx.x; c < rows * cpr; c += NT) {
     const int r = c / cpr;
     const int d0 = (c - r * cpr) * N;
     float vals[N];
     if (r >= row_begin && r < row_end) {
       Vec<T>::load(base + (int64_t)r * stride + d0, vals);
+      if (IsCode<T>::value) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) vals[i] *= scale;
+      }
     } else {
 #pragma unroll
       for (int i = 0; i < N; ++i) vals[i] = 0.f;
@@ -89,10 +124,11 @@ __device__ __forceinline__ void load_tile(float* dst, const T* base, int64_t str
 // Where the rows of this block live and what each may see.
 //   q_row(r) / o_row(r): global pointers of row r (r < nrows)
 //   lo(r), hi(r):        live logical slots of row r are lo <= kp < hi
-// Where the KV blocks live.
+// Where the KV blocks live (elements of type TK).
 //   k_block(jb) / v_block(jb): pointer to slot jb * bkv of this (batch, head)
+//   k_scale(jb) / v_scale(jb): the block's dequant scale (codes only)
 //   slot_stride:               elements between consecutive slots
-template <typename T, int RT, int MR, int DC, class Rows, class Blocks>
+template <typename T, typename TK, int RT, int MR, int DC, class Rows, class Blocks>
 __device__ void attend_rows(const Rows& rows, const Blocks& blocks, int nrows, int D,
                             int bkv, int blk_begin, int blk_end, int walk_begin,
                             int walk_end, int slot_begin, int slot_end, float scale,
@@ -157,10 +193,10 @@ __device__ void attend_rows(const Rows& rows, const Blocks& blocks, int nrows, i
     // rows of the tile that hold live slots of this problem
     const int row_begin = max(0, slot_begin - k_start);
     const int row_end = min(bkv, slot_end - k_start);
-    load_tile<T, NT>(ks, blocks.k_block(jb), blocks.slot_stride_k, kBKV, row_begin,
-                     row_end, D);
-    load_tile<T, NT>(vs, blocks.v_block(jb), blocks.slot_stride_v, kBKV, row_begin,
-                     row_end, D);
+    load_tile<TK, NT>(ks, blocks.k_block(jb), blocks.slot_stride_k, kBKV, row_begin,
+                      row_end, D, blocks.k_scale(jb));
+    load_tile<TK, NT>(vs, blocks.v_block(jb), blocks.slot_stride_v, kBKV, row_begin,
+                      row_end, D, blocks.v_scale(jb));
     __syncthreads();
     if (jb >= blk_begin && jb < blk_end) {
       // scores: MR x kMC register tile of q . k

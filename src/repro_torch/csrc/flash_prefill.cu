@@ -3,7 +3,10 @@
 // Replaces the TPU kernel `flash_attention_fwd`
 // (src/repro/kernels/flash_attention/kernel.py): softmax(Q K^T / sqrt(D)
 // [softcap] + mask) V with an online softmax over KV blocks, causal and
-// sliding-window masks, GQA by kv_head = h / G, ragged kp < kv_len.
+// sliding-window masks, GQA by kv_head = h / G, ragged kp < kv_len.  K/V
+// may be fp32 under a bf16 q: the quantized page pool's first prefill attends
+// over the dequantized fp32 values, as the reference kernel does (it reads
+// every operand as fp32 and writes the output in q's type).
 //
 // Bound on an H100: operations — 4 * D * (live q.k pairs) * H flops against
 // the bf16 tensor-core peak; the bytes (q, k, v read once, o written once)
@@ -54,16 +57,18 @@ struct PrefillRows {
   }
 };
 
-template <typename T>
+template <typename TK>
 struct DenseBlocks {
-  const T* k; const T* v;
+  const TK* k; const TK* v;
   int64_t slot_stride_k, slot_stride_v;
   int bkv;
-  __device__ __forceinline__ const T* k_block(int jb) const { return k + (int64_t)jb * bkv * slot_stride_k; }
-  __device__ __forceinline__ const T* v_block(int jb) const { return v + (int64_t)jb * bkv * slot_stride_v; }
+  __device__ __forceinline__ const TK* k_block(int jb) const { return k + (int64_t)jb * bkv * slot_stride_k; }
+  __device__ __forceinline__ const TK* v_block(int jb) const { return v + (int64_t)jb * bkv * slot_stride_v; }
+  __device__ __forceinline__ float k_scale(int) const { return 1.f; }  // values, not codes
+  __device__ __forceinline__ float v_scale(int) const { return 1.f; }
 };
 
-template <typename T, int DC>
+template <typename T, typename TK, int DC>
 __global__ void __launch_bounds__(kTX * kPrefillRT / kPrefillMR)
 flash_prefill_kernel(PrefillArgs a) {
   const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -82,35 +87,36 @@ flash_prefill_kernel(PrefillArgs a) {
       static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh,
       static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh,
       a.q_ss, a.o_ss, q_start, a.T, a.causal, a.window};
-  DenseBlocks<T> blocks{
-      static_cast<const T*>(a.k) + b * a.k_sb + kh * a.k_sh,
-      static_cast<const T*>(a.v) + b * a.v_sb + kh * a.v_sh,
+  DenseBlocks<TK> blocks{
+      static_cast<const TK*>(a.k) + b * a.k_sb + kh * a.k_sh,
+      static_cast<const TK*>(a.v) + b * a.v_sb + kh * a.v_sh,
       a.k_st, a.v_st, bkv};
   const bool pruned = a.pruned && a.causal;
-  attend_rows<T, kPrefillRT, kPrefillMR, DC>(
+  attend_rows<T, TK, kPrefillRT, kPrefillMR, DC>(
       rows, blocks, nrows, a.D, bkv, lo, hi, pruned ? lo : 0, pruned ? hi : nk,
       /*slot_begin=*/0, /*slot_end=*/a.T, a.scale, a.softcap);
 }
 
-template <typename T>
+template <typename T, typename TK>
 static cudaError_t launch_prefill(const PrefillArgs& a, int B, cudaStream_t stream) {
   const int nq = (a.S + a.block_q - 1) / a.block_q;
   dim3 grid(nq, a.H, B);
   dim3 block(kTX * kPrefillRT / kPrefillMR);
   const size_t smem = attend_smem_bytes<kPrefillRT>(a.D);
   if (a.D <= 64)
-    return launch_with_smem(flash_prefill_kernel<T, 4>, grid, block, smem, stream, a);
+    return launch_with_smem(flash_prefill_kernel<T, TK, 4>, grid, block, smem, stream, a);
   if (a.D <= 128)
-    return launch_with_smem(flash_prefill_kernel<T, 8>, grid, block, smem, stream, a);
-  return launch_with_smem(flash_prefill_kernel<T, 16>, grid, block, smem, stream, a);
+    return launch_with_smem(flash_prefill_kernel<T, TK, 8>, grid, block, smem, stream, a);
+  return launch_with_smem(flash_prefill_kernel<T, TK, 16>, grid, block, smem, stream, a);
 }
 
 }  // namespace repro_torch
 
-// dtype: 0 = bfloat16, 1 = float32.  Strides are in elements.  Returns the
-// CUDA error code of the launch (0 = success).
+// dtype (q and o) / kv_dtype (k and v): 0 = bfloat16, 1 = float32; the pairs
+// (0, 0), (1, 1) and (0, 1).  Strides are in elements.  Returns the CUDA
+// error code of the launch (0 = success).
 extern "C" int repro_torch_flash_prefill(
-    const void* q, const void* k, const void* v, void* o, int dtype,
+    const void* q, const void* k, const void* v, void* o, int dtype, int kv_dtype,
     int B, int S, int T, int H, int K, int D,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_st, long long k_sh,
@@ -126,7 +132,8 @@ extern "C" int repro_torch_flash_prefill(
                 q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_ss, o_sh,
                 causal, window, softcap, scale, block_q, block_kv, pruned};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_prefill<__nv_bfloat16>(a, B, s);
-  if (dtype == 1) return (int)launch_prefill<float>(a, B, s);
+  if (dtype == 0 && kv_dtype == 0) return (int)launch_prefill<__nv_bfloat16, __nv_bfloat16>(a, B, s);
+  if (dtype == 1 && kv_dtype == 1) return (int)launch_prefill<float, float>(a, B, s);
+  if (dtype == 0 && kv_dtype == 1) return (int)launch_prefill<__nv_bfloat16, float>(a, B, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -32,11 +32,11 @@ _PTR, _INT, _FLOAT, _I64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 SIGNATURES = {
     "repro_torch_rmsnorm": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _FLOAT, _PTR],
     "repro_torch_flash_prefill": (
-        [_PTR] * 4 + [_INT] * 7 + [_I64] * 12
+        [_PTR] * 4 + [_INT] * 8 + [_I64] * 12
         + [_INT, _INT, _FLOAT, _FLOAT, _INT, _INT, _INT, _PTR]),
     "repro_torch_flash_decode": (
-        [_PTR] * 6 + [_INT] * 9 + [_I64] * 12
-        + [_INT, _FLOAT, _FLOAT, _INT, _INT, _PTR]),
+        [_PTR] * 8 + [_INT] * 10 + [_I64] * 15
+        + [_INT, _INT, _FLOAT, _FLOAT, _INT, _INT, _PTR]),
 }
 
 
@@ -138,6 +138,7 @@ def check_launch(code: int, what: str) -> None:
 
 
 def dtype_code(dtype) -> int:
+    """The C entry points' code of a value type (q, o, and unquantized K/V)."""
     import torch
 
     if dtype == torch.bfloat16:
@@ -147,12 +148,26 @@ def dtype_code(dtype) -> int:
     raise TypeError(f"the CUDA kernels take bfloat16 and float32, not {dtype}")
 
 
+def kv_dtype_code(dtype) -> int:
+    """The code of a K/V element type: a value type, or the int8 / fp8 codes
+    of a quantized cache (2 = int8, 3 = float8_e4m3fn, 4 = float8_e5m2)."""
+    import torch
+
+    codes = {torch.int8: 2, getattr(torch, "float8_e4m3fn", None): 3,
+             getattr(torch, "float8_e5m2", None): 4}
+    if dtype in codes:
+        return codes[dtype]
+    return dtype_code(dtype)
+
+
 def check_operand(name: str, t, vec: int) -> None:
     """The addressing the kernels rely on: unit stride in the last dim, every
-    other stride and the base address a multiple of one 16-byte vector."""
+    other stride and the base address a multiple of one vector load — 16
+    bytes for values, 8 for the one-byte codes of a quantized cache."""
     if t.stride(-1) != 1:
         raise ValueError(f"{name}: last dimension must be contiguous, "
                          f"strides {t.stride()}")
-    if any(s % vec for s in t.stride()[:-1]) or t.data_ptr() % 16:
+    align = vec * t.element_size()
+    if any(s % vec for s in t.stride()[:-1]) or t.data_ptr() % align:
         raise ValueError(f"{name}: strides {t.stride()} / base address are not "
-                         f"16-byte aligned")
+                         f"{align}-byte aligned")

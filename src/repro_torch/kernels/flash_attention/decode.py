@@ -3,9 +3,10 @@ schedule oracles of the decode walk.
 
 The kernel replaces the reference's `flash_decode_fwd`: S >= 1 new q tokens
 against a cache that already holds them, with a per-request `index`, linear
-/ ring / windowed caches, widened q and paged pools.  The cache and q are
-read in the model layout through strides; the block table is resolved inside
-the kernel.  `decode_schedule` / `paged_decode_schedule` say which blocks one
+/ ring / windowed caches, widened q, paged pools, and int8 / fp8 caches with
+fp32 per-page scales (the quantized mode).  The cache and q are read in the
+model layout through strides; the block table and the scales are resolved
+inside the kernel.  `decode_schedule` / `paged_decode_schedule` say which blocks one
 step streams; they are framework-free copies of the reference's oracles.
 """
 
@@ -21,6 +22,10 @@ from repro_torch.kernels.flash_attention.kernel import (
     cdiv,
     check_qkv,
 )
+
+# the code types of a quantized cache the kernel reads (fp8 where torch has it)
+QUANT_DTYPES = tuple(getattr(torch, n) for n in
+                     ("int8", "float8_e4m3fn", "float8_e5m2") if hasattr(torch, n))
 
 
 # ---------------------------------------------------------------------------
@@ -105,10 +110,17 @@ def flash_decode_fwd(
     pruned: bool = True,
     tables: torch.Tensor | None = None,  # (B, num_blocks) int32 page table
     kv_len: int | None = None,           # logical cache length (paged only)
+    k_scale: torch.Tensor | None = None,  # fp32 scales: paged (P, K),
+    v_scale: torch.Tensor | None = None,  # dense (B, NP, K)
+    scale_page: int | None = None,        # dense only: slots per scale row
 ) -> torch.Tensor:
-    code = check_qkv(q, k, v)
+    code, kv_code = check_qkv(q, k, v, QUANT_DTYPES)
     B, S, H, D = q.shape
     K = k.shape[2]
+    quant = kv_code >= 2
+    if quant != (k_scale is not None) or (k_scale is None) != (v_scale is None):
+        raise ValueError("int8 / fp8 caches need both k_scale and v_scale, and "
+                         "value caches take none")
     if index.shape != (B,) or index.dtype != torch.int32 \
             or index.device != q.device or not index.is_contiguous():
         raise ValueError(f"index must be contiguous int32 ({B},) on {q.device}")
@@ -134,19 +146,41 @@ def flash_decode_fwd(
             raise ValueError("q and cache batch sizes differ")
         T = k.shape[1]
         page_size, nb, tables_ptr = 0, 0, None
+        if quant:
+            if scale_page is None:
+                raise ValueError("dense quantized flash_decode requires "
+                                 "scale_page (cache slots per scale row)")
+            block_kv = page_block_kv(block_kv, scale_page)  # one row per block
     if T < 1:
         raise ValueError("decode against an empty cache")
     if B == 0 or S == 0:
         raise ValueError("empty q: there is nothing to launch")
+    sc_ptrs, sc_strides = (None, None), (0, 0, 0)
+    if quant:
+        rows = k.shape[0] if tables is not None else -(-T // int(scale_page))
+        for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+            shape_ok = (tuple(sc.shape) == (rows, K) if tables is not None else
+                        sc.ndim == 3 and sc.shape[0] == B and sc.shape[1] >= rows
+                        and sc.shape[2] == K)
+            if sc.dtype != torch.float32 or sc.device != q.device \
+                    or not shape_ok or sc.stride() != k_scale.stride():
+                raise ValueError(
+                    f"{name} must be float32 on {q.device}, strided like "
+                    f"k_scale: (pages, {K}) for a pool, ({B}, >= {rows}, {K}) "
+                    f"for a dense cache; got {tuple(sc.shape)}")
+        sc_ptrs = (k_scale.data_ptr(), v_scale.data_ptr())
+        sc_strides = ((0, *k_scale.stride()) if tables is not None
+                      else tuple(k_scale.stride()))
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     err = build.library().repro_torch_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        index.data_ptr(), tables_ptr, code,
+        index.data_ptr(), tables_ptr, *sc_ptrs, code, kv_code,
         B, S, T, H, K, D, nb, page_size,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         out.stride(0), out.stride(1), out.stride(2),
+        *sc_strides, int(scale_page or 0),
         int(window) if window is not None else 0,
         float(softcap) if softcap is not None else 0.0,
         1.0 / math.sqrt(D), block_kv, int(bool(pruned)),

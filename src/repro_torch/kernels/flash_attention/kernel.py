@@ -126,13 +126,17 @@ def kv_schedule(
 # ---------------------------------------------------------------------------
 
 
-def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
-    """Shared operand checks of both attention kernels; returns the dtype code."""
+def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              kv_types=()) -> tuple[int, int]:
+    """Shared operand checks of both attention kernels; returns the dtype
+    codes of q and of k / v.  K and V share one type: q's own, or one of
+    `kv_types` (fp32 values under a bf16 q, the codes of a quantized cache)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("q, k, v must lie on one CUDA device")
-    if not (q.dtype == k.dtype == v.dtype):
-        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
-    code = build.dtype_code(q.dtype)
+    if k.dtype != v.dtype or (k.dtype != q.dtype and k.dtype not in kv_types):
+        raise TypeError(f"q, k, v dtypes {q.dtype}, {k.dtype}, {v.dtype}: k and v "
+                        f"must share q's type or one of {list(kv_types)}")
+    code, kv_code = build.dtype_code(q.dtype), build.kv_dtype_code(k.dtype)
     if not (q.ndim == k.ndim == v.ndim == 4) or k.shape != v.shape:
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)}")
@@ -143,10 +147,11 @@ def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"q heads {q.shape[2]} not a multiple of kv heads "
                          f"{k.shape[2]}")
-    vec = 16 // q.element_size()
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        build.check_operand(name, t, vec)
-    return code
+    build.check_operand("q", q, 16 // q.element_size())
+    kv_vec = 8 if k.element_size() == 1 else 16 // k.element_size()
+    for name, t in (("k", k), ("v", v)):
+        build.check_operand(name, t, kv_vec)
+    return code, kv_code
 
 
 def flash_attention_fwd(
@@ -161,7 +166,9 @@ def flash_attention_fwd(
     block_kv: int = MAX_BLOCK_KV,
     pruned: bool = True,
 ) -> torch.Tensor:
-    code = check_qkv(q, k, v)
+    # fp32 K/V under a bf16 q: the dequantized values of a quantized pool
+    kv_types = (torch.float32,) if q.dtype == torch.bfloat16 else ()
+    code, kv_code = check_qkv(q, k, v, kv_types)
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
     if k.shape[0] != B:
@@ -174,7 +181,7 @@ def flash_attention_fwd(
         raise ValueError("attention over an empty key sequence")
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     err = build.library().repro_torch_flash_prefill(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), code,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), code, kv_code,
         B, S, T, H, K, D,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),

@@ -8,6 +8,10 @@ its kernel launches in a plain integer `launches` attribute.
 
 Block sizes left unspecified (None) take the kernel's tile capacity; woven
 `flash_block_*` extras override and are clamped to that capacity.
+
+The quantization primitives of the int8 / fp8 page pool live here too, as in
+the reference: a page stores narrow codes beside one fp32 scale per KV head,
+and a value is `float(code) * scale`.
 """
 
 from __future__ import annotations
@@ -26,6 +30,60 @@ DEFAULT_BLOCK_Q = MAX_BLOCK_Q
 DEFAULT_BLOCK_KV = MAX_BLOCK_KV
 DEFAULT_BLOCK_KV_DEC = MAX_BLOCK_KV
 DEFAULT_PAGE_SIZE = 128
+
+# Quantized KV-cache dtypes: name -> largest representable magnitude.  The
+# per-page-per-head scale is abs_max / qmax, so dequant is value * scale.
+# fp8 entries appear only when the installed torch ships the dtype.
+CACHE_QMAX: dict[str, float] = {"int8": 127.0}
+if hasattr(torch, "float8_e4m3fn"):
+    CACHE_QMAX["float8_e4m3fn"] = 448.0
+if hasattr(torch, "float8_e5m2"):
+    CACHE_QMAX["float8_e5m2"] = 57344.0
+
+
+def cache_qmax(dtype) -> float:
+    """qmax for a quantized-cache dtype (accepts names and torch dtypes)."""
+    name = dtype if isinstance(dtype, str) else str(dtype).removeprefix("torch.")
+    return CACHE_QMAX[name]
+
+
+def resolve_cache_dtype(name):
+    """Map a `cache_dtype` knob value to a torch storage dtype, or None when
+    the value names no quantized format (fp values mean: keep the fp pool)."""
+    if name is None:
+        return None
+    name = str(name)
+    if name not in CACHE_QMAX:
+        return None
+    return {"int8": torch.int8,
+            "float8_e4m3fn": getattr(torch, "float8_e4m3fn", None),
+            "float8_e5m2": getattr(torch, "float8_e5m2", None)}[name]
+
+
+def kv_scale_from_absmax(absmax, dtype):
+    """Per-page scale from a page's abs-max: absmax / qmax, so the stored
+    code range spans the full [-qmax, qmax] grid.  Keeps the 0.0 free-page
+    sentinel: zero absmax stays zero."""
+    return absmax / cache_qmax(dtype)
+
+
+def quantize_kv_write(x, scale, dtype):
+    """Quantize K/V values at *fixed* per-page scales: x (..., K, D) against
+    scale (..., K).  Values louder than the page's recorded abs-max clip —
+    scales are never recomputed on already-written slots, which keeps CoW
+    sharing bit-deterministic.  Integer codes round half to even, as
+    `jnp.round` does; the fp8 casts round to nearest even."""
+    qmax = cache_qmax(dtype)
+    s = torch.where(scale > 0, scale, torch.ones_like(scale))[..., None]
+    y = torch.clamp(x.to(torch.float32) / s, -qmax, qmax)
+    if not dtype.is_floating_point:
+        y = torch.round(y)
+    return y.to(dtype)
+
+
+def dequantize_kv(x, scale):
+    """fp32 dequant of (..., K, D) quantized values at (..., K) scales."""
+    return x.to(torch.float32) * scale.to(torch.float32)[..., None]
 
 
 def flash_attention(
@@ -57,16 +115,22 @@ def flash_attention(
 flash_attention.launches = 0  # kernel launches made through this wrapper
 
 
-def paged_gather_kv(pk, pv, tables, kv_len: int):
+def paged_gather_kv(pk, pv, tables, kv_len: int, k_scale=None, v_scale=None):
     """Materialize the logical (B, kv_len, K, D) K/V view of a page pool
     through per-request block tables — the plain twin of the indirection the
     paged `flash_decode` kernel performs.  Shared (prefix-cached) pages gather
-    exactly like exclusive ones: the table row is the only addressing."""
+    exactly like exclusive ones: the table row is the only addressing.
+
+    With `k_scale`/`v_scale` ((P, K) fp32 sidecars of a quantized pool) the
+    gathered view is dequantized to fp32, as the kernel does per block."""
     B, nb = tables.shape
     ps = pk.shape[-3]  # pool layout (P, page_size, K, D)
     tables = tables.to(torch.long)
     k = pk[tables]  # (B, nb, page_size, K, D)
     v = pv[tables]
+    if k_scale is not None:
+        k = k.to(torch.float32) * k_scale[tables][:, :, None, :, None]
+        v = v.to(torch.float32) * v_scale[tables][:, :, None, :, None]
     k = k.reshape(B, nb * ps, *pk.shape[-2:])[:, :kv_len]
     v = v.reshape(B, nb * ps, *pv.shape[-2:])[:, :kv_len]
     return k, v
@@ -112,6 +176,9 @@ def flash_decode(
     pruned: bool = True,
     tables: torch.Tensor | None = None,  # (B, num_blocks) int32 block tables
     kv_len: int | None = None,           # logical cache length (paged only)
+    k_scale: torch.Tensor | None = None,  # quantized caches: fp32 scales —
+    v_scale: torch.Tensor | None = None,  # paged (P, K); dense (B, NP, K)
+    scale_page: int | None = None,        # dense only: cache slots per scale row
 ) -> torch.Tensor:
     """One decode step over a live-block-pruned cache; see decode.py.
 
@@ -119,14 +186,17 @@ def flash_decode(
     cache slot index + s.  Each q row runs the same online softmax over the
     same block walk as a single-token call.  Passing `tables` selects the
     paged layout: K/V are one shared page pool and every request's cache
-    blocks resolve through its block-table row.  The quantized-pool mode of
-    the reference (`k_scale` / `v_scale`) is not ported yet.
+    blocks resolve through its block-table row.  With `k_scale`/`v_scale`
+    the cache holds int8 / fp8 codes and every streamed block is
+    dequantized at its page's scale (the quantized mode); a launch in that
+    mode also counts in `flash_decode.quantized_launches`.
     """
     block_kv = DEFAULT_BLOCK_KV_DEC if block_kv is None else int(block_kv)
     if q.device.type == "cpu":
         return decode_ref(q, k_cache, v_cache, index, window=window,
                           softcap=softcap, block_kv=block_kv, pruned=pruned,
-                          tables=tables, kv_len=kv_len)
+                          tables=tables, kv_len=kv_len, k_scale=k_scale,
+                          v_scale=v_scale, scale_page=scale_page)
     if q.numel() == 0:
         return torch.empty_like(q)  # nothing to launch, nothing counted
     B = q.shape[0]
@@ -135,9 +205,13 @@ def flash_decode(
         tables = tables.to(torch.int32).contiguous()
     out = flash_decode_fwd(q, k_cache, v_cache, index, window=window,
                            softcap=softcap, block_kv=block_kv, pruned=pruned,
-                           tables=tables, kv_len=kv_len)
+                           tables=tables, kv_len=kv_len, k_scale=k_scale,
+                           v_scale=v_scale, scale_page=scale_page)
     flash_decode.launches += 1
+    if k_scale is not None:
+        flash_decode.quantized_launches += 1
     return out
 
 
 flash_decode.launches = 0  # kernel launches made through this wrapper
+flash_decode.quantized_launches = 0  # of which in the quantized-pool mode

@@ -71,14 +71,24 @@ def decode_ref(
     pruned: bool = True,
     tables: torch.Tensor | None = None,
     kv_len: int | None = None,
+    k_scale: torch.Tensor | None = None,  # paged (P, K); dense (B, NP, K)
+    v_scale: torch.Tensor | None = None,
+    scale_page: int | None = None,        # dense only: slots per scale row
 ) -> torch.Tensor:
     """Touches only the cache blocks `decode_schedule` names for each
     request (through the block table when paged): whatever dead blocks or
-    dead pages hold, NaNs included, cannot reach the output."""
+    dead pages hold, NaNs included, cannot reach the output.
+
+    With scales, each live K/V slot is dequantized as `float(code) * scale`
+    in fp32 before it enters the products — the kernel's order, and the
+    reference kernel's."""
     B, S, H, D = q.shape
     K = k_cache.shape[2]
     G = H // K
     paged = tables is not None
+    quant = k_scale is not None
+    if quant and v_scale is None:
+        raise ValueError("quantized decode requires both k/v scales")
     if paged:
         if kv_len is None:
             raise ValueError("paged decode requires kv_len")
@@ -88,6 +98,11 @@ def decode_ref(
     else:
         T = k_cache.shape[1]
         bkv = max(1, min(int(block_kv), MAX_BLOCK_KV, T))
+        if quant:
+            if scale_page is None:
+                raise ValueError("dense quantized decode requires scale_page "
+                                 "(cache slots per scale row)")
+            bkv = page_block_kv(bkv, scale_page)  # one scale row per block
     idx = [int(i) for i in
            torch.as_tensor(index).reshape(-1).expand(B).tolist()]
     scale = 1.0 / math.sqrt(D)
@@ -102,8 +117,15 @@ def decode_ref(
             page = tables[b].to(torch.long)[slots // page_size]
             kb = k_cache[page, slots % page_size]  # (n, K, D)
             vb = v_cache[page, slots % page_size]
+            if quant:
+                kb = kb.to(torch.float32) * k_scale[page][..., None]
+                vb = vb.to(torch.float32) * v_scale[page][..., None]
         else:
             kb, vb = k_cache[b, slots], v_cache[b, slots]
+            if quant:
+                row = slots // scale_page
+                kb = kb.to(torch.float32) * k_scale[b, row][..., None]
+                vb = vb.to(torch.float32) * v_scale[b, row][..., None]
         qf = q[b].to(torch.float32).reshape(S, K, G, D)
         s = torch.einsum("skgd,tkd->kgst", qf, kb.to(torch.float32)) * scale
         if softcap is not None:

@@ -3,20 +3,27 @@
     python -m repro_torch.launch.serve --arch yi-6b --full            # on the card
     python -m repro_torch.launch.serve --arch yi-6b --device cpu      # reduced config, host
 
-Two modes:
+Modes:
   (default)       solo `serve()` per request;
   --batch-serve   the same wave of requests through one `serve_batch`
-                  (per-request prefill, one batched decode loop).
+                  (per-request prefill, one batched decode loop);
+  --continuous    one `serve_continuous` wave over the whole request set
+                  (paged pool, prefix sharing), printing each request's
+                  structured outcome;
+  --stream        drive the `serve_stream` event loop directly, printing
+                  per-token events with TTFT / inter-token latency columns
+                  (`--prefill-chunk` spreads long admissions over waves).
 
 `--reduced` (the default) serves the small smoke configuration, `--full` the
 published one.  On the card the hand-written CUDA kernels are woven onto the
-attention and norm joinpoints.  `--continuous`, `--stream` and `--fleet` belong
-to the paged-serving and fleet slices, which are not ported yet.
+attention and norm joinpoints.  `--fleet` belongs to the fleet slice, which is
+not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
 
@@ -26,11 +33,50 @@ from repro_torch.launch.weave import cuda_kernel_aspects, default_weave
 from repro_torch.models.registry import ARCHS
 from repro_torch.runtime.server import Server, ServerConfig
 
-_LATER = {
-    "continuous": "serve_continuous (paged pool) arrives with the paged-serving slice",
-    "stream": "serve_stream (QoS event loop) arrives with the paged-serving slice",
-    "fleet": "the multi-replica fleet arrives with the fleet slice",
-}
+_FLEET = "the multi-replica fleet arrives with the fleet slice"
+
+
+def _print_outcomes(outcomes) -> None:
+    for o in outcomes:
+        print(f"  rid {o['rid']}: {o['status']:<18} tokens={o['tokens']}"
+              + (f"  ({o['reason']})" if o["reason"] else ""))
+
+
+def _stream(server: Server, prompts, args) -> None:
+    """Drive `serve_stream`, one line per event, then one per request."""
+    gen = server.serve_stream(prompts, decode_tokens=args.decode_tokens,
+                              prefill_chunk=args.prefill_chunk)
+    t_start = time.perf_counter()
+    last_tok: dict[int, float] = {}
+    print(f"{'wave':>5} {'event':<14} {'rid':>4} {'ttft_ms':>8} {'gap_ms':>7}  detail")
+    while True:
+        try:
+            ev = next(gen)
+        except StopIteration:
+            break
+        kind, rid = ev["event"], ev.get("rid", -1)
+        ttft = gap = ""
+        if kind == "token":
+            if ev["index"] == 0:
+                ttft = f"{1e3 * (ev['t'] - t_start):.1f}"
+            elif rid in last_tok:
+                gap = f"{1e3 * (ev['t'] - last_tok[rid]):.1f}"
+            last_tok[rid] = ev["t"]
+            detail = f"token={ev['token']} index={ev['index']}"
+        elif kind == "wave":
+            detail = (f"batch={ev['batch']} emitted={ev['emitted']} "
+                      f"prefill_tokens={ev['prefill_tokens']}")
+        else:
+            detail = " ".join(f"{k}={v}" for k, v in ev.items()
+                              if k not in ("event", "wave", "t", "rid"))
+        print(f"{ev['wave']:>5} {kind:<14} {rid if rid >= 0 else '':>4} "
+              f"{ttft:>8} {gap:>7}  {detail}")
+    for o in server.last_outcomes:
+        ttft_ms = f"{1e3 * o['ttft_s']:.1f}ms" if o["ttft_s"] is not None else "-"
+        gap_ms = (f"{1e3 * o['tok_gap_max_s']:.1f}ms"
+                  if o["tok_gap_max_s"] is not None else "-")
+        print(f"  rid {o['rid']}: {o['status']:<18} tokens={o['tokens']} "
+              f"ttft={ttft_ms} max_gap={gap_ms}")
 
 
 def build_server(arch: str, *, reduced: bool, device: str, cfg: ServerConfig) -> Server:
@@ -58,13 +104,18 @@ def main(argv=None) -> int:
                     help="cuda (default; fails without a card) or cpu")
     ap.add_argument("--batch-serve", action="store_true",
                     help="serve all requests through one serve_batch wave")
-    ap.add_argument("--continuous", action="store_true", help=_LATER["continuous"])
-    ap.add_argument("--stream", action="store_true", help=_LATER["stream"])
-    ap.add_argument("--fleet", type=int, default=0, metavar="N", help=_LATER["fleet"])
+    ap.add_argument("--continuous", action="store_true",
+                    help="serve all requests through one continuous-batching "
+                         "wave and print structured outcomes")
+    ap.add_argument("--stream", action="store_true",
+                    help="drive the serve_stream event loop: print per-token "
+                         "events with TTFT / inter-token latency")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="chunked-prefill tokens per wave (stream mode)")
+    ap.add_argument("--fleet", type=int, default=0, metavar="N", help=_FLEET)
     args = ap.parse_args(argv)
-    for flag in ("continuous", "stream", "fleet"):
-        if getattr(args, flag):
-            ap.exit(2, f"--{flag} is not ported yet: {_LATER[flag]}\n")
+    if args.fleet:
+        ap.exit(2, f"--fleet is not ported yet: {_FLEET}\n")
 
     cfg = ServerConfig(
         max_cache_len=args.prompt_len + args.decode_tokens + 1,
@@ -74,9 +125,21 @@ def main(argv=None) -> int:
     vocab = server.woven.program.cfg.vocab
     rng = np.random.default_rng(0)
 
-    if args.batch_serve:
+    if args.stream or args.continuous or args.batch_serve:
         prompts = [rng.integers(0, vocab, args.prompt_len).astype(np.int64)
                    for _ in range(args.requests)]
+    if args.stream:
+        _stream(server, prompts, args)
+        return 0
+    if args.continuous:
+        server.serve_continuous(prompts, decode_tokens=args.decode_tokens)
+        stats = server.last_pool_stats
+        print(f"continuous wave: {len(prompts)} request(s), pool "
+              f"{stats['peak_live_pages']} peak live pages, "
+              f"{stats['prefix_hits']} prefix hits, on {server.device}")
+        _print_outcomes(server.last_outcomes)
+        return 0
+    if args.batch_serve:
         outs = server.serve_batch(prompts, decode_tokens=args.decode_tokens)
         print(f"batched wave: {len(outs)} request(s), {len(outs[0])} tokens each, "
               f"{server.latencies[-1]*1e3:.0f}ms on {server.device}")

@@ -7,9 +7,10 @@ The MoE, VLM, hybrid (Griffin) and SSM (RWKV6) families raise
 `NotImplementedError` until their slices are ported.
 
 Modes: "dense" (full logits), "prefill" (returns last-token logits + KV
-cache), "decode" (S >= 1 tokens against the cache).  Caches are plain dicts
-of tensors with a leading per-layer dim per stack; a decode step updates the
-cache tensors it is given in place.
+cache, or — handed a paged cache — writes the prompt straight into its page
+pools), "decode" (S >= 1 tokens against the cache).  Caches are plain dicts
+of tensors with a leading per-layer dim per stack; a decode step (and a paged
+prefill) updates the cache tensors it is given in place.
 """
 
 from __future__ import annotations
@@ -70,12 +71,16 @@ class DecoderBlock(Module):
                 "ffn": self.ffn}
 
     def forward(self, params, x, *, ctx: Ctx, mode="dense", cache=None,
-                positions=None, kv_pos=None):
+                positions=None, kv_pos=None, block_tables=None, prefix_len=0,
+                skip_cache_write=False):
         with ctx.scope(self.name):
             h = self.norm1(params["norm1"], x, ctx=ctx)
             h = ctx.constrain(h, ("batch", "seq_act", "embed"))
             h, new_cache = self.attn(params["attn"], h, ctx=ctx, positions=positions,
-                                     mode=mode, cache=cache, kv_pos=kv_pos)
+                                     mode=mode, cache=cache, kv_pos=kv_pos,
+                                     block_tables=block_tables,
+                                     prefix_len=prefix_len,
+                                     skip_cache_write=skip_cache_write)
             x = x + h
             h = self.norm2(params["norm2"], x, ctx=ctx)
             h = ctx.constrain(h, ("batch", "seq_act", "embed"))
@@ -136,7 +141,8 @@ class TransformerLM(Module):
     # -- forward -----------------------------------------------------------------
 
     def forward(self, params, inputs: dict, *, ctx: Ctx, mode: str = "dense",
-                cache: dict | None = None):
+                cache: dict | None = None, prefix_len: int = 0,
+                skip_cache_write: bool = False):
         tokens = inputs["tokens"]
         B = tokens.shape[0]
         x = self.embed(params["embed"], tokens, ctx=ctx)
@@ -147,14 +153,21 @@ class TransformerLM(Module):
         if positions is None:
             if mode == "decode":
                 raise ValueError("decode mode requires explicit positions")
+            if prefix_len:
+                raise ValueError("paged prefill with a shared prefix needs "
+                                 "explicit (prefix-offset) positions")
             positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
 
         new_caches: dict[str, Any] = {}
         # Hoisted linear-cache decode positions: updated ONCE per step (an
         # O(B·S) scatter on the cached (B, T) kv_pos, in place) and shared by
         # every attention layer — instead of each layer re-deriving an
-        # arange(T) mask broadcast to (B, T).
+        # arange(T) mask broadcast to (B, T).  Paged caches hoist their
+        # block tables the same way: one (B, NB) page map, uploaded once per
+        # step, shared by every layer (the per-layer pools index the same
+        # physical page space) — in decode mode and in paged prefill.
         kv_pos = None
+        block_tables = None
         if mode == "decode" and cache is not None and "kv_pos" in cache:
             kv_pos = cache["kv_pos"]
             T = kv_pos.shape[1]
@@ -167,12 +180,26 @@ class TransformerLM(Module):
             kv_pos[rows, safe] = torch.where(
                 ok, positions.to(kv_pos.dtype), kv_pos[rows, safe])
             new_caches["kv_pos"] = kv_pos
+        if mode in ("decode", "prefill") and cache is not None \
+                and "block_tables" in cache:
+            block_tables = cache["block_tables"]
+            new_caches["block_tables"] = block_tables
+        shared: dict[str, Any] = {}
+        if kv_pos is not None:
+            shared["kv_pos"] = kv_pos
+        if block_tables is not None:
+            shared["block_tables"] = block_tables
+            if mode == "prefill":
+                shared["prefix_len"] = prefix_len
+        if skip_cache_write:
+            # threaded unconditionally: a re-score step against a table-less
+            # (dense) cache must reach Attention's contract guard, not
+            # silently write the cache
+            shared["skip_cache_write"] = True
         if not ctx.extra.get("skip_trunk"):
             for part in self.trunk:
                 part_cache = None if cache is None else cache.get(part.name)
-                attn_kw: dict[str, Any] = {}
-                if kv_pos is not None:
-                    attn_kw = {"block_kwargs": {"kv_pos": kv_pos}}
+                attn_kw = {"block_kwargs": shared} if shared else {}
                 x, c = part(params[part.name], x, ctx=ctx, mode=mode,
                             cache=part_cache, positions=positions, **attn_kw)
                 new_caches[part.name] = c

@@ -15,10 +15,13 @@ is `"eager"` by default and `"cuda"` once a `KernelAspect` is woven.
 Caches are plain dicts of tensors and are **updated in place**: a decode
 step writes the new tokens into the `k` / `v` / `pos` tensors it was given
 and returns them (the reference donates the buffers to the same effect).
-`index` is replaced, never mutated.
+`index` is replaced, never mutated.  Paged caches — `{"pk", "pv"}` page
+pools shared by every request, int8 / fp8 ones with `{"ksc", "vsc"}` scale
+sidecars, addressed through the model-hoisted `block_tables` — are written
+in place the same way, at each token's (page, offset).
 
-Paged caches, cross-attention and the meshed KV expansion arrive with the
-slices that need them.
+Cross-attention, ring page pools (the sliding-window families) and the
+meshed KV expansion arrive with the slices that need them.
 """
 
 from __future__ import annotations
@@ -28,10 +31,21 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.kernels.flash_attention.ops import (
+    dequantize_kv,
+    flash_attention,
+    flash_decode,
+    kv_scale_from_absmax,
+    paged_gather_kv,
+    quantize_kv_write,
+)
 from repro_torch.nn.blocks import apply_rope, rope_angles
 from repro_torch.nn.module import Ctx, Module, ParamSpec, cast
 
 NEG_INF = -1e30
+
+_RING_POOLS = ("ring page pools (sliding-window families) are not ported yet: "
+               "they arrive with ROADMAP Queue 1 item 10 (mixtral)")
 
 
 # ---------------------------------------------------------------------------
@@ -219,6 +233,9 @@ class Attention(Module):
         mode: str = "dense",  # dense | prefill | decode
         cache: dict | None = None,
         kv_pos: torch.Tensor | None = None,  # hoisted (B,T) decode positions
+        block_tables: torch.Tensor | None = None,  # paged caches: (B, NB) pages
+        prefix_len: int = 0,  # paged prefill: shared-prefix slots
+        skip_cache_write: bool = False,  # paged re-score: no cache mutation
     ):
         with ctx.scope(self.name):
             policy = ctx.policy()
@@ -229,17 +246,26 @@ class Attention(Module):
             q = self._proj(params, x, "q", self.n_heads, policy)
             q = ctx.constrain(q, ("batch", "seq_act", "heads", None))
 
-            if cache is not None and "pk" in cache:
-                raise NotImplementedError(
-                    "paged caches are not ported yet (the paged-serving slice)")
             if mode == "decode":
                 out, new_cache = self._decode(params, q, x, positions, ctx, policy,
-                                              cache, kv_pos)
+                                              cache, kv_pos, block_tables,
+                                              skip_write=skip_cache_write)
+            elif mode == "prefill" and cache is not None and "pk" in cache:
+                out, new_cache = self._prefill_paged(
+                    params, q, x, positions, ctx, policy, cache, block_tables,
+                    prefix_len)
             else:
                 out, new_cache = self._dense(params, q, x, positions, ctx, policy, mode)
 
             wo = cast(params["wo"], policy.compute_dtype)
-            y = torch.matmul(out.reshape(B, S, self.n_heads * self.head_dim), wo)
+            out = out.reshape(B, S, self.n_heads * self.head_dim)
+            if out.dtype != wo.dtype:
+                # the plain attention over a dequantized (fp32) pool returns
+                # fp32; the product is taken in the promoted type, as the
+                # reference's dot of mixed operands is
+                dt = torch.promote_types(out.dtype, wo.dtype)
+                out, wo = out.to(dt), wo.to(dt)
+            y = torch.matmul(out, wo)
             y = cast(y, policy.compute_dtype)
             y = ctx.constrain(y, ("batch", "res_seq", "embed"))
             ctx.tap("out_absmax", lambda: torch.max(torch.abs(y)))
@@ -269,8 +295,6 @@ class Attention(Module):
         dispatch."""
         S = q.shape[1]
         if self._use_kernel(ctx, q):
-            from repro_torch.kernels.flash_attention.ops import flash_attention
-
             # woven extras win; unset blocks take the kernel's defaults
             blocks = {
                 name: int(ctx.extra[key]) if ctx.extra.get(key) is not None
@@ -354,8 +378,9 @@ class Attention(Module):
 
     # -- decode (a block of S >= 1 new tokens against a cache) --------------------
 
-    def _decode(self, params, q, x, positions, ctx, policy, cache, kv_pos=None):
-        """S >= 1 new tokens against a linear or ring cache.
+    def _decode(self, params, q, x, positions, ctx, policy, cache, kv_pos=None,
+                block_tables=None, skip_write=False):
+        """S >= 1 new tokens against a linear, ring or *paged* cache.
 
         The cache tensors are updated in place and the attention dispatches
         through the same impl-weaving path as `_dense`: `impl == "cuda"`
@@ -373,6 +398,10 @@ class Attention(Module):
         tokens of the block can still see, so the ring branch unrolls the S
         tokens sequentially.
 
+        Paged caches (`{"pk", "pv"}` pools + the model-hoisted
+        `block_tables`) write the new tokens at their physical (page, offset)
+        and dispatch the same way (`_decode_paged`).
+
         Contract: the first new token's `positions` must equal
         `cache["index"]` (tokens are written from that slot).  The kernel
         derives its causal boundary from the index alone, so a caller
@@ -387,6 +416,15 @@ class Attention(Module):
             sin, cos = rope_angles(positions, self.head_dim, self.rope_theta)
             q = apply_rope(q, sin, cos)
             k_new = apply_rope(k_new, sin, cos)
+
+        if "pk" in cache:
+            return self._decode_paged(q, k_new, v_new, positions, ctx, policy,
+                                      cache, kv_pos, block_tables,
+                                      skip_write=skip_write)
+        if skip_write:
+            raise ValueError("skip_cache_write (the re-score step) is a "
+                             "paged-cache contract — dense caches decode "
+                             "normally")
 
         S = q.shape[1]
         if "pos" in cache and S > 1:
@@ -462,23 +500,226 @@ class Attention(Module):
                                      torch.full_like(arange[None], -1))
                 kv_pos = kv_pos.expand(B, T)
             new_cache = {"k": k_all, "v": v_all, "index": idx + S}
-            kernel_window = (
-                self.window if self.mask in ("sliding", "local") else None
-            )
+            kernel_window = self._kernel_window()
 
         if self._use_kernel(ctx, q):
-            from repro_torch.kernels.flash_attention.ops import flash_decode
-
-            blk = ctx.extra.get("flash_block_kv_dec")  # woven extras win
-            out = flash_decode(
-                q, k_all, v_all, idx,
-                window=kernel_window, softcap=self.softcap,
-                block_kv=int(blk) if blk is not None else None,
-                pruned=bool(ctx.extra.get("flash_pruned", True)),
-            )
+            out = flash_decode(q, k_all, v_all, idx, window=kernel_window,
+                               **self._decode_kw(ctx))
             return out, new_cache
 
         mask = _mask_dense(positions, kv_pos, self.mask, self.window)[:, None, None]
         out = eager_attention(q, k_all, v_all, mask, softcap=self.softcap,
                               accum_dtype=policy.accum_dtype)
         return out, new_cache
+
+    def _decode_kw(self, ctx) -> dict:
+        """The `flash_decode` options every cache layout shares."""
+        blk = ctx.extra.get("flash_block_kv_dec")  # woven extras win
+        return {"softcap": self.softcap,
+                "block_kv": int(blk) if blk is not None else None,
+                "pruned": bool(ctx.extra.get("flash_pruned", True))}
+
+    def _kernel_window(self):
+        return self.window if self.mask in ("sliding", "local") else None
+
+    # -- paged pools (K/V live in pages shared by every request) ------------------
+
+    def _prefill_paged(self, params, q, x, positions, ctx, policy, cache,
+                       block_tables, prefix_len: int):
+        """Prefill one request straight into a page pool: the `prefix_len`
+        leading slots are already resident (shared pages the request's block
+        table maps), only the non-shared suffix is computed here, and its
+        K/V are written in place at the (page, offset) addressing the decode
+        path uses — admission never builds a dense max_len cache.
+
+        A quantized pool records each fresh page's scale as the largest
+        |K| (|V|) over the tokens this prefill writes into it, per KV head —
+        a scatter-max from the 0.0 free-page sentinel (exact whatever the
+        order of duplicates) — and quantizes at those fixed scales.  A page
+        the shared prefix straddles keeps its donor's scale.
+
+        With no shared prefix the attention is `_attend_dense`, the dense
+        prefill's own dispatch (over the *dequantized* values when the pool
+        is quantized, so the first logits match every later read of the
+        pool).  With a prefix, the suffix queries attend over the
+        pool-resident K/V: through the widened-q `flash_decode` kernel at
+        index = prefix_len under the `cuda` impl (the same block walk as the
+        prefill kernel, so sharing stays bit-invisible), else through the
+        gathered logical view and the plain attention.
+
+        Serving layout only: one request at a time (B = 1).
+        """
+        if block_tables is None:
+            raise ValueError("paged prefill needs block_tables (the model "
+                             "hoists cache['block_tables'] to every layer)")
+        B, S = q.shape[0], q.shape[1]
+        if B != 1:
+            raise ValueError("paged prefill packs one request at a time")
+        if "pos" in cache:
+            raise NotImplementedError(_RING_POOLS)
+        k_new = self._proj(params, x, "k", self.kv_heads, policy)
+        v_new = self._proj(params, x, "v", self.kv_heads, policy)
+        if self.use_rope:
+            sin, cos = rope_angles(positions, self.head_dim, self.rope_theta)
+            q = apply_rope(q, sin, cos)
+            k_new = apply_rope(k_new, sin, cos)
+
+        pk, pv = cache["pk"], cache["pv"]
+        ps = pk.shape[1]
+        quant = "ksc" in cache
+        ksc = vsc = None
+        slots = prefix_len + torch.arange(S, device=q.device)
+        page = block_tables[0].to(torch.long)[slots // ps]
+        off = slots % ps
+        if quant:
+            ksc, vsc = cache["ksc"], cache["vsc"]
+            k_tok = kv_scale_from_absmax(
+                k_new[0].to(torch.float32).abs().amax(dim=-1), pk.dtype)  # (S, K)
+            v_tok = kv_scale_from_absmax(
+                v_new[0].to(torch.float32).abs().amax(dim=-1), pv.dtype)
+            if prefix_len % ps:  # the straddled donor page keeps its scale
+                keep = (slots // ps == prefix_len // ps)[:, None]
+                k_tok = torch.where(keep, torch.zeros_like(k_tok), k_tok)
+                v_tok = torch.where(keep, torch.zeros_like(v_tok), v_tok)
+            _scatter_max_rows(ksc, page, k_tok)
+            _scatter_max_rows(vsc, page, v_tok)
+            k_w = quantize_kv_write(k_new[0], ksc[page], pk.dtype)
+            v_w = quantize_kv_write(v_new[0], vsc[page], pv.dtype)
+        else:
+            k_w, v_w = cast(k_new[0], pk.dtype), cast(v_new[0], pv.dtype)
+        _write_slots(pk, page, off, k_w)
+        _write_slots(pv, page, off, v_w)
+        new_cache = {"pk": pk, "pv": pv, "index": cache["index"] + S}
+        if quant:
+            new_cache["ksc"], new_cache["vsc"] = ksc, vsc
+
+        if prefix_len == 0:
+            if quant:
+                k_att = dequantize_kv(k_w, ksc[page])[None]
+                v_att = dequantize_kv(v_w, vsc[page])[None]
+                out = self._attend_dense(q, k_att, v_att, positions, ctx, policy)
+            else:
+                out = self._attend_dense(q, k_new, v_new, positions, ctx, policy)
+            return out, new_cache
+
+        total = prefix_len + S
+        if self._use_kernel(ctx, q):
+            index = torch.full((B,), prefix_len, dtype=torch.int32, device=q.device)
+            out = flash_decode(q, pk, pv, index, window=self._kernel_window(),
+                               tables=block_tables, kv_len=total, k_scale=ksc,
+                               v_scale=vsc, **self._decode_kw(ctx))
+            return out, new_cache
+
+        k_log, v_log = paged_gather_kv(pk, pv, block_tables, total,
+                                       k_scale=ksc, v_scale=vsc)
+        kv_pos = torch.arange(total, dtype=torch.int32, device=q.device).expand(B, total)
+        block = int(ctx.extra.get("eager_attn_block", 1024))
+        if total > 2 * block:  # long prefixes: bounded-memory blocked path
+            out = eager_attention_blocked(
+                q, k_log, v_log, positions, kv_pos, mask_kind=self.mask,
+                window=self.window, softcap=self.softcap, block=block)
+        else:
+            mask = _mask_dense(positions, kv_pos, self.mask, self.window)[:, None, None]
+            out = eager_attention(q, k_log, v_log, mask, softcap=self.softcap,
+                                  accum_dtype=policy.accum_dtype)
+        return out, new_cache
+
+    def _decode_paged(self, q, k_new, v_new, positions, ctx, policy, cache,
+                      kv_pos, block_tables, skip_write=False):
+        """Paged-pool decode: the request's logical slot s lives at
+        (tables[b, s // ps], s % ps) of the shared pools; `index` is
+        per-request (B,).
+
+        `skip_write=True` is the *re-score* contract (a full-prompt prefix
+        hit): the slot at `index` already holds this token's K/V on a shared
+        page, so the step computes logits without touching the pool.
+
+        Writes past the logical end (a full cache) are dropped, as the
+        reference's scatter drops them: such a slot is pointed at the
+        request's last page and keeps its bytes.  A quantized pool records a
+        page's scale at its first write (offset 0 — linear slots fill in
+        order) and quantizes every later token of the page at that fixed
+        scale."""
+        if block_tables is None:
+            raise ValueError("paged caches need block_tables (the model "
+                             "hoists cache['block_tables'] to every layer)")
+        idx = cache["index"]
+        if idx.ndim != 1:
+            raise ValueError("paged caches are per-request: index must be "
+                             f"(B,), got shape {tuple(idx.shape)}")
+        if "pos" in cache:
+            raise NotImplementedError(_RING_POOLS)
+        B, S = q.shape[0], q.shape[1]
+        pk, pv = cache["pk"], cache["pv"]
+        ps = pk.shape[1]
+        quant = "ksc" in cache
+        ksc, vsc = (cache["ksc"], cache["vsc"]) if quant else (None, None)
+        # true logical length: the hoisted kv_pos row width (the table may
+        # round up to whole pages); the fallback covers bare callers
+        kv_len = (kv_pos.shape[1] if kv_pos is not None
+                  else block_tables.shape[1] * ps)
+        new_cache = {"pk": pk, "pv": pv, "index": idx if skip_write else idx + S}
+        if not skip_write:
+            slots = idx.to(torch.long)[:, None] + torch.arange(S, device=q.device)
+            ok = slots < kv_len
+            # a past-the-end slot points at the request's last page
+            blk = torch.clamp(slots // ps, max=block_tables.shape[1] - 1)
+            page = torch.gather(block_tables.to(torch.long), 1, blk)  # (B, S)
+            off = slots % ps
+            if quant:
+                k_tok = kv_scale_from_absmax(
+                    k_new.to(torch.float32).abs().amax(dim=-1), pk.dtype)  # (B, S, K)
+                v_tok = kv_scale_from_absmax(
+                    v_new.to(torch.float32).abs().amax(dim=-1), pv.dtype)
+                # first write of a page (offset 0) records its scale: a
+                # scatter-max from the 0.0 sentinel a fresh page holds
+                fresh = ((off == 0) & ok)[..., None]
+                _scatter_max_rows(ksc, page, torch.where(fresh, k_tok, torch.zeros_like(k_tok)))
+                _scatter_max_rows(vsc, page, torch.where(fresh, v_tok, torch.zeros_like(v_tok)))
+                k_w = quantize_kv_write(k_new, ksc[page], pk.dtype)
+                v_w = quantize_kv_write(v_new, vsc[page], pv.dtype)
+            else:
+                k_w, v_w = cast(k_new, pk.dtype), cast(v_new, pv.dtype)
+            _write_slots(pk, page, off, k_w, keep=ok)
+            _write_slots(pv, page, off, v_w, keep=ok)
+        if quant:
+            new_cache["ksc"], new_cache["vsc"] = ksc, vsc
+        if kv_pos is None:
+            arange = torch.arange(kv_len, dtype=torch.int32, device=q.device)
+            last = idx.reshape(-1, 1) + (S - 1)
+            kv_pos = torch.where(arange[None] <= last, arange[None],
+                                 torch.full_like(arange[None], -1))
+
+        if self._use_kernel(ctx, q):
+            out = flash_decode(q, pk, pv, idx, window=self._kernel_window(),
+                               tables=block_tables, kv_len=kv_len, k_scale=ksc,
+                               v_scale=vsc, **self._decode_kw(ctx))
+            return out, new_cache
+
+        # plain path: gather the logical view through the table, then the
+        # dense decode math, masked from the caller's positions
+        k_log, v_log = paged_gather_kv(pk, pv, block_tables, kv_len,
+                                       k_scale=ksc, v_scale=vsc)
+        mask = _mask_dense(positions, kv_pos, self.mask, self.window)[:, None, None]
+        out = eager_attention(q, k_log, v_log, mask, softcap=self.softcap,
+                              accum_dtype=policy.accum_dtype)
+        return out, new_cache
+
+
+def _scatter_max_rows(scales, page, tok):
+    """scales[page[i]] = max(scales[page[i]], tok[i]), in place: (P, K)
+    sidecar rows against (..., K) per-token scales at (...) pages.  Max does
+    not depend on the order of duplicate pages, so this is exact."""
+    K = scales.shape[-1]
+    scales.scatter_reduce_(0, page.reshape(-1, 1).expand(-1, K),
+                           tok.reshape(-1, K), "amax", include_self=True)
+
+
+def _write_slots(pool, page, off, new, keep=None):
+    """pool[page, off] = new, in place; where `keep` is False the slot keeps
+    its bytes.  One-byte codes are moved as int8 bytes."""
+    if pool.element_size() == 1:
+        pool, new = pool.view(torch.int8), new.view(torch.int8)
+    if keep is not None:
+        new = torch.where(keep[..., None, None], new, pool[page, off])
+    pool[page, off] = new

@@ -10,8 +10,9 @@ function" with path patterns standing in for AST selection.
 "fixed point" from the paper maps to int8 storage with fp32 scales
 (`quantized=True`), dequantized on load.
 
-`cache_<dtype>` policies parse here, but no quantized KV-cache pool
-consumes them yet (that arrives with the paged-serving slice).
+`cache_<dtype>` policies retype the KV-cache *pool* instead: `ChangePrecision`
+weaves them as the "flash_cache_dtype" extra, which `Server.serve_continuous`
+resolves to an int8 / fp8 page pool with fp32 per-page scales.
 """
 
 from __future__ import annotations

@@ -116,10 +116,11 @@ class ScannedStack(Module):
                     new_caches.append(layer_cache)
             finally:
                 ctx.taps_enabled = saved_taps
-            if mode == "decode" and cache is not None:
-                # decode wrote every layer's k / v (/ pos) through views of
-                # the stacked cache tensors: those tensors *are* the new
-                # cache; only the replaced leaves (index) are restacked
+            if mode in ("decode", "prefill") and cache is not None:
+                # a decode step (or a paged prefill) wrote every layer's
+                # k / v / pools through views of the stacked cache tensors:
+                # those tensors *are* the new cache; only the replaced
+                # leaves (index) are restacked
                 new_cache = _merge_decode_cache(cache, new_caches)
             else:
                 new_cache = _stack_layers(new_caches)

@@ -5,9 +5,18 @@ the server prefills then decodes N tokens; the woven knobs (precision
 variant, decode budget, memoization on/off) are adapted by mARGOt against a
 quality index + latency/cost constraints.
 
-This slice holds the dense path: `serve` and `serve_batch`.  The paged pool,
-`serve_continuous` and `serve_stream` are the next slice; the `ServerConfig`
-fields they read are already here so configurations carry over unchanged.
+Two serving paths:
+  - the dense one, `serve` and `serve_batch`: per-request prefill into a
+    dense cache, one decode loop over the stacked caches;
+  - the main path, `serve_stream` and its wrapper `serve_continuous`:
+    continuous batching over a paged KV pool (`runtime/pages.py`) with
+    prefix sharing, copy-on-write pages, chunked prefill and an optional
+    int8 / fp8 pool (`cache_dtype`).
+
+Not ported yet, and refused with `NotImplementedError` naming their ROADMAP
+Queue 1 item when a caller asks for them: speculative decoding (item 6), and
+the resilience and QoS layers — fault injection, deadlines, retries, pool
+audits, preemption, the QoS governor and its SLOs (item 8).
 """
 
 from __future__ import annotations
@@ -21,15 +30,41 @@ import numpy as np
 import torch
 
 from repro_torch.core.weaver import WovenProgram
+from repro_torch.kernels.flash_attention.ops import CACHE_QMAX, DEFAULT_PAGE_SIZE
 from repro_torch.memo.table import MemoTable
 from repro_torch.monitor.examon import ExamonBroker, get_default_broker
 from repro_torch.nn.module import init_params, resolve_device
+from repro_torch.runtime.pages import (
+    PagedCacheManager,
+    PoolExhausted,
+    cdiv,
+    paged_compatible,
+)
 from repro_torch.runtime.steps import (
     build_decode_step,
+    build_paged_prefill_step,
     build_prefill_step,
     stack_request_caches,
 )
 from repro_torch.versioning.libvc import LibVC
+
+_SPECULATIVE = "speculative decoding is not ported yet (ROADMAP Queue 1 item 6)"
+_RESILIENCE_QOS = ("the resilience and QoS layers are not ported yet "
+                   "(ROADMAP Queue 1 item 8)")
+
+
+class NonFiniteLogits(RuntimeError):
+    """A step produced NaN / Inf logits for a request."""
+
+
+def _step_counts() -> dict[str, int]:
+    """Model calls of a paged serve, by kind: the structure probe and the
+    unshared prefills (dense prefill, one launch of the prefill kernel per
+    layer), the prefills of a suffix or chunk over resident slots and the
+    re-scores (one widened-q / single-q decode launch per layer), and the
+    decode steps."""
+    return {"probe": 0, "prefill": 0, "suffix_prefill": 0, "rescore": 0,
+            "decode": 0}
 
 
 @dataclasses.dataclass
@@ -43,20 +78,22 @@ class ServerConfig:
     max_batch: int | None = None   # decode-batch cap (admission gate)
     prefix_sharing: bool = True    # map common prompt prefixes onto shared pages
     # speculative decoding (serve_continuous): tokens the draft model
-    # proposes per verify round; None/0 falls back to the woven
-    # "speculative_draft_len" knob, then to plain one-token decode
+    # proposes per verify round — not ported yet: a value raises
+    # (ROADMAP Queue 1 item 6)
     draft_len: int | None = None
     # quantized page pool (serve_continuous): "int8" / "float8_e4m3fn" /
     # "float8_e5m2" stores pk/pv quantized with per-page-per-KV-head scale
     # sidecars; None falls back to the woven "flash_cache_dtype" knob
     cache_dtype: str | None = None
     # resilience (serve_continuous): per-request SLO, bounded retry budget
-    # around transient step faults, and pool-audit barriers
+    # around transient step faults, and pool-audit barriers — not ported
+    # yet: a value raises (ROADMAP Queue 1 item 8)
     deadline_s: float | None = None
     retries: int | None = None
     pool_audit: bool | None = None
-    # QoS-adaptive streaming (serve_stream): tokens of a long admission
-    # prefilled per decode wave, and per-request latency SLOs (seconds)
+    # streaming (serve_stream): tokens of a long admission prefilled per
+    # decode wave (0/None: one-shot admission), and the QoS governor's
+    # per-request latency SLOs (seconds; not ported yet: a value raises)
     prefill_chunk: int | None = None
     slo_ttft_s: float | None = None
     slo_tok_s: float | None = None
@@ -87,9 +124,21 @@ class Server:
                 v = None if variant == "__default__" else variant
                 if kind == "prefill":
                     return build_prefill_step(self.woven, mesh=self.mesh, variant=v)
+                if kind == "probe":
+                    # 1-token structure probe for the paged pool: a copied
+                    # state pins cache_max_len=0 so the probe cache never
+                    # materializes a dense max_len transient
+                    return build_prefill_step(self.woven, mesh=self.mesh,
+                                              variant=v, cache_max_len=0)
+                if kind == "paged_prefill":
+                    # writes the prompt suffix into the pool tensors in place
+                    return build_paged_prefill_step(self.woven, mesh=self.mesh,
+                                                    variant=v)
                 # the decode step updates the cache tensors in place; every
-                # caller rebinds the cache to the step's output
-                return build_decode_step(self.woven, mesh=self.mesh, variant=v)
+                # caller rebinds the cache to the step's output.  The
+                # re-score step passes the pool through untouched.
+                return build_decode_step(self.woven, mesh=self.mesh, variant=v,
+                                         rescore=kind == "rescore")
 
             # "fallback" falls back to the default *variant* when a variant's
             # step cannot be made.  Kernels are built at their first launch, not
@@ -98,12 +147,25 @@ class Server:
 
         self.prefill_vc = build("prefill")
         self.decode_vc = build("decode")
+        self.probe_vc = build("probe")
+        self.paged_prefill_vc = build("paged_prefill")
+        self.rescore_vc = build("rescore")
         self.params = init_params(woven.program.model, cfg.seed,
                                   woven.state.policies, self.device)
         self.served = 0
         # latency histories are sliding windows (deques), not unbounded lists
         self.history_window = 4096
         self.latencies: deque[float] = deque(maxlen=self.history_window)
+        self.decode_step_latencies: deque[float] = \
+            deque(maxlen=self.history_window)  # serve_stream steps
+        self.last_pool_stats: dict[str, Any] | None = None  # serve_stream
+        self.last_fault_stats: dict[str, Any] | None = None
+        self.last_outcomes: list[dict[str, Any]] | None = None  # per request
+        # model calls of the last serve_stream, by kind: what its kernel
+        # launches follow from
+        self.last_step_counts: dict[str, int] | None = None
+        self._steps = _step_counts()
+        self._last_admit_rescored = False  # last admission was a re-score
 
     def _variant(self) -> str | None:
         if self.margot is None:
@@ -120,14 +182,18 @@ class Server:
         state.extra["cache_max_len"] = self.cfg.max_cache_len
         return variant
 
-    def _finish(self, key, result, t0: float, n_requests: int):
-        # the result is already on the host, so the device work is done
+    def _record(self, t0: float, n_requests: int) -> None:
+        """Account one served call; its result is already on the host, so
+        the device work is done."""
         dt = time.perf_counter() - t0
         self.latencies.append(dt)
         self.served += n_requests
         self.broker.publish("serve/latency/@host0", dt)
         if self.margot is not None:
             self.margot.observe("latency", dt)
+
+    def _finish(self, key, result, t0: float, n_requests: int):
+        self._record(t0, n_requests)
         if self.memo is not None:
             self.memo.update(key, result)
         return result
@@ -213,3 +279,644 @@ class Server:
         stacked = torch.cat(outs, dim=1).cpu().numpy()
         result = [stacked[b] for b in range(B)]
         return self._finish(key, result, t0, B)
+
+    # -- paged pool + continuous batching -----------------------------------------
+
+    def _page_size(self, state) -> int:
+        ps = self.cfg.page_size or state.extra.get("flash_page_size") \
+            or DEFAULT_PAGE_SIZE
+        return max(1, min(int(ps), self.cfg.max_cache_len))
+
+    def _cache_dtype(self, state) -> str | None:
+        """Resolved pool-quantization dtype name: explicit config wins, then
+        the woven "flash_cache_dtype" knob.  Names outside CACHE_QMAX (fp
+        names such as "float16") mean unquantized."""
+        name = self.cfg.cache_dtype or state.extra.get("flash_cache_dtype")
+        if name is None:
+            return None
+        name = str(name)
+        return name if name in CACHE_QMAX else None
+
+    def _tokens(self, prompt) -> tuple[torch.Tensor, np.ndarray]:
+        """A prompt as a (1, S) int32 tensor on the device, and as int64 host
+        ids (the prefix index's key material)."""
+        toks_np = np.asarray(prompt, np.int64).reshape(-1)
+        return torch.from_numpy(toks_np.astype(np.int32)).to(self.device)[None], toks_np
+
+    def _first_token(self, manager: PagedCacheManager, rid, logits) -> int:
+        """Greedy first token of an admission; NaN / Inf logits roll the
+        request's pool state back and raise `NonFiniteLogits`."""
+        row = logits[0, -1]
+        tok, top = torch.stack([row.argmax().to(torch.float32),
+                                row.to(torch.float32).amax()]).tolist()
+        if not np.isfinite(top):
+            manager.abort(rid)
+            raise NonFiniteLogits(f"non-finite prefill logits for request {rid!r}")
+        return int(tok)
+
+    def _ensure_structure(self, manager: PagedCacheManager, toks, variant) -> None:
+        """Learn the pool's structure from a 1-token probe prefill (the
+        first admission of a serve)."""
+        if manager.has_structure:
+            return
+        _, probe = self.probe_vc(variant, self.params, {"tokens": toks[:, :1]})
+        self._steps["probe"] += 1
+        if not paged_compatible(probe):
+            raise ValueError("model cache is not paged-compatible (SSM/recurrent "
+                             "state) — use serve_batch")
+        ring = manager.window is not None and manager.window < toks.shape[1]
+        manager.init_structure(probe, ring=ring)
+
+    def _blocked(self, variant, S: int) -> bool:
+        """Whether a prompt of S tokens prefills on the plain path's blocked
+        online softmax (a numeric family of its own)."""
+        extra = self.woven.variant_state(
+            None if variant in (None, "__default__") else variant).extra
+        return S > 2 * int(extra.get("eager_attn_block", 1024))
+
+    def _paged_admit(self, manager: PagedCacheManager, rid, prompt,
+                     final_len: int, variant) -> int:
+        """Admit one request into the page pool, prefilling *directly into
+        pool pages*, and return its first output token.
+
+        The first admission runs a 1-token structure probe; every admission
+        then matches the prompt against the prefix index — full-page hits
+        map shared physical pages and only the non-shared suffix is
+        prefilled, a full-prompt hit skips prefill entirely and re-scores
+        the last prompt token for its logits.  Non-finite first logits roll
+        the admission back and raise `NonFiniteLogits`."""
+        toks, toks_np = self._tokens(prompt)
+        S = int(toks.shape[1])
+        self._ensure_structure(manager, toks, variant)
+        shared_pages, shared_len = manager.match_prefix(toks_np)
+        if shared_len >= S and self._blocked(variant, S):
+            # a long prompt's unshared first token comes from the plain
+            # path's blocked softmax; the re-score step's one-shot softmax
+            # is another numeric family, so keep >= 1 suffix token
+            ps = manager.page_size
+            if shared_len % ps:      # drop the shared tail page
+                shared_pages = shared_pages[:-1]
+                shared_len = (S // ps) * ps
+            if shared_len >= S:      # page-aligned prompt: drop a page
+                shared_pages = shared_pages[:-1]
+                shared_len -= ps
+        self._last_admit_rescored = shared_len >= S
+        if shared_len >= S:
+            manager.admit_shared(rid, toks_np, final_len=final_len,
+                                 pages=shared_pages)
+            view = manager.rescore_view(rid)
+            logits, _ = self.rescore_vc(
+                variant, self.params,
+                {"tokens": toks[:, -1:],
+                 "positions": torch.full((1, 1), S - 1, dtype=torch.int32,
+                                         device=self.device)},
+                view)
+            self._steps["rescore"] += 1
+        else:
+            view, start = manager.admit_begin(
+                rid, toks_np, final_len=final_len,
+                shared_pages=shared_pages, shared_len=shared_len)
+            logits, new_cache = self._prefill_chunk(toks, start, S, view, variant)
+            manager.admit_finish(rid, new_cache, toks_np)
+        return self._first_token(manager, rid, logits)
+
+    def _prefill_chunk(self, toks, start: int, end: int, view, variant):
+        """Prefill prompt tokens [start, end) over the `start` resident ones,
+        into the pool (in place); returns the logits and the step's cache."""
+        pos = torch.arange(start, end, dtype=torch.int32, device=self.device)[None]
+        out = self.paged_prefill_vc(
+            variant, self.params, {"tokens": toks[:, start:end], "positions": pos},
+            view, prefix_len=start)
+        self._steps["suffix_prefill" if start else "prefill"] += 1
+        return out
+
+    def _admit_grouped(self, manager: PagedCacheManager, rid, prompt,
+                       final_len: int, first_tok: int) -> int | None:
+        """Identical-prompt group admission: the member's full prompt is
+        already pool-resident (its donor was just admitted through the
+        re-score path), so it maps the donor's pages and reuses the donor's
+        first token — one re-score step for the whole group.  Returns None
+        (the caller falls back to a full `_paged_admit`) if the prompt is no
+        longer a full-prefix hit."""
+        toks_np = np.asarray(prompt, np.int64).reshape(-1)
+        pages, shared_len = manager.match_prefix(toks_np)
+        if shared_len < toks_np.shape[0]:
+            return None
+        manager.admit_shared(rid, toks_np, final_len=final_len, pages=pages)
+        return int(first_tok)
+
+    def _paged_admit_chunked(self, manager: PagedCacheManager, rid, prompt,
+                             final_len: int, variant, chunk: int = 0):
+        """Chunked direct-to-pool admission: reserve the block table up
+        front, then prefill page-aligned `chunk`-token slices of the
+        non-shared suffix one call at a time, so a long admission spreads
+        across decode waves instead of stalling the in-flight batch.
+
+        Returns (tok, cont): tok set and cont None when the admission
+        completed in one shot (full-prompt hit, ring pool, blocked-softmax
+        prompt, or a suffix that fits one chunk); else tok None and cont a
+        closure to call once per wave, returning {"tok": None, "resident":
+        r, "chunk": c} after an interior chunk and {"tok": first_token, ...}
+        after the final one.
+
+        Parity: chunk boundaries are page multiples (every pool page is
+        written by exactly one dispatch, so a quantized page's first-write
+        scale matches a one-shot prefill), and each interior chunk runs the
+        suffix-over-prefix shape a prefix-sharing admission uses."""
+        toks, toks_np = self._tokens(prompt)
+        S = int(toks.shape[1])
+        self._ensure_structure(manager, toks, variant)
+        shared_pages, shared_len = manager.match_prefix(toks_np)
+        ps = manager.page_size
+        step = max(ps, (int(chunk) // ps) * ps)  # page-aligned, >= 1 page
+        if (shared_len >= S or manager._ring_pool() or self._blocked(variant, S)
+                or S - shared_len <= step):
+            return self._paged_admit(manager, rid, prompt, final_len, variant), None
+        self._last_admit_rescored = False
+        _, start = manager.admit_begin(
+            rid, toks_np, final_len=final_len,
+            shared_pages=shared_pages, shared_len=shared_len)
+        st = {"done": start}
+
+        def cont() -> dict:
+            done = st["done"]
+            end = min(done + step, S)
+            logits, new_cache = self._prefill_chunk(
+                toks, done, end, manager.prefill_view(rid, done), variant)
+            if end < S:
+                manager.absorb_prefill(rid, new_cache)
+                st["done"] = end
+                return {"tok": None, "resident": end, "chunk": end - done}
+            manager.admit_finish(rid, new_cache, toks_np)
+            return {"tok": self._first_token(manager, rid, logits),
+                    "resident": S, "chunk": end - done}
+
+        return None, cont
+
+    def _check_later_slices(self, state, *, draft_len, draft, fault_injector,
+                            deadline_s, pool_audit, preemption, qos,
+                            slo_ttft_s, slo_tok_s) -> None:
+        """Refuse, by name, every option of a layer that is not ported yet —
+        nothing a caller asks for is silently ignored."""
+        k = draft_len if draft_len is not None else self.cfg.draft_len
+        if k or draft is not None or state.extra.get("speculative_draft_len"):
+            raise NotImplementedError(_SPECULATIVE)
+        inj = fault_injector if fault_injector is not None \
+            else state.extra.get("fault_injector")
+        asked = {
+            "fault_injector": inj is not None and getattr(inj, "armed", True),
+            "deadline_s": deadline_s is not None or self.cfg.deadline_s is not None,
+            "retries": self.cfg.retries is not None,
+            "pool_audit": pool_audit is not None or self.cfg.pool_audit is not None,
+            "serve_resilience": state.extra.get("serve_resilience") is not None,
+            "preemption": preemption is not None,
+            "qos": (qos not in (None, False) or state.extra.get("qos_governor") is not None
+                    or state.extra.get("serve_qos") is not None),
+            "slo": (slo_ttft_s, slo_tok_s, self.cfg.slo_ttft_s,
+                    self.cfg.slo_tok_s) != (None,) * 4,
+        }
+        named = [name for name, on in asked.items() if on]
+        if named:
+            raise NotImplementedError(f"{', '.join(named)}: {_RESILIENCE_QOS}")
+
+    def serve_continuous(self, prompts: list[np.ndarray], *,
+                         decode_tokens: int | None = None,
+                         page_size: int | None = None,
+                         pool_pages: int | None = None,
+                         max_batch: int | None = None,
+                         prefix_sharing: bool | None = None,
+                         draft_len: int | None = None,
+                         draft: "Server | None" = None,
+                         fault_injector=None,
+                         deadline_s: float | None = None,
+                         pool_audit: bool | None = None,
+                         preemption=None,
+                         prefill_chunk: int | None = None,
+                         qos=None,
+                         arrival_waves=None,
+                         slo_ttft_s: float | None = None,
+                         slo_tok_s: float | None = None,
+                         on_event=None) -> list[np.ndarray]:
+        """Continuous batching over a prefix-shared paged KV pool: the thin
+        wrapper over the `serve_stream` event loop.  It handles the memo
+        table (the stream engine never touches it), drains the event stream
+        (`on_event` receives each event dict when given), and returns the
+        collected outputs.
+
+        Unlike `serve_batch`, the decode batch is re-formed every step:
+        waiting requests are admitted as soon as the page pool covers their
+        worst-case growth and a decode slot is free, each admission prefills
+        its non-shared prompt suffix straight into pool pages (common
+        prefixes map existing pages; the first write into a shared page
+        splits it copy-on-write), and finished requests retire at once.
+        Greedy decode, equal per request to `serve` / `serve_batch` wherever
+        the matrix products do not depend on the batch (exactly so on the
+        CPU).  The options of later slices raise `NotImplementedError`."""
+        if not prompts:
+            return []
+        n = decode_tokens or self.cfg.decode_tokens
+        key = ("serve_continuous",
+               tuple(np.asarray(p).tobytes() for p in prompts), n)
+        cache_dtype = self._cache_dtype(self.woven.state)
+        if cache_dtype:  # quantized pools emit different (clipped) logits
+            key = key + (("cache_dtype", cache_dtype),)
+        chunk_pre = prefill_chunk if prefill_chunk is not None \
+            else self.cfg.prefill_chunk
+        # chunked and arrival-clocked serves keep token parity but carry
+        # per-wave stats a memo hit would skip: they bypass the table
+        memo_ok = not chunk_pre and arrival_waves is None
+        if memo_ok and self.memo is not None and self.memo.running:
+            hit, out = self.memo.lookup(key)
+            if hit:
+                # a hit serves no step and builds no pool: clear what a
+                # stats reader would otherwise take for this serve's
+                self.decode_step_latencies = deque(maxlen=self.history_window)
+                self.last_pool_stats = None
+                self.last_fault_stats = None
+                self.last_outcomes = None
+                self.last_step_counts = None
+                return out
+        gen = self.serve_stream(
+            prompts, decode_tokens=n, page_size=page_size,
+            pool_pages=pool_pages, max_batch=max_batch,
+            prefix_sharing=prefix_sharing, draft_len=draft_len, draft=draft,
+            fault_injector=fault_injector, deadline_s=deadline_s,
+            pool_audit=pool_audit, preemption=preemption,
+            prefill_chunk=prefill_chunk, qos=qos, arrival_waves=arrival_waves,
+            slo_ttft_s=slo_ttft_s, slo_tok_s=slo_tok_s)
+        while True:
+            try:
+                ev = next(gen)
+            except StopIteration as stop:
+                result = stop.value
+                break
+            if on_event is not None:
+                on_event(ev)
+        # a result with rejections must never be memoized: the key carries
+        # no pool geometry, so a later right-sized serve would replay it
+        clean = memo_ok and all(o["status"] == "ok" for o in self.last_outcomes)
+        if self.memo is not None and clean:
+            self.memo.update(key, result)
+        return result
+
+    def serve_stream(self, prompts: list[np.ndarray], *,
+                     decode_tokens: int | None = None,
+                     page_size: int | None = None,
+                     pool_pages: int | None = None,
+                     max_batch: int | None = None,
+                     prefix_sharing: bool | None = None,
+                     draft_len: int | None = None,
+                     draft: "Server | None" = None,
+                     fault_injector=None,
+                     deadline_s: float | None = None,
+                     pool_audit: bool | None = None,
+                     preemption=None,
+                     prefill_chunk: int | None = None,
+                     qos=None,
+                     arrival_waves=None,
+                     slo_ttft_s: float | None = None,
+                     slo_tok_s: float | None = None):
+        """The streaming serving engine: a generator over per-token events.
+
+        Admission, chunked prefill, decode steps and retirement as an event
+        loop that *yields* as tokens appear and *returns* the final
+        per-request output list (read it from `StopIteration.value`, or use
+        the `serve_continuous` wrapper).  Event dicts (all carry "wave" —
+        the logical wave index — and "t", a `perf_counter` stamp taken when
+        the event was made):
+
+          {"event": "admit",         "rid": r}
+          {"event": "prefill_chunk", "rid": r, "resident": i, "total": S}
+          {"event": "token",  "rid": r, "token": t, "index": i}
+          {"event": "outcome","rid": r, "status": s, "reason": ..., "tokens": n}
+          {"event": "wave",   "batch": B, "dt_s": dt, "emitted": e,
+           "prefill_tokens": p, "k": 0, "op": None}
+
+        Chunked prefill (`prefill_chunk` > 0, or ServerConfig's): a long
+        admission reserves its block table up front, then prefills one
+        page-aligned chunk per wave, so in-flight decodes keep emitting a
+        token every wave while the newcomer streams in; outputs stay equal
+        to one-shot admission (`_paged_admit_chunked`).  `arrival_waves`
+        (one int per prompt) lands requests on a logical wave clock instead
+        of all at wave 0.  Up to `max_batch` requests decode (or prefill)
+        at once; a queued request whose prompt prefix is resident jumps a
+        head of the queue that cannot fit, and identical queued prompts
+        admit as a group off one re-score.
+
+        Requests the cache can never host (prompt > max_cache_len), or the
+        pool at its emptiest cannot fit, get structured rejections in
+        `last_outcomes` and everyone else is served; a request whose logits
+        turn non-finite is quarantined alone.  `last_pool_stats`,
+        `last_step_counts` and `decode_step_latencies` describe the serve.
+        """
+        if not prompts:
+            return []
+        n = decode_tokens or self.cfg.decode_tokens
+        t0 = time.perf_counter()
+        variant = self._begin()
+        state = self.woven.variant_state(
+            None if variant in (None, "__default__") else variant)
+        self._check_later_slices(
+            state, draft_len=draft_len, draft=draft,
+            fault_injector=fault_injector, deadline_s=deadline_s,
+            pool_audit=pool_audit, preemption=preemption, qos=qos,
+            slo_ttft_s=slo_ttft_s, slo_tok_s=slo_tok_s)
+        ps = page_size or self._page_size(state)
+        chunk = int((prefill_chunk if prefill_chunk is not None
+                     else self.cfg.prefill_chunk) or 0)
+
+        lengths = [int(np.asarray(p).reshape(-1).shape[0]) for p in prompts]
+        finals = [min(S + n - 1, self.cfg.max_cache_len) for S in lengths]
+        max_batch = max_batch or self.cfg.max_batch or len(prompts)
+        pool_pages = pool_pages or self.cfg.pool_pages \
+            or max(sum(cdiv(f, ps) for f in finals), 1)
+        share = self.cfg.prefix_sharing if prefix_sharing is None \
+            else prefix_sharing
+        manager = PagedCacheManager(
+            pool_pages, ps, max_len=self.cfg.max_cache_len,
+            window=getattr(self.woven.program.cfg, "attn_window", None),
+            prefix_sharing=share, cache_dtype=self._cache_dtype(state))
+        self.decode_step_latencies = deque(maxlen=self.history_window)
+        self._steps = _step_counts()
+
+        arrive_at = None
+        if arrival_waves is not None:
+            if len(arrival_waves) != len(prompts):
+                raise ValueError("arrival_waves must have one wave index "
+                                 "per prompt")
+            arrive_at = [max(0, int(w)) for w in arrival_waves]
+        waiting: deque = deque()              # arrived, not yet admitted
+        pending: deque = deque()              # not yet arrived (wave clock)
+        if arrive_at is None:
+            waiting.extend(range(len(prompts)))
+        else:
+            pending.extend(sorted(range(len(prompts)),
+                                  key=lambda r: (arrive_at[r], r)))
+        active: dict[int, dict] = {}          # rid -> {"tok", "pos"}
+        prefilling: dict[int, Any] = {}       # rid -> chunked-admit cont
+        outputs: dict[int, list[int]] = {}
+        grouped = {"admissions": 0}  # identical-prompt shared re-scores
+
+        evq: list[dict] = []
+        wave = 0
+        wavestat = {"emitted": 0, "prefill_tokens": 0}
+        now0 = time.perf_counter()
+        rq: dict[int, dict] = {
+            r: {"arrive_t": now0, "arrive_wave": 0, "first_t": None,
+                "first_wave": None, "tok_t": []}
+            for r in range(len(prompts))}
+        outcome = {r: {"status": "ok", "reason": None}
+                   for r in range(len(prompts))}
+        fstats = {"quarantined": 0, "rejected": 0, "oversized": 0}
+
+        def _emit(kind: str, **kw) -> None:
+            evq.append({"event": kind, "wave": wave,
+                        "t": time.perf_counter(), **kw})
+
+        def _first_token(rid, tok) -> None:
+            outputs[rid] = [tok]
+            active[rid] = {"tok": tok, "pos": lengths[rid]}
+            m = rq[rid]
+            m["first_t"] = time.perf_counter()
+            m["first_wave"] = wave
+            m["tok_t"].append(m["first_t"])
+            wavestat["emitted"] += 1
+            _emit("token", rid=rid, token=tok, index=0)
+
+        def _reject(rid, reason, status="rejected"):
+            outcome[rid] = {"status": status, "reason": reason}
+            fstats[status] += 1
+            _emit("outcome", rid=rid, status=status, reason=reason,
+                  tokens=len(outputs.get(rid, [])))
+
+        def _drop(rid):
+            manager.abort(rid)
+            active.pop(rid, None)
+            prefilling.pop(rid, None)
+
+        def _quarantine(rid, reason):
+            # NaN/Inf logits quarantine exactly the victim: its pages
+            # retire, its partial output survives, the batch re-forms
+            outcome[rid] = {"status": "quarantined", "reason": reason}
+            fstats["quarantined"] += 1
+            _emit("outcome", rid=rid, status="quarantined", reason=reason,
+                  tokens=len(outputs.get(rid, [])))
+            _drop(rid)
+
+        def admit_one(rid, reuse_from=None) -> None:
+            _emit("admit", rid=rid)
+            tok = None
+            if reuse_from is not None:
+                tok = self._admit_grouped(manager, rid, prompts[rid],
+                                          finals[rid], outputs[reuse_from][0])
+                if tok is not None:
+                    grouped["admissions"] += 1
+            cont = None
+            if tok is None:
+                if chunk > 0:
+                    tok, cont = self._paged_admit_chunked(
+                        manager, rid, prompts[rid], finals[rid], variant,
+                        chunk=chunk)
+                else:
+                    tok = self._paged_admit(manager, rid, prompts[rid],
+                                            finals[rid], variant)
+                if cont is None:
+                    # a one-shot admission processed the whole prompt this
+                    # wave: billed into the wave event like a chunk is
+                    wavestat["prefill_tokens"] += lengths[rid]
+            if cont is not None:
+                prefilling[rid] = cont  # the prompt streams in, chunk by chunk
+            else:
+                _first_token(rid, tok)
+
+        def try_admit(rid, reuse_from=None) -> bool:
+            try:
+                admit_one(rid, reuse_from)
+                return True
+            except (NonFiniteLogits, PoolExhausted) as e:
+                # isolated to the one request: its partial pool state rolls
+                # back and it gets a structured rejection
+                outputs.pop(rid, None)
+                _drop(rid)
+                _reject(rid, str(e))
+                return False
+
+        def admit_ready() -> None:
+            # chunked prefills in flight hold reserved pages and will join
+            # the decode batch: max_batch bounds active + prefilling
+            while waiting and len(active) + len(prefilling) < max_batch:
+                rid = None
+                if manager.prefix_sharing and len(waiting) > 1:
+                    # prefix-aware admission: a sharer queued behind a
+                    # non-sharer jumps the line while its donor's pages are
+                    # live — the shared prefix costs it no fresh pages
+                    for cand in waiting:
+                        toks_np = np.asarray(prompts[cand], np.int64).reshape(-1)
+                        _, sl = manager.match_prefix(toks_np)
+                        if sl > 0 and manager.can_admit(finals[cand],
+                                                        tokens=prompts[cand]):
+                            rid = cand
+                            break
+                if rid is None:
+                    rid = waiting[0]
+                    # capacity-checked for the very first admission too: an
+                    # oversized request is rejected before its prefill runs
+                    if not manager.can_admit(finals[rid], tokens=prompts[rid]):
+                        return
+                ok = try_admit(rid)
+                waiting.remove(rid)
+                if not (ok and manager.prefix_sharing and waiting
+                        and self._last_admit_rescored):
+                    continue
+                # identical queued prompts admit as a group sharing the
+                # re-score that just ran
+                base = np.asarray(prompts[rid], np.int64).reshape(-1)
+                for cand in [c for c in waiting if np.array_equal(
+                        np.asarray(prompts[c], np.int64).reshape(-1), base)]:
+                    if len(active) + len(prefilling) >= max_batch \
+                            or not manager.can_admit(finals[cand],
+                                                     tokens=prompts[cand]):
+                        break
+                    try_admit(cand, reuse_from=rid)
+                    waiting.remove(cand)
+
+        # prompts the cache could never host are rejected up front
+        for r in [r for r in list(waiting) + list(pending)
+                  if lengths[r] > self.cfg.max_cache_len]:
+            (waiting if r in waiting else pending).remove(r)
+            _reject(r, f"prompt ({lengths[r]} tokens) exceeds "
+                       f"max_cache_len ({self.cfg.max_cache_len})",
+                    status="oversized")
+
+        while active or waiting or prefilling or pending:
+            while evq:
+                yield evq.pop(0)
+            t_wave = time.perf_counter()
+            wavestat["emitted"] = 0
+            wavestat["prefill_tokens"] = 0
+            # logical-clock arrivals land before anything else this wave
+            if pending:
+                arrived = False
+                while pending and arrive_at[pending[0]] <= wave:
+                    r = pending.popleft()
+                    waiting.append(r)
+                    rq[r]["arrive_t"] = time.perf_counter()
+                    rq[r]["arrive_wave"] = wave
+                    arrived = True
+                if arrived:
+                    admit_ready()
+            if wave == 0:
+                admit_ready()
+            # retire before stepping: requests at their budget free pages
+            done = [r for r in active if len(outputs[r]) >= n]
+            for rid in done:
+                manager.retire(rid)
+                del active[rid]
+                _emit("outcome", rid=rid, status=outcome[rid]["status"],
+                      reason=outcome[rid]["reason"],
+                      tokens=len(outputs[rid][:n]))
+            if done:
+                admit_ready()
+            # advance chunked prefills: one page-aligned chunk per request
+            # per wave, beside the in-flight decodes
+            for rid in list(prefilling):
+                try:
+                    step_r = prefilling[rid]()
+                except (NonFiniteLogits, PoolExhausted) as e:
+                    outputs.pop(rid, None)
+                    _drop(rid)
+                    _reject(rid, str(e))
+                    continue
+                wavestat["prefill_tokens"] += step_r["chunk"]
+                if step_r["tok"] is None:
+                    _emit("prefill_chunk", rid=rid,
+                          resident=step_r["resident"], total=lengths[rid])
+                else:
+                    del prefilling[rid]
+                    _first_token(rid, step_r["tok"])
+            if not active:
+                if waiting and not prefilling:
+                    # the pool at its emptiest cannot fit the head request:
+                    # reject it and keep serving the rest
+                    rid = waiting.popleft()
+                    _reject(rid, f"page pool too small: request {rid} "
+                                 f"needs more pages than the pool holds")
+                    admit_ready()
+                    wave += 1
+                    continue
+                if prefilling or pending:
+                    # nothing to decode this wave: prefill chunks advanced
+                    # above / the clock ticks toward the next arrival
+                    wave += 1
+                    continue
+                break
+
+            rids = list(active)
+            cache = manager.batch(rids)
+            # this step's tokens and positions: one host-to-device copy
+            tok_pos = torch.tensor([[active[r]["tok"], active[r]["pos"]] for r in rids],
+                                   dtype=torch.int32).to(self.device)
+            tok, pos = tok_pos[:, :1], tok_pos[:, 1:]
+            ts = time.perf_counter()
+            logits, new_cache = self.decode_vc(
+                variant, self.params, {"tokens": tok, "positions": pos}, cache)
+            self._steps["decode"] += 1
+            last = logits[:, -1]
+            # one transfer: each row's argmax and whether it is finite
+            nxt, finite = torch.stack([
+                last.argmax(dim=-1),
+                torch.isfinite(last.to(torch.float32).amax(dim=-1)).to(torch.long),
+            ]).tolist()
+            self.decode_step_latencies.append(time.perf_counter() - ts)
+            manager.absorb(rids, new_cache)
+            t_tok = time.perf_counter()
+            for i, rid in enumerate(rids):
+                if not finite[i]:
+                    _quarantine(rid, "non-finite decode logits")
+                    continue
+                idx0 = len(outputs[rid])
+                outputs[rid].append(int(nxt[i]))
+                active[rid]["tok"] = int(nxt[i])
+                active[rid]["pos"] += 1
+                rq[rid]["tok_t"].append(t_tok)
+                wavestat["emitted"] += 1
+                _emit("token", rid=rid, token=int(nxt[i]), index=idx0)
+
+            # wave boundary: one "wave" event carries the batch shape and
+            # this wave's emission / prefill work
+            _emit("wave", batch=len(rids), dt_s=time.perf_counter() - t_wave,
+                  emitted=wavestat["emitted"],
+                  prefill_tokens=wavestat["prefill_tokens"], k=0, op=None)
+            wave += 1
+
+        self.last_pool_stats = manager.stats()
+        self.last_pool_stats["grouped_admissions"] = grouped["admissions"]
+        self.last_step_counts = dict(self._steps)
+        by_status: dict[str, int] = {}
+        for r in range(len(prompts)):
+            s = outcome[r]["status"]
+            by_status[s] = by_status.get(s, 0) + 1
+        self.last_fault_stats = {"outcomes": by_status, **fstats}
+
+        def _outcome_row(r):
+            m = rq[r]
+            row = {"rid": r, "status": outcome[r]["status"],
+                   "reason": outcome[r]["reason"],
+                   "tokens": len(outputs.get(r, [])[:n]),
+                   "ttft_s": None, "ttft_waves": None,
+                   "tok_gap_max_s": None}
+            if m["first_t"] is not None:
+                row["ttft_s"] = m["first_t"] - m["arrive_t"]
+                row["ttft_waves"] = m["first_wave"] - m["arrive_wave"]
+            tt = m["tok_t"]
+            if len(tt) > 1:
+                row["tok_gap_max_s"] = max(b - a for a, b in zip(tt, tt[1:]))
+            return row
+
+        self.last_outcomes = [_outcome_row(r) for r in range(len(prompts))]
+        result = [np.asarray(outputs.get(r, [])[:n], np.int64)
+                  for r in range(len(prompts))]
+        self._record(t0, len(prompts))
+        while evq:
+            yield evq.pop(0)
+        return result

@@ -245,3 +245,149 @@ def test_decode_schedule_oracles_equal_reference():
             assert tdec.page_block_kv(bkv, ps) == jdec.page_block_kv(bkv, ps)
             assert tdec.paged_decode_schedule(T, index, bkv, ps, table, **kw) == \
                 jdec.paged_decode_schedule(T, index, bkv, ps, table, **kw)
+
+
+# ---------------------------------------------------------------------------
+# K2d: flash decode over an int8 / fp8 pool (the quantized mode)
+# ---------------------------------------------------------------------------
+
+
+def _codes(arr):
+    """Reference codes (int8, or ml_dtypes fp8) -> a tensor of the same bytes."""
+    a = np.asarray(arr)
+    if a.dtype.kind == "i":
+        return torch.tensor(a)
+    return torch.from_numpy(a.view(np.uint8).copy()).view(getattr(torch, a.dtype.name))
+
+
+def _quant_pool(dtype, lengths, ps=8, K=2, D=64, seed=11):
+    """A linear pool built and quantized by the reference: both packages read
+    the very same codes and scales."""
+    from repro.runtime.pages import build_linear_pool, quantize_linear_pool
+
+    rng = np.random.default_rng(seed)
+    ks = [rng.standard_normal((L, K, D)).astype(np.float32) for L in lengths]
+    vs = [rng.standard_normal((L, K, D)).astype(np.float32) for L in lengths]
+    pk, pv, tables, _ = build_linear_pool(ks, vs, ps, max_len=max(lengths))
+    qpk, qpv, ksc, vsc = quantize_linear_pool(pk, pv, dtype)
+    return qpk, qpv, np.asarray(ksc), np.asarray(vsc), np.asarray(tables)
+
+
+def _rms_close(got, want, rel):
+    err = np.abs(got - want).max()
+    assert err <= rel * np.sqrt(np.mean(want ** 2)), (err, rel)
+
+
+@pytest.mark.parametrize("dtype,S,qdt,rel", [
+    ("int8", 1, torch.float32, 1e-4),
+    ("float8_e4m3fn", 1, torch.float32, 1e-4),
+    ("int8", 4, torch.float32, 1e-4),
+    ("int8", 1, torch.bfloat16, 2e-2),
+    ("float8_e4m3fn", 4, torch.bfloat16, 2e-2),
+])
+def test_quantized_paged_decode_ref_matches_pallas(dtype, S, qdt, rel):
+    lengths = (13, 27, 40)
+    qpk, qpv, ksc, vsc, tables = _quant_pool(dtype, lengths)
+    B, H, D = len(lengths), 4, qpk.shape[-1]
+    q = np.random.default_rng(1).standard_normal((B, S, H, D)).astype(np.float32)
+    if qdt == torch.bfloat16:
+        q = np.asarray(jnp.asarray(q, jnp.bfloat16).astype(jnp.float32))
+    idx = [L - S for L in lengths]
+    want = np.asarray(jops.flash_decode(
+        jnp.asarray(q, jnp.float32 if qdt == torch.float32 else jnp.bfloat16), qpk, qpv,
+        jnp.asarray(idx, jnp.int32), tables=jnp.asarray(tables), kv_len=max(lengths),
+        block_kv=8, k_scale=jnp.asarray(ksc), v_scale=jnp.asarray(vsc),
+        interpret=True).astype(jnp.float32))
+    got = tops.flash_decode(t(q, qdt), _codes(qpk), _codes(qpv),
+                            torch.tensor(idx, dtype=torch.int32), tables=t(tables),
+                            kv_len=max(lengths), block_kv=8, k_scale=t(ksc), v_scale=t(vsc))
+    assert got.dtype == qdt
+    _rms_close(to_np(got), want, rel)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "float8_e4m3fn"])
+def test_quantized_dense_decode_ref_matches_pallas_and_paged(dtype):
+    """A dense (B, T, K, D) cache of codes with (B, NP, K) scales, one row per
+    `scale_page` slots, equals the reference kernel — and, bit for bit, the
+    paged walk over the same codes and scales with every dead page poisoned."""
+    B, T, H, K, D, sp = 2, 64, 4, 2, 64, 16
+    rng = np.random.default_rng(5)
+    k = rng.standard_normal((B, T, K, D)).astype(np.float32)
+    v = rng.standard_normal((B, T, K, D)).astype(np.float32)
+    q = rng.standard_normal((B, 1, H, D)).astype(np.float32)
+    jdt = jops.resolve_cache_dtype(dtype)
+    nk, nv = jnp.asarray(k).reshape(B, T // sp, sp, K, D), jnp.asarray(v).reshape(B, T // sp, sp, K, D)
+    ksc = jops.kv_scale_from_absmax(jnp.max(jnp.abs(nk), axis=(2, 4)), jdt)
+    vsc = jops.kv_scale_from_absmax(jnp.max(jnp.abs(nv), axis=(2, 4)), jdt)
+    qk = jops.quantize_kv_write(nk, ksc[:, :, None, :], jdt).reshape(B, T, K, D)
+    qv = jops.quantize_kv_write(nv, vsc[:, :, None, :], jdt).reshape(B, T, K, D)
+    idx = [T - 1, T - 9]
+    want = np.asarray(jops.flash_decode(
+        jnp.asarray(q), qk, qv, jnp.asarray(idx, jnp.int32), block_kv=16,
+        k_scale=ksc, v_scale=vsc, scale_page=sp, interpret=True))
+    index = torch.tensor(idx, dtype=torch.int32)
+    got = tops.flash_decode(t(q), _codes(qk), _codes(qv), index, block_kv=16,
+                            k_scale=t(np.asarray(ksc)), v_scale=t(np.asarray(vsc)),
+                            scale_page=sp)
+    _rms_close(to_np(got), want, 1e-4)
+    # the same codes as a shuffled pool of sp-slot pages; dead pages poisoned
+    nb = T // sp
+    perm = np.random.default_rng(3).permutation(B * nb + 2)[:B * nb]
+    pk = torch.zeros((B * nb + 2, sp, K, D), dtype=_codes(qk).dtype)
+    pv = torch.zeros_like(pk)
+    pks = torch.full((B * nb + 2, K), float("nan"))
+    pvs = torch.full_like(pks, float("nan"))
+    pk[perm] = _codes(qk).reshape(B * nb, sp, K, D)
+    pv[perm] = _codes(qv).reshape(B * nb, sp, K, D)
+    pks[perm] = t(np.asarray(ksc)).reshape(B * nb, K)
+    pvs[perm] = t(np.asarray(vsc)).reshape(B * nb, K)
+    tables = t(perm.reshape(B, nb).astype(np.int32))
+    paged = tops.flash_decode(t(q), pk, pv, index, block_kv=16, tables=tables, kv_len=T,
+                              k_scale=pks, v_scale=pvs)
+    assert torch.equal(got, paged)
+
+
+@pytest.mark.parametrize("dtype", sorted(tops.CACHE_QMAX))
+def test_quant_primitives_match_reference(dtype):
+    """Scales within 1e-6 relative; codes equal, save int8 codes one apart
+    where the two fp32 quotients x / s differ by an ulp; dequant equal."""
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal((16, 2, 8)) * 3).astype(np.float32)
+    absmax = np.abs(x).max(axis=(0, 2))
+    jdt = jops.resolve_cache_dtype(dtype)
+    tdt = tops.resolve_cache_dtype(dtype)
+    assert str(tdt) == f"torch.{dtype}"
+    jsc = np.asarray(jops.kv_scale_from_absmax(jnp.asarray(absmax), jdt))
+    tsc = to_np(tops.kv_scale_from_absmax(t(absmax), tdt))
+    np.testing.assert_allclose(tsc, jsc, rtol=1e-6, atol=0)
+    jq = jops.quantize_kv_write(jnp.asarray(x), jnp.asarray(jsc)[None, :], jdt)
+    tq = tops.quantize_kv_write(t(x), t(jsc)[None, :], tdt)
+    jcode = np.asarray(jq.astype(jnp.float32))
+    tcode = to_np(tq)
+    if dtype == "int8":
+        diff = np.abs(jcode - tcode)
+        assert diff.max() <= 1
+        quot = x / jsc[None, :, None]
+        off = diff > 0
+        # only where the quotient sits within an ulp of a rounding boundary
+        assert np.all(np.abs(np.abs(quot[off] - np.floor(quot[off])) - 0.5)
+                      <= np.spacing(np.abs(quot[off])))
+    else:
+        np.testing.assert_array_equal(tcode, jcode)
+    np.testing.assert_array_equal(
+        to_np(tops.dequantize_kv(_codes(jq), t(jsc)[None, :])),
+        np.asarray(jops.dequantize_kv(jq, jnp.asarray(jsc)[None, :])))
+    assert tops.cache_qmax(tdt) == jops.cache_qmax(dtype)
+    zero = tops.quantize_kv_write(t(x), torch.zeros(16, 2), tdt)  # free-page sentinel
+    assert torch.isfinite(zero.float()).all()
+    assert tops.resolve_cache_dtype("float16") is None and tops.resolve_cache_dtype(None) is None
+
+
+def test_quantized_gather_dequantizes_like_reference():
+    qpk, qpv, ksc, vsc, tables = _quant_pool("int8", (5, 19, 32), D=16)
+    gk, gv = tops.paged_gather_kv(_codes(qpk), _codes(qpv), t(tables), 32,
+                                  k_scale=t(ksc), v_scale=t(vsc))
+    jk, jv = jops.paged_gather_kv(qpk, qpv, jnp.asarray(tables), 32,
+                                  k_scale=jnp.asarray(ksc), v_scale=jnp.asarray(vsc))
+    np.testing.assert_array_equal(to_np(gk), np.asarray(jk))
+    np.testing.assert_array_equal(to_np(gv), np.asarray(jv))

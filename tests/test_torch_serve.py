@@ -156,10 +156,16 @@ def test_launcher_cli_on_cpu(capsys):
                           "--decode-tokens", "3"]) == 0
     assert launcher.main(["--device", "cpu", "--batch-serve", "--requests", "3",
                           "--prompt-len", "6", "--decode-tokens", "3"]) == 0
+    assert launcher.main(["--device", "cpu", "--continuous", "--requests", "3",
+                          "--prompt-len", "6", "--decode-tokens", "3"]) == 0
+    assert launcher.main(["--device", "cpu", "--stream", "--requests", "2",
+                          "--prompt-len", "9", "--decode-tokens", "3",
+                          "--prefill-chunk", "4"]) == 0
     out = capsys.readouterr().out
     assert "served 2 on cpu" in out and "batched wave: 3 request(s)" in out
-    for flag in (["--continuous"], ["--stream"], ["--fleet", "2"]):
-        with pytest.raises(SystemExit) as exc:
-            launcher.main(["--device", "cpu", *flag])
-        assert exc.value.code == 2
+    assert "continuous wave: 3 request(s)" in out
+    assert " token " in out and out.count(": ok ") == 5
+    with pytest.raises(SystemExit) as exc:
+        launcher.main(["--device", "cpu", "--fleet", "2"])
+    assert exc.value.code == 2
     assert "not ported yet" in capsys.readouterr().err
