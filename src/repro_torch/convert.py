@@ -49,19 +49,31 @@ def load_jax_params(model: Module, tree: Mapping) -> dict[str, Any]:
     return params
 
 
+# recurrent decode state the model keeps in fp32 whatever the compute dtype
+# (RG-LRU `lru`, RWKV `x_prev` and `wkv`); the conv window `conv` follows it
+FP32_STATE = ("lru", "x_prev", "wkv")
+
+
 def cache_from_numpy(cache: Any, device="cpu", dtype=None) -> Any:
-    """A reference cache (nested dicts of numpy arrays: `k`, `v`, `index`,
-    `pos`, `kv_pos`) as the port's cache on `device`.  Float leaves take
-    `dtype` (None: keep the array's own); integer leaves become int32."""
-    if cache is None:
-        return None
-    if isinstance(cache, Mapping):
-        return {k: cache_from_numpy(v, device, dtype) for k, v in cache.items()}
-    arr = np.asarray(cache)
-    t = torch.tensor(arr, device=device)
-    if t.is_floating_point():
+    """A reference cache (nested dicts of numpy arrays: attention `k`, `v`,
+    `index`, `pos`, `kv_pos`; recurrent `conv`, `lru`, `x_prev`, `wkv`) as
+    the port's cache on `device`.  Float leaves take `dtype` (None: keep the
+    array's own), except the fp32 recurrent states; integer leaves become
+    int32."""
+
+    def convert(value, key):
+        if value is None:
+            return None
+        if isinstance(value, Mapping):
+            return {k: convert(v, k) for k, v in value.items()}
+        t = torch.tensor(np.asarray(value), device=device)
+        if not t.is_floating_point():
+            return t.to(torch.int32)
+        if key in FP32_STATE:
+            return t.to(torch.float32)
         return t.to(dtype) if dtype is not None else t
-    return t.to(torch.int32)
+
+    return convert(cache, "")
 
 
 def cache_to_numpy(cache: Any) -> Any:

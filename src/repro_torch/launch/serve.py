@@ -1,6 +1,7 @@
 """Serving launcher for the port.
 
     python -m repro_torch.launch.serve --arch yi-6b --full            # on the card
+    python -m repro_torch.launch.serve --arch rwkv6-3b --full         # on the card
     python -m repro_torch.launch.serve --arch yi-6b --device cpu      # reduced config, host
 
 Modes:
@@ -14,9 +15,11 @@ Modes:
                   per-token events with TTFT / inter-token latency columns
                   (`--prefill-chunk` spreads long admissions over waves).
 
-`--reduced` (the default) serves the small smoke configuration, `--full` the
-published one.  On the card the hand-written CUDA kernels are woven onto the
-attention and norm joinpoints.  `--fleet` belongs to the fleet slice, which is
+`--continuous` and `--stream` serve the attention families only: for the
+recurrent ones (recurrentgemma-2b, rwkv6-3b) they exit with the server's
+refusal.  `--reduced` (the default) serves the small smoke configuration,
+`--full` the published one.  On the card the hand-written CUDA kernels are
+woven onto the attention, RMSNorm, RG-LRU and WKV joinpoints.  `--fleet` belongs to the fleet slice, which is
 not ported yet.
 """
 
@@ -128,11 +131,14 @@ def main(argv=None) -> int:
     if args.stream or args.continuous or args.batch_serve:
         prompts = [rng.integers(0, vocab, args.prompt_len).astype(np.int64)
                    for _ in range(args.requests)]
-    if args.stream:
-        _stream(server, prompts, args)
-        return 0
-    if args.continuous:
-        server.serve_continuous(prompts, decode_tokens=args.decode_tokens)
+    if args.stream or args.continuous:
+        try:
+            if args.stream:
+                _stream(server, prompts, args)
+                return 0
+            server.serve_continuous(prompts, decode_tokens=args.decode_tokens)
+        except ValueError as err:  # e.g. recurrent state, which is not paged
+            ap.exit(2, f"{err}\n")
         stats = server.last_pool_stats
         print(f"continuous wave: {len(prompts)} request(s), pool "
               f"{stats['peak_live_pages']} peak live pages, "

@@ -78,8 +78,12 @@ def default_weave(
 
 
 def cuda_kernel_aspects() -> list[Aspect]:
-    """The aspects that put the hand-written CUDA kernels on the attention
-    and norm joinpoints — woven on top of `default_weave` whenever the
-    program runs on the card (the counterpart of weaving `"pallas"`)."""
+    """The aspects that put the hand-written CUDA kernels on the attention,
+    RMSNorm, RG-LRU and WKV joinpoints — woven on top of `default_weave`
+    whenever the program runs on the card (the counterpart of weaving
+    `"pallas"`).  The `"norm"` impl is read by `RMSNorm` alone: `LayerNorm`
+    and `GroupNorm` stay plain under it, as in the reference."""
     return [KernelAspect("*", "attention", "cuda"),
-            KernelAspect("*", "norm", "cuda")]
+            KernelAspect("*", "norm", "cuda"),
+            KernelAspect("*", "rglru", "cuda"),
+            KernelAspect("*", "wkv", "cuda")]

@@ -1,16 +1,21 @@
-"""Decoder LM family — the dense slice of the reference's `TransformerLM`.
+"""Decoder LM family: dense / hybrid (Griffin) / SSM (RWKV6), the reference's
+`TransformerLM` without its MoE and VLM families.
 
-  dense : [norm -> attention -> +res ; norm -> MLP -> +res] x L
-          (a layer stack in weavable groups)
+  dense  : [norm -> attention -> +res ; norm -> MLP -> +res] x L
+           (a layer stack in weavable groups)
+  hybrid : recurrentgemma 1:2 pattern (rec, rec, local-attn), unrolled
+           (heterogeneous blocks)
+  ssm    : RWKV6 time-mix + channel-mix blocks (a layer stack)
 
-The MoE, VLM, hybrid (Griffin) and SSM (RWKV6) families raise
-`NotImplementedError` until their slices are ported.
+The MoE, VLM and encoder-decoder families raise `NotImplementedError` until
+their slices are ported.
 
-Modes: "dense" (full logits), "prefill" (returns last-token logits + KV
-cache, or — handed a paged cache — writes the prompt straight into its page
-pools), "decode" (S >= 1 tokens against the cache).  Caches are plain dicts
-of tensors with a leading per-layer dim per stack; a decode step (and a paged
-prefill) updates the cache tensors it is given in place.
+Modes: "dense" (full logits), "prefill" (returns last-token logits + cache:
+KV caches, recurrent states, or — handed a paged cache — the prompt written
+straight into its page pools), "decode" (S >= 1 tokens against the cache).
+Caches are plain dicts of tensors, with a leading per-layer dim per stack;
+a decode step (and a paged prefill) updates the KV cache tensors it is given
+in place, while recurrent states come back as new tensors.
 """
 
 from __future__ import annotations
@@ -21,23 +26,23 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn.attention import Attention, cache_spec
-from repro_torch.nn.blocks import MLP, Embedding, Linear, RMSNorm
+from repro_torch.nn.blocks import MLP, Embedding, LayerNorm, Linear, RMSNorm
 from repro_torch.nn.module import Ctx, Module
+from repro_torch.nn.rglru import RecurrentBlock
+from repro_torch.nn.rwkv import ChannelMix, TimeMix, rwkv_state_spec
 from repro_torch.nn.stack import ScannedStack
 
+_PORTED_FAMILIES = ("dense", "hybrid", "ssm")
 _LATER_FAMILIES = {
     "moe": "the mixture-of-experts slice",
     "vlm": "the vision-language slice",
-    "hybrid": "the recurrentgemma (RG-LRU) slice",
-    "ssm": "the RWKV6 slice",
     "encdec": "the encoder-decoder slice",
 }
 
 
 def _make_norm(name: str, cfg: ModelConfig):
     if cfg.norm_type == "layernorm":
-        raise NotImplementedError(
-            "LayerNorm is not ported yet (it arrives with the families that use it)")
+        return LayerNorm(name, cfg.d_model)
     return RMSNorm(name, cfg.d_model, plus_one=cfg.norm_plus_one)
 
 
@@ -89,6 +94,74 @@ class DecoderBlock(Module):
             return x, new_cache
 
 
+class RecBlock(Module):
+    """Hybrid temporal-mixing block (RG-LRU) + MLP."""
+
+    kind = "block"
+
+    def __init__(self, name: str, cfg: ModelConfig):
+        super().__init__()
+        self.name = name
+        self.cfg = cfg
+        lru = cfg.lru_width or cfg.d_model
+        self.norm1 = _make_norm("norm1", cfg)
+        self.rec = RecurrentBlock("rec", cfg.d_model, lru, cfg.n_heads)
+        self.norm2 = _make_norm("norm2", cfg)
+        self.ffn = MLP("ffn", cfg.d_model, cfg.d_ff, activation=cfg.activation,
+                       gated=cfg.gated_mlp)
+
+    def spec(self):
+        return {"norm1": self.norm1, "rec": self.rec, "norm2": self.norm2,
+                "ffn": self.ffn}
+
+    def forward(self, params, x, *, ctx: Ctx, mode="dense", cache=None,
+                positions=None):
+        with ctx.scope(self.name):
+            h = self.norm1(params["norm1"], x, ctx=ctx)
+            h, new_state = self.rec(params["rec"], h, ctx=ctx, state=cache, mode=mode)
+            x = x + h
+            h = self.norm2(params["norm2"], x, ctx=ctx)
+            x = x + self.ffn(params["ffn"], h, ctx=ctx)
+            if mode == "dense":
+                new_state = None
+            return x, new_state
+
+
+class RWKVBlock(Module):
+    kind = "block"
+
+    def __init__(self, name: str, cfg: ModelConfig):
+        super().__init__()
+        self.name = name
+        self.cfg = cfg
+        self.ln1 = LayerNorm("ln1", cfg.d_model)
+        self.time_mix = TimeMix("time_mix", cfg.d_model, cfg.rwkv_head_dim)
+        self.ln2 = LayerNorm("ln2", cfg.d_model)
+        self.channel_mix = ChannelMix("channel_mix", cfg.d_model, cfg.d_ff)
+
+    def spec(self):
+        return {"ln1": self.ln1, "time_mix": self.time_mix, "ln2": self.ln2,
+                "channel_mix": self.channel_mix}
+
+    def forward(self, params, x, *, ctx: Ctx, mode="dense", cache=None,
+                positions=None):
+        with ctx.scope(self.name):
+            t_state = cache["time"] if cache is not None else None
+            c_state = cache["channel"] if cache is not None else None
+            h, t_new = self.time_mix(params["time_mix"],
+                                     self.ln1(params["ln1"], x, ctx=ctx),
+                                     ctx=ctx, state=t_state, mode=mode)
+            x = x + h
+            h, c_new = self.channel_mix(params["channel_mix"],
+                                        self.ln2(params["ln2"], x, ctx=ctx),
+                                        ctx=ctx, state=c_state, mode=mode)
+            x = x + h
+            new_cache = {"time": t_new, "channel": c_new}
+            if mode == "dense":
+                new_cache = None
+            return x, new_cache
+
+
 # ---------------------------------------------------------------------------
 # Model
 # ---------------------------------------------------------------------------
@@ -99,7 +172,7 @@ class TransformerLM(Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in _PORTED_FAMILIES:
             later = _LATER_FAMILIES.get(cfg.family, "a later slice")
             raise NotImplementedError(
                 f"model family {cfg.family!r} is not ported yet: it arrives "
@@ -115,22 +188,38 @@ class TransformerLM(Module):
             else Linear("head", cfg.d_model, cfg.vocab, axes=("embed", "vocab"),
                         out_axes=("batch", "seq_act", "vocab"))
         )
+        self.ln0 = LayerNorm("ln0", cfg.d_model) if cfg.family == "ssm" else None
 
-        mask = "sliding" if cfg.attn_window else "causal"
-        trunk = []
-        for gi, n in enumerate(cfg.groups()):
-            block = DecoderBlock("block", cfg, mask=mask, window=cfg.attn_window)
-            part = ScannedStack(f"blocks{gi}", block, n)
+        trunk: list[Module] = []
+        if cfg.family == "hybrid":
+            pat = cfg.block_pattern or ("rec", "rec", "attn")
+            for i in range(cfg.num_layers):
+                if pat[i % len(pat)] == "attn":
+                    trunk.append(DecoderBlock(f"layer{i:02d}", cfg, mask="local",
+                                              window=cfg.local_window))
+                else:
+                    trunk.append(RecBlock(f"layer{i:02d}", cfg))
+        else:
+            mask = "sliding" if cfg.attn_window else "causal"
+            for gi, n in enumerate(cfg.groups()):
+                if cfg.family == "ssm":
+                    block: Module = RWKVBlock("block", cfg)
+                else:
+                    block = DecoderBlock("block", cfg, mask=mask, window=cfg.attn_window)
+                trunk.append(ScannedStack(f"blocks{gi}", block, n))
+        for part in trunk:
             self.add_module(part.name, part)
-            trunk.append(part.name)
-        self._trunk_names = tuple(trunk)
+        self._trunk_names = tuple(part.name for part in trunk)
 
     @property
-    def trunk(self) -> list[ScannedStack]:
+    def trunk(self) -> list[Module]:
+        """Layer stacks (dense, ssm) or the unrolled blocks (hybrid)."""
         return [self._modules[n] for n in self._trunk_names]
 
     def spec(self):
         s: dict[str, Any] = {"embed": self.embed}
+        if self.ln0 is not None:
+            s["ln0"] = self.ln0
         for part in self.trunk:
             s[part.name] = part
         s["final_norm"] = self.final_norm
@@ -146,6 +235,8 @@ class TransformerLM(Module):
         tokens = inputs["tokens"]
         B = tokens.shape[0]
         x = self.embed(params["embed"], tokens, ctx=ctx)
+        if self.ln0 is not None:
+            x = self.ln0(params["ln0"], x, ctx=ctx)
         x = ctx.constrain(x, ("batch", "res_seq", "embed"))
 
         S = x.shape[1]
@@ -199,7 +290,12 @@ class TransformerLM(Module):
         if not ctx.extra.get("skip_trunk"):
             for part in self.trunk:
                 part_cache = None if cache is None else cache.get(part.name)
-                attn_kw = {"block_kwargs": shared} if shared else {}
+                attn_kw: dict[str, Any] = {}
+                if shared and isinstance(part, ScannedStack) \
+                        and isinstance(part.template, DecoderBlock):
+                    attn_kw = {"block_kwargs": shared}
+                elif shared and isinstance(part, DecoderBlock):
+                    attn_kw = shared
                 x, c = part(params[part.name], x, ctx=ctx, mode=mode,
                             cache=part_cache, positions=positions, **attn_kw)
                 new_caches[part.name] = c
@@ -238,6 +334,8 @@ class TransformerLM(Module):
 
     def _layer_cache_spec(self, batch: int, cache_len: int):
         cfg = self.cfg
+        if cfg.family == "ssm":
+            return rwkv_state_spec(batch, cfg.d_model, cfg.rwkv_head_dim)
         window = cfg.attn_window
         ring = window is not None and window < cache_len
         length = min(window, cache_len) if window else cache_len
@@ -245,13 +343,34 @@ class TransformerLM(Module):
                           ring=ring)
 
     def cache_specs(self, batch: int, cache_len: int) -> dict:
-        """{leaf: (shape, dtype)} cache tree (leading per-layer dim per group)."""
+        """{leaf: (shape, dtype)} cache tree (leading per-layer dim per stack;
+        the unrolled hybrid blocks have none)."""
+        cfg = self.cfg
         out: dict[str, Any] = {}
+        if cfg.family == "hybrid":
+            for part in self.trunk:
+                if isinstance(part, RecBlock):
+                    out[part.name] = RecurrentBlock.state_spec(
+                        batch, cfg.lru_width or cfg.d_model)
+                else:
+                    W = min(cfg.local_window, cache_len)
+                    ring = cfg.local_window < cache_len
+                    out[part.name] = cache_spec(
+                        batch, W, cfg.kv_heads, cfg.resolved_head_dim, ring=ring)
+                    if not ring:
+                        out["kv_pos"] = ((batch, W), torch.int32)
+            return out
+
+        def stack(tree, n):
+            if isinstance(tree, dict):
+                return {key: stack(value, n) for key, value in tree.items()}
+            shape, dtype = tree
+            return ((n, *shape), dtype)
+
         layer_spec = self._layer_cache_spec(batch, cache_len)
-        for part, n in zip(self.trunk, self.cfg.groups()):
-            out[part.name] = {key: ((n, *shape), dtype)
-                              for key, (shape, dtype) in layer_spec.items()}
-        if "pos" not in layer_spec:
+        for part, n in zip(self.trunk, cfg.groups()):
+            out[part.name] = stack(layer_spec, n)
+        if "k" in layer_spec and "pos" not in layer_spec:
             # linear attention caches share one hoisted (B, T) kv_pos
             out["kv_pos"] = ((batch, layer_spec["k"][0][1]), torch.int32)
         return out
@@ -259,36 +378,63 @@ class TransformerLM(Module):
     def stack_caches(self, caches: list[dict]) -> dict:
         """Stack per-request (batch=1) decode caches into one batched cache
         — the serving layout: tensor leaves concatenate on their batch axis
-        (axis 1 under a stack's layer dim), while the per-stream metadata
-        gains a per-request dim: `index` becomes (L, B) and ring `pos`
-        (L, B, W).  `Attention._decode` detects the per-request index and
-        updates/prunes each request's slots independently (the flash_decode
-        kernel loads each request's index itself)."""
-        first = caches[0]
+        (axis 1 under a stack's layer dim, else 0), while the per-stream
+        metadata gains a per-request dim: `index` becomes (..., B) and ring
+        `pos` (..., B, W).  `Attention._decode` detects the per-request index
+        and updates/prunes each request's slots independently (the
+        flash_decode kernel loads each request's index itself).
 
-        def merge(vals):
+        Under a window, prompts longer than it prefill into ring caches and
+        shorter ones into linear caches; where one batch holds both, the
+        linear caches join in the ring layout (`_linear_to_ring`).  The
+        reference cannot stack that mix (its concatenation of the two
+        layouts fails)."""
+        first = caches[0]
+        rung = False  # some linear caches joined as rings: no linear cache is left
+
+        def merge(vals, scanned: bool):
+            nonlocal rung
+            if "k" in vals[0] and any("pos" in v for v in vals):
+                W = next(v["k"].shape[-3] for v in vals if "pos" in v)
+                rung = rung or not all("pos" in v for v in vals)
+                vals = [v if "pos" in v else _linear_to_ring(v, W) for v in vals]
             out = {}
             for key in vals[0]:
                 arrs = [v[key] for v in vals]
-                if key == "index":
+                if isinstance(arrs[0], dict):
+                    out[key] = merge(arrs, scanned)
+                elif key == "index":
                     out[key] = torch.stack(arrs, dim=-1)
                 elif key == "pos":
-                    out[key] = torch.stack(arrs, dim=1)
+                    out[key] = torch.stack(arrs, dim=1 if scanned else 0)
                 else:
-                    out[key] = torch.cat(arrs, dim=1)
+                    out[key] = torch.cat(arrs, dim=1 if scanned else 0)
             return out
 
         stacked: dict[str, Any] = {}
         for part in self.trunk:
             vals = [c[part.name] for c in caches]
-            stacked[part.name] = None if vals[0] is None else merge(vals)
-        if "kv_pos" in first:
+            stacked[part.name] = None if vals[0] is None else merge(
+                vals, isinstance(part, ScannedStack))
+        if not rung and "kv_pos" in first:
             stacked["kv_pos"] = torch.cat([c["kv_pos"] for c in caches], dim=0)
         return stacked
 
     def init_cache(self, batch: int, cache_len: int, *, index: int = 0,
                    device="cpu") -> dict:
         """Concrete zero cache (tests/examples); index = #valid tokens."""
+
+        def make(spec):
+            out = {}
+            for key, value in spec.items():
+                if isinstance(value, dict):
+                    out[key] = make(value)
+                    continue
+                shape, dtype = value
+                fill = {"index": index, "pos": -1}.get(key, 0)
+                out[key] = torch.full(shape, fill, dtype=dtype, device=device)
+            return out
+
         cache: dict[str, Any] = {}
         for name, spec in self.cache_specs(batch, cache_len).items():
             if name == "kv_pos":
@@ -297,9 +443,23 @@ class TransformerLM(Module):
                 cache[name] = torch.where(
                     ar < index, ar, torch.full_like(ar, -1)).expand(shape).contiguous()
                 continue
-            part = {}
-            for key, (shape, dtype) in spec.items():
-                fill = {"index": index, "pos": -1}.get(key, 0)
-                part[key] = torch.full(shape, fill, dtype=dtype, device=device)
-            cache[name] = part
+            cache[name] = make(spec)
         return cache
+
+
+def _linear_to_ring(cache: dict, W: int) -> dict:
+    """A linear attention cache whose prompt fits the window (index <= W)
+    in the ring layout of W slots: slot s holds position s, as the ring puts
+    it (s % W == s), and the unwritten slots are marked empty (pos -1).
+    Under a stack's layer dim `index` is (L,) and the slot axis is 2."""
+    idx = cache["index"]
+    if bool((idx > W).any()):
+        raise ValueError(f"a linear cache holding {idx.tolist()} tokens does not "
+                         f"fit a ring of {W} slots")
+    slots = cache["k"].dim() - 3  # (..., B, T, K, D)
+    k = cache["k"].narrow(slots, 0, W)
+    v = cache["v"].narrow(slots, 0, W)
+    ar = torch.arange(W, dtype=torch.int32, device=idx.device)
+    limit = idx.to(torch.int32)[..., None]
+    pos = torch.where(ar < limit, ar, torch.full_like(ar, -1))
+    return {"k": k, "v": v, "pos": pos, "index": idx}

@@ -1,9 +1,9 @@
-"""Core neural blocks: linear/embedding/RMSNorm/MLP variants/RoPE.
+"""Core neural blocks: linear/embedding/norms/MLP variants/RoPE.
 
 Every block reads its dtype policy from the woven Ctx (ANTAREX precision
 aspects), passes activations through the (inert, single-card) sharding
-constraints, and can emit monitoring taps.  `LayerNorm`, `GroupNorm` and
-`sinusoidal_positions` arrive with the families that use them.
+constraints, and can emit monitoring taps.  `sinusoidal_positions` arrives
+with the family that uses it.
 """
 
 from __future__ import annotations
@@ -170,6 +170,63 @@ class RMSNorm(Module):
             var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
             y = xf * torch.rsqrt(var + self.eps) * w
             ctx.tap("rms", lambda: torch.sqrt(torch.mean(var)))
+            return cast(y, policy.compute_dtype)
+
+
+class LayerNorm(Module):
+    """Plain in every weave: the `"norm"` kind shares its joinpoints with
+    `RMSNorm`, but only `RMSNorm` consults the woven impl (the RMSNorm kernel
+    computes another function)."""
+
+    kind = "norm"
+
+    def __init__(self, name: str, dim: int, *, eps: float = 1e-5):
+        super().__init__()
+        self.name = name
+        self.dim, self.eps = dim, eps
+
+    def spec(self):
+        return {
+            "w": ParamSpec((self.dim,), ("embed",), init="ones", dtype=torch.float32),
+            "b": ParamSpec((self.dim,), ("embed",), init="zeros", dtype=torch.float32),
+        }
+
+    def forward(self, params, x, *, ctx: Ctx):
+        with ctx.scope(self.name):
+            policy = ctx.policy()
+            xf = x.to(torch.float32)
+            mean = torch.mean(xf, dim=-1, keepdim=True)
+            var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+            y = (xf - mean) * torch.rsqrt(var + self.eps) * params["w"] + params["b"]
+            return cast(y, policy.compute_dtype)
+
+
+class GroupNorm(Module):
+    """Per-head group norm (RWKV6 time-mixing output norm); plain in every
+    weave, as `LayerNorm` is."""
+
+    kind = "norm"
+
+    def __init__(self, name: str, num_groups: int, dim: int, *, eps: float = 1e-5):
+        super().__init__()
+        self.name = name
+        self.num_groups, self.dim, self.eps = num_groups, dim, eps
+
+    def spec(self):
+        return {
+            "w": ParamSpec((self.dim,), ("embed",), init="ones", dtype=torch.float32),
+            "b": ParamSpec((self.dim,), ("embed",), init="zeros", dtype=torch.float32),
+        }
+
+    def forward(self, params, x, *, ctx: Ctx):
+        with ctx.scope(self.name):
+            policy = ctx.policy()
+            shape = x.shape
+            xf = x.to(torch.float32).reshape(*shape[:-1], self.num_groups, -1)
+            mean = torch.mean(xf, dim=-1, keepdim=True)
+            var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+            y = ((xf - mean) * torch.rsqrt(var + self.eps)).reshape(shape)
+            y = y * params["w"] + params["b"]
             return cast(y, policy.compute_dtype)
 
 

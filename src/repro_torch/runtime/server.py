@@ -13,10 +13,15 @@ Two serving paths:
     prefix sharing, copy-on-write pages, chunked prefill and an optional
     int8 / fp8 pool (`cache_dtype`).
 
-Not ported yet, and refused with `NotImplementedError` naming their ROADMAP
-Queue 1 item when a caller asks for them: speculative decoding (item 6), and
-the resilience and QoS layers — fault injection, deadlines, retries, pool
-audits, preemption, the QoS governor and its SLOs (item 8).
+Both paths serve the dense family (yi-6b, gemma-2b); the recurrent families
+(recurrentgemma-2b's RG-LRU state, rwkv6-3b's WKV state) serve through
+`serve` / `serve_batch` only: their state is not paged, and `serve_stream` /
+`serve_continuous` refuse them with the reference's `ValueError` before a
+pool is allocated.  Not ported yet, and refused with `NotImplementedError`
+naming their ROADMAP Queue 1 item when a caller asks for them: speculative
+decoding (item 6), and the resilience and QoS layers — fault injection,
+deadlines, retries, pool audits, preemption, the QoS governor and its SLOs
+(item 8).
 """
 
 from __future__ import annotations

@@ -47,3 +47,18 @@ def assert_tree_close(ours, theirs, *, atol, rtol, path=""):
         np.testing.assert_array_equal(got, theirs, err_msg=path)
     else:
         np.testing.assert_allclose(got, theirs, atol=atol, rtol=rtol, err_msg=path)
+
+
+def perturbed(tree, seed):
+    """A reference param tree (as numpy) with every leaf moved by a seeded
+    draw, so that zero biases and unit norm weights take part in a
+    comparison."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(x):
+        if isinstance(x, dict):
+            return {k: leaf(v) for k, v in x.items()}
+        x = np.asarray(x, np.float32)
+        return (x + 0.1 * rng.standard_normal(x.shape)).astype(np.float32)
+
+    return leaf(np_tree(tree))

@@ -113,16 +113,44 @@ def test_kernel_bindings_refuse_cpu_tensors():
         flash_decode_fwd(x, x, x, torch.zeros(1, dtype=torch.int32))
 
 
+def test_cpu_recurrent_calls_launch_no_kernel():
+    from repro_torch.kernels.rglru.ops import rglru
+    from repro_torch.kernels.rwkv6.ops import wkv
+
+    before = (rglru.launches, wkv.launches)
+    rng = np.random.default_rng(0)
+    a = torch.tensor(rng.uniform(0, 1, (1, 5, 8)), dtype=torch.float32)
+    y, h = rglru(a, a, torch.zeros(1, 8))
+    assert y.shape == (1, 5, 8) and h.shape == (1, 8)
+    x = torch.tensor(rng.standard_normal((1, 5, 2, 64)), dtype=torch.float32)
+    y, s = wkv(x, x, x, torch.sigmoid(x), torch.zeros(2, 64), torch.zeros(1, 2, 64, 64))
+    assert y.shape == x.shape and s.shape == (1, 2, 64, 64)
+    assert (rglru.launches, wkv.launches) == before
+
+
+def test_recurrent_kernel_bindings_refuse_cpu_tensors():
+    from repro_torch.kernels.rglru.kernel import rglru_fwd
+    from repro_torch.kernels.rwkv6.kernel import wkv_fwd
+
+    a = torch.zeros((1, 4, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        rglru_fwd(a, a, torch.zeros(1, 8))
+    x = torch.zeros((1, 4, 2, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv_fwd(x, x, x, x, torch.zeros(2, 64), torch.zeros(1, 2, 64, 64))
+
+
 def test_build_is_keyed_by_source_hash_and_ignored_by_git():
     from repro_torch.kernels import build
 
     assert [p.name for p in build.sources()] == ["flash_decode.cu", "flash_prefill.cu",
-                                                 "rmsnorm.cu"]
+                                                 "rglru.cu", "rmsnorm.cu", "wkv6.cu"]
     assert len(build.source_hash()) == 16
     assert build.build_dir() == ROOT / "build" / "repro_torch"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
     assert set(build.SIGNATURES) == {"repro_torch_rmsnorm", "repro_torch_flash_prefill",
-                                     "repro_torch_flash_decode"}
+                                     "repro_torch_flash_decode", "repro_torch_rglru",
+                                     "repro_torch_wkv6"}
 
 
 @pytest.mark.gpu
@@ -159,3 +187,36 @@ def test_reduced_head_dim_launches_the_kernels_on_the_card():
     assert out.shape == (2, 4)
     assert flash_attention.launches - before[0] == cfg.num_layers
     assert flash_decode.launches - before[1] == cfg.num_layers * 4
+
+
+@pytest.mark.gpu
+def test_recurrent_kernels_match_plain_versions_on_the_card():
+    """K5 and K6 against their plain versions, ragged lengths and a nonzero
+    initial state (`python3 chip_smoke.py` holds them at the main path's
+    shapes); K5 repeats the plain version's roundings exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from repro_torch.kernels.rglru.ops import rglru
+    from repro_torch.kernels.rglru.ref import rglru_scan
+    from repro_torch.kernels.rwkv6.ops import wkv
+    from repro_torch.kernels.rwkv6.ref import wkv_scan
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    a = torch.rand((2, 37, 300), generator=gen, device="cuda")
+    b = torch.randn((2, 37, 300), generator=gen, device="cuda")
+    h0 = torch.randn((2, 300), generator=gen, device="cuda")
+    before = rglru.launches
+    for got, want in zip(rglru(a, b, h0), rglru_scan(a, b, h0)):
+        assert torch.equal(got, want)
+    assert rglru.launches == before + 1
+    r, k, v = (torch.randn((2, 45, 3, 64), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn((2, 45, 3, 64), generator=gen, device="cuda")))
+    u = torch.randn((3, 64), generator=gen, device="cuda")
+    s0 = torch.randn((2, 3, 64, 64), generator=gen, device="cuda")
+    y, s_last = wkv(r, k, v, w, u, s0)
+    y_ref, s_ref = wkv_scan(r, k, v, w, u, s0)
+    scale = y_ref.float().abs().max().item() + 1.0
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=5e-3, atol=5e-3 * scale)
+    torch.testing.assert_close(s_last, s_ref, rtol=5e-3, atol=5e-3)

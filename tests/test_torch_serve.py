@@ -50,7 +50,9 @@ def _servers(arch, head_dim=None):
         tprog = dataclasses.replace(tprog, cfg=tcfg, model=tbuild(tcfg))
     jwoven = jweave(jprog, JSHAPES["prefill_32k"], {}, overrides=dict(OVERRIDES),
                     extra_aspects=[JKernelAspect("*", "attention", "pallas"),
-                                   JKernelAspect("*", "norm", "pallas")])
+                                   JKernelAspect("*", "norm", "pallas"),
+                                   JKernelAspect("*", "rglru", "pallas"),
+                                   JKernelAspect("*", "wkv", "pallas")])
     twoven = tweave(tprog, TSHAPES["prefill_32k"], {}, overrides=dict(OVERRIDES),
                     extra_aspects=cuda_kernel_aspects())
     # `double` is set on the woven state itself: a woven ChangePrecision("*")
@@ -143,9 +145,9 @@ def test_weave_reports_agree(yi64):
     jreport = [dataclasses.astuple(m) for m in jsrv.woven.report.per_aspect
                if m.name in names]
     assert treport == jreport
-    assert [m[0] for m in treport].count("KernelSubstitution") == 2
-    assert ("*", "attention", "cuda") in tsrv.woven.state.impls
-    assert ("*", "norm", "cuda") in tsrv.woven.state.impls
+    assert [m[0] for m in treport].count("KernelSubstitution") == 4
+    for kind in ("attention", "norm", "rglru", "wkv"):
+        assert ("*", kind, "cuda") in tsrv.woven.state.impls
     assert tsrv.woven.state.extra["layout"] == jsrv.woven.state.extra["layout"]
 
 
