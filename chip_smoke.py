@@ -8,7 +8,7 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
 1. prints the card's name and power limit and the toolchain's versions;
 2. builds the hand-written kernels from `src/repro_torch/csrc/`;
 3. holds every kernel against its plain PyTorch version on the card, at the
-   shapes the serving paths give it (the WKV kernel at the reference test's
+   shapes the serving and training paths give it (the WKV kernel at the reference test's
    own scale-aware tolerance, see `wkv_cases`).  The worst error is gated relative to
    the root-mean-square of the plain version's output, bf16 within 5e-2 and
    fp32 within 1e-4 of it: the kernels and the plain versions both
@@ -38,7 +38,16 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    rwkv6-3b (WKV kernel K6) through `serve` and `serve_batch`, with exact
    launch counts, no K5 / K6 launch in decode, the logit gates against the
    plain implementations, and a decode-step profile each
-   (`recurrent_phase`).
+   (`recurrent_phase`);
+8. trains full-width, full-depth gemma-2b (random weights from seed 0,
+   global batch 4 x 1024 in two microbatches, remat `full`, six steps)
+   through the training launcher's builder — the attention through K1 with
+   its `lse` output and the fused backward K3, held to their plain versions
+   with the other kernels in step 3 — with exact launch counts per step, a
+   falling loss, one gradient against the same model woven to the plain
+   attention, step time, tokens/s, MFU, peak memory and the device's busy
+   share of a step; then a checkpoint resume at the reduced configuration
+   (`train_phase`).
 
 Any failed phase ends the run with a non-zero exit code.  The last line of
 the output is `{"ok": true, "device": {...}}`; the line before the card's
@@ -47,6 +56,7 @@ line is one JSON object describing every kernel.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -615,6 +625,116 @@ def wkv_cases(torch, gen):
     return cases
 
 
+def flash_bwd_cases(torch, gen):
+    """K1's lse mode and the two passes of K3, at the training path's shapes
+    (gemma-2b's microbatch is the main case) and at yi-6b's, a window, a
+    softcap, a ragged length and fp32.  Each case runs K1 with lse on
+    random q / k / v, holds out and lse to the plain forward, then runs K3
+    on those residuals and a random dO and holds dq, dk, dv to the plain
+    backward on the same residuals — every output within the forward cases'
+    gates.  Timed: K1 with lse; each pass alone (pass 1 also writes delta;
+    pass 2 reads it) and both together, as training launches them; the
+    plain forward and backward; and, in the causal cases without a window
+    or softcap, the one-call library backward (SDPA's, through
+    `torch.autograd.grad`).  Bounds: K1 four flops per D per live pair and
+    head; pass 1 three products of 2 D (QK^T, dO V^T, dS K), pass 2 four
+    (QK^T, dO V^T, P^T dO, dS^T Q), the pair five, each against the bytes
+    it must read and write."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import attention_ref, flash_attention_bwd_ref
+
+    lse_cases, dq_cases, dkv_cases = [], [], []
+    for name, B, S, H, K, D, dtype, kw, tol, main in [
+        ("gemma_B2_S1024_H8_K1_D256_bf16", 2, 1024, 8, 1, 256, torch.bfloat16, {},
+         BF16_TOL, True),
+        ("yi6b_B1_S2048_H32_K4_D128_bf16", 1, 2048, 32, 4, 128, torch.bfloat16, {},
+         BF16_TOL, False),
+        ("window512_S2048_bf16", 1, 2048, 32, 4, 128, torch.bfloat16, dict(window=512),
+         BF16_TOL, False),
+        ("softcap30_S1024_bf16", 1, 1024, 32, 4, 128, torch.bfloat16, dict(softcap=30.0),
+         BF16_TOL, False),
+        ("ragged_S1000_bf16", 1, 1000, 32, 4, 128, torch.bfloat16, {}, BF16_TOL, False),
+        ("S512_H8_K2_D64_fp32", 1, 512, 8, 2, 64, torch.float32, {}, FP32_TOL, False),
+    ]:
+        q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((B, S, K, D), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((B, S, K, D), generator=gen, device="cuda").to(dtype)
+        do = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
+        out, lse = fa_kernel.flash_attention_fwd(q, k, v, causal=True, return_lse=True, **kw)
+        want_out, want_lse = attention_ref(q, k, v, causal=True, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        err, rms = check_close(torch, name + " out", out, want_out, tol)
+        err_lse, rms_lse = check_close(torch, name + " lse", lse, want_lse, tol)
+        got = flash_attention_bwd(q, k, v, out, lse, do, causal=True, **kw)
+        want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True, **kw)
+        torch.cuda.synchronize()
+        errs = {g: check_close(torch, f"{name} {g}", a, b, tol)
+                for g, a, b in zip(("dq", "dk", "dv"), got, want)}
+
+        peak = "bf16" if dtype == torch.bfloat16 else "fp32"
+        pairs = live_pairs(S, S, True, kw.get("window")) * B
+        el = q.element_size()
+        qbytes, kvbytes, stat = q.numel() * el, k.numel() * el, B * H * S * 4
+        ms_fwd = time_ms(torch, [lambda: fa_kernel.flash_attention_fwd(
+            q, k, v, causal=True, return_lse=True, **kw)], 5)
+        ms_no_lse = time_ms(torch, [lambda: fa_kernel.flash_attention_fwd(
+            q, k, v, causal=True, **kw)], 5)
+        plain_fwd = time_ms(torch, [lambda: attention_ref(
+            q, k, v, causal=True, return_lse=True, **kw)], 3)
+        delta = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+        run_pass = lambda p: fa_kernel.flash_attention_bwd(
+            q, k, v, out, lse, do, causal=True, passes=p, delta=delta, **kw)
+        ms_dq = time_ms(torch, [lambda: run_pass(1)], 5)
+        ms_dkv = time_ms(torch, [lambda: run_pass(2)], 5)  # delta from pass 1
+        ms_pair = time_ms(torch, [lambda: run_pass(3)], 5)
+        plain_bwd = time_ms(torch, [lambda: flash_attention_bwd_ref(
+            q, k, v, out, lse, do, causal=True, **kw)], 3)
+        lib_fwd = lib_bwd = None
+        if not kw:  # one library call: causal, no window, no softcap
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+            lib_fwd = time_ms(torch, [lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)], 5)
+            ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            dot = do.transpose(1, 2)
+            lib_bwd = time_ms(torch, [lambda: torch.autograd.grad(
+                ot, (qt, kt, vt), dot, retain_graph=True)], 5)
+            del qt, kt, vt, ot
+        no_lib = None if not kw else "SDPA takes no sliding window or softcap in one call"
+        b_ms, b_by = bound(2 * qbytes + 2 * kvbytes + stat, 4.0 * D * pairs * H, peak)
+        lse_cases.append(dict(case=name, main=main, max_abs_err=max(err, err_lse),
+                              ref_rms=rms, max_abs_err_lse=err_lse, ref_rms_lse=rms_lse,
+                              ms=ms_fwd, ms_without_lse=ms_no_lse, plain_ms=plain_fwd,
+                              bound_ms=b_ms, bound_by=b_by, library_ms=lib_fwd,
+                              library_ms_note=no_lib))
+        pair_b, pair_by = bound(3 * qbytes + 2 * kvbytes + stat + qbytes + 2 * kvbytes,
+                                10.0 * D * pairs * H, peak)
+        both = dict(ms_both_passes=ms_pair, bound_ms_both_passes=pair_b,
+                    bound_by_both_passes=pair_by, plain_ms_note=(
+                        "the plain backward computes dq, dk and dv together"),
+                    library_ms_note=no_lib or "the library backward gives dq, dk and dv together")
+        # pass 1 reads q, k, v, o, dO, lse and writes dq and delta
+        b1, by1 = bound(3 * qbytes + 2 * kvbytes + 2 * stat + qbytes, 6.0 * D * pairs * H, peak)
+        dq_cases.append(dict(case=name, main=main, max_abs_err=errs["dq"][0],
+                             ref_rms=errs["dq"][1], ms=ms_dq, plain_ms=plain_bwd,
+                             bound_ms=b1, bound_by=by1, library_ms=lib_bwd, **both))
+        # pass 2 reads q, k, v, dO, lse, delta and writes dk and dv
+        b2, by2 = bound(2 * qbytes + 2 * kvbytes + 2 * stat + 2 * kvbytes,
+                        8.0 * D * pairs * H, peak)
+        worse = max(errs["dk"], errs["dv"], key=lambda e: e[0] / e[1])
+        dkv_cases.append(dict(case=name, main=main,
+                              max_abs_err=worse[0], ref_rms=worse[1],
+                              max_abs_err_dk=errs["dk"][0], ref_rms_dk=errs["dk"][1],
+                              max_abs_err_dv=errs["dv"][0], ref_rms_dv=errs["dv"][1],
+                              ms=ms_dkv, plain_ms=plain_bwd, bound_ms=b2, bound_by=by2,
+                              library_ms=lib_bwd, **both))
+        del q, k, v, do, out, lse, got, want, want_out, want_lse, delta
+        torch.cuda.empty_cache()
+    return lse_cases, dq_cases, dkv_cases
+
+
 def kernel_entry(name, source, replaces, cases, launches, launches_by_run):
     main = next(c for c in cases if c["main"])
     return {
@@ -1110,22 +1230,27 @@ def counted_run(torch, fn):
         raise AssertionError("a plain version ran on the card's main path")
 
     plain = [(attn_ops, "attention_ref"), (attn_ops, "decode_ref"),
+             (attn_ops, "flash_attention_bwd_ref"),
              (norm_ops, "rmsnorm_ref"), (lru_ops, "rglru_scan"), (wkv_ops, "wkv_scan")]
     saved = [getattr(mod, name) for mod, name in plain]
     counters = {"flash_attention": attn_ops.flash_attention,
+                "flash_attention_bwd": attn_ops.flash_attention_bwd,
                 "flash_decode": attn_ops.flash_decode, "rmsnorm": norm_ops.rmsnorm,
                 "rglru": lru_ops.rglru, "wkv": wkv_ops.wkv}
     for mod, name in plain:
         setattr(mod, name, forbidden)
     for fn_ in counters.values():
         fn_.launches = 0
+    attn_ops.flash_attention.lse_launches = 0
     try:
         out = fn()
         torch.cuda.synchronize()
     finally:
         for (mod, name), value in zip(plain, saved):
             setattr(mod, name, value)
-    return out, {name: fn_.launches for name, fn_ in counters.items()}
+    counts = {name: fn_.launches for name, fn_ in counters.items()}
+    counts["flash_attention_lse"] = attn_ops.flash_attention.lse_launches
+    return out, counts
 
 
 def recurrent_phase(torch) -> dict:
@@ -1235,6 +1360,7 @@ def serve_recurrent(torch, arch, published) -> dict:
     def per_call(prefill: bool) -> dict:
         """Launches of one prefill or one decode step."""
         return {"flash_attention": attn if prefill else 0,
+                "flash_attention_lse": 0, "flash_attention_bwd": 0,
                 "flash_decode": 0 if prefill else attn, "rmsnorm": norms,
                 "rglru": rec if prefill else 0,
                 "wkv": layers if prefill and not hybrid else 0}
@@ -1355,6 +1481,248 @@ def serve_recurrent(torch, arch, published) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8: train full-width gemma-2b
+# ---------------------------------------------------------------------------
+
+# One gradient of the kernel path against the same model woven to the plain
+# attention (relative): the loss, the global gradient norm, and each attention
+# weight's gradient (L2, per layer).
+TRAIN_LOSS_REL_TOL = 1e-3
+TRAIN_GNORM_REL_TOL = 2e-2
+TRAIN_WGRAD_REL_TOL = 5e-2
+# a resumed run's losses against a straight run's (relative)
+RESUME_LOSS_REL_TOL = 1e-3
+
+
+def forward_only_refusal(torch) -> None:
+    """The forward-only kernels (K4, K5, K6) raise under autograd on the
+    card instead of returning a result cut off from the graph."""
+    from repro_torch.kernels.rglru.ops import rglru
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rwkv6.ops import wkv
+
+    x = torch.randn((4, 64), device="cuda", requires_grad=True)
+    a = torch.rand((1, 4, 64), device="cuda", requires_grad=True)
+    r = torch.randn((1, 4, 2, 16), device="cuda", requires_grad=True)
+    calls = {
+        "rmsnorm": lambda: rmsnorm(x, torch.ones(64, device="cuda")),
+        "rglru": lambda: rglru(a, a.detach(), torch.zeros((1, 64), device="cuda")),
+        "wkv": lambda: wkv(r, r.detach(), r.detach(), torch.rand_like(r.detach()),
+                           torch.zeros((2, 16), device="cuda"),
+                           torch.zeros((1, 2, 16, 16), device="cuda")),
+    }
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if "forward-only" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name}: the forward-only kernel returned a "
+                                 "result under autograd")
+    log("train: rmsnorm, rglru and wkv refuse autograd on the card")
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix, tree
+
+
+def kernel_vs_eager_gradient(torch, trainer, overrides) -> dict:
+    """One microbatch (B 2 x 1024) of the next batch, on the trainer's
+    current state: the gradient through the kernels against the gradient
+    of the same model woven to the plain attention (`eager`)."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.weave import default_weave
+    from repro_torch.runtime.steps import build_grad_fn
+
+    eager = default_weave(trainer.woven.program, SHAPES["train_4k"], {},
+                          overrides=dict(overrides))
+    if any(impl == "cuda" for _, _, impl in eager.state.impls):
+        raise AssertionError("the comparison weave must run the plain attention")
+    nxt = trainer.pipeline.batch_at(trainer.pipeline.step)
+    mb = {k: torch.as_tensor(v[:2]).to("cuda") for k, v in nxt.items()}
+    (loss_k, _), g_k = build_grad_fn(trainer.woven)(trainer.params, mb)
+    (loss_e, _), g_e = build_grad_fn(eager)(trainer.params, mb)
+    loss_k, loss_e = loss_k.item(), loss_e.item()
+    norm = lambda tree: sum(g.float().pow(2).sum() for _, g in _paths(tree)).sqrt().item()
+    gn_k, gn_e = norm(g_k), norm(g_e)
+    worst = {}
+    e_paths = dict(_paths(g_e))
+    for path, gk in _paths(g_k):
+        if "/attn/" not in path:
+            continue
+        ge = e_paths[path].float()
+        gk = gk.float()
+        per_layer = ((gk - ge).flatten(1).norm(dim=1) / ge.flatten(1).norm(dim=1))
+        worst[path] = per_layer.max().item()
+    out = {"loss_kernels": loss_k, "loss_eager": loss_e,
+           "loss_rel_err": abs(loss_k - loss_e) / abs(loss_e),
+           "grad_norm_kernels": gn_k, "grad_norm_eager": gn_e,
+           "grad_norm_rel_err": abs(gn_k - gn_e) / gn_e,
+           "attn_grad_rel_l2_worst_layer": worst}
+    log("train-vs-eager " + json.dumps(out))
+    if not (out["loss_rel_err"] <= TRAIN_LOSS_REL_TOL
+            and out["grad_norm_rel_err"] <= TRAIN_GNORM_REL_TOL
+            and all(v <= TRAIN_WGRAD_REL_TOL for v in worst.values())):
+        raise AssertionError(f"kernel-path gradient differs from the plain path: {out}")
+    if len(worst) != 4:
+        raise AssertionError(f"expected the four attention weights, got {sorted(worst)}")
+    return out
+
+
+def resume_phase(torch) -> dict:
+    """Checkpoint resume on the card at the reduced gemma-2b (attention
+    through K1 and K3 at head_dim 16): save after 4 steps, restore into a
+    fresh `Trainer`, run 2 more; the losses equal a straight 6-step run's.
+    Full width would write the whole training state, ~35 GB, to disk."""
+    import tempfile
+    from functools import partial
+
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.optim.schedule import constant
+    from repro_torch.runtime.trainer import TrainerConfig
+
+    def make(ckpt, steps):
+        return build_trainer(
+            "gemma-2b", reduced=True, device="cuda", batch=8, seq=64,
+            overrides={"accum_steps": 2}, lr_fn=partial(constant, peak=3e-4),
+            tcfg=TrainerConfig(steps=steps, log_every=0, ckpt_dir=ckpt, ckpt_every=0))
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        first = make(ckpt, 4)
+        first.run()
+        first.save(blocking=True)
+        resumed = make(ckpt, 2)
+        if not (resumed.maybe_restore() and resumed.step == 4
+                and resumed.pipeline.step == 4):
+            raise AssertionError("the resumed trainer did not pick up step 4")
+        tail = [h["loss"] for h in resumed.run(2)]
+    straight = [h["loss"] for h in make(None, 6).run()][4:]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(tail, straight))
+    out = {"resumed_losses": tail, "straight_losses": straight, "max_rel_err": rel}
+    log("train-resume " + json.dumps(out))
+    if not rel <= RESUME_LOSS_REL_TOL:
+        raise AssertionError(f"resumed losses {tail} differ from the straight run's "
+                             f"{straight}")
+    return out
+
+
+def train_phase(torch) -> dict:
+    """Full-width, full-depth gemma-2b (18 layers, d_model 2048, MQA 8 q / 1
+    KV head of 256, vocab 256000; random weights from seed 0) trained
+    through the launcher's own builder: policy `half`, remat `full`, global
+    batch 4 x 1024 in 2 microbatches, the `lcg` pipeline, a constant 3e-4,
+    6 steps.  Each step is a counted run: K1 (with lse) runs once per layer
+    and microbatch in the forward and once more in the remat recompute, K3
+    once per layer and microbatch, and nothing else — no K2 / K4 / K5 / K6
+    launch and no plain version.  Gates: finite losses, the last below the
+    first; the kernel path's gradient against the plain attention's; the
+    reduced checkpoint resume.  Printed: step time (synchronised), tokens/s,
+    MFU against 989 TFLOP/s, peak memory, and the device's busy share of one
+    more step under `torch.profiler`."""
+    from functools import partial
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.optim.schedule import constant
+    from repro_torch.runtime.trainer import TrainerConfig
+
+    forward_only_refusal(torch)
+    torch.cuda.reset_peak_memory_stats()
+    steps, batch, seq, accum = 6, 4, 1024, 2
+    overrides = {"accum_steps": accum, "remat": "full", "precision": "half"}
+    t0 = time.perf_counter()
+    trainer = build_trainer("gemma-2b", reduced=False, device="cuda", batch=batch,
+                            seq=seq, mode="lcg", overrides=overrides,
+                            tcfg=TrainerConfig(steps=steps, log_every=0, seed=0),
+                            lr_fn=partial(constant, peak=3e-4))
+    trainer.init_state()
+    torch.cuda.synchronize()
+    woven, mcfg = trainer.woven, trainer.woven.program.cfg
+    n_params = sum(p.numel() for p in woven.program.model.parameters())
+    kernels_woven = [i for i in woven.state.impls if i[2] == "cuda"]
+    log(f"train: gemma-2b full width: {mcfg.num_layers} layers, d_model {mcfg.d_model}, "
+        f"{n_params / 1e9:.3f} B parameters and AdamW state on the card in "
+        f"{time.perf_counter() - t0:.1f} s; kernels woven {kernels_woven}, remat "
+        f"{woven.state.extra.get('remat')}, accum {woven.state.extra.get('accum_steps')}")
+    if (mcfg.num_layers, mcfg.d_model, mcfg.vocab, mcfg.n_heads, mcfg.kv_heads,
+            mcfg.resolved_head_dim, mcfg.d_ff) != (18, 2048, 256000, 8, 1, 256, 16384):
+        raise AssertionError("not the published gemma-2b configuration")
+    if kernels_woven != [("*", "attention", "cuda")]:
+        raise AssertionError(f"training must weave the attention kernels alone: {kernels_woven}")
+
+    layers = mcfg.num_layers
+    want = {"flash_attention": 2 * accum * layers, "flash_attention_lse": 2 * accum * layers,
+            "flash_attention_bwd": accum * layers, "flash_decode": 0, "rmsnorm": 0,
+            "rglru": 0, "wkv": 0}
+    step_s, totals = [], {k: 0 for k in want}
+    for i in range(steps):
+        t = time.perf_counter()
+        _, counts = counted_run(torch, lambda: trainer.run(1))
+        step_s.append(time.perf_counter() - t)
+        h = trainer.history[-1]
+        log(f"train: step {h['step']}: loss {h['loss']:.6f}, accuracy {h['accuracy']:.4f}, "
+            f"grad norm {h['grad_norm']:.4f}, {step_s[-1] * 1e3:.1f} ms, launches {counts}")
+        if counts != want:
+            raise AssertionError(f"step {i + 1}: launch counters {counts} != expected {want}")
+        for k in totals:
+            totals[k] += counts[k]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in trainer.history]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+
+    steady = step_s[1:]  # the first step pays one-time set-up (cuBLAS, allocator)
+    step_mean = sum(steady) / len(steady)
+    step_median = float(np.median(steady))
+    tokens = batch * seq
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.run(1)
+        torch.cuda.synchronize()
+    rows = sorted(((_device_us(e), e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    profile_out = {
+        "device_busy_ms_per_step": busy_ms if busy_ms > 0 else None,
+        # against the median unprofiled step: the profiler slows the host
+        "device_idle_share": 1.0 - busy_ms / (step_median * 1e3) if busy_ms > 0 else None,
+        "device_launches_per_step": sum(r[1] for r in rows),
+        "top_kernels_ms_per_step": [{"kernel": key[:80], "ms": us / 1e3, "calls": count}
+                                    for us, count, key in rows[:10]],
+    }
+    log("profile-train " + json.dumps(profile_out))
+
+    compare = kernel_vs_eager_gradient(torch, trainer, overrides)
+    summary = {
+        "model": "gemma-2b", "layers": layers, "params_b": n_params / 1e9,
+        "global_batch": batch, "seq": seq, "accum_steps": accum, "steps": steps,
+        "losses": losses, "step_s": step_s, "step_s_mean_steps_2_to_6": step_mean,
+        "step_s_median_steps_2_to_6": step_median,
+        "tokens_per_s": tokens / step_mean,
+        "mfu": trainer.info["flops_per_step"] / step_mean / PEAK_FLOPS["bf16"],
+        "tokens_per_s_median_step": tokens / step_median,
+        "mfu_median_step": trainer.info["flops_per_step"] / step_median / PEAK_FLOPS["bf16"],
+        "model_flops_per_step": trainer.info["flops_per_step"],
+        "peak_memory_gb_6_steps": peak_gb,
+        "launches_per_step": want, "launches_6_steps": totals,
+        "profile": profile_out, "vs_eager": compare,
+    }
+    log("train " + json.dumps(summary))
+    del trainer
+    torch.cuda.empty_cache()
+    summary["resume"] = resume_phase(torch)
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -1388,7 +1756,8 @@ def main() -> int:
     quant = quantized_decode_cases(torch, gen)
     lru = rglru_cases(torch, gen)
     wkv6 = wkv_cases(torch, gen)
-    for c in norm + pre + dec + quant + lru + wkv6:
+    lse_c, dq_c, dkv_c = flash_bwd_cases(torch, gen)
+    for c in norm + pre + dec + quant + lru + wkv6 + lse_c + dq_c + dkv_c:
         log("kernel-case " + json.dumps({k: v for k, v in c.items() if k != "main"}))
     log("shared-prefill-identity " + json.dumps(shared_prefill_identity(torch, gen)))
 
@@ -1399,6 +1768,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     rec = recurrent_phase(torch)
+    gc.collect()  # the serving phases' models may sit in reference cycles
+    torch.cuda.empty_cache()
+    train = train_phase(torch)
 
     # `launches`: the continuous main path, bf16 pool (run a); the quantized
     # mode over the int8 pool (run c).  Every counted run is listed beside.
@@ -1408,7 +1780,8 @@ def main() -> int:
         return {"serve_and_serve_batch": serve_counts.get(key, 0),
                 "continuous_a_bf16": a.get(key, 0), "continuous_c_int8": c.get(key, 0),
                 "recurrentgemma_serve": rec["recurrentgemma-2b"].get(key, 0),
-                "rwkv6_serve": rec["rwkv6-3b"].get(key, 0)}
+                "rwkv6_serve": rec["rwkv6-3b"].get(key, 0),
+                "train_gemma_6_steps": train["launches_6_steps"].get(key, 0)}
 
     kernels = [
         kernel_entry("flash_attention", "src/repro_torch/csrc/flash_prefill.cu",
@@ -1433,6 +1806,20 @@ def main() -> int:
         kernel_entry("wkv6", "src/repro_torch/csrc/wkv6.cu",
                      "src/repro/kernels/rwkv6/kernel.py:108", wkv6,
                      rec["rwkv6-3b"]["wkv"], by_run("wkv")),
+    ]
+    # K1's lse mode and K3 launch on the training path only: their
+    # `launches` are the six counted training steps
+    t = train["launches_6_steps"]
+    kernels += [
+        kernel_entry("flash_attention_lse", "src/repro_torch/csrc/flash_prefill.cu",
+                     "src/repro/kernels/flash_attention/kernel.py:490", lse_c,
+                     t["flash_attention_lse"], by_run("flash_attention_lse")),
+        kernel_entry("flash_attention_bwd_dq", "src/repro_torch/csrc/flash_bwd.cu",
+                     "src/repro/kernels/flash_attention/kernel.py:763", dq_c,
+                     t["flash_attention_bwd"], by_run("flash_attention_bwd")),
+        kernel_entry("flash_attention_bwd_dkv", "src/repro_torch/csrc/flash_bwd.cu",
+                     "src/repro/kernels/flash_attention/kernel.py:809", dkv_c,
+                     t["flash_attention_bwd"], by_run("flash_attention_bwd")),
     ]
     kernels[2]["library_ms_note"] = ("no single PyTorch call attends over an int8 "
                                      "paged pool")

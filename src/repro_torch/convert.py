@@ -26,12 +26,10 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict[str, Any]:
     return flat
 
 
-def load_jax_params(model: Module, tree: Mapping) -> dict[str, Any]:
-    """Fill the model's (already materialized) parameters from the
-    reference's param tree, path by path, in place.  Every path of either
-    side must be consumed exactly once and every shape must agree; dtypes
-    follow the port's parameters.  Returns the port's param tree."""
-    params = param_tree(model)
+def _matched(params: Mapping, tree: Mapping) -> list:
+    """The reference tree's arrays in the port tree's leaf order, after
+    checking that every path of either side is consumed exactly once and
+    that every shape agrees."""
     ours = _flatten(params)
     theirs = _flatten(tree)
     missing = sorted(set(ours) - set(theirs))
@@ -39,14 +37,60 @@ def load_jax_params(model: Module, tree: Mapping) -> dict[str, Any]:
     if missing or unused:
         raise KeyError(f"param trees differ: missing from the source {missing}, "
                        f"not consumed {unused}")
+    out = []
     for path, param in ours.items():
         value = np.asarray(theirs[path])
         if tuple(value.shape) != tuple(param.shape):
             raise ValueError(f"{path}: shape {tuple(value.shape)} does not fit "
                              f"{tuple(param.shape)}")
+        out.append(value)
+    return out
+
+
+def load_jax_params(model: Module, tree: Mapping) -> dict[str, Any]:
+    """Fill the model's (already materialized) parameters from the
+    reference's param tree, path by path, in place.  Every path of either
+    side must be consumed exactly once and every shape must agree; dtypes
+    follow the port's parameters.  Returns the port's param tree."""
+    params = param_tree(model)
+    for param, value in zip(_flatten(params).values(), _matched(params, tree)):
         with torch.no_grad():
             param.copy_(torch.tensor(value))
     return params
+
+
+def load_jax_opt_state(model: Module, opt_tree: Mapping, *,
+                       state_dtype: str = "float32") -> dict[str, Any]:
+    """The reference's AdamW state (`master`, `m`, `v`, `count` and, under
+    compression, `ef`) as the port's (`optim/adamw.init_state`'s layout), on
+    the model's device: `master` fp32, `m` / `v` in `state_dtype`, `ef` fp32
+    (the reference's residuals are fp32 after the first step whatever the
+    state dtype), `count` a 0-dim int32 tensor.  Each tree must match the
+    model's param tree path for path (as `load_jax_params` checks)."""
+    params = param_tree(model)
+    device = next(iter(_flatten(params).values())).device
+    sdt = torch.bfloat16 if state_dtype == "bfloat16" else torch.float32
+
+    def tree_like(src, dtype):
+        values = iter(_matched(params, src))  # in `_flatten`'s order
+
+        def walk(tree):
+            if isinstance(tree, Mapping):
+                return {k: walk(v) for k, v in tree.items()}
+            return torch.tensor(next(values), dtype=dtype, device=device)
+
+        return walk(params)
+
+    state = {
+        "master": tree_like(opt_tree["master"], torch.float32),
+        "m": tree_like(opt_tree["m"], sdt),
+        "v": tree_like(opt_tree["v"], sdt),
+        "count": torch.tensor(int(np.asarray(opt_tree["count"])),
+                              dtype=torch.int32, device=device),
+    }
+    if "ef" in opt_tree:
+        state["ef"] = tree_like(opt_tree["ef"], torch.float32)
+    return state
 
 
 # recurrent decode state the model keeps in fp32 whatever the compute dtype

@@ -124,6 +124,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* base, int64_t str
 // Where the rows of this block live and what each may see.
 //   q_row(r) / o_row(r): global pointers of row r (r < nrows)
 //   lo(r), hi(r):        live logical slots of row r are lo <= kp < hi
+//   store_lse(r, m, l):  keeps row r's softmax statistics, or does nothing
 // Where the KV blocks live (elements of type TK).
 //   k_block(jb) / v_block(jb): pointer to slot jb * bkv of this (batch, head)
 //   k_scale(jb) / v_scale(jb): the block's dequant scale (codes only)
@@ -290,11 +291,15 @@ __device__ void attend_rows(const Rows& rows, const Blocks& blocks, int nrows, i
   }
 
   // -- finalize: out = acc / max(l, 1e-30) (a fully masked row yields 0) --------
+  // Rows that keep their softmax statistics (the training forward) store
+  // lse = m + log(max(l, 1e-30)); a fully masked row keeps m = -1e30, so the
+  // backward's exp(s - lse) of its masked scores stays finite and is masked.
 #pragma unroll
   for (int i = 0; i < MR; ++i) {
     const int r = ty * MR + i;
     if (r < nrows) {
       const float denom = fmaxf(l_s[r], 1e-30f);
+      if (tx == 0) rows.store_lse(r, m_s[r], denom);
       T* out = rows.o_row(r);
 #pragma unroll
       for (int c = 0; c < DC; ++c) {

@@ -84,6 +84,7 @@ struct DecodeRows {
   __device__ __forceinline__ int hi(int r) const {
     return max(1, min(T_len, index + (row0 + r) / G + 1));
   }
+  __device__ __forceinline__ void store_lse(int, float, float) const {}  // serving only
 };
 
 template <typename TK>

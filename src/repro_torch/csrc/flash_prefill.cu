@@ -20,8 +20,13 @@
 // or zero-padded copy of any operand is ever made; ragged edges are masked
 // in the kernel.  Products are fp32 FMAs for every input type (see
 // attend_core.cuh); moving the bf16 products to the tensor cores is what a
-// later change has to do to approach the bound.  `lse` is not written: it
-// belongs to the backward, which is not ported yet.
+// later change has to do to approach the bound.
+//
+// Training forward: given an `lse` pointer, the kernel also writes each
+// row's softmax statistics lse = m + log(l) as (B, H, S) fp32 — the residual
+// the fused backward (flash_bwd.cu) recomputes probabilities from, as the
+// TPU kernel's `return_lse` does.  Without it (every serving launch) the
+// kernel does exactly what it did before.
 #include "attend_core.cuh"
 
 namespace repro_torch {
@@ -31,6 +36,7 @@ constexpr int kPrefillMR = 4;
 
 struct PrefillArgs {
   const void* q; const void* k; const void* v; void* o;
+  float* lse;  // (B, H, S) fp32, or nullptr
   int S, T, H, G, D;
   int64_t q_sb, q_ss, q_sh;
   int64_t k_sb, k_st, k_sh;
@@ -45,6 +51,7 @@ struct PrefillArgs {
 template <typename T>
 struct PrefillRows {
   const T* q; T* o;
+  float* lse;  // this (batch, head)'s row of lse, or nullptr
   int64_t q_ss, o_ss;
   int q_start, T_len, causal, window;
   __device__ __forceinline__ const T* q_row(int r) const { return q + (int64_t)(q_start + r) * q_ss; }
@@ -54,6 +61,9 @@ struct PrefillRows {
   }
   __device__ __forceinline__ int hi(int r) const {
     return causal ? min(T_len, q_start + r + 1) : T_len;
+  }
+  __device__ __forceinline__ void store_lse(int r, float m, float l) const {
+    if (lse != nullptr) lse[q_start + r] = m + logf(l);
   }
 };
 
@@ -86,6 +96,7 @@ flash_prefill_kernel(PrefillArgs a) {
   PrefillRows<T> rows{
       static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh,
       static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh,
+      a.lse != nullptr ? a.lse + ((int64_t)b * a.H + h) * a.S : nullptr,
       a.q_ss, a.o_ss, q_start, a.T, a.causal, a.window};
   DenseBlocks<TK> blocks{
       static_cast<const TK*>(a.k) + b * a.k_sb + kh * a.k_sh,
@@ -113,10 +124,12 @@ static cudaError_t launch_prefill(const PrefillArgs& a, int B, cudaStream_t stre
 }  // namespace repro_torch
 
 // dtype (q and o) / kv_dtype (k and v): 0 = bfloat16, 1 = float32; the pairs
-// (0, 0), (1, 1) and (0, 1).  Strides are in elements.  Returns the CUDA
-// error code of the launch (0 = success).
+// (0, 0), (1, 1) and (0, 1).  Strides are in elements.  `lse` is a
+// contiguous (B, H, S) fp32 output, or null.  Returns the CUDA error code of
+// the launch (0 = success).
 extern "C" int repro_torch_flash_prefill(
-    const void* q, const void* k, const void* v, void* o, int dtype, int kv_dtype,
+    const void* q, const void* k, const void* v, void* o, float* lse, int dtype,
+    int kv_dtype,
     int B, int S, int T, int H, int K, int D,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_st, long long k_sh,
@@ -128,7 +141,7 @@ extern "C" int repro_torch_flash_prefill(
   if (D > 256 || D % 8 != 0 || H % K != 0 || block_q < 1 || block_q > kPrefillRT ||
       block_kv < 1 || block_kv > kBKV)
     return (int)cudaErrorInvalidValue;
-  PrefillArgs a{q, k, v, o, S, T, H, H / K, D,
+  PrefillArgs a{q, k, v, o, lse, S, T, H, H / K, D,
                 q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_ss, o_sh,
                 causal, window, softcap, scale, block_q, block_kv, pruned};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

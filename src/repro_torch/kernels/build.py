@@ -32,8 +32,11 @@ _PTR, _INT, _FLOAT, _I64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 SIGNATURES = {
     "repro_torch_rmsnorm": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _FLOAT, _PTR],
     "repro_torch_flash_prefill": (
-        [_PTR] * 4 + [_INT] * 8 + [_I64] * 12
+        [_PTR] * 5 + [_INT] * 8 + [_I64] * 12
         + [_INT, _INT, _FLOAT, _FLOAT, _INT, _INT, _INT, _PTR]),
+    "repro_torch_flash_bwd": (
+        [_PTR] * 10 + [_INT] * 7 + [_I64] * 21
+        + [_INT, _INT, _FLOAT, _FLOAT, _INT, _INT, _INT, _INT, _PTR]),
     "repro_torch_flash_decode": (
         [_PTR] * 8 + [_INT] * 10 + [_I64] * 15
         + [_INT, _INT, _FLOAT, _FLOAT, _INT, _INT, _PTR]),
@@ -173,3 +176,19 @@ def check_operand(name: str, t, vec: int) -> None:
     if any(s % vec for s in t.stride()[:-1]) or t.data_ptr() % align:
         raise ValueError(f"{name}: strides {t.stride()} / base address are not "
                          f"{align}-byte aligned")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """The forward-only kernels (RMSNorm, RG-LRU, WKV) have no backward, as
+    in the reference, whose Pallas calls have no VJP: asked for a result
+    that autograd would have to differentiate, a wrapper raises instead of
+    returning one cut off from the graph (whose gradients would be missing
+    without a word).  Training takes the plain PyTorch path for these ops."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the kernel is forward-only (the reference has no "
+            "backward for it either); run it under torch.no_grad(), or weave "
+            "the plain implementation where gradients are needed")

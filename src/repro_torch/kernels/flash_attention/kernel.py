@@ -1,12 +1,14 @@
-"""Binding of the CUDA flash-attention forward (`csrc/flash_prefill.cu`) and
-the numpy-free schedule oracles of the prefill walk.
+"""Bindings of the CUDA flash-attention forward (`csrc/flash_prefill.cu`) and
+fused backward (`csrc/flash_bwd.cu`), and the numpy-free schedule oracles of
+both walks.
 
-The kernel replaces the reference's `flash_attention_fwd`.  It reads q / k /
-v in the model layout through strides and masks ragged edges itself, so the
-wrapper makes no transposed or padded copies.  `kv_schedule` and friends say
-which KV blocks a configuration streams; they are framework-free copies of
-the reference's oracles (same results on every input) and feed both the
-tests and the bound computed for a measurement.
+The kernels replace the reference's `flash_attention_fwd` and
+`flash_attention_bwd`.  They read every operand in the model layout through
+strides and mask ragged edges themselves, so the wrappers make no transposed
+or padded copies.  `kv_schedule` (the forward / dq walk) and `q_schedule`
+(the transposed dk / dv walk) say which blocks a configuration streams; they
+are framework-free copies of the reference's oracles (same results on every
+input) and feed both the tests and the bound computed for a measurement.
 """
 
 from __future__ import annotations
@@ -24,6 +26,10 @@ NEG_INF = -1e30
 MAX_BLOCK_Q = 64
 MAX_BLOCK_KV = 64
 MAX_HEAD_DIM = 256
+# ... and of the backward's (csrc/flash_bwd.cu: 64 q rows, 32 KV rows, in
+# both passes — 202 / 210 KB of shared memory at head_dim 256)
+MAX_BLOCK_Q_BWD = 64
+MAX_BLOCK_KV_BWD = 32
 
 
 def cdiv(a: int, b: int) -> int:
@@ -122,7 +128,62 @@ def kv_schedule(
 
 
 # ---------------------------------------------------------------------------
-# Entry point (model layout)
+# Reachable Q-block interval per KV block (the transposed schedule of the
+# dk / dv backward pass)
+# ---------------------------------------------------------------------------
+
+
+def _q_lo(ik: int, block_q: int, block_kv: int, nq: int) -> int:
+    """First reachable Q block for kv block `ik` (the block containing k0 —
+    causal reach starts at qp >= k0)."""
+    return min((ik * block_kv) // block_q, nq - 1)
+
+
+def _q_hi(ik: int, block_q: int, block_kv: int, nq: int, kv_len: int,
+          window: int | None) -> int:
+    """One past the last reachable Q block (highest qp = k1 + window - 1 for
+    windowed attention, else every later q block)."""
+    if window is None:
+        return nq
+    k1 = min((ik + 1) * block_kv, kv_len) - 1
+    return max(1, min(nq, (k1 + window - 1) // block_q + 1))
+
+
+def q_steps_for(
+    S: int, T: int, block_q: int, block_kv: int,
+    causal: bool, window: int | None,
+) -> int:
+    """Max reachable Q blocks over all kv blocks."""
+    nq, nk = cdiv(S, block_q), cdiv(T, block_kv)
+    if not causal:
+        return nq
+    return _interval_steps(
+        nk,
+        lambda ik: _q_lo(ik, block_q, block_kv, nq),
+        lambda ik: _q_hi(ik, block_q, block_kv, nq, T, window),
+    )
+
+
+def q_schedule(
+    S: int, T: int, block_q: int, block_kv: int, *,
+    causal: bool = True, window: int | None = None, pruned: bool = True,
+) -> list[list[int]]:
+    """Per-KV-block list of Q block indices the dk / dv pass *streams* — the
+    exact transpose of `kv_schedule`: the pruned walk covers
+    [q_lo(ik), q_hi(ik)), the dense walk every q block."""
+    nq, nk = cdiv(S, block_q), cdiv(T, block_kv)
+    if not (causal and pruned):
+        return [list(range(nq)) for _ in range(nk)]
+    return _interval_schedule(
+        nk,
+        q_steps_for(S, T, block_q, block_kv, causal, window),
+        lambda ik: _q_lo(ik, block_q, block_kv, nq),
+        lambda ik: _q_hi(ik, block_q, block_kv, nq, T, window),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Entry points (model layout)
 # ---------------------------------------------------------------------------
 
 
@@ -165,7 +226,11 @@ def flash_attention_fwd(
     block_q: int = MAX_BLOCK_Q,
     block_kv: int = MAX_BLOCK_KV,
     pruned: bool = True,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
+    """Returns the output (B, S, H, D) in q's type; with `return_lse` also the
+    per-row softmax statistics `lse = m + log(l)` as (B, H, S) fp32 — the
+    residual the fused backward recomputes probabilities from."""
     # fp32 K/V under a bf16 q: the dequantized values of a quantized pool
     kv_types = (torch.float32,) if q.dtype == torch.bfloat16 else ()
     code, kv_code = check_qkv(q, k, v, kv_types)
@@ -180,8 +245,11 @@ def flash_attention_fwd(
     if T < 1:
         raise ValueError("attention over an empty key sequence")
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     err = build.library().repro_torch_flash_prefill(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), code, kv_code,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if return_lse else None, code, kv_code,
         B, S, T, H, K, D,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
@@ -192,4 +260,85 @@ def flash_attention_fwd(
         1.0 / math.sqrt(D), block_q, block_kv, int(bool(pruned)),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch(err, "flash_attention")
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,    # (B, S, H, D) — model layout, read in place
+    k: torch.Tensor,    # (B, T, K, D)
+    v: torch.Tensor,
+    out: torch.Tensor,  # (B, S, H, D) the forward's output
+    lse: torch.Tensor,  # (B, H, S) fp32 the forward's softmax statistics
+    do: torch.Tensor,   # (B, S, H, D) the output's cotangent
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    block_q: int = MAX_BLOCK_Q_BWD,
+    block_kv: int = MAX_BLOCK_KV_BWD,
+    pruned: bool = True,
+    passes: int = 3,
+    delta: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused backward: (dq, dk, dv) in the model layout, dq in q's type,
+    dk / dv (B, T, K, D) in k's type — group-summed over the G q heads of
+    each KV head inside the kernel, never an (..., H, ...) transient.  The
+    kernel keeps the dk / dv sums in fp32 on chip and writes each element
+    once, rounded once to k's type: the values the reference's fp32
+    (B, K, T, D) output and its cast give, without the fp32 round trip
+    through device memory.  `delta = rowsum(dO * O)` is fused into the dq
+    pass.  K / V must share q's type (the quantized pool's fp32 K / V under
+    a bf16 q is a serving case; nothing differentiates through it).
+
+    `passes` 3 (the default, the training path) launches both passes; 1
+    (dq, writing `delta`) or 2 (dk / dv, reading the `delta` an earlier
+    pass 1 wrote) launches one alone, so that each can be timed — the
+    outputs of the pass not launched are left unwritten."""
+    code, _ = check_qkv(q, k, v)
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    if k.shape[0] != B:
+        raise ValueError("q and k/v batch sizes differ")
+    for name, t in (("out", out), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q: {t.dtype} {tuple(t.shape)} vs "
+                             f"{q.dtype} {tuple(q.shape)}")
+        build.check_operand(name, t, 16 // t.element_size())
+    if (lse.shape != (B, H, S) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"lse must be contiguous float32 of shape {(B, H, S)}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if B == 0 or S == 0 or T == 0:
+        raise ValueError("empty q or k: there is nothing to launch")
+    block_q = max(1, min(int(block_q), MAX_BLOCK_Q_BWD))
+    block_kv = max(1, min(int(block_kv), MAX_BLOCK_KV_BWD))
+    if passes not in (1, 2, 3):
+        raise ValueError(f"passes must be 1, 2 or 3, not {passes}")
+    if delta is None:
+        if passes == 2:
+            raise ValueError("the dk / dv pass alone reads the delta of an "
+                             "earlier dq pass: pass `delta`")
+        delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    elif (delta.shape != (B, H, S) or delta.dtype != torch.float32
+          or delta.device != q.device or not delta.is_contiguous()):
+        raise ValueError(f"delta must be contiguous float32 of shape {(B, H, S)}")
+    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, T, K, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, T, K, D), dtype=k.dtype, device=q.device)
+    err = build.library().repro_torch_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), code, B, S, T, H, K, D,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        out.stride(0), out.stride(1), out.stride(2),
+        do.stride(0), do.stride(1), do.stride(2),
+        dq.stride(0), dq.stride(1), dq.stride(2),
+        dk.stride(0), dk.stride(1), dk.stride(2),
+        int(bool(causal)), int(window) if window is not None else 0,
+        float(softcap) if softcap is not None else 0.0,
+        1.0 / math.sqrt(D), block_q, block_kv, int(bool(pruned)), int(passes),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check_launch(err, "flash_attention_bwd")
+    return dq, dk, dv

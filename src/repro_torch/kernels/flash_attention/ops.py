@@ -1,13 +1,22 @@
 """Public wrappers for the flash-attention kernels.
 
-Both take model-layout tensors, (B, S, H, D) / (B, T, K, D), and hand them
+They take model-layout tensors, (B, S, H, D) / (B, T, K, D), and hand them
 to the kernels as they are (the kernels address them through strides).  A
 tensor on the CPU takes the plain version; a CUDA tensor launches the kernel
 or raises — there is no fallback from one to the other.  Each wrapper counts
 its kernel launches in a plain integer `launches` attribute.
 
+`flash_attention` is differentiable: when autograd needs the gradient of q,
+k or v it runs `_FlashCore`, the counterpart of the reference's
+`_flash_core` custom VJP — the forward keeps its softmax statistics (`lse`)
+and the backward is the fused two-pass kernel (`flash_attention_bwd`), never
+a recomputation through the plain attention.  Without a gradient to take it
+runs the forward alone, without `lse`, as serving always did.
+
 Block sizes left unspecified (None) take the kernel's tile capacity; woven
-`flash_block_*` extras override and are clamped to that capacity.
+`flash_block_*` extras override and are clamped to that capacity.  Backward
+blocks left unspecified take the forward's, as the reference's
+`_resolve_blocks` does (then clamped to the backward's capacity).
 
 The quantization primitives of the int8 / fp8 page pool live here too, as in
 the reference: a page stores narrow codes beside one fp32 scale per KV head,
@@ -24,7 +33,14 @@ from repro_torch.kernels.flash_attention.kernel import (
     MAX_BLOCK_Q,
     flash_attention_fwd,
 )
-from repro_torch.kernels.flash_attention.ref import attention_ref, decode_ref
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_bwd as _flash_attention_bwd_kernel,
+)
+from repro_torch.kernels.flash_attention.ref import (
+    attention_ref,
+    decode_ref,
+    flash_attention_bwd_ref,
+)
 
 DEFAULT_BLOCK_Q = MAX_BLOCK_Q
 DEFAULT_BLOCK_KV = MAX_BLOCK_KV
@@ -86,6 +102,48 @@ def dequantize_kv(x, scale):
     return x.to(torch.float32) * scale.to(torch.float32)[..., None]
 
 
+def _forward(q, k, v, *, causal, window, softcap, block_q, block_kv, pruned,
+             return_lse):
+    """One forward: the plain version for a CPU tensor, else one K1 launch
+    (counted; with `return_lse` also in `flash_attention.lse_launches`)."""
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             softcap=softcap, return_lse=return_lse)
+    res = flash_attention_fwd(  # launches or raises
+        q, k, v, causal=causal, window=window, softcap=softcap,
+        block_q=block_q, block_kv=block_kv, pruned=pruned,
+        return_lse=return_lse)
+    flash_attention.launches += 1
+    if return_lse:
+        flash_attention.lse_launches += 1
+    return res
+
+
+class _FlashCore(torch.autograd.Function):
+    """Attention with the fused backward.  The forward saves (q, k, v, out,
+    lse) — all the two-pass recipe needs to recompute probability tiles —
+    and the backward runs `flash_attention_bwd` on them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, block_q, block_kv,
+                block_q_bwd, block_kv_bwd, pruned):
+        out, lse = _forward(q, k, v, causal=causal, window=window,
+                            softcap=softcap, block_q=block_q,
+                            block_kv=block_kv, pruned=pruned, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        block_q=block_q_bwd, block_kv=block_kv_bwd,
+                        pruned=pruned)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                         **ctx.opts)
+        return (dq, dk, dv) + (None,) * 8
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, S, H, D)
     k: torch.Tensor,  # (B, T, K, D)
@@ -96,23 +154,60 @@ def flash_attention(
     softcap: float | None = None,
     block_q: int | None = None,
     block_kv: int | None = None,
+    block_q_bwd: int | None = None,
+    block_kv_bwd: int | None = None,
     pruned: bool = True,
 ) -> torch.Tensor:
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             softcap=softcap)
-    if q.numel() == 0:
+    block_q = DEFAULT_BLOCK_Q if block_q is None else int(block_q)
+    block_kv = DEFAULT_BLOCK_KV if block_kv is None else int(block_kv)
+    block_q_bwd = block_q if block_q_bwd is None else int(block_q_bwd)
+    block_kv_bwd = block_kv if block_kv_bwd is None else int(block_kv_bwd)
+    if q.device.type != "cpu" and q.numel() == 0:
         return torch.empty_like(q)  # nothing to launch, nothing counted
-    out = flash_attention_fwd(  # launches or raises
-        q, k, v, causal=causal, window=window, softcap=softcap,
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashCore.apply(q, k, v, causal, window, softcap, block_q,
+                                block_kv, block_q_bwd, block_kv_bwd, pruned)
+    return _forward(q, k, v, causal=causal, window=window, softcap=softcap,
+                    block_q=block_q, block_kv=block_kv, pruned=pruned,
+                    return_lse=False)
+
+
+flash_attention.launches = 0  # K1 launches made through this wrapper
+flash_attention.lse_launches = 0  # of which in the training mode (with lse)
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,    # (B, S, H, D)
+    k: torch.Tensor,    # (B, T, K, D)
+    v: torch.Tensor,
+    out: torch.Tensor,  # (B, S, H, D) the forward's output
+    lse: torch.Tensor,  # (B, H, S) fp32 its softmax statistics
+    do: torch.Tensor,   # (B, S, H, D) the output's cotangent
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    block_q: int | None = None,
+    block_kv: int | None = None,
+    pruned: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in the model layout; dk / dv have the K KV heads.  A CPU
+    tensor takes the plain version; a CUDA tensor launches the two-pass
+    kernel (one call, counted once in `launches`: a dq pass and a dk / dv
+    pass) or raises."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                                       window=window, softcap=softcap)
+    res = _flash_attention_bwd_kernel(  # launches or raises
+        q, k, v, out, lse, do, causal=causal, window=window, softcap=softcap,
         block_q=DEFAULT_BLOCK_Q if block_q is None else block_q,
         block_kv=DEFAULT_BLOCK_KV if block_kv is None else block_kv,
         pruned=pruned)
-    flash_attention.launches += 1
-    return out
+    flash_attention_bwd.launches += 1
+    return res
 
 
-flash_attention.launches = 0  # kernel launches made through this wrapper
+flash_attention_bwd.launches = 0  # K3 calls (each a dq and a dk / dv launch)
 
 
 def paged_gather_kv(pk, pv, tables, kv_len: int, k_scale=None, v_scale=None):

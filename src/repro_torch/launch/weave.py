@@ -87,3 +87,11 @@ def cuda_kernel_aspects() -> list[Aspect]:
             KernelAspect("*", "norm", "cuda"),
             KernelAspect("*", "rglru", "cuda"),
             KernelAspect("*", "wkv", "cuda")]
+
+
+def train_kernel_aspects() -> list[Aspect]:
+    """The aspects a training run weaves on the card: the attention kernels
+    alone (K1 with its `lse` and the fused backward K3).  RMSNorm, RG-LRU
+    and WKV have forward-only kernels, as in the reference, so training
+    runs their plain implementations."""
+    return [KernelAspect("*", "attention", "cuda")]

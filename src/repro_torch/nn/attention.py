@@ -300,7 +300,9 @@ class Attention(Module):
                 name: int(ctx.extra[key]) if ctx.extra.get(key) is not None
                 else None
                 for name, key in (("block_q", "flash_block_q"),
-                                  ("block_kv", "flash_block_kv"))
+                                  ("block_kv", "flash_block_kv"),
+                                  ("block_q_bwd", "flash_block_q_bwd"),
+                                  ("block_kv_bwd", "flash_block_kv_bwd"))
             }
             out = flash_attention(
                 q, k, v,

@@ -4,9 +4,17 @@
 "layers" axis — one `(L, ...)` parameter per leaf, registered on the
 template block's own modules so `state_dict()` keys read
 `<stack>.<block>.<...>` — and applies layer i to slice i of every leaf
-(views, no copies).  The reference scans the same stacked tree with
-`lax.scan`; here the loop is plain Python and there is no remat.  Decode
+(views, no copies: `torch.unbind`, whose backward stacks the L gradients
+once per leaf instead of adding L full-size ones).  The reference scans the
+same stacked tree with `lax.scan`; here the loop is plain Python.  Decode
 caches ride along as per-layer slices of tensors with a leading `L` dim.
+
+Remat (the woven `remat` extra, as in the reference): in `mode="dense"`,
+when autograd records the forward, each layer runs under
+`torch.utils.checkpoint` — `"full"` (the default in dense mode) keeps only
+the layer boundary and recomputes the layer in the backward; `"none"` keeps
+every activation.  The reference's `"dots"` / `"dots_no_batch"` policies
+(keep the matmul outputs) have no counterpart here yet and raise.
 
 Joinpoint view: the stack exposes its *template* block (one joinpoint stands
 for all layers in the group).  Models that need per-layer-group weaving
@@ -18,8 +26,28 @@ from __future__ import annotations
 from typing import Any, Iterator, Mapping
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn.module import Ctx, Module, ParamSpec, _walk_spec
+
+REMAT_POLICIES = ("none", "full")
+_LATER_REMAT = ("dots", "dots_no_batch")
+
+
+def _remat_policy(ctx: Ctx, mode: str) -> str:
+    """The woven remat policy that applies to this forward: "none" unless
+    autograd records a dense forward."""
+    name = str(ctx.extra.get("remat", "full" if mode == "dense" else "none"))
+    if mode != "dense" or not torch.is_grad_enabled():
+        return "none"
+    if name in _LATER_REMAT:
+        raise NotImplementedError(
+            f"remat policy {name!r} (keep the matmul outputs) is not ported "
+            "yet: it arrives with a later training slice; weave 'full' or "
+            "'none'")
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {name!r}")
+    return name
 
 
 def _stack_specs(tree: Any, n: int) -> Any:
@@ -44,6 +72,15 @@ def _layer(tree: Any, i: int) -> Any:
     if isinstance(tree, Mapping):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unstack(tree: Any, n: int) -> list:
+    """Every layer's tree of a stacked tree, through one `torch.unbind` per
+    leaf (views)."""
+    if isinstance(tree, Mapping):
+        per_key = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per_key[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree))
 
 
 def _stack_layers(trees: list) -> Any:
@@ -102,11 +139,35 @@ class ScannedStack(Module):
             # the reference
             saved_taps = ctx.taps_enabled
             ctx.taps_enabled = []
+            remat = _remat_policy(ctx, mode)
+            path = list(ctx._path)
+
+            def run_layer(layer_params, h):
+                # a recompute in the backward runs outside the forward's
+                # scopes: put the path back so policies and impls resolve
+                # as they did
+                saved_path = ctx._path
+                ctx._path = list(path)
+                try:
+                    out, _ = block(layer_params, h, ctx=ctx, mode=mode,
+                                   positions=positions, **block_kwargs)
+                finally:
+                    ctx._path = saved_path
+                return out.to(h.dtype)
+
             new_caches = []
             try:
-                for i in range(self.n_layers):
+                for i, layer_params in enumerate(_unstack(stacked, self.n_layers)):
+                    if remat == "full":
+                        # only the boundary `x` (and the layer's parameter
+                        # views) are kept; the layer reruns in the backward
+                        x = checkpoint(run_layer, layer_params, x,
+                                       use_reentrant=False,
+                                       preserve_rng_state=False)
+                        new_caches.append(None)
+                        continue
                     out, layer_cache = block(
-                        _layer(stacked, i), x, ctx=ctx, mode=mode,
+                        layer_params, x, ctx=ctx, mode=mode,
                         cache=_layer(cache, i), positions=positions,
                         **block_kwargs,
                     )

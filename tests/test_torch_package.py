@@ -143,14 +143,15 @@ def test_recurrent_kernel_bindings_refuse_cpu_tensors():
 def test_build_is_keyed_by_source_hash_and_ignored_by_git():
     from repro_torch.kernels import build
 
-    assert [p.name for p in build.sources()] == ["flash_decode.cu", "flash_prefill.cu",
-                                                 "rglru.cu", "rmsnorm.cu", "wkv6.cu"]
+    assert [p.name for p in build.sources()] == ["flash_bwd.cu", "flash_decode.cu",
+                                                 "flash_prefill.cu", "rglru.cu",
+                                                 "rmsnorm.cu", "wkv6.cu"]
     assert len(build.source_hash()) == 16
     assert build.build_dir() == ROOT / "build" / "repro_torch"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
     assert set(build.SIGNATURES) == {"repro_torch_rmsnorm", "repro_torch_flash_prefill",
-                                     "repro_torch_flash_decode", "repro_torch_rglru",
-                                     "repro_torch_wkv6"}
+                                     "repro_torch_flash_decode", "repro_torch_flash_bwd",
+                                     "repro_torch_rglru", "repro_torch_wkv6"}
 
 
 @pytest.mark.gpu
