@@ -14,7 +14,15 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    fp32 within 1e-4 of it: the kernels and the plain versions both
    accumulate in fp32, so what is left is the order of the sums and the
    rounding of the output (one bf16 step of a value at 4x the RMS is 3e-2 of
-   the RMS), while a dropped KV block moves a long-context row by more.  It
+   the RMS), while a dropped KV block moves a long-context row by more.
+   K1, K3 and K2's widened-q mode, whose bf16 route sums on the tensor
+   cores in another order than the plain version, are held to the plain
+   version evaluated in float64 (`exact`, `check_exact`), with the same
+   tolerances: the fp32 plain version's own rounding of its largest
+   outputs already reaches the gate there.  The kernels' entry points
+   report the route each launch took (`route_counts`): in every counted
+   run every bf16 K1 / K3 launch is a tensor-core launch, and K3 must give
+   the same bits twice.  It
    times both, times the one-call PyTorch library function where there is
    one, and computes the least time the card could take (the roofline bound).
    The quantized mode of flash decode (int8 / fp8 pages with fp32 scales) is
@@ -167,6 +175,43 @@ def check_close(torch, name, got, want, rel_tol) -> tuple[float, float]:
     return err, rms
 
 
+def exact(fn, tensors, **kw):
+    """A plain version evaluated in float64 on float64 copies of its inputs:
+    the reference K1, K3 and K2's widened-q mode are held to (`check_exact`).
+    On the card the fp32 plain version, rounded to bf16, misses the exact
+    result by a bf16 step of its largest outputs at these shapes (up to 8 %
+    of the output's RMS: causal rows over a few keys keep values 40x the
+    RMS), so a kernel as accurate as fp32 whose sums run in another order
+    could not be held to it within 5e-2."""
+    return fn(*(t.double() for t in tensors), **kw)
+
+
+def exact_error(torch, got, want) -> tuple[float, float]:
+    """Worst error of `got` against the exact (float64) result `want` beyond
+    the rounding `got`'s type forces on it — |got - want| less half the
+    spacing of that type at `want`, so a correctly rounded output reads 0
+    and one whose fp32 sums land next to a rounding tie and round the other
+    way reads only its fp32 error — and the exact result's RMS."""
+    bits = {torch.bfloat16: 8, torch.float32: 24}[got.dtype]  # significant bits
+    _, e = torch.frexp(want)  # want = m 2^e, 1/2 <= |m| < 1
+    half = torch.where(want == 0, 0.0, torch.ldexp(torch.ones_like(want), e - bits - 1))
+    err = ((got.double() - want).abs() - half).clamp(min=0).max().item()
+    return err, want.pow(2).mean().sqrt().item()
+
+
+def check_exact(torch, name, got, want, rel_tol) -> tuple[float, float]:
+    """`check_close` against an exact result, as `exact_error` measures it."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {got.shape} vs {want.shape}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: kernel output is not finite")
+    err, rms = exact_error(torch, got, want)
+    if not err <= rel_tol * rms:
+        raise AssertionError(f"{name}: max abs error {err} exceeds {rel_tol} of the "
+                             f"exact result's RMS {rms}")
+    return err, rms
+
+
 def live_pairs(S, T, causal, window) -> int:
     """(q, k) pairs the mask keeps, for self-aligned positions."""
     total = 0
@@ -175,6 +220,26 @@ def live_pairs(S, T, causal, window) -> int:
         lo = max(0, qp - window + 1) if (causal and window) else 0
         total += max(0, hi - lo)
     return total
+
+
+ROUTE_COUNTERS = ("flash_attention_tc", "flash_attention_fma", "flash_attention_bwd_tc",
+                  "flash_attention_bwd_fma", "flash_decode_tc")
+
+
+def route_counts(reset: bool = False) -> dict:
+    """The route counters of K1, K3 and K2's widened-q mode — each launch
+    counted by the route its kernel's entry point reported — and, with
+    `reset`, set to 0 first."""
+    from repro_torch.kernels.flash_attention import ops
+
+    out = {}
+    for key in ROUTE_COUNTERS:
+        name, attr = key.rsplit("_", 1)
+        wrapper = getattr(ops, name)
+        if reset:
+            setattr(wrapper, attr + "_launches", 0)
+        out[key] = getattr(wrapper, attr + "_launches")
+    return out
 
 
 def rmsnorm_cases(torch, gen):
@@ -242,9 +307,15 @@ def prefill_cases(torch, gen):
         v = torch.randn((1, S, K, D), generator=gen, device="cuda").to(kv_dtype)
         ref_kw = {a: b for a, b in kw.items() if a != "pruned"}
         got = flash_attention(q, k, v, causal=True, **kw)
-        want = attention_ref(q, k, v, causal=True, **ref_kw)
+        want = exact(attention_ref, (q, k, v), causal=True, **ref_kw)
+        plain_out = attention_ref(q, k, v, causal=True, **ref_kw)
         torch.cuda.synchronize()
-        err, rms = check_close(torch, name, got, want, tol)
+        err, rms = check_exact(torch, name, got, want, tol)
+        # printed beside: against the fp32 plain version, and that version's
+        # own error against the exact result
+        err_plain = (got.float() - plain_out.float()).abs().max().item()
+        plain_err = exact_error(torch, plain_out, want)[0]
+        del want, plain_out
         ms = time_ms(torch, [lambda: flash_attention(q, k, v, causal=True, **kw)], 5)
         plain = time_ms(torch, [lambda: attention_ref(q, k, v, causal=True, **ref_kw)], 3)
         lib = None
@@ -267,8 +338,11 @@ def prefill_cases(torch, gen):
         flops = 4.0 * D * pairs * H
         nbytes = 2 * q.numel() * q.element_size() + (k.numel() + v.numel()) * k.element_size()
         b_ms, b_by = bound(nbytes, flops, "bf16" if dtype == torch.bfloat16 else "fp32")
-        cases.append(dict(case=name, main=main, max_abs_err=err, ref_rms=rms, ms=ms,
-                          plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+        cases.append(dict(case=name, main=main, max_abs_err=err, ref_rms=rms,
+                          max_abs_err_vs_fp32_plain=err_plain,
+                          fp32_plain_max_abs_err=plain_err, ms=ms, plain_ms=plain,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                          ms_over_library_ms=ms / lib if lib else None))
     return cases
 
 
@@ -301,8 +375,6 @@ def decode_cases(torch, gen):
         ("ring_T1024_wrapped_bf16", [7, 1023, 1024, 5000, 70000, 12, 900, 2048], 1, 1024,
          None, torch.bfloat16, BF16_TOL, False, yi),
         ("window512_T4096_bf16", ragged, 1, T, 512, torch.bfloat16, BF16_TOL, False, yi),
-        ("q_span4_T4096_bf16", [i - 3 for i in ragged], 4, T, None, torch.bfloat16,
-         BF16_TOL, False, yi),
         ("unpruned_T4096_bf16", ragged, 1, T, None, torch.bfloat16, BF16_TOL, False, yi),
         ("T1000_fp32", [0, 17, 999, 500, 63, 64, 65, 998], 1, 1000, 300, torch.float32,
          FP32_TOL, False, yi),
@@ -351,43 +423,124 @@ def decode_cases(torch, gen):
     # paged == dense, bit for bit: shuffled tables, dead pages poisoned
     q, k, v = make(B, 1, T, H, K, D, torch.bfloat16)
     index = torch.tensor(ragged, dtype=torch.int32, device="cuda")
-    for name, S, window in [("paged_T4096_page128_bf16", 1, None),
-                            ("paged_window512_q_span4_bf16", 4, 512)]:
-        from repro_torch.kernels.flash_attention.decode import paged_decode_schedule
+    name = "paged_T4096_page128_bf16"
+    pk, pv, tables = poisoned_pool(torch, gen, k, v, ragged, 128, None, 1)
+    dense = flash_decode(q, k, v, index)
+    paged = flash_decode(q, pk, pv, index, tables=tables, kv_len=T)
+    torch.cuda.synchronize()
+    if not torch.isfinite(paged).all():
+        raise AssertionError(f"{name}: a dead page reached the output")
+    if not torch.equal(dense, paged):
+        raise AssertionError(f"{name}: paged output differs from dense output")
+    want = decode_ref(q, pk, pv, index, tables=tables, kv_len=T)
+    err, rms = check_close(torch, name, paged, want, BF16_TOL)
+    ms = time_ms(torch, [lambda: flash_decode(q, pk, pv, index, tables=tables, kv_len=T)], 20)
+    cases.append(dict(case=name, main=False, max_abs_err=err, ref_rms=rms, ms=ms, plain_ms=None,
+                      bound_ms=None, bound_by=None, library_ms=None,
+                      bitwise_equal_to_dense=True))
+    return cases
 
-        qq = q if S == 1 else make(B, S, T, H, K, D, torch.bfloat16)[0]
-        idx = [i - (S - 1) for i in ragged]
+
+def poisoned_pool(torch, gen, k, v, idx, ps, window, q_span):
+    """The dense (B, T, K, D) cache `k`, `v` as a shuffled page pool of page
+    `ps` with 16 spare pages; every page no request's decode schedule names
+    (requests at first-token positions `idx`) holds NaN."""
+    from repro_torch.kernels.flash_attention.decode import paged_decode_schedule
+
+    B, T, K, D = k.shape
+    nb = T // ps
+    perm = torch.randperm(B * nb + 16, generator=gen, device="cuda")[:B * nb]
+    tables = perm.reshape(B, nb).to(torch.int32)
+    pk = torch.full((B * nb + 16, ps, K, D), float("nan"), device="cuda", dtype=k.dtype)
+    pv = torch.full_like(pk, float("nan"))
+    pk[perm] = k.reshape(B * nb, ps, K, D)
+    pv[perm] = v.reshape(B * nb, ps, K, D)
+    live = set()
+    host_tables = tables.cpu().tolist()
+    for b, i in enumerate(idx):
+        live |= {p for p, _ in paged_decode_schedule(T, i, 64, ps, host_tables[b],
+                                                     window=window, q_span=q_span)}
+    dead = torch.tensor([p for p in range(pk.shape[0]) if p not in live], device="cuda")
+    pk[dead] = float("nan")
+    pv[dead] = float("nan")
+    return pk, pv, tables
+
+
+def widened_decode_cases(torch, gen):
+    """K2's tensor-core mode: S > 1 bf16 tokens over bf16 values (K1's body).
+    Main: the continuous path's suffix prefill, 512 yi-6b tokens over a
+    1024-token prefix resident in a shuffled page pool (dead pages NaN);
+    besides, four tokens per request over ragged dense caches, and over a
+    windowed pool, which must equal the dense cache bit for bit.  Held, as
+    K1, to the plain version evaluated in float64; timed with its plain
+    version and SDPA over the gathered K / V with a prebuilt mask."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.decode import flash_decode_fwd
+    from repro_torch.kernels.flash_attention.ops import flash_decode, paged_gather_kv
+    from repro_torch.kernels.flash_attention.ref import decode_ref
+
+    H, K, D = 32, 4, 128
+    cases = []
+    ragged = [199, 511, 1023, 1500, 2047, 2999, 3500, 4095]
+    for name, idx, S, T, window, paged, main in [
+        ("yi6b_suffix512_over_prefix1024_paged_bf16", [1024], 512, 1536, None, True, True),
+        ("q_span4_T4096_ragged_bf16", [i - 3 for i in ragged], 4, 4096, None, False, False),
+        ("paged_window512_q_span4_bf16", [i - 3 for i in ragged], 4, 4096, 512, True, False),
+    ]:
+        B = len(idx)
+        q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+        k = torch.randn((B, T, K, D), generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn((B, T, K, D), generator=gen, device="cuda").to(torch.bfloat16)
         index = torch.tensor(idx, dtype=torch.int32, device="cuda")
-        ps = 128
-        nb = T // ps
-        perm = torch.randperm(B * nb + 16, generator=gen, device="cuda")[:B * nb]
-        tables = perm.reshape(B, nb).to(torch.int32)
-        pk = torch.full((B * nb + 16, ps, K, D), float("nan"), device="cuda", dtype=torch.bfloat16)
-        pv = torch.full_like(pk, float("nan"))
-        pk[perm] = k.reshape(B * nb, ps, K, D)
-        pv[perm] = v.reshape(B * nb, ps, K, D)
-        live = set()
-        host_tables = tables.cpu().tolist()
-        for b, i in enumerate(idx):
-            live |= {p for p, _ in paged_decode_schedule(T, i, 64, ps, host_tables[b],
-                                                         window=window, q_span=S)}
-        dead = torch.tensor([p for p in range(pk.shape[0]) if p not in live], device="cuda")
-        pk[dead] = float("nan")
-        pv[dead] = float("nan")
-        dense = flash_decode(qq, k, v, index, window=window)
-        paged = flash_decode(qq, pk, pv, index, window=window, tables=tables, kv_len=T)
+        kw = dict(window=window)
+        if paged:
+            pk, pv, tables = poisoned_pool(torch, gen, k, v, idx, 128, window, S)
+            kw.update(tables=tables, kv_len=T)
+        else:
+            pk, pv = k, v
+        got = flash_decode(q, pk, pv, index, **kw)
         torch.cuda.synchronize()
-        if not torch.isfinite(paged).all():
-            raise AssertionError(f"{name}: a dead page reached the output")
-        if not torch.equal(dense, paged):
-            raise AssertionError(f"{name}: paged output differs from dense output")
-        want = decode_ref(qq, pk, pv, index, window=window, tables=tables, kv_len=T)
-        err, rms = check_close(torch, name, paged, want, BF16_TOL)
-        ms = time_ms(torch, [lambda: flash_decode(qq, pk, pv, index, window=window,
-                                                  tables=tables, kv_len=T)], 20)
-        cases.append(dict(case=name, main=False, max_abs_err=err, ref_rms=rms, ms=ms, plain_ms=None,
-                          bound_ms=None, bound_by=None, library_ms=None,
-                          bitwise_equal_to_dense=True))
+        if flash_decode_fwd.last_route != "tc":
+            raise AssertionError(f"{name}: launched the {flash_decode_fwd.last_route} mode")
+        extra = {}
+        if paged and not main:
+            dense = flash_decode(q, k, v, index, window=window)
+            torch.cuda.synchronize()
+            if not torch.equal(dense, got):
+                raise AssertionError(f"{name}: paged output differs from dense output")
+            extra["bitwise_equal_to_dense"] = True
+        want = exact(decode_ref, (q, pk, pv), index=index, **kw)
+        err, rms = check_exact(torch, name, got, want, BF16_TOL)
+        plain_out = decode_ref(q, pk, pv, index, **kw)
+        extra["max_abs_err_vs_fp32_plain"] = (got.float() - plain_out.float()).abs().max().item()
+        extra["fp32_plain_max_abs_err"] = exact_error(torch, plain_out, want)[0]
+        del want, plain_out
+        ms = time_ms(torch, [lambda: flash_decode(q, pk, pv, index, **kw)], 20)
+        plain = time_ms(torch, [lambda: decode_ref(q, pk, pv, index, **kw)], 2)
+        # the library: SDPA over the logical K / V (gathered from the pool
+        # outside the timed region) with a per-request boolean mask
+        kd, vd = (paged_gather_kv(pk, pv, tables, T) if paged else (k, v))
+        G = H // K
+        kt = kd.transpose(1, 2).repeat_interleave(G, dim=1)
+        vt = vd.transpose(1, 2).repeat_interleave(G, dim=1)
+        last = (index[:, None] + torch.arange(S, device="cuda"))[:, None, :, None]
+        kp = torch.arange(T, device="cuda")
+        mask = kp < (last + 1).clamp(1, T)
+        if window is not None:
+            mask = mask & (kp > last - window)
+        qt = q.transpose(1, 2)
+        lib = time_ms(torch, [lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                     attn_mask=mask)], 10)
+        pairs = int(mask.sum().item())
+        live = int(mask.any(dim=2).sum().item())  # K / V slots some row sees
+        nbytes = (live * K * D * 2 + 2 * q.numel()) * q.element_size()
+        b_ms, b_by = bound(nbytes, 4.0 * D * pairs * H, "bf16")
+        cases.append(dict(case=name, main=main, max_abs_err=err, ref_rms=rms, ms=ms,
+                          plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                          ms_over_library_ms=ms / lib, **extra))
+        del q, k, v, pk, pv, kd, vd, kt, vt, mask
+    torch.cuda.empty_cache()
     return cases
 
 
@@ -511,9 +664,12 @@ def shared_prefill_identity(torch, gen) -> dict:
     the widened-q decode kernel over its suffix, against the prefix resident
     in a shuffled page pool, walk the same 64-slot blocks with the same
     online softmax — so the suffix rows agree bit for bit.  Checked at yi-6b's
-    shapes (prefix 1024, suffix 200), over a bf16 pool and an int8 pool (the
-    prefill kernel then reads the dequantized fp32 values, as the first
-    prefill of a quantized pool does)."""
+    shapes (prefix 1024, suffix 200), over a bf16 pool (both kernels run the
+    tensor-core body, attend_tc.cuh) and an int8 pool (the prefill kernel
+    then reads the dequantized fp32 values, as the first prefill of a
+    quantized pool does, on the FMA body the quantized decode runs)."""
+    from repro_torch.kernels.flash_attention.decode import flash_decode_fwd
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
     from repro_torch.kernels.flash_attention.ops import (
         dequantize_kv,
         flash_attention,
@@ -540,11 +696,15 @@ def shared_prefill_identity(torch, gen) -> dict:
         full = flash_attention(q, kk, vv, causal=True)
         suffix = flash_decode(q[:, P:], ck, cv, index, tables=tables, kv_len=S, **kw)
         torch.cuda.synchronize()
+        routes = (flash_attention_fwd.last_route, flash_decode_fwd.last_route)
+        if routes != (("tc", "tc") if pool == "bf16" else ("fma", "fma")):
+            raise AssertionError(f"{pool} pool: routes (prefill, decode) {routes}")
         if not torch.equal(full[:, P:], suffix):
             diff = (full[:, P:].float() - suffix.float()).abs().max().item()
             raise AssertionError(f"{pool} pool: suffix-over-prefix rows differ from the "
                                  f"whole-prompt prefill by up to {diff}")
         out[f"{pool}_pool_suffix_rows_bitwise_equal"] = True
+        out[f"{pool}_pool_routes"] = routes
     return out
 
 
@@ -631,9 +791,12 @@ def flash_bwd_cases(torch, gen):
     softcap, a ragged length and fp32.  Each case runs K1 with lse on
     random q / k / v, holds out and lse to the plain forward, then runs K3
     on those residuals and a random dO and holds dq, dk, dv to the plain
-    backward on the same residuals — every output within the forward cases'
-    gates.  Timed: K1 with lse; each pass alone (pass 1 also writes delta;
-    pass 2 reads it) and both together, as training launches them; the
+    backward on the same residuals — both plain versions evaluated exactly
+    (`exact`), every output within the forward cases' gates — and runs K3
+    once more on the same inputs, which must give the same bits.  Timed: K1
+    with lse; each pass alone (pass 1 also writes delta; pass 2 reads it,
+    and its reduce of the split partials is read apart under the profiler)
+    and both together, as training launches them; the
     plain forward and backward; and, in the causal cases without a window
     or softcap, the one-call library backward (SDPA's, through
     `torch.autograd.grad`).  Bounds: K1 four flops per D per live pair and
@@ -641,6 +804,7 @@ def flash_bwd_cases(torch, gen):
     (QK^T, dO V^T, P^T dO, dS^T Q), the pair five, each against the bytes
     it must read and write."""
     import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
@@ -664,15 +828,35 @@ def flash_bwd_cases(torch, gen):
         v = torch.randn((B, S, K, D), generator=gen, device="cuda").to(dtype)
         do = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
         out, lse = fa_kernel.flash_attention_fwd(q, k, v, causal=True, return_lse=True, **kw)
-        want_out, want_lse = attention_ref(q, k, v, causal=True, return_lse=True, **kw)
+        want_out, want_lse = exact(attention_ref, (q, k, v), causal=True, return_lse=True,
+                                   **kw)
+        plain = attention_ref(q, k, v, causal=True, return_lse=True, **kw)
         torch.cuda.synchronize()
-        err, rms = check_close(torch, name + " out", out, want_out, tol)
-        err_lse, rms_lse = check_close(torch, name + " lse", lse, want_lse, tol)
+        err, rms = check_exact(torch, name + " out", out, want_out, tol)
+        err_lse, rms_lse = check_exact(torch, name + " lse", lse, want_lse, tol)
+        # printed beside: every output against the fp32 plain version, and
+        # that version's own error against the exact result
+        vs_fp32 = {g: (a.float() - b.float()).abs().max().item()
+                   for g, a, b in zip(("out", "lse"), (out, lse), plain)}
+        plain_err = {g: exact_error(torch, p, w)[0]
+                     for g, p, w in zip(("out", "lse"), plain, (want_out, want_lse))}
+        del want_out, want_lse, plain
         got = flash_attention_bwd(q, k, v, out, lse, do, causal=True, **kw)
-        want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True, **kw)
+        want = exact(flash_attention_bwd_ref, (q, k, v, out, lse, do), causal=True, **kw)
+        plain = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True, **kw)
         torch.cuda.synchronize()
-        errs = {g: check_close(torch, f"{name} {g}", a, b, tol)
+        errs = {g: check_exact(torch, f"{name} {g}", a, b, tol)
                 for g, a, b in zip(("dq", "dk", "dv"), got, want)}
+        for g, a, p, w in zip(("dq", "dk", "dv"), got, plain, want):
+            vs_fp32[g] = (a.float() - p.float()).abs().max().item()
+            plain_err[g] = exact_error(torch, p, w)[0]
+        del want, plain
+        # K3 is deterministic: a second call on the same inputs, bit for bit
+        again = flash_attention_bwd(q, k, v, out, lse, do, causal=True, **kw)
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        if not bitwise:
+            raise AssertionError(f"{name}: two K3 calls on the same inputs differ")
+        del again
 
         peak = "bf16" if dtype == torch.bfloat16 else "fp32"
         pairs = live_pairs(S, S, True, kw.get("window")) * B
@@ -690,6 +874,17 @@ def flash_bwd_cases(torch, gen):
         ms_dq = time_ms(torch, [lambda: run_pass(1)], 5)
         ms_dkv = time_ms(torch, [lambda: run_pass(2)], 5)  # delta from pass 1
         ms_pair = time_ms(torch, [lambda: run_pass(3)], 5)
+        # pass 2's reduce of the split partials, read apart under the profiler
+        n_split = (fa_kernel.dkv_n_split(B, K, S, H // K, torch.cuda.get_device_properties(
+            0).multi_processor_count) if dtype == torch.bfloat16 else 1)
+        ms_reduce = 0.0
+        if n_split > 1:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    run_pass(2)
+                torch.cuda.synchronize()
+            ms_reduce = sum(_device_us(e) for e in prof.key_averages()
+                            if "reduce" in e.key) / 5 / 1e3
         plain_bwd = time_ms(torch, [lambda: flash_attention_bwd_ref(
             q, k, v, out, lse, do, causal=True, **kw)], 3)
         lib_fwd = lib_bwd = None
@@ -706,19 +901,28 @@ def flash_bwd_cases(torch, gen):
         b_ms, b_by = bound(2 * qbytes + 2 * kvbytes + stat, 4.0 * D * pairs * H, peak)
         lse_cases.append(dict(case=name, main=main, max_abs_err=max(err, err_lse),
                               ref_rms=rms, max_abs_err_lse=err_lse, ref_rms_lse=rms_lse,
+                              max_abs_err_vs_fp32_plain=vs_fp32["out"],
+                              max_abs_err_lse_vs_fp32_plain=vs_fp32["lse"],
+                              fp32_plain_max_abs_err=plain_err["out"],
                               ms=ms_fwd, ms_without_lse=ms_no_lse, plain_ms=plain_fwd,
                               bound_ms=b_ms, bound_by=b_by, library_ms=lib_fwd,
+                              ms_over_library_ms=ms_fwd / lib_fwd if lib_fwd else None,
                               library_ms_note=no_lib))
         pair_b, pair_by = bound(3 * qbytes + 2 * kvbytes + stat + qbytes + 2 * kvbytes,
                                 10.0 * D * pairs * H, peak)
         both = dict(ms_both_passes=ms_pair, bound_ms_both_passes=pair_b,
-                    bound_by_both_passes=pair_by, plain_ms_note=(
+                    bound_by_both_passes=pair_by,
+                    both_passes_over_library_ms=ms_pair / lib_bwd if lib_bwd else None,
+                    both_passes_over_plain_ms=ms_pair / plain_bwd,
+                    bitwise_equal_second_call=bitwise, plain_ms_note=(
                         "the plain backward computes dq, dk and dv together"),
                     library_ms_note=no_lib or "the library backward gives dq, dk and dv together")
         # pass 1 reads q, k, v, o, dO, lse and writes dq and delta
         b1, by1 = bound(3 * qbytes + 2 * kvbytes + 2 * stat + qbytes, 6.0 * D * pairs * H, peak)
         dq_cases.append(dict(case=name, main=main, max_abs_err=errs["dq"][0],
-                             ref_rms=errs["dq"][1], ms=ms_dq, plain_ms=plain_bwd,
+                             ref_rms=errs["dq"][1], max_abs_err_vs_fp32_plain=vs_fp32["dq"],
+                             fp32_plain_max_abs_err=plain_err["dq"],
+                             ms=ms_dq, plain_ms=plain_bwd,
                              bound_ms=b1, bound_by=by1, library_ms=lib_bwd, **both))
         # pass 2 reads q, k, v, dO, lse, delta and writes dk and dv
         b2, by2 = bound(2 * qbytes + 2 * kvbytes + 2 * stat + 2 * kvbytes,
@@ -728,18 +932,23 @@ def flash_bwd_cases(torch, gen):
                               max_abs_err=worse[0], ref_rms=worse[1],
                               max_abs_err_dk=errs["dk"][0], ref_rms_dk=errs["dk"][1],
                               max_abs_err_dv=errs["dv"][0], ref_rms_dv=errs["dv"][1],
+                              max_abs_err_dk_vs_fp32_plain=vs_fp32["dk"],
+                              max_abs_err_dv_vs_fp32_plain=vs_fp32["dv"],
+                              fp32_plain_max_abs_err_dk=plain_err["dk"],
+                              fp32_plain_max_abs_err_dv=plain_err["dv"],
+                              n_split=n_split, ms_reduce=ms_reduce,
                               ms=ms_dkv, plain_ms=plain_bwd, bound_ms=b2, bound_by=by2,
                               library_ms=lib_bwd, **both))
-        del q, k, v, do, out, lse, got, want, want_out, want_lse, delta
+        del q, k, v, do, out, lse, got, delta
         torch.cuda.empty_cache()
     return lse_cases, dq_cases, dkv_cases
 
 
-def kernel_entry(name, source, replaces, cases, launches, launches_by_run):
+def kernel_entry(name, source, replaces, cases, launches, launches_by_run, **extra):
     main = next(c for c in cases if c["main"])
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches, "launches_by_run": launches_by_run,
+        "launches": launches, "launches_by_run": launches_by_run, **extra,
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_err_over_ref_rms": max(c["max_abs_err"] / c["ref_rms"] for c in cases),
         "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
@@ -819,11 +1028,16 @@ def reduced_phase(torch):
                           cfg=ServerConfig(max_cache_len=32, decode_tokens=tokens))
     mcfg = server.woven.program.cfg
     before = (flash_attention.launches, flash_decode.launches)
+    route_counts(reset=True)
     out = server.serve(np.random.default_rng(1).integers(0, mcfg.vocab, (2, 8), dtype=np.int32))
     got = (flash_attention.launches - before[0], flash_decode.launches - before[1])
     expected = (mcfg.num_layers, mcfg.num_layers * tokens)
+    routes = route_counts()
     log(f"reduced: yi-6b reduced, head_dim {mcfg.head_dim}: attention launches {got}, "
-        f"expected {expected}")
+        f"expected {expected}; routes {routes}")
+    if routes["flash_attention_tc"] != got[0]:
+        raise AssertionError(f"reduced configuration: bf16 K1 launches off the tensor-core "
+                             f"route: {routes}")
     if got != expected:
         raise AssertionError(f"reduced configuration: launches {got} != {expected}")
     if out.shape != (2, tokens) or out.min() < 0 or out.max() >= mcfg.vocab:
@@ -912,6 +1126,7 @@ def continuous_phase(torch, server) -> dict:
         attn_ops.attention_ref = attn_ops.decode_ref = norm_ops.rmsnorm_ref = forbidden
         flash_attention.launches = flash_decode.launches = rmsnorm.launches = 0
         flash_decode.quantized_launches = 0
+        route_counts(reset=True)
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -920,12 +1135,13 @@ def continuous_phase(torch, server) -> dict:
             wall = time.perf_counter() - t0
         finally:
             attn_ops.attention_ref, attn_ops.decode_ref, norm_ops.rmsnorm_ref = saved
-        return out, wall, {"flash_attention": flash_attention.launches,
-                           "flash_decode": flash_decode.launches,
-                           "flash_decode_quantized": flash_decode.quantized_launches,
-                           "rmsnorm": rmsnorm.launches}
+        counts = {"flash_attention": flash_attention.launches,
+                  "flash_decode": flash_decode.launches,
+                  "flash_decode_quantized": flash_decode.quantized_launches,
+                  "rmsnorm": rmsnorm.launches}
+        return out, wall, counts, route_counts()
 
-    def check_run(tag, out, counts, quantized):
+    def check_run(tag, out, counts, routes, quantized):
         bad = [o for o in server.last_outcomes if o["status"] != "ok"]
         if bad or len(out) != len(prompts):
             raise AssertionError(f"{tag}: outcomes {bad}")
@@ -941,6 +1157,17 @@ def continuous_phase(torch, server) -> dict:
         log(f"continuous {tag}: launches {counts}, expected {want} from steps {st}")
         if counts != want:
             raise AssertionError(f"{tag}: launch counters {counts} != expected {want}")
+        # routes, as the entry points reported them: K1 on the tensor cores
+        # but for a quantized pool's first prefills, which attend over its
+        # dequantized fp32 K / V (the FMA route); every suffix prefill over a
+        # bf16 pool on K2's tensor-core mode, none over a quantized one
+        fma = layers * st["prefill"] if quantized else 0
+        want_routes = {"flash_attention_tc": want["flash_attention"] - fma,
+                       "flash_attention_fma": fma,
+                       "flash_decode_tc": 0 if quantized else layers * st["suffix_prefill"]}
+        log(f"continuous {tag}: routes {routes}, expected {want_routes}")
+        if any(routes[k] != v for k, v in want_routes.items()):
+            raise AssertionError(f"{tag}: routes {routes} != expected {want_routes}")
 
     runs, report = {}, {}
     torch.cuda.reset_peak_memory_stats()
@@ -948,13 +1175,14 @@ def continuous_phase(torch, server) -> dict:
                               ("c_int8_shared", True, "int8"), ("c_int8_shared_again", True, "int8")):
         server.cfg.cache_dtype = dtype
         try:
-            out, wall, counts = counted(lambda: server.serve_continuous(
+            out, wall, counts, routes = counted(lambda: server.serve_continuous(
                 prompts, prefix_sharing=share, **kw))
         finally:
             server.cfg.cache_dtype = None
-        check_run(tag, out, counts, dtype is not None)
+        check_run(tag, out, counts, routes, dtype is not None)
         runs[tag] = out
-        report[tag] = {"wall_s": wall, "launches": counts, "steps": server.last_step_counts,
+        report[tag] = {"wall_s": wall, "launches": counts, "routes": routes,
+                       "steps": server.last_step_counts,
                        "pool": server.last_pool_stats,
                        "ttft_s": [o["ttft_s"] for o in server.last_outcomes],
                        "tok_gap_max_s": [o["tok_gap_max_s"] for o in server.last_outcomes],
@@ -976,7 +1204,7 @@ def continuous_phase(torch, server) -> dict:
                 return stop.value
             events.append(ev)
 
-    out, wall, counts = counted(stream)
+    out, wall, counts, routes = counted(stream)
     # the same wave's neighbours ran without the profiler (batch 8, no
     # admission): the wall time the idle share is read against
     near = [e["dt_s"] for e in events if e["event"] == "wave"
@@ -986,14 +1214,14 @@ def continuous_phase(torch, server) -> dict:
         wave["unprofiled_wave_wall_ms"] = 1e3 * sum(near) / len(near)
         wave["device_idle_share_unprofiled"] = \
             1.0 - wave["device_busy_ms"] / wave["unprofiled_wave_wall_ms"]
-    check_run("d_stream_chunk512", out, counts, False)
+    check_run("d_stream_chunk512", out, counts, routes, False)
     runs["d_stream_chunk512"] = out
     report["d_stream_chunk512"] = {
-        "wall_s": wall, "launches": counts, "steps": server.last_step_counts,
+        "wall_s": wall, "launches": counts, "routes": routes, "steps": server.last_step_counts,
         "prefill_chunk_events": sum(e["event"] == "prefill_chunk" for e in events)}
     if not report["d_stream_chunk512"]["prefill_chunk_events"]:
         raise AssertionError("the chunked stream ran no chunk")
-    batch_out, wall, _ = counted(lambda: server.serve_batch(prompts))
+    batch_out, wall, _, _ = counted(lambda: server.serve_batch(prompts))
     runs["serve_batch"] = batch_out
     report["serve_batch"] = {"wall_s": wall}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1028,7 +1256,8 @@ def continuous_phase(torch, server) -> dict:
     log("continuous " + json.dumps(summary))
     log("continuous-diagnostic " + json.dumps(sharing_diagnostic(torch, server, prompts)))
     log("profile-wave " + json.dumps(profiled["wave"]))
-    return {tag: report[tag]["launches"] for tag in ("a_bf16_shared", "c_int8_shared")}
+    return {tag: {**report[tag]["launches"], **report[tag]["routes"]}
+            for tag in ("a_bf16_shared", "c_int8_shared")}
 
 
 def sharing_diagnostic(torch, server, prompts) -> dict:
@@ -1120,14 +1349,19 @@ def serve_phase(torch):
     attn_ops.attention_ref = attn_ops.decode_ref = norm_ops.rmsnorm_ref = forbidden
     try:
         flash_attention.launches = flash_decode.launches = rmsnorm.launches = 0
+        route_counts(reset=True)
         solo_out = [server.serve(p) for p in solo]
         solo_s = list(server.latencies)[-2:]
         batch_out = server.serve_batch(batch)
         batch_s = server.latencies[-1]
         counts = {"flash_attention": flash_attention.launches,
                   "flash_decode": flash_decode.launches, "rmsnorm": rmsnorm.launches}
+        routes = route_counts()
     finally:
         attn_ops.attention_ref, attn_ops.decode_ref, norm_ops.rmsnorm_ref = saved
+    log(f"serve: routes {routes}")
+    if routes["flash_attention_tc"] != counts["flash_attention"]:
+        raise AssertionError(f"serve: bf16 K1 launches off the tensor-core route: {routes}")
 
     prefills = len(solo) + len(batch)
     steps = decode_tokens * (len(solo) + 1)
@@ -1210,7 +1444,7 @@ def serve_phase(torch):
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     log("serve " + json.dumps(summary))
-    return counts, server
+    return {**counts, **routes}, server
 
 
 # ---------------------------------------------------------------------------
@@ -1218,9 +1452,11 @@ def serve_phase(torch):
 # ---------------------------------------------------------------------------
 
 
-def counted_run(torch, fn):
+def counted_run(torch, fn, tag):
     """Run `fn` with every launch counter at 0 and every plain version a
-    kernel wrapper could take forbidden; returns fn's result and the counts."""
+    kernel wrapper could take forbidden; returns fn's result, the counts and
+    the route counts.  Every K1 / K3 launch of these runs is bf16 and must
+    have reported the tensor-core route (checked; `tag` names the run)."""
     from repro_torch.kernels.flash_attention import ops as attn_ops
     from repro_torch.kernels.rglru import ops as lru_ops
     from repro_torch.kernels.rmsnorm import ops as norm_ops
@@ -1242,6 +1478,7 @@ def counted_run(torch, fn):
     for fn_ in counters.values():
         fn_.launches = 0
     attn_ops.flash_attention.lse_launches = 0
+    route_counts(reset=True)
     try:
         out = fn()
         torch.cuda.synchronize()
@@ -1250,7 +1487,11 @@ def counted_run(torch, fn):
             setattr(mod, name, value)
     counts = {name: fn_.launches for name, fn_ in counters.items()}
     counts["flash_attention_lse"] = attn_ops.flash_attention.lse_launches
-    return out, counts
+    routes = route_counts()
+    if (routes["flash_attention_tc"] != counts["flash_attention"]
+            or routes["flash_attention_bwd_tc"] != counts["flash_attention_bwd"]):
+        raise AssertionError(f"{tag}: bf16 K1 / K3 launches off the tensor-core route: {routes}")
+    return out, counts, routes
 
 
 def recurrent_phase(torch) -> dict:
@@ -1376,7 +1617,8 @@ def serve_recurrent(torch, arch, published) -> dict:
         solo_s = server.latencies[-1]
         return solo_out, solo_s, server.serve_batch(batch), server.latencies[-1]
 
-    (solo_out, solo_s, batch_out, batch_s), counts = counted_run(torch, main_path)
+    (solo_out, solo_s, batch_out, batch_s), counts, routes = counted_run(torch, main_path,
+                                                                         arch)
     prefills, steps = 1 + len(batch), 2 * decode_tokens
     expected = {k: prefills * per_call(True)[k] + steps * per_call(False)[k]
                 for k in counts}
@@ -1401,7 +1643,7 @@ def serve_recurrent(torch, arch, published) -> dict:
             _, cache = server.decode_vc(None, server.params,
                                         {"tokens": tok, "positions": pos}, cache)
 
-    _, dec_counts = counted_run(torch, decode_steps)
+    _, dec_counts, _ = counted_run(torch, decode_steps, arch + " decode")
     want_dec = {k: 4 * v for k, v in per_call(False).items()}
     log(f"recurrent: {arch} 4 decode steps: launches {dec_counts}, expected {want_dec}")
     if dec_counts != want_dec:
@@ -1465,7 +1707,7 @@ def serve_recurrent(torch, arch, published) -> dict:
     ttft_ms = report["bf16"]["ttft_ms_a"]
     summary = {
         "model": arch, "layers": layers, "params_b": n_params / 1e9,
-        "launches": counts, "decode_launches_4_steps": dec_counts,
+        "launches": counts, "routes": routes, "decode_launches_4_steps": dec_counts,
         "logits_vs_eager": report, "gated_logits": gated,
         "token_agreement_vs_eager": agree_eager,
         "token_agreement_batch_vs_solo": agree_batch,
@@ -1478,7 +1720,7 @@ def serve_recurrent(torch, arch, published) -> dict:
     }
     log("recurrent " + json.dumps(summary))
     del server
-    return counts
+    return {**counts, **routes}
 
 
 # ---------------------------------------------------------------------------
@@ -1662,10 +1904,10 @@ def train_phase(torch) -> dict:
     want = {"flash_attention": 2 * accum * layers, "flash_attention_lse": 2 * accum * layers,
             "flash_attention_bwd": accum * layers, "flash_decode": 0, "rmsnorm": 0,
             "rglru": 0, "wkv": 0}
-    step_s, totals = [], {k: 0 for k in want}
+    step_s, totals, route_totals = [], {k: 0 for k in want}, {}
     for i in range(steps):
         t = time.perf_counter()
-        _, counts = counted_run(torch, lambda: trainer.run(1))
+        _, counts, routes = counted_run(torch, lambda: trainer.run(1), f"train step {i + 1}")
         step_s.append(time.perf_counter() - t)
         h = trainer.history[-1]
         log(f"train: step {h['step']}: loss {h['loss']:.6f}, accuracy {h['accuracy']:.4f}, "
@@ -1674,6 +1916,8 @@ def train_phase(torch) -> dict:
             raise AssertionError(f"step {i + 1}: launch counters {counts} != expected {want}")
         for k in totals:
             totals[k] += counts[k]
+        for k, n in routes.items():
+            route_totals[k] = route_totals.get(k, 0) + n
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [h["loss"] for h in trainer.history]
     if not all(np.isfinite(losses)):
@@ -1713,7 +1957,7 @@ def train_phase(torch) -> dict:
         "mfu_median_step": trainer.info["flops_per_step"] / step_median / PEAK_FLOPS["bf16"],
         "model_flops_per_step": trainer.info["flops_per_step"],
         "peak_memory_gb_6_steps": peak_gb,
-        "launches_per_step": want, "launches_6_steps": totals,
+        "launches_per_step": want, "launches_6_steps": {**totals, **route_totals},
         "profile": profile_out, "vs_eager": compare,
     }
     log("train " + json.dumps(summary))
@@ -1753,11 +1997,12 @@ def main() -> int:
     norm = rmsnorm_cases(torch, gen)
     pre = prefill_cases(torch, gen)
     dec = decode_cases(torch, gen)
+    wide = widened_decode_cases(torch, gen)
     quant = quantized_decode_cases(torch, gen)
     lru = rglru_cases(torch, gen)
     wkv6 = wkv_cases(torch, gen)
     lse_c, dq_c, dkv_c = flash_bwd_cases(torch, gen)
-    for c in norm + pre + dec + quant + lru + wkv6 + lse_c + dq_c + dkv_c:
+    for c in norm + pre + dec + wide + quant + lru + wkv6 + lse_c + dq_c + dkv_c:
         log("kernel-case " + json.dumps({k: v for k, v in c.items() if k != "main"}))
     log("shared-prefill-identity " + json.dumps(shared_prefill_identity(torch, gen)))
 
@@ -1783,13 +2028,19 @@ def main() -> int:
                 "rwkv6_serve": rec["rwkv6-3b"].get(key, 0),
                 "train_gemma_6_steps": train["launches_6_steps"].get(key, 0)}
 
+    # K2's launches split by mode: the FMA body, and widened q on the tensor cores
+    dec_fma = {run: n - by_run("flash_decode_tc")[run]
+               for run, n in by_run("flash_decode").items()}
+
     kernels = [
         kernel_entry("flash_attention", "src/repro_torch/csrc/flash_prefill.cu",
                      "src/repro/kernels/flash_attention/kernel.py:490", pre,
-                     a["flash_attention"], by_run("flash_attention")),
+                     a["flash_attention"], by_run("flash_attention"),
+                     tensor_core_launches_by_run=by_run("flash_attention_tc"),
+                     fma_launches_by_run=by_run("flash_attention_fma")),
         kernel_entry("flash_decode", "src/repro_torch/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_attention/decode.py:454", dec,
-                     a["flash_decode"], by_run("flash_decode")),
+                     a["flash_decode"] - a["flash_decode_tc"], dec_fma),
         kernel_entry("flash_decode_quantized", "src/repro_torch/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_attention/decode.py:454", quant,
                      c["flash_decode_quantized"], by_run("flash_decode_quantized")),
@@ -1816,15 +2067,26 @@ def main() -> int:
                      t["flash_attention_lse"], by_run("flash_attention_lse")),
         kernel_entry("flash_attention_bwd_dq", "src/repro_torch/csrc/flash_bwd.cu",
                      "src/repro/kernels/flash_attention/kernel.py:763", dq_c,
-                     t["flash_attention_bwd"], by_run("flash_attention_bwd")),
+                     t["flash_attention_bwd"], by_run("flash_attention_bwd"),
+                     tensor_core_launches_by_run=by_run("flash_attention_bwd_tc")),
         kernel_entry("flash_attention_bwd_dkv", "src/repro_torch/csrc/flash_bwd.cu",
                      "src/repro/kernels/flash_attention/kernel.py:809", dkv_c,
-                     t["flash_attention_bwd"], by_run("flash_attention_bwd")),
+                     t["flash_attention_bwd"], by_run("flash_attention_bwd"),
+                     tensor_core_launches_by_run=by_run("flash_attention_bwd_tc")),
     ]
+    # K2's widened-q mode over bf16 values (K1's tensor-core body) runs on
+    # the continuous path's suffix prefills
+    kernels.append(kernel_entry(
+        "flash_decode_widened_tc", "src/repro_torch/csrc/flash_decode.cu",
+        "src/repro/kernels/flash_attention/decode.py:454", wide, a["flash_decode_tc"],
+        by_run("flash_decode_tc")))
     kernels[2]["library_ms_note"] = ("no single PyTorch call attends over an int8 "
                                      "paged pool")
     kernels[4]["library_ms_note"] = "no single PyTorch call computes a linear recurrence"
     kernels[5]["library_ms_note"] = "no single PyTorch call computes the WKV recurrence"
+    idle = [e["name"] for e in kernels if not e["launches"]]
+    if idle:
+        raise AssertionError(f"kernels not launched on their main path: {idle}")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

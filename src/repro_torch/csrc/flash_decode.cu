@@ -39,7 +39,18 @@
 // One block per (request, KV head) leaves most of the card idle at serving
 // batch sizes (B * K = 32 blocks on 132 SMs); splitting the KV walk across
 // blocks is later work.
+//
+// Widened q over bf16 values (S > 1 tokens: a prefix-shared admission's
+// suffix, a prefill chunk) takes the tensor-core mode instead
+// (flash_decode_tc_kernel): K1's bf16 body (attend_tc.cuh) over 64-slot
+// tiles of the cache, grid (q blocks of 64 tokens, H, B), each token's row
+// masked exactly as above.  A row's bits then equal K1's for the same row of
+// the whole prompt: a shared and an unshared admission write the same suffix
+// rows.  Slots outside the request's live range are zero-filled, never
+// read.  The entry point reports the mode it launched (`route`: 1 tensor
+// cores, 0 FMA).
 #include "attend_core.cuh"
+#include "attend_tc.cuh"
 
 namespace repro_torch {
 
@@ -161,6 +172,93 @@ flash_decode_kernel(DecodeArgs a) {
       slot_begin, slot_end, a.scale, a.softcap);
 }
 
+// ---------------------------------------------------------------------------
+// Widened q over bf16 values: the tensor-core mode
+// ---------------------------------------------------------------------------
+
+// The block's q rows: tokens q0 + r of one (request, head), at positions
+// index + q0 + r, masked as DecodeRows masks them.
+struct DecodeTcRows {
+  const tc::bf16* q; tc::bf16* o;
+  int64_t q_ss, o_ss;
+  int nrows;
+  int pos0, T, window;  // pos0 = index + q0
+  __device__ __forceinline__ int lo(int r) const { return window > 0 ? pos0 + r - window + 1 : 0; }
+  __device__ __forceinline__ int hi(int r) const { return max(1, min(T, pos0 + r + 1)); }
+  __device__ __forceinline__ void store_lse(int, float) const {}  // serving only
+};
+
+// 64-slot tiles of a dense cache or, through the request's block table, of
+// a page pool; slots outside [slot_begin, slot_end) are zero-filled.
+struct CacheTcTiles {
+  const tc::bf16* k; const tc::bf16* v;  // at head kh (and request b when dense)
+  int64_t k_st, v_st, k_sp, v_sp;        // slot strides, page strides
+  const int* table;                      // this request's row, or nullptr
+  int page_size, slot_begin, slot_end;
+  template <int R, int CH, int NT>
+  __device__ __forceinline__ void load(tc::bf16* ks, tc::bf16* vs, int jb, int D) const {
+#pragma unroll 4
+    for (int i = threadIdx.x; i < R * CH; i += NT) {
+      const int r = i / CH, c = i % CH, slot = jb * R + r;
+      const bool ok = slot >= slot_begin && slot < slot_end && c * 8 < D;
+      int64_t ko = 0, vo = 0;
+      if (ok) {
+        if (table != nullptr) {
+          const int64_t page = table[slot / page_size], at = slot % page_size;
+          ko = page * k_sp + at * k_st;
+          vo = page * v_sp + at * v_st;
+        } else {
+          ko = (int64_t)slot * k_st;
+          vo = (int64_t)slot * v_st;
+        }
+      }
+      tc::cp_async16(ks + tc::swz<CH>(r, c), ok ? k + ko + c * 8 : k, ok);
+      tc::cp_async16(vs + tc::swz<CH>(r, c), ok ? v + vo + c * 8 : v, ok);
+    }
+  }
+};
+
+template <int DP>
+__global__ void __launch_bounds__(TcShape<DP>::NT)
+flash_decode_tc_kernel(DecodeArgs a) {
+  using Sh = TcShape<DP>;
+  constexpr int BQ = Sh::BQ, BKV = Sh::BKV;
+  const int iq = gridDim.x - 1 - blockIdx.x;  // the longest walks first
+  const int h = blockIdx.y, b = blockIdx.z, kh = h / a.G;
+  const int q0 = iq * BQ, nrows = min(BQ, a.S - q0);
+  const int index = a.index[b];
+  const int nk = (a.T + BKV - 1) / BKV;
+  // the call's live slots, as the FMA mode computes them, and this block's
+  // tiles: from its first row's window to its last row's boundary
+  const int last_live = max(1, min(a.T, index + a.S));
+  const int hi = (max(1, min(a.T, index + q0 + nrows)) + BKV - 1) / BKV;
+  int lo = 0;
+  if (a.window > 0) lo = max(0, min((index + q0 + 1 - a.window) / BKV, hi - 1));
+  const int slot_begin = a.pruned ? (a.window > 0 ? max(0, index + 1 - a.window) : 0) : 0;
+  const int slot_end = a.pruned ? last_live : a.T;
+
+  const bool paged = a.tables != nullptr;
+  DecodeTcRows rows{
+      static_cast<const tc::bf16*>(a.q) + b * a.q_sb + (int64_t)h * a.q_sh + (int64_t)q0 * a.q_ss,
+      static_cast<tc::bf16*>(a.o) + b * a.o_sb + (int64_t)h * a.o_sh + (int64_t)q0 * a.o_ss,
+      a.q_ss, a.o_ss, nrows, index + q0, a.T, a.window};
+  CacheTcTiles tiles{
+      static_cast<const tc::bf16*>(a.k) + (paged ? 0 : b * a.k_sb) + kh * a.k_sh,
+      static_cast<const tc::bf16*>(a.v) + (paged ? 0 : b * a.v_sb) + kh * a.v_sh,
+      a.k_st, a.v_st, a.k_sb, a.v_sb,
+      paged ? a.tables + (int64_t)b * a.NB : nullptr,
+      a.page_size, slot_begin, slot_end};
+  tc_attend<DP>(rows, tiles, a.D, a.pruned ? lo : 0, a.pruned ? hi : nk, lo, hi, a.scale,
+                a.softcap);
+}
+
+template <int DP>
+static cudaError_t launch_decode_tc(const DecodeArgs& a, int B, int H, cudaStream_t stream) {
+  using Sh = TcShape<DP>;
+  dim3 grid((a.S + Sh::BQ - 1) / Sh::BQ, H, B);
+  return launch_with_smem(flash_decode_tc_kernel<DP>, grid, dim3(Sh::NT), Sh::smem, stream, a);
+}
+
 template <typename T, typename TK>
 static cudaError_t launch_decode(const DecodeArgs& a, int B, int K, cudaStream_t stream) {
   const int R = a.S * a.G;
@@ -193,7 +291,10 @@ static cudaError_t launch_decode_kv(const DecodeArgs& a, int kv_dtype, int dtype
 // elements.  `tables` may be null (dense cache); then k_sb / v_sb are batch
 // strides, else page strides.  Scales are addressed ksc[b * sc_b + row * sc_p
 // + kh * sc_k], row = the block's page (paged; sc_b unused) or its slot /
-// scale_page (dense).  Returns the CUDA error code of the launch (0 = success).
+// scale_page (dense).  S > 1 bf16 tokens over bf16 values take the
+// tensor-core mode, whose tiles are compiled in (block_kv is not read);
+// *route is set to the mode launched (1 tensor cores, 0 FMA; -1 none).
+// Returns the CUDA error code of the launch (0 = success).
 extern "C" int repro_torch_flash_decode(
     const void* q, const void* k, const void* v, void* o,
     const void* index, const void* tables, const void* ksc, const void* vsc,
@@ -204,8 +305,10 @@ extern "C" int repro_torch_flash_decode(
     long long v_sb, long long v_st, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
     long long sc_b, long long sc_p, long long sc_k, int scale_page,
-    int window, float softcap, float scale, int block_kv, int pruned, void* stream) {
+    int window, float softcap, float scale, int block_kv, int pruned, int* route,
+    void* stream) {
   using namespace repro_torch;
+  *route = -1;
   if (D > 256 || D % 8 != 0 || H % K != 0 || block_kv < 1 || block_kv > kBKV || T < 1)
     return (int)cudaErrorInvalidValue;
   if (tables != nullptr && (page_size % block_kv != 0 || (long long)NB * page_size < T))
@@ -223,6 +326,13 @@ extern "C" int repro_torch_flash_decode(
                q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_ss, o_sh,
                window, softcap, scale, block_kv, pruned};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && kv_dtype == 0 && S > 1) {
+    *route = 1;
+    if (D <= 64) return (int)launch_decode_tc<64>(a, B, H, s);
+    if (D <= 128) return (int)launch_decode_tc<128>(a, B, H, s);
+    return (int)launch_decode_tc<256>(a, B, H, s);
+  }
+  *route = 0;
   if (dtype == 0) return (int)launch_decode_kv<__nv_bfloat16>(a, kv_dtype, dtype, B, K, s);
   return (int)launch_decode_kv<float>(a, kv_dtype, dtype, B, K, s);
 }

@@ -33,13 +33,13 @@ SIGNATURES = {
     "repro_torch_rmsnorm": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _FLOAT, _PTR],
     "repro_torch_flash_prefill": (
         [_PTR] * 5 + [_INT] * 8 + [_I64] * 12
-        + [_INT, _INT, _FLOAT, _FLOAT, _INT, _INT, _INT, _PTR]),
+        + [_INT, _INT, _FLOAT, _FLOAT, _INT, _INT, _INT, _PTR, _PTR]),
     "repro_torch_flash_bwd": (
-        [_PTR] * 10 + [_INT] * 7 + [_I64] * 21
-        + [_INT, _INT, _FLOAT, _FLOAT, _INT, _INT, _INT, _INT, _PTR]),
+        [_PTR] * 11 + [_INT] * 7 + [_I64] * 21
+        + [_INT, _INT, _FLOAT, _FLOAT, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR]),
     "repro_torch_flash_decode": (
         [_PTR] * 8 + [_INT] * 10 + [_I64] * 15
-        + [_INT, _INT, _FLOAT, _FLOAT, _INT, _INT, _PTR]),
+        + [_INT, _INT, _FLOAT, _FLOAT, _INT, _INT, _PTR, _PTR]),
     "repro_torch_rglru": [_PTR] * 5 + [_INT] * 3 + [_PTR],
     "repro_torch_wkv6": [_PTR] * 8 + [_INT] * 4 + [_PTR],
 }
@@ -134,6 +134,17 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def route_out():
+    """The out argument in which the attention entry points report the route
+    they launched; `route_name` reads it."""
+    return ctypes.c_int(-1)
+
+
+def route_name(out) -> str:
+    """"tc" (tensor cores) or "fma", as an entry point reported it."""
+    return {1: "tc", 0: "fma"}[out.value]
 
 
 def check_launch(code: int, what: str) -> None:

@@ -8,10 +8,14 @@ fp32 per-page scales (the quantized mode).  The cache and q are read in the
 model layout through strides; the block table and the scales are resolved
 inside the kernel.  `decode_schedule` / `paged_decode_schedule` say which blocks one
 step streams; they are framework-free copies of the reference's oracles.
+Widened q over bf16 values (S > 1 bf16 tokens, bf16 K / V) runs K1's
+tensor-core body in 64-slot tiles instead (`flash_decode_fwd.last_route` is
+then "tc"): a suffix's rows equal K1's rows of the whole prompt bit for bit.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -172,6 +176,7 @@ def flash_decode_fwd(
         sc_strides = ((0, *k_scale.stride()) if tables is not None
                       else tuple(k_scale.stride()))
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    route = build.route_out()
     err = build.library().repro_torch_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         index.data_ptr(), tables_ptr, *sc_ptrs, code, kv_code,
@@ -183,7 +188,11 @@ def flash_decode_fwd(
         *sc_strides, int(scale_page or 0),
         int(window) if window is not None else 0,
         float(softcap) if softcap is not None else 0.0,
-        1.0 / math.sqrt(D), block_kv, int(bool(pruned)),
+        1.0 / math.sqrt(D), block_kv, int(bool(pruned)), ctypes.byref(route),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch(err, "flash_decode")
+    flash_decode_fwd.last_route = build.route_name(route)
     return out
+
+
+flash_decode_fwd.last_route = None  # the mode the last launch reported

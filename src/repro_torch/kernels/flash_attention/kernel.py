@@ -1,18 +1,26 @@
 """Bindings of the CUDA flash-attention forward (`csrc/flash_prefill.cu`) and
-fused backward (`csrc/flash_bwd.cu`), and the numpy-free schedule oracles of
-both walks.
+fused backward (`csrc/flash_bwd.cu`), the choice of route and tiles both
+make, and the numpy-free schedule oracles of their walks.
 
 The kernels replace the reference's `flash_attention_fwd` and
 `flash_attention_bwd`.  They read every operand in the model layout through
 strides and mask ragged edges themselves, so the wrappers make no transposed
-or padded copies.  `kv_schedule` (the forward / dq walk) and `q_schedule`
-(the transposed dk / dv walk) say which blocks a configuration streams; they
-are framework-free copies of the reference's oracles (same results on every
-input) and feed both the tests and the bound computed for a measurement.
+or padded copies.  The type pair picks the route before any launch
+(`attention_route`): bf16 q, k, v take the tensor-core route (mma.sync on
+bf16 tiles, tiles compiled in: `TC_BLOCK_*`), everything
+else — fp32, and a bf16 q over the fp32 K / V of a dequantized page pool —
+the fp32 FMA route, whose blocks are the requested ones up to its
+`MAX_BLOCK_*` capacity.  `kv_schedule` (the forward / dq walk) and
+`q_schedule` (the transposed dk / dv walk) say which blocks a configuration
+streams; they are framework-free copies of the reference's oracles (same
+results on every input) and feed both the tests and the bound computed for a
+measurement.  `dkv_split_schedule` is the dk / dv walk of the tensor-core
+route once its GQA group is split across `dkv_n_split` blocks.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -21,15 +29,30 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 
-# capacity of the kernel's shared-memory tiles (csrc/attend_core.cuh,
-# csrc/flash_prefill.cu): larger requested blocks are clamped to it
+# The FMA route (fp32, and bf16 q over fp32 K / V): capacity of its
+# shared-memory tiles (csrc/attend_core.cuh, csrc/flash_prefill.cu); larger
+# requested blocks are clamped to it.  MAX_BLOCK_KV is also the decode
+# kernel's (K2) block capacity.
 MAX_BLOCK_Q = 64
 MAX_BLOCK_KV = 64
 MAX_HEAD_DIM = 256
-# ... and of the backward's (csrc/flash_bwd.cu: 64 q rows, 32 KV rows, in
+# ... and of the FMA backward's (csrc/flash_bwd.cu: 64 q rows, 32 KV rows in
 # both passes — 202 / 210 KB of shared memory at head_dim 256)
 MAX_BLOCK_Q_BWD = 64
 MAX_BLOCK_KV_BWD = 32
+
+# The tensor-core route (bf16 q, k, v): tiles compiled into the kernels.
+# Forward: 64 q rows per block (4 warps; 160 KB of shared memory at head_dim
+# 256), 64-row K / V tiles.  Backward: 64 q rows per dq block and per dk / dv
+# q tile, 64 KV rows per dk / dv block and per dq K / V tile.  Head dims are
+# padded to the next instantiated one.
+TC_BLOCK_Q = 64
+TC_BLOCK_KV = 64
+TC_BLOCK_Q_BWD = 64
+TC_BLOCK_KV_BWD = 64
+# the dk / dv pass splits a KV head's group until the grid has this many
+# blocks per streaming multiprocessor (or the group runs out)
+TC_DKV_BLOCKS_PER_SM = 2
 
 
 def cdiv(a: int, b: int) -> int:
@@ -183,6 +206,65 @@ def q_schedule(
 
 
 # ---------------------------------------------------------------------------
+# Routes and tiles
+# ---------------------------------------------------------------------------
+
+
+def attention_route(q_dtype, kv_dtype) -> str:
+    """"tc" (tensor cores) for bf16 q over bf16 K / V, else "fma"."""
+    return "tc" if q_dtype == kv_dtype == torch.bfloat16 else "fma"
+
+
+def route_blocks(route: str, block_q: int, block_kv: int, *,
+                 backward: bool = False) -> tuple[int, int]:
+    """The tiles a launch runs with.  The FMA route takes the requested
+    blocks, clamped to its capacity; the tensor-core route's tiles are
+    compiled in, so any request (a woven `flash_block_*`, the tuner's) maps
+    to them — they change which blocks are streamed, never the result."""
+    if route == "tc":
+        return (TC_BLOCK_Q_BWD, TC_BLOCK_KV_BWD) if backward else (TC_BLOCK_Q, TC_BLOCK_KV)
+    cap_q, cap_kv = ((MAX_BLOCK_Q_BWD, MAX_BLOCK_KV_BWD) if backward
+                     else (MAX_BLOCK_Q, MAX_BLOCK_KV))
+    return max(1, min(int(block_q), cap_q)), max(1, min(int(block_kv), cap_kv))
+
+
+def dkv_n_split(B: int, K: int, T: int, G: int, sms: int) -> int:
+    """Blocks per (KV block, KV head) of the tensor-core dk / dv pass: the
+    smallest divisor of the group G that gives the grid at least
+    `TC_DKV_BLOCKS_PER_SM * sms` blocks, else G."""
+    blocks = B * K * cdiv(T, TC_BLOCK_KV_BWD)
+    for n in range(1, G + 1):
+        if G % n == 0 and blocks * n >= TC_DKV_BLOCKS_PER_SM * sms:
+            return n
+    return G
+
+
+def dkv_split_schedule(
+    S: int, T: int, G: int, n_split: int, block_q: int, block_kv: int, *,
+    causal: bool = True, window: int | None = None, pruned: bool = True,
+) -> list[list[list[tuple[int, int]]]]:
+    """Per KV block, per split: the (q head in the group, q block) pairs the
+    tensor-core dk / dv pass streams, in its walk order — split s takes the
+    heads [s G / n_split, (s + 1) G / n_split) over the KV block's q-block
+    interval [q_lo, q_hi) (every q block without pruning), from its last q
+    block back to its first, all the split's heads at each — computed with
+    the kernel's own arithmetic (csrc/flash_bwd.cu)."""
+    if n_split < 1 or G % n_split:
+        raise ValueError(f"n_split {n_split} must divide the group {G}")
+    nq, nk = cdiv(S, block_q), cdiv(T, block_kv)
+    per = G // n_split
+    out = []
+    for ik in range(nk):
+        lo, hi = 0, nq
+        if causal and pruned:
+            lo = _q_lo(ik, block_q, block_kv, nq)
+            hi = _q_hi(ik, block_q, block_kv, nq, T, window)
+        out.append([[(g, iq) for iq in reversed(range(lo, hi))
+                     for g in range(s * per, (s + 1) * per)] for s in range(n_split)])
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Entry points (model layout)
 # ---------------------------------------------------------------------------
 
@@ -238,8 +320,8 @@ def flash_attention_fwd(
     T, K = k.shape[1], k.shape[2]
     if k.shape[0] != B:
         raise ValueError("q and k/v batch sizes differ")
-    block_q = max(1, min(int(block_q), MAX_BLOCK_Q))
-    block_kv = max(1, min(int(block_kv), MAX_BLOCK_KV))
+    block_q, block_kv = route_blocks(attention_route(q.dtype, k.dtype), block_q,
+                                     block_kv)
     if B == 0 or S == 0:
         raise ValueError("empty q: there is nothing to launch")
     if T < 1:
@@ -247,6 +329,7 @@ def flash_attention_fwd(
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    route = build.route_out()
     err = build.library().repro_torch_flash_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if return_lse else None, code, kv_code,
@@ -257,10 +340,14 @@ def flash_attention_fwd(
         out.stride(0), out.stride(1), out.stride(2),
         int(bool(causal)), int(window) if window is not None else 0,
         float(softcap) if softcap is not None else 0.0,
-        1.0 / math.sqrt(D), block_q, block_kv, int(bool(pruned)),
+        1.0 / math.sqrt(D), block_q, block_kv, int(bool(pruned)), ctypes.byref(route),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch(err, "flash_attention")
+    flash_attention_fwd.last_route = build.route_name(route)
     return (out, lse) if return_lse else out
+
+
+flash_attention_fwd.last_route = None  # the route the last launch reported
 
 
 def flash_attention_bwd(
@@ -293,7 +380,12 @@ def flash_attention_bwd(
     `passes` 3 (the default, the training path) launches both passes; 1
     (dq, writing `delta`) or 2 (dk / dv, reading the `delta` an earlier
     pass 1 wrote) launches one alone, so that each can be timed — the
-    outputs of the pass not launched are left unwritten."""
+    outputs of the pass not launched are left unwritten.
+
+    On the tensor-core route (bf16) the dk / dv pass splits each KV head's
+    group across `dkv_n_split` blocks for the device: with more than one,
+    the blocks write fp32 partial sums to a scratch tensor that a third
+    launch, part of pass 2, adds in split order."""
     code, _ = check_qkv(q, k, v)
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
@@ -310,8 +402,8 @@ def flash_attention_bwd(
                          f"{lse.dtype} {tuple(lse.shape)}")
     if B == 0 or S == 0 or T == 0:
         raise ValueError("empty q or k: there is nothing to launch")
-    block_q = max(1, min(int(block_q), MAX_BLOCK_Q_BWD))
-    block_kv = max(1, min(int(block_kv), MAX_BLOCK_KV_BWD))
+    route = attention_route(q.dtype, k.dtype)
+    block_q, block_kv = route_blocks(route, block_q, block_kv, backward=True)
     if passes not in (1, 2, 3):
         raise ValueError(f"passes must be 1, 2 or 3, not {passes}")
     if delta is None:
@@ -325,10 +417,16 @@ def flash_attention_bwd(
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, T, K, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, T, K, D), dtype=k.dtype, device=q.device)
+    n_split = 1 if route != "tc" else dkv_n_split(
+        B, K, T, H // K, torch.cuda.get_device_properties(q.device).multi_processor_count)
+    partial = (torch.empty((2, n_split, B, T, K, D), dtype=torch.float32,
+                           device=q.device) if n_split > 1 and passes & 2 else None)
+    reported = build.route_out()
     err = build.library().repro_torch_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), code, B, S, T, H, K, D,
+        dv.data_ptr(), partial.data_ptr() if partial is not None else None,
+        code, B, S, T, H, K, D,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
@@ -338,7 +436,11 @@ def flash_attention_bwd(
         dk.stride(0), dk.stride(1), dk.stride(2),
         int(bool(causal)), int(window) if window is not None else 0,
         float(softcap) if softcap is not None else 0.0,
-        1.0 / math.sqrt(D), block_q, block_kv, int(bool(pruned)), int(passes),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        1.0 / math.sqrt(D), block_q, block_kv, int(bool(pruned)), int(n_split),
+        int(passes), ctypes.byref(reported), torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch(err, "flash_attention_bwd")
+    flash_attention_bwd.last_route = build.route_name(reported)
     return dq, dk, dv
+
+
+flash_attention_bwd.last_route = None  # the route the last launch reported

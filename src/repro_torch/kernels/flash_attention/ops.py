@@ -13,10 +13,17 @@ and the backward is the fused two-pass kernel (`flash_attention_bwd`), never
 a recomputation through the plain attention.  Without a gradient to take it
 runs the forward alone, without `lse`, as serving always did.
 
-Block sizes left unspecified (None) take the kernel's tile capacity; woven
-`flash_block_*` extras override and are clamped to that capacity.  Backward
-blocks left unspecified take the forward's, as the reference's
-`_resolve_blocks` does (then clamped to the backward's capacity).
+Each CUDA launch of K1 / K3 takes one of two routes, chosen by the type
+pair (`kernel.attention_route`), reported by the kernel's entry point and
+counted as reported beside `launches`: `tc_launches` (bf16 q, k, v — the
+tensor cores) and `fma_launches` (fp32, and a bf16 q over the fp32 K / V of
+a dequantized page pool).  K2 counts its widened-q launches over bf16
+values, which run K1's tensor-core body, in `flash_decode.tc_launches`.  Block sizes left
+unspecified (None) take the FMA route's tile capacity; woven `flash_block_*`
+extras override and are clamped to that capacity.  Backward blocks left
+unspecified take the forward's, as the reference's `_resolve_blocks` does
+(then clamped to the backward's capacity).  The tensor-core route's tiles
+are compiled in: any requested block maps to them (`kernel.route_blocks`).
 
 The quantization primitives of the int8 / fp8 page pool live here too, as in
 the reference: a page stores narrow codes beside one fp32 scale per KV head,
@@ -105,7 +112,8 @@ def dequantize_kv(x, scale):
 def _forward(q, k, v, *, causal, window, softcap, block_q, block_kv, pruned,
              return_lse):
     """One forward: the plain version for a CPU tensor, else one K1 launch
-    (counted; with `return_lse` also in `flash_attention.lse_launches`)."""
+    (counted, and by route; with `return_lse` also in
+    `flash_attention.lse_launches`)."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap, return_lse=return_lse)
@@ -114,6 +122,10 @@ def _forward(q, k, v, *, causal, window, softcap, block_q, block_kv, pruned,
         block_q=block_q, block_kv=block_kv, pruned=pruned,
         return_lse=return_lse)
     flash_attention.launches += 1
+    if flash_attention_fwd.last_route == "tc":  # as the entry point reported it
+        flash_attention.tc_launches += 1
+    else:
+        flash_attention.fma_launches += 1
     if return_lse:
         flash_attention.lse_launches += 1
     return res
@@ -174,6 +186,8 @@ def flash_attention(
 
 flash_attention.launches = 0  # K1 launches made through this wrapper
 flash_attention.lse_launches = 0  # of which in the training mode (with lse)
+flash_attention.tc_launches = 0  # of which on the tensor-core route (bf16)
+flash_attention.fma_launches = 0  # of which on the FMA route (fp32, fp32 K/V)
 
 
 def flash_attention_bwd(
@@ -193,8 +207,9 @@ def flash_attention_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) in the model layout; dk / dv have the K KV heads.  A CPU
     tensor takes the plain version; a CUDA tensor launches the two-pass
-    kernel (one call, counted once in `launches`: a dq pass and a dk / dv
-    pass) or raises."""
+    kernel (one call, counted once in `launches` and once by route: a dq
+    pass and a dk / dv pass, with the reduce of its split partials on the
+    tensor-core route) or raises."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
                                        window=window, softcap=softcap)
@@ -204,10 +219,16 @@ def flash_attention_bwd(
         block_kv=DEFAULT_BLOCK_KV if block_kv is None else block_kv,
         pruned=pruned)
     flash_attention_bwd.launches += 1
+    if _flash_attention_bwd_kernel.last_route == "tc":  # as the entry point reported it
+        flash_attention_bwd.tc_launches += 1
+    else:
+        flash_attention_bwd.fma_launches += 1
     return res
 
 
 flash_attention_bwd.launches = 0  # K3 calls (each a dq and a dk / dv launch)
+flash_attention_bwd.tc_launches = 0  # of which on the tensor-core route (bf16)
+flash_attention_bwd.fma_launches = 0  # of which on the FMA route (fp32)
 
 
 def paged_gather_kv(pk, pv, tables, kv_len: int, k_scale=None, v_scale=None):
@@ -284,7 +305,11 @@ def flash_decode(
     blocks resolve through its block-table row.  With `k_scale`/`v_scale`
     the cache holds int8 / fp8 codes and every streamed block is
     dequantized at its page's scale (the quantized mode); a launch in that
-    mode also counts in `flash_decode.quantized_launches`.
+    mode also counts in `flash_decode.quantized_launches`.  S > 1 bf16
+    tokens over bf16 values run K1's tensor-core body (its rows equal K1's
+    for the same rows of the whole prompt, bit for bit) and also count in
+    `flash_decode.tc_launches`; their tiles are compiled in, so `block_kv`
+    does not change their result.
     """
     block_kv = DEFAULT_BLOCK_KV_DEC if block_kv is None else int(block_kv)
     if q.device.type == "cpu":
@@ -305,8 +330,11 @@ def flash_decode(
     flash_decode.launches += 1
     if k_scale is not None:
         flash_decode.quantized_launches += 1
+    if flash_decode_fwd.last_route == "tc":  # as the entry point reported it
+        flash_decode.tc_launches += 1
     return out
 
 
 flash_decode.launches = 0  # kernel launches made through this wrapper
 flash_decode.quantized_launches = 0  # of which in the quantized-pool mode
+flash_decode.tc_launches = 0  # of which widened q on the tensor cores (bf16)

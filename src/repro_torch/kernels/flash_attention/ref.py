@@ -172,6 +172,7 @@ def decode_ref(
     idx = [int(i) for i in
            torch.as_tensor(index).reshape(-1).expand(B).tolist()]
     scale = 1.0 / math.sqrt(D)
+    acc = _acc_dtype(q)
     off = torch.arange(S, device=q.device)[:, None]  # token offset per q row
     outs = []
     for b in range(B):
@@ -192,16 +193,15 @@ def decode_ref(
                 row = slots // scale_page
                 kb = kb.to(torch.float32) * k_scale[b, row][..., None]
                 vb = vb.to(torch.float32) * v_scale[b, row][..., None]
-        qf = q[b].to(torch.float32).reshape(S, K, G, D)
-        s = torch.einsum("skgd,tkd->kgst", qf, kb.to(torch.float32)) * scale
+        qf = q[b].to(acc).reshape(S, K, G, D)
+        s = torch.einsum("skgd,tkd->kgst", qf, kb.to(acc)) * scale
         if softcap is not None:
             s = torch.tanh(s / softcap) * softcap
         live = torch.clamp(idx[b] + off + 1, 1, T)  # (S, 1) per-row boundary
         mask = slots[None, :] < live
         if window is not None:  # linear cache under a sliding window
             mask = mask & (slots[None, :] > idx[b] + off - window)
-        acc, l, _ = _masked_softmax_pv(s, mask, vb.to(torch.float32),
-                                       "kgst,tkd->kgsd")
-        out = acc / torch.clamp(l, min=1e-30)  # (K, G, S, D)
+        pv, l, _ = _masked_softmax_pv(s, mask, vb.to(acc), "kgst,tkd->kgsd")
+        out = pv / torch.clamp(l, min=1e-30)  # (K, G, S, D)
         outs.append(out.permute(2, 0, 1, 3).reshape(S, H, D))
     return torch.stack(outs).to(q.dtype)
