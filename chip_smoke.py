@@ -27,7 +27,13 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    one, and computes the least time the card could take (the roofline bound).
    The quantized mode of flash decode (int8 / fp8 pages with fp32 scales) is
    held to its plain version, to the dense layout of the same codes bit for
-   bit, and to flash decode over the bf16 values it quantizes;
+   bit, and to flash decode over the bf16 values it quantizes.  Every
+   single-token flash decode case with a bf16 q (over bf16 values or codes)
+   must report the split route, give the same bits on a second call, and
+   give the shortest and the longest request's rows bit for bit when that
+   request is called alone (`split_gates`); its achieved GB/s is printed;
+   and the widened-q case prints how far a single-token row lies from the
+   widened row of the same token;
 4. serves the launchers' reduced configuration (head_dim 16) on the card and
    checks that the attention kernels were launched there too;
 5. serves full-width, full-depth yi-6b (random weights from a seed) through
@@ -223,13 +229,13 @@ def live_pairs(S, T, causal, window) -> int:
 
 
 ROUTE_COUNTERS = ("flash_attention_tc", "flash_attention_fma", "flash_attention_bwd_tc",
-                  "flash_attention_bwd_fma", "flash_decode_tc")
+                  "flash_attention_bwd_fma", "flash_decode_tc", "flash_decode_split")
 
 
 def route_counts(reset: bool = False) -> dict:
-    """The route counters of K1, K3 and K2's widened-q mode — each launch
-    counted by the route its kernel's entry point reported — and, with
-    `reset`, set to 0 first."""
+    """The route counters of K1, K3 and K2's widened-q and single-token
+    tensor-core routes — each launch counted by the route its kernel's entry
+    point reported — and, with `reset`, set to 0 first."""
     from repro_torch.kernels.flash_attention import ops
 
     out = {}
@@ -346,9 +352,31 @@ def prefill_cases(torch, gen):
     return cases
 
 
+def split_gates(torch, name, got, call, one, idx) -> dict:
+    """The split route's bit gates on a single-token case `got` (the batch
+    at first-token positions `idx`): it reported the split route, a second
+    `call()` gives the same bits, and the shortest and the longest request
+    alone (`one(b)`) give their rows of the batch bit for bit."""
+    from repro_torch.kernels.flash_attention.decode import flash_decode_fwd
+
+    if flash_decode_fwd.last_route != "tc_split":
+        raise AssertionError(f"{name}: launched the {flash_decode_fwd.last_route} route")
+    again = call()
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two calls gave other bits")
+    for b in {idx.index(min(idx)), idx.index(max(idx))}:
+        alone = one(b)
+        torch.cuda.synchronize()
+        if not torch.equal(alone, got[b:b + 1]):
+            raise AssertionError(f"{name}: request {b}'s rows depend on its batch")
+    return {"route": "tc_split", "bitwise_two_calls": True, "bitwise_batch_invariant": True}
+
+
 def decode_cases(torch, gen):
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention.decode import flash_decode_fwd
     from repro_torch.kernels.flash_attention.ops import flash_decode
     from repro_torch.kernels.flash_attention.ref import decode_ref
 
@@ -387,14 +415,27 @@ def decode_cases(torch, gen):
         index = torch.tensor(idx, dtype=torch.int32, device="cuda")
         kw = dict(window=window, pruned=not name.startswith("unpruned"))
         got = flash_decode(q, k, v, index, **kw)
+        torch.cuda.synchronize()
+        if dtype == torch.bfloat16:  # one bf16 token: the split route
+            extra = split_gates(
+                torch, name, got, lambda: flash_decode(q, k, v, index, **kw),
+                lambda b: flash_decode(q[b:b + 1], k[b:b + 1], v[b:b + 1], index[b:b + 1],
+                                       **kw), idx)
+        elif flash_decode_fwd.last_route != "fma":
+            raise AssertionError(f"{name}: launched the {flash_decode_fwd.last_route} route")
+        else:
+            extra = {"route": "fma"}
         want = decode_ref(q, k, v, index, **kw)
         torch.cuda.synchronize()
         err, rms = check_close(torch, name, got, want, tol)
         # four copies of the cache (4 x 67 MB at the main shape) so that each
-        # launch finds it cold in the 50 MB L2, as a step over 32 layers does
+        # launch finds it cold in the 50 MB L2, as a step over 32 layers does;
+        # the launches replay from a CUDA graph, since one is shorter than
+        # the time Python takes to issue it
         copies = [(k, v)] + [(k.clone(), v.clone()) for _ in range(3 if main else 0)]
         ms = time_ms(torch, [
-            (lambda kk=kk, vv=vv: flash_decode(q, kk, vv, index, **kw)) for kk, vv in copies], 20)
+            (lambda kk=kk, vv=vv: flash_decode(q, kk, vv, index, **kw)) for kk, vv in copies],
+            20, graph=True)
         plain = time_ms(torch, [lambda: decode_ref(q, k, v, index, **kw)], 2)
         # one library call with a per-request boolean mask, (B, 1, S, T), built
         # outside the timed region: token s of request b sees the slots
@@ -410,14 +451,15 @@ def decode_cases(torch, gen):
                  vv.transpose(1, 2).repeat_interleave(G, dim=1)) for kk, vv in copies[:2]]
         lib = time_ms(torch, [
             (lambda kk=kk, vv=vv: F.scaled_dot_product_attention(qt, kk, vv, attn_mask=mask))
-            for kk, vv in libs], 10)
+            for kk, vv in libs], 10, graph=True)
         del libs
         slots = live_slots(idx, S, Tc, window)
         nbytes = (slots * Kc * Dc * 2 + 2 * q.numel()) * q.element_size()
         flops = 4.0 * Dc * slots * S * Hc
         b_ms, b_by = bound(nbytes, flops, "bf16" if dtype == torch.bfloat16 else "fp32")
         cases.append(dict(case=name, main=main, max_abs_err=err, ref_rms=rms, ms=ms,
-                          plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+                          plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                          gb_s=nbytes / ms / 1e6, **extra))
         del copies
 
     # paged == dense, bit for bit: shuffled tables, dead pages poisoned
@@ -428,16 +470,21 @@ def decode_cases(torch, gen):
     dense = flash_decode(q, k, v, index)
     paged = flash_decode(q, pk, pv, index, tables=tables, kv_len=T)
     torch.cuda.synchronize()
+    extra = split_gates(
+        torch, name, paged, lambda: flash_decode(q, pk, pv, index, tables=tables, kv_len=T),
+        lambda b: flash_decode(q[b:b + 1], pk, pv, index[b:b + 1], tables=tables[b:b + 1],
+                               kv_len=T), ragged)
     if not torch.isfinite(paged).all():
         raise AssertionError(f"{name}: a dead page reached the output")
     if not torch.equal(dense, paged):
         raise AssertionError(f"{name}: paged output differs from dense output")
     want = decode_ref(q, pk, pv, index, tables=tables, kv_len=T)
     err, rms = check_close(torch, name, paged, want, BF16_TOL)
-    ms = time_ms(torch, [lambda: flash_decode(q, pk, pv, index, tables=tables, kv_len=T)], 20)
+    ms = time_ms(torch, [lambda: flash_decode(q, pk, pv, index, tables=tables, kv_len=T)], 20,
+                 graph=True)
     cases.append(dict(case=name, main=False, max_abs_err=err, ref_rms=rms, ms=ms, plain_ms=None,
                       bound_ms=None, bound_by=None, library_ms=None,
-                      bitwise_equal_to_dense=True))
+                      bitwise_equal_to_dense=True, **extra))
     return cases
 
 
@@ -504,6 +551,20 @@ def widened_decode_cases(torch, gen):
         if flash_decode_fwd.last_route != "tc":
             raise AssertionError(f"{name}: launched the {flash_decode_fwd.last_route} mode")
         extra = {}
+        if not paged:
+            # printed, not gated (speculative decoding's "verify == greedy"
+            # compares these rows): token s as a single-token call at index
+            # + s, on the split route, against its row of the widened call
+            singles = torch.cat([flash_decode(q[:, s:s + 1], k, v, index + s, window=window)
+                                 for s in range(S)], dim=1)
+            torch.cuda.synchronize()
+            if flash_decode_fwd.last_route != "tc_split":
+                raise AssertionError(f"{name}: single tokens took the "
+                                     f"{flash_decode_fwd.last_route} route")
+            diff = (singles.float() - got.float()).abs()
+            extra["single_token_vs_widened_row_max_abs_diff"] = diff.max().item()
+            extra["single_token_vs_widened_rows_bitwise_equal_share"] = \
+                (diff == 0).all(dim=-1).float().mean().item()
         if paged and not main:
             dense = flash_decode(q, k, v, index, window=window)
             torch.cuda.synchronize()
@@ -551,7 +612,7 @@ def quantized_decode_cases(torch, gen):
     agree bit for bit (shuffled tables, dead pages poisoned), and the int8
     output must stay within 0.05 of K2 over the bf16 values it quantizes
     (the reference's bound, benchmarks/quantized_cache.py:53)."""
-    from repro_torch.kernels.flash_attention.decode import paged_decode_schedule
+    from repro_torch.kernels.flash_attention.decode import flash_decode_fwd, paged_decode_schedule
     from repro_torch.kernels.flash_attention.ops import (
         flash_decode,
         kv_scale_from_absmax,
@@ -595,6 +656,7 @@ def quantized_decode_cases(torch, gen):
     for name, dtype_name, S, main in [
         ("paged_int8_T4096_page128", "int8", 1, True),
         ("paged_float8_e4m3fn_T4096_page128", "float8_e4m3fn", 1, False),
+        ("paged_float8_e5m2_T4096_page128", "float8_e5m2", 1, False),
         ("paged_int8_q_span4_T4096_page128", "int8", 4, False),
     ]:
         dt = resolve_cache_dtype(dtype_name)
@@ -614,6 +676,16 @@ def quantized_decode_cases(torch, gen):
         pk, pks, pv, pvs, tables = to_pool(kc, ks, vc, vs, live_of)
         kw = dict(tables=tables, kv_len=T, k_scale=pks, v_scale=pvs)
         got = flash_decode(q, pk, pv, index, **kw)
+        torch.cuda.synchronize()
+        if S == 1:  # one bf16 token over codes: the split route
+            extra = split_gates(
+                torch, name, got, lambda: flash_decode(q, pk, pv, index, **kw),
+                lambda b: flash_decode(q[b:b + 1], pk, pv, index[b:b + 1],
+                                       **{**kw, "tables": tables[b:b + 1]}), idx)
+        elif flash_decode_fwd.last_route != "fma":
+            raise AssertionError(f"{name}: launched the {flash_decode_fwd.last_route} route")
+        else:
+            extra = {"route": "fma"}
         dense = flash_decode(q, kc, vc, index, k_scale=ks, v_scale=vs, scale_page=ps)
         want = decode_ref(q, pk, pv, index, **kw)
         torch.cuda.synchronize()
@@ -628,7 +700,12 @@ def quantized_decode_cases(torch, gen):
         if dtype_name == "int8" and not vs_fp <= QUANT_VS_FP_TOL:
             raise AssertionError(f"{name}: {vs_fp} from the bf16 cache's output "
                                  f"(bound {QUANT_VS_FP_TOL})")
-        ms = time_ms(torch, [lambda: flash_decode(q, pk, pv, index, **kw)], 20)
+        # the main case's pool (2 x 34 MB) copied so that each launch finds
+        # it cold in the 50 MB L2; launches replayed from a CUDA graph
+        copies = [(pk, pv)] + [(pk.clone(), pv.clone()) for _ in range(3 if main else 0)]
+        ms = time_ms(torch, [(lambda kk=kk, vv=vv: flash_decode(q, kk, vv, index, **kw))
+                             for kk, vv in copies], 20, graph=True)
+        del copies
         plain = time_ms(torch, [lambda: decode_ref(q, pk, pv, index, **kw)], 2)
         slots = sum(max(0, max(1, min(T, i + S))) for i in idx)
         pages = sum(-(-max(1, min(T, i + S)) // ps) for i in idx)
@@ -637,7 +714,8 @@ def quantized_decode_cases(torch, gen):
         b_ms, b_by = bound(nbytes, 4.0 * D * slots * S * H, "bf16")
         cases.append(dict(case=name, main=main, max_abs_err=err, ref_rms=rms, ms=ms,
                           plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                          bitwise_equal_to_dense=True, max_abs_err_vs_bf16_cache=vs_fp))
+                          gb_s=nbytes / ms / 1e6, bitwise_equal_to_dense=True,
+                          max_abs_err_vs_bf16_cache=vs_fp, **extra))
         del pk, pv, kc, vc
 
     # a dense int8 cache, one scale row per 128 slots
@@ -648,13 +726,54 @@ def quantized_decode_cases(torch, gen):
     vc, vs = quantize(v, dt)
     kw = dict(k_scale=ks, v_scale=vs, scale_page=ps)
     got = flash_decode(q, kc, vc, index, **kw)
+    torch.cuda.synchronize()
+    extra = split_gates(
+        torch, "dense_int8_scale_page128", got, lambda: flash_decode(q, kc, vc, index, **kw),
+        lambda b: flash_decode(q[b:b + 1], kc[b:b + 1], vc[b:b + 1], index[b:b + 1],
+                               k_scale=ks[b:b + 1], v_scale=vs[b:b + 1], scale_page=ps),
+        ragged)
     want = decode_ref(q, kc, vc, index, **kw)
     torch.cuda.synchronize()
     err, rms = check_close(torch, "dense_int8_scale_page128", got, want, BF16_TOL)
-    ms = time_ms(torch, [lambda: flash_decode(q, kc, vc, index, **kw)], 20)
+    ms = time_ms(torch, [lambda: flash_decode(q, kc, vc, index, **kw)], 20, graph=True)
     cases.append(dict(case="dense_int8_scale_page128", main=False, max_abs_err=err,
                       ref_rms=rms, ms=ms, plain_ms=None, bound_ms=None, bound_by=None,
-                      library_ms=None))
+                      library_ms=None, **extra))
+
+    # widened q over codes (the FMA route) at the continuous path's shape: a
+    # 512-token suffix over a 1024-token prefix in a shuffled int8 pool —
+    # what the int8 pool's suffix prefills launch
+    S, Tw = 512, 1536
+    nbw = Tw // ps
+    q = torch.randn((1, S, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+    codes, scales = [], []
+    for x in (k, v):
+        pages = x[:1, :Tw].float().reshape(nbw, ps, K, D)
+        sc = kv_scale_from_absmax(pages.abs().amax(dim=(1, 3)), dt)
+        codes.append(quantize_kv_write(pages, sc[:, None, :], dt))
+        scales.append(sc)
+    perm = torch.randperm(nbw, generator=gen, device="cuda")
+    pooled = [torch.empty_like(t_) for t_ in codes + scales]
+    for dst, src_ in zip(pooled, codes + scales):
+        dst[perm] = src_
+    kw = dict(tables=perm[None].to(torch.int32), kv_len=Tw, k_scale=pooled[2],
+              v_scale=pooled[3])
+    index = torch.tensor([Tw - S], dtype=torch.int32, device="cuda")
+    name = "paged_int8_suffix512_over_prefix1024"
+    got = flash_decode(q, pooled[0], pooled[1], index, **kw)
+    torch.cuda.synchronize()
+    if flash_decode_fwd.last_route != "fma":
+        raise AssertionError(f"{name}: launched the {flash_decode_fwd.last_route} route")
+    err, rms = check_close(torch, name, got, decode_ref(q, pooled[0], pooled[1], index, **kw),
+                           BF16_TOL)
+    ms = time_ms(torch, [lambda: flash_decode(q, pooled[0], pooled[1], index, **kw)], 5)
+    plain = time_ms(torch, [lambda: decode_ref(q, pooled[0], pooled[1], index, **kw)], 2)
+    pairs = S * (Tw - S) + S * (S + 1) // 2
+    nbytes = Tw * K * D * 2 + nbw * K * 2 * 4 + 2 * q.numel() * q.element_size()
+    b_ms, b_by = bound(nbytes, 4.0 * D * pairs * H, "bf16")
+    cases.append(dict(case=name, main=False, max_abs_err=err, ref_rms=rms, ms=ms,
+                      plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                      route="fma"))
     return cases
 
 
@@ -1035,9 +1154,9 @@ def reduced_phase(torch):
     routes = route_counts()
     log(f"reduced: yi-6b reduced, head_dim {mcfg.head_dim}: attention launches {got}, "
         f"expected {expected}; routes {routes}")
-    if routes["flash_attention_tc"] != got[0]:
+    if routes["flash_attention_tc"] != got[0] or routes["flash_decode_split"] != got[1]:
         raise AssertionError(f"reduced configuration: bf16 K1 launches off the tensor-core "
-                             f"route: {routes}")
+                             f"route or single-token K2 launches off the split route: {routes}")
     if got != expected:
         raise AssertionError(f"reduced configuration: launches {got} != {expected}")
     if out.shape != (2, tokens) or out.min() < 0 or out.max() >= mcfg.vocab:
@@ -1161,10 +1280,13 @@ def continuous_phase(torch, server) -> dict:
         # but for a quantized pool's first prefills, which attend over its
         # dequantized fp32 K / V (the FMA route); every suffix prefill over a
         # bf16 pool on K2's tensor-core mode, none over a quantized one
+        # and every single-token step (decode, re-score) on the split
+        # route, over either pool
         fma = layers * st["prefill"] if quantized else 0
         want_routes = {"flash_attention_tc": want["flash_attention"] - fma,
                        "flash_attention_fma": fma,
-                       "flash_decode_tc": 0 if quantized else layers * st["suffix_prefill"]}
+                       "flash_decode_tc": 0 if quantized else layers * st["suffix_prefill"],
+                       "flash_decode_split": layers * (st["decode"] + st["rescore"])}
         log(f"continuous {tag}: routes {routes}, expected {want_routes}")
         if any(routes[k] != v for k, v in want_routes.items()):
             raise AssertionError(f"{tag}: routes {routes} != expected {want_routes}")
@@ -1362,6 +1484,8 @@ def serve_phase(torch):
     log(f"serve: routes {routes}")
     if routes["flash_attention_tc"] != counts["flash_attention"]:
         raise AssertionError(f"serve: bf16 K1 launches off the tensor-core route: {routes}")
+    if routes["flash_decode_split"] != counts["flash_decode"]:
+        raise AssertionError(f"serve: single-token K2 launches off the split route: {routes}")
 
     prefills = len(solo) + len(batch)
     steps = decode_tokens * (len(solo) + 1)
@@ -1456,7 +1580,9 @@ def counted_run(torch, fn, tag):
     """Run `fn` with every launch counter at 0 and every plain version a
     kernel wrapper could take forbidden; returns fn's result, the counts and
     the route counts.  Every K1 / K3 launch of these runs is bf16 and must
-    have reported the tensor-core route (checked; `tag` names the run)."""
+    have reported the tensor-core route, and every K2 launch is one bf16
+    token and must have reported the split route (checked; `tag` names the
+    run)."""
     from repro_torch.kernels.flash_attention import ops as attn_ops
     from repro_torch.kernels.rglru import ops as lru_ops
     from repro_torch.kernels.rmsnorm import ops as norm_ops
@@ -1491,6 +1617,8 @@ def counted_run(torch, fn, tag):
     if (routes["flash_attention_tc"] != counts["flash_attention"]
             or routes["flash_attention_bwd_tc"] != counts["flash_attention_bwd"]):
         raise AssertionError(f"{tag}: bf16 K1 / K3 launches off the tensor-core route: {routes}")
+    if routes["flash_decode_split"] != counts["flash_decode"]:
+        raise AssertionError(f"{tag}: single-token K2 launches off the split route: {routes}")
     return out, counts, routes
 
 
@@ -2028,9 +2156,11 @@ def main() -> int:
                 "rwkv6_serve": rec["rwkv6-3b"].get(key, 0),
                 "train_gemma_6_steps": train["launches_6_steps"].get(key, 0)}
 
-    # K2's launches split by mode: the FMA body, and widened q on the tensor cores
-    dec_fma = {run: n - by_run("flash_decode_tc")[run]
-               for run, n in by_run("flash_decode").items()}
+    # K2's single-token launches (all but widened q) and, of those, the split
+    # route's (the rest run the FMA body)
+    single = {run: n - by_run("flash_decode_tc")[run]
+              for run, n in by_run("flash_decode").items()}
+    split = by_run("flash_decode_split")
 
     kernels = [
         kernel_entry("flash_attention", "src/repro_torch/csrc/flash_prefill.cu",
@@ -2040,10 +2170,17 @@ def main() -> int:
                      fma_launches_by_run=by_run("flash_attention_fma")),
         kernel_entry("flash_decode", "src/repro_torch/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_attention/decode.py:454", dec,
-                     a["flash_decode"] - a["flash_decode_tc"], dec_fma),
+                     a["flash_decode"] - a["flash_decode_tc"], single,
+                     tensor_core_launches_by_run=split,
+                     fma_launches_by_run={run: n - split[run] for run, n in single.items()},
+                     split_source="src/repro_torch/csrc/decode_split.cuh",
+                     gb_s=next(x["gb_s"] for x in dec if x["main"])),
         kernel_entry("flash_decode_quantized", "src/repro_torch/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_attention/decode.py:454", quant,
-                     c["flash_decode_quantized"], by_run("flash_decode_quantized")),
+                     c["flash_decode_quantized"], by_run("flash_decode_quantized"),
+                     tensor_core_launches=c["flash_decode_split"],
+                     split_source="src/repro_torch/csrc/decode_split.cuh",
+                     gb_s=next(x["gb_s"] for x in quant if x["main"])),
         kernel_entry("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
                      "src/repro/kernels/rmsnorm/kernel.py:37", norm, a["rmsnorm"],
                      by_run("rmsnorm")),

@@ -1,8 +1,10 @@
-// Online-softmax attention core of the decode kernel (K2, flash_decode.cu:
-// one token, and any token count over fp32 values or quantized codes) and
-// of the prefill kernel's FMA route (K1 over fp32, and a bf16 q over the fp32
-// K / V of a dequantized page pool: flash_prefill.cu).  K1's bf16 route and
-// K2's bf16 widened q run the tensor-core body of attend_tc.cuh instead.
+// Online-softmax attention core of the decode kernel's FMA route (K2,
+// flash_decode.cu: an fp32 q, and a bf16 q's widened rows over quantized
+// codes) and of the prefill kernel's FMA route (K1 over fp32, and a bf16 q
+// over the fp32 K / V of a dequantized page pool: flash_prefill.cu).  K1's
+// bf16 route and K2's bf16 widened q run the tensor-core body of
+// attend_tc.cuh instead, and K2's single bf16 token (over values or codes)
+// the split route of decode_split.cuh.
 //
 // One thread block owns RT query rows and walks a contiguous interval of KV
 // blocks.  The running max / denominator / accumulator stay on chip for the
@@ -24,10 +26,11 @@
 // register tile (column c of a thread is tx + 16*c).  Shared rows are padded
 // by one float so the strided reads of both products are conflict-free.
 //
-// This is the simple-and-right version: plain FMAs, synchronous loads.  Its
-// bound on an H100 is the decode's bytes (K2) or, for K1's FMA route, the
-// fp32 peak; single-token K2 on the tensor cores with a KV walk split
-// across blocks, and a wgmma / TMA pipeline, are not done here.
+// This is the simple-and-right version: plain FMAs, synchronous loads, one
+// block walking a row tile's whole interval.  Its bound on an H100 is the
+// decode's bytes (K2) or, for K1's FMA route, the fp32 peak; the routes that
+// most calls take are the tensor-core ones (attend_tc.cuh,
+// decode_split.cuh).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -9,48 +9,48 @@
 // paged pools addressed through per-request block tables, and the quantized
 // mode: int8 / fp8 (e4m3, e5m2) K/V codes with one fp32 scale per page and KV
 // head — (P, K) for a pool, (B, NP, K) with `scale_page` slots per row for a
-// dense cache — dequantized per streamed block (reference body decode.py
-// :233-243, scale index maps :401-419).
+// dense cache (reference body decode.py :233-243, scale index maps :401-419).
 //
 // Bound on an H100: bytes — every live K and V slot is read once,
-// sum_b live_slots(b) * K * D * 2 * sizeof(KV element) per call (plus one
-// fp32 scale per page and head in the quantized mode), against the card's
-// memory bandwidth; the q rows and the output are noise beside that.
+// sum_b live_slots(b) * K * D * 2 * sizeof(KV element) per call (plus the
+// fp32 scales in the quantized mode), against the card's memory bandwidth;
+// the q rows and the output are noise beside that.
 //
-// Quantized mode: one kernel body with the other modes.  `block_kv` divides
-// the page (or the dense scale row), so one scalar scale covers a block; it
-// is read through the same table entry as the block's codes, and the codes
-// become float(code) * scale on their way into shared memory.  The online
-// softmax after that is the unquantized one, so a paged and a dense cache of
-// the same codes and scales agree bit for bit.
+// Three routes, chosen by the call's types and token count and reported
+// through `route`:
 //
-// Design: grid (B, K, row tiles).  The block loads index[b] itself, computes
-// lo / hi with the reference's arithmetic and loops exactly over the live
-// blocks — there are no overshoot steps to elide.  The cache is read in the
-// model's own layout, (B, T, K, D) or (P, page, K, D), through strides: no
-// transposed copy of the cache per layer per token.  With a block table,
-// logical block jb resolves to (tables[b, jb / spb], jb % spb); every mask
-// stays in logical slot space, so the paged and the dense walk do the same
-// arithmetic in the same order and agree bit for bit.  Slots outside the live
-// range of the request are never read (dead pages may hold anything).  q rows
-// are addressed in the model layout (B, S, H, D): row r of KV head kh is token
-// r / G, head kh * G + r % G, so no folded copy of q or o is made either.
+// - 2, one token with a bf16 q over bf16 values or int8 / fp8 codes (every
+//   serving decode step): the split route (decode_split.cuh,
+//   flash_decode_split_kernel).  The KV walk is cut into fixed chunks of
+//   logical slots spread over the card, the GQA group runs on the tensor
+//   cores, the dequant scales are factored out of the products, and the
+//   chunks are combined in chunk order.
+// - 1, widened q (S > 1 bf16 tokens: a prefix-shared admission's suffix, a
+//   prefill chunk) over bf16 values: the tensor-core mode
+//   (flash_decode_tc_kernel), K1's bf16 body (attend_tc.cuh) over 64-slot
+//   tiles of the cache, grid (q blocks of 64 tokens, H, B), each token's row
+//   masked exactly as below.  A row's bits then equal K1's for the same row
+//   of the whole prompt: a shared and an unshared admission write the same
+//   suffix rows.  Slots outside the request's live range are zero-filled,
+//   never read.
+// - 0, the rest (an fp32 q — the accuracy policy — over fp32 values or
+//   codes, and a bf16 q's widened rows over codes): the FMA body
+//   (attend_core.cuh, flash_decode_kernel), grid (B, K, row tiles).  The
+//   block loads index[b] itself, computes lo / hi with the reference's
+//   arithmetic and loops exactly over the live blocks.  Row r of KV head kh
+//   is token r / G, head kh * G + r % G.  A block of codes is dequantized on
+//   its way into shared memory: `block_kv` divides the page (or the dense
+//   scale row), so one scalar scale covers a block.
 //
-// One block per (request, KV head) leaves most of the card idle at serving
-// batch sizes (B * K = 32 blocks on 132 SMs); splitting the KV walk across
-// blocks is later work.
-//
-// Widened q over bf16 values (S > 1 tokens: a prefix-shared admission's
-// suffix, a prefill chunk) takes the tensor-core mode instead
-// (flash_decode_tc_kernel): K1's bf16 body (attend_tc.cuh) over 64-slot
-// tiles of the cache, grid (q blocks of 64 tokens, H, B), each token's row
-// masked exactly as above.  A row's bits then equal K1's for the same row of
-// the whole prompt: a shared and an unshared admission write the same suffix
-// rows.  Slots outside the request's live range are zero-filled, never
-// read.  The entry point reports the mode it launched (`route`: 1 tensor
-// cores, 0 FMA).
+// Every route reads the cache in the model's own layout, (B, T, K, D) or
+// (P, page, K, D), through strides: no transposed copy per layer per token.
+// With a block table every mask stays in logical slot space, so the paged
+// and the dense walk do the same arithmetic in the same order and agree bit
+// for bit; slots outside the live range of the request are never read (dead
+// pages may hold anything).
 #include "attend_core.cuh"
 #include "attend_tc.cuh"
+#include "decode_split.cuh"
 
 namespace repro_torch {
 
@@ -74,6 +74,8 @@ struct DecodeArgs {
   float softcap;   // <= 0: none
   float scale;
   int block_kv, pruned;
+  float* part;   // split route: fp32 chunk partials (B, H, chunks, D + 2)
+  int* tickets;  // split route: (B, K x row tiles) counters, 0 between calls
 };
 
 template <typename T>
@@ -272,11 +274,11 @@ static cudaError_t launch_decode(const DecodeArgs& a, int B, int K, cudaStream_t
   return launch_with_smem(flash_decode_kernel<T, TK, 16>, grid, block, smem, stream, a);
 }
 
-// The KV element type: the same as q's for values, or a code type.
+// The FMA body over codes (bf16 values never reach it: one bf16 token takes
+// the split route, widened bf16 q the tensor-core mode).
 template <typename T>
-static cudaError_t launch_decode_kv(const DecodeArgs& a, int kv_dtype, int dtype, int B, int K,
-                                    cudaStream_t stream) {
-  if (kv_dtype == dtype) return launch_decode<T, T>(a, B, K, stream);
+static cudaError_t launch_decode_codes(const DecodeArgs& a, int kv_dtype, int B, int K,
+                                       cudaStream_t stream) {
   if (kv_dtype == 2) return launch_decode<T, int8_t>(a, B, K, stream);
   if (kv_dtype == 3) return launch_decode<T, __nv_fp8_e4m3>(a, B, K, stream);
   if (kv_dtype == 4) return launch_decode<T, __nv_fp8_e5m2>(a, B, K, stream);
@@ -290,11 +292,15 @@ static cudaError_t launch_decode_kv(const DecodeArgs& a, int kv_dtype, int dtype
 // which needs the fp32 scales ksc / vsc (else both null).  Strides are in
 // elements.  `tables` may be null (dense cache); then k_sb / v_sb are batch
 // strides, else page strides.  Scales are addressed ksc[b * sc_b + row * sc_p
-// + kh * sc_k], row = the block's page (paged; sc_b unused) or its slot /
-// scale_page (dense).  S > 1 bf16 tokens over bf16 values take the
-// tensor-core mode, whose tiles are compiled in (block_kv is not read);
-// *route is set to the mode launched (1 tensor cores, 0 FMA; -1 none).
-// Returns the CUDA error code of the launch (0 = success).
+// + kh * sc_k], row = the slot's page (paged; sc_b unused) or its slot /
+// scale_page (dense).  One bf16 token (S == 1) over bf16 values or codes
+// takes the split route: it needs `part`, fp32 scratch of B * H *
+// ceil(T / split_chunk) * (D + 2) floats, and `tickets`, B * K *
+// ceil(G / 16) ints that are 0 (the kernel leaves them 0); `split_chunk`
+// must equal the compiled chunk.  S > 1 bf16 tokens over bf16 values take
+// the tensor-core mode.  Both have their tiles compiled in (block_kv is not
+// read).  *route is set to the route launched (2 split, 1 tensor cores, 0
+// FMA; -1 none).  Returns the CUDA error code of the launch (0 = success).
 extern "C" int repro_torch_flash_decode(
     const void* q, const void* k, const void* v, void* o,
     const void* index, const void* tables, const void* ksc, const void* vsc,
@@ -305,8 +311,8 @@ extern "C" int repro_torch_flash_decode(
     long long v_sb, long long v_st, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
     long long sc_b, long long sc_p, long long sc_k, int scale_page,
-    int window, float softcap, float scale, int block_kv, int pruned, int* route,
-    void* stream) {
+    int window, float softcap, float scale, int block_kv, int pruned,
+    void* part, void* tickets, int split_chunk, int* route, void* stream) {
   using namespace repro_torch;
   *route = -1;
   if (D > 256 || D % 8 != 0 || H % K != 0 || block_kv < 1 || block_kv > kBKV || T < 1)
@@ -324,15 +330,26 @@ extern "C" int repro_torch_flash_decode(
                sc_b, sc_p, sc_k, scale_page,
                NB, page_size, S, T, H / K, D,
                q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_ss, o_sh,
-               window, softcap, scale, block_kv, pruned};
+               window, softcap, scale, block_kv, pruned,
+               static_cast<float*>(part), static_cast<int*>(tickets)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && kv_dtype == 0 && S > 1) {
+  if (dtype == 0 && S == 1) {
+    if (part == nullptr || tickets == nullptr || split_chunk != kSplitChunk)
+      return (int)cudaErrorInvalidValue;
+    *route = 2;
+    if (kv_dtype == 0) return (int)launch_decode_split_d<__nv_bfloat16>(a, B, K, s);
+    if (kv_dtype == 2) return (int)launch_decode_split_d<int8_t>(a, B, K, s);
+    if (kv_dtype == 3) return (int)launch_decode_split_d<__nv_fp8_e4m3>(a, B, K, s);
+    return (int)launch_decode_split_d<__nv_fp8_e5m2>(a, B, K, s);
+  }
+  if (dtype == 0 && kv_dtype == 0) {
     *route = 1;
     if (D <= 64) return (int)launch_decode_tc<64>(a, B, H, s);
     if (D <= 128) return (int)launch_decode_tc<128>(a, B, H, s);
     return (int)launch_decode_tc<256>(a, B, H, s);
   }
   *route = 0;
-  if (dtype == 0) return (int)launch_decode_kv<__nv_bfloat16>(a, kv_dtype, dtype, B, K, s);
-  return (int)launch_decode_kv<float>(a, kv_dtype, dtype, B, K, s);
+  if (kv_dtype == 1) return (int)launch_decode<float, float>(a, B, K, s);
+  if (dtype == 0) return (int)launch_decode_codes<__nv_bfloat16>(a, kv_dtype, B, K, s);
+  return (int)launch_decode_codes<float>(a, kv_dtype, B, K, s);
 }

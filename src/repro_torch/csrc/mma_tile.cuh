@@ -1,6 +1,7 @@
 // Tensor-core tile layer shared by the bf16 routes of K1 and K2's widened q
-// (attend_tc.cuh) and of K3 (flash_bwd.cu): warp-level mma.sync products of
-// bf16 tiles held in shared memory, fed by cp.async copies and ldmatrix loads.
+// (attend_tc.cuh), K2's single-token split route (decode_split.cuh) and K3
+// (flash_bwd.cu): warp-level mma.sync products of bf16 tiles held in shared
+// memory, fed by cp.async copies and ldmatrix loads.
 //
 // Layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16" with .bf16 inputs
 // and .f32 accumulators, and "Warp-level matrix load instruction: ldmatrix";
@@ -58,6 +59,10 @@ __device__ __forceinline__ int swz(int row, int chunk) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 8 : 0));
 }
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),

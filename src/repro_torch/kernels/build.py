@@ -39,7 +39,7 @@ SIGNATURES = {
         + [_INT, _INT, _FLOAT, _FLOAT, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR]),
     "repro_torch_flash_decode": (
         [_PTR] * 8 + [_INT] * 10 + [_I64] * 15
-        + [_INT, _INT, _FLOAT, _FLOAT, _INT, _INT, _PTR, _PTR]),
+        + [_INT, _INT, _FLOAT, _FLOAT, _INT, _INT, _PTR, _PTR, _INT, _PTR, _PTR]),
     "repro_torch_rglru": [_PTR] * 5 + [_INT] * 3 + [_PTR],
     "repro_torch_wkv6": [_PTR] * 8 + [_INT] * 4 + [_PTR],
 }
@@ -143,8 +143,10 @@ def route_out():
 
 
 def route_name(out) -> str:
-    """"tc" (tensor cores) or "fma", as an entry point reported it."""
-    return {1: "tc", 0: "fma"}[out.value]
+    """"tc" (tensor cores), "tc_split" (flash decode's single token on the
+    tensor cores, its KV walk split into chunks) or "fma", as an entry point
+    reported it."""
+    return {2: "tc_split", 1: "tc", 0: "fma"}[out.value]
 
 
 def check_launch(code: int, what: str) -> None:

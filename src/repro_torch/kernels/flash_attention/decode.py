@@ -6,11 +6,25 @@ against a cache that already holds them, with a per-request `index`, linear
 / ring / windowed caches, widened q, paged pools, and int8 / fp8 caches with
 fp32 per-page scales (the quantized mode).  The cache and q are read in the
 model layout through strides; the block table and the scales are resolved
-inside the kernel.  `decode_schedule` / `paged_decode_schedule` say which blocks one
-step streams; they are framework-free copies of the reference's oracles.
-Widened q over bf16 values (S > 1 bf16 tokens, bf16 K / V) runs K1's
-tensor-core body in 64-slot tiles instead (`flash_decode_fwd.last_route` is
-then "tc"): a suffix's rows equal K1's rows of the whole prompt bit for bit.
+inside the kernel.  `decode_schedule` / `paged_decode_schedule` say which
+blocks one step streams; they are framework-free copies of the reference's
+oracles.
+
+Each launch takes one of three routes (`decode_route`; the entry point
+reports the one it launched, kept in `flash_decode_fwd.last_route`):
+
+- "tc_split": one bf16 token over bf16 values or int8 / fp8 codes — every
+  serving decode step.  The walk is cut into chunks of `SPLIT_CHUNK`
+  logical slots (`split_decode_schedule`) that run as blocks of their own,
+  the GQA group sits on the tensor cores, the scales are factored out of
+  the products, and the chunks are combined in chunk order.  The chunk is
+  fixed: a request's rows do not depend on the batch, the card or paging.
+  Its plain twin is `ref.decode_split_ref`.
+- "tc": S > 1 bf16 tokens over bf16 values run K1's tensor-core body in
+  64-slot tiles: a suffix's rows equal K1's rows of the whole prompt bit for
+  bit.
+- "fma": an fp32 q (over fp32 values or codes), and S > 1 bf16 tokens over
+  codes.
 """
 
 from __future__ import annotations
@@ -30,6 +44,15 @@ from repro_torch.kernels.flash_attention.kernel import (
 # the code types of a quantized cache the kernel reads (fp8 where torch has it)
 QUANT_DTYPES = tuple(getattr(torch, n) for n in
                      ("int8", "float8_e4m3fn", "float8_e5m2") if hasattr(torch, n))
+
+# The split route's walk: chunks of SPLIT_CHUNK logical slots (the compiled
+# `kSplitChunk` of csrc/decode_split.cuh, which the entry point checks),
+# made of SPLIT_TILE-slot schedule tiles; each chunk's block hands its steps
+# to SPLIT_WARPS warps in turn.
+SPLIT_CHUNK = 128
+SPLIT_TILE = 64
+SPLIT_WARPS = 4
+SPLIT_ROWS = 16  # q rows of a block: the G heads of a KV head, one m16 tile
 
 
 # ---------------------------------------------------------------------------
@@ -95,6 +118,56 @@ def paged_decode_schedule(
     logical = decode_schedule(kv_len, index, bkv, window=window, pruned=pruned,
                               q_span=q_span)
     return [(int(table[jb // spb]), jb % spb) for jb in logical]
+
+
+def split_decode_schedule(
+    T: int, index: int, *, window: int | None = None, pruned: bool = True,
+    chunk: int = SPLIT_CHUNK,
+) -> list[tuple[int, list[int]]]:
+    """The chunks one single-token step of the split route walks, in the
+    order they are combined: (chunk id, the `SPLIT_TILE`-slot tiles of
+    `decode_schedule` it holds).  Chunk c holds tiles [c * chunk / 64,
+    (c + 1) * chunk / 64) of the logical cache, so the partition depends
+    on nothing but (T, index, window, pruned): not on the batch, the KV
+    heads, the card or whether the cache is paged (a paged cache passes its
+    `kv_len` as T)."""
+    per = chunk // SPLIT_TILE
+    out: list[tuple[int, list[int]]] = []
+    for jb in decode_schedule(T, index, SPLIT_TILE, window=window, pruned=pruned):
+        if not out or out[-1][0] != jb // per:
+            out.append((jb // per, []))
+        out[-1][1].append(jb)
+    return out
+
+
+def split_step_slots(D: int) -> int:
+    """Slots of one warp's step on the split route at head dim D: 2048 / the
+    padded head dim (64, 128, 256), at least one 16-slot k-slice of P V."""
+    return max(16, 2048 // (64 if D <= 64 else 128 if D <= 128 else 256))
+
+
+def decode_route(q_dtype, kv_dtype, S: int) -> str:
+    """The route a CUDA launch takes (what the entry point reports)."""
+    if q_dtype == torch.bfloat16 and S == 1:
+        return "tc_split"  # over bf16 values or int8 / fp8 codes
+    if q_dtype == kv_dtype == torch.bfloat16:
+        return "tc"
+    return "fma"
+
+
+_TICKETS: dict = {}  # device -> int32 counters of the split route, 0 between calls
+
+
+def _split_tickets(device, n: int) -> torch.Tensor:
+    """At least `n` of the split route's combine tickets on `device`, all 0:
+    the block that combines a (request, KV head, row tile) resets its own,
+    so the buffer is made once (and again only to grow).  Calls that share
+    it run on one stream, one after another."""
+    buf = _TICKETS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[device] = buf
+    return buf
 
 
 # ---------------------------------------------------------------------------
@@ -176,6 +249,12 @@ def flash_decode_fwd(
         sc_strides = ((0, *k_scale.stride()) if tables is not None
                       else tuple(k_scale.stride()))
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    part = tickets = None
+    if decode_route(q.dtype, k.dtype, S) == "tc_split":
+        # fp32 (acc, m, l) of every (request, head, chunk), and the tickets
+        part = torch.empty(B * H * cdiv(T, SPLIT_CHUNK) * (D + 2), dtype=torch.float32,
+                           device=q.device)
+        tickets = _split_tickets(q.device, B * K * cdiv(H // K, SPLIT_ROWS))
     route = build.route_out()
     err = build.library().repro_torch_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -188,7 +267,10 @@ def flash_decode_fwd(
         *sc_strides, int(scale_page or 0),
         int(window) if window is not None else 0,
         float(softcap) if softcap is not None else 0.0,
-        1.0 / math.sqrt(D), block_kv, int(bool(pruned)), ctypes.byref(route),
+        1.0 / math.sqrt(D), block_kv, int(bool(pruned)),
+        part.data_ptr() if part is not None else None,
+        tickets.data_ptr() if tickets is not None else None, SPLIT_CHUNK,
+        ctypes.byref(route),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch(err, "flash_decode")
     flash_decode_fwd.last_route = build.route_name(route)

@@ -18,7 +18,9 @@ pair (`kernel.attention_route`), reported by the kernel's entry point and
 counted as reported beside `launches`: `tc_launches` (bf16 q, k, v — the
 tensor cores) and `fma_launches` (fp32, and a bf16 q over the fp32 K / V of
 a dequantized page pool).  K2 counts its widened-q launches over bf16
-values, which run K1's tensor-core body, in `flash_decode.tc_launches`.  Block sizes left
+values, which run K1's tensor-core body, in `flash_decode.tc_launches`, and
+its single-token launches with a bf16 q, which run the split route, in
+`flash_decode.split_launches`.  Block sizes left
 unspecified (None) take the FMA route's tile capacity; woven `flash_block_*`
 extras override and are clamped to that capacity.  Backward blocks left
 unspecified take the forward's, as the reference's `_resolve_blocks` does
@@ -299,16 +301,24 @@ def flash_decode(
     """One decode step over a live-block-pruned cache; see decode.py.
 
     With S > 1 q tokens (the widened-q variant) token s attends through
-    cache slot index + s.  Each q row runs the same online softmax over the
-    same block walk as a single-token call.  Passing `tables` selects the
-    paged layout: K/V are one shared page pool and every request's cache
-    blocks resolve through its block-table row.  With `k_scale`/`v_scale`
-    the cache holds int8 / fp8 codes and every streamed block is
-    dequantized at its page's scale (the quantized mode); a launch in that
-    mode also counts in `flash_decode.quantized_launches`.  S > 1 bf16
-    tokens over bf16 values run K1's tensor-core body (its rows equal K1's
-    for the same rows of the whole prompt, bit for bit) and also count in
-    `flash_decode.tc_launches`; their tiles are compiled in, so `block_kv`
+    cache slot index + s.  Passing `tables` selects the paged layout: K/V
+    are one shared page pool and every request's cache blocks resolve
+    through its block-table row.  With `k_scale`/`v_scale` the cache holds
+    int8 / fp8 codes with one fp32 scale per page (or dense scale row) and
+    KV head (the quantized mode); a launch in that mode also counts in
+    `flash_decode.quantized_launches`.
+
+    On the card each launch counts once more by the route its entry point
+    reported (`decode.decode_route`): one bf16 token over bf16 values or
+    codes — every serving decode step — runs the split route (a fixed
+    chunking of the walk, the GQA group on the tensor cores, the scales
+    factored out of the products, the chunks combined in order: the same
+    bits for a request whatever its batch, paged or dense) and counts in
+    `flash_decode.split_launches`; S > 1 bf16 tokens over bf16 values run
+    K1's tensor-core body (their rows equal K1's for the same rows of the
+    whole prompt, bit for bit) and count in `flash_decode.tc_launches`;
+    the rest (an fp32 q, and S > 1 bf16 tokens over codes) run the FMA
+    body.  The tensor-core routes' tiles are compiled in, so `block_kv`
     does not change their result.
     """
     block_kv = DEFAULT_BLOCK_KV_DEC if block_kv is None else int(block_kv)
@@ -332,9 +342,12 @@ def flash_decode(
         flash_decode.quantized_launches += 1
     if flash_decode_fwd.last_route == "tc":  # as the entry point reported it
         flash_decode.tc_launches += 1
+    elif flash_decode_fwd.last_route == "tc_split":
+        flash_decode.split_launches += 1
     return out
 
 
 flash_decode.launches = 0  # kernel launches made through this wrapper
 flash_decode.quantized_launches = 0  # of which in the quantized-pool mode
 flash_decode.tc_launches = 0  # of which widened q on the tensor cores (bf16)
+flash_decode.split_launches = 0  # of which one bf16 token on the split route

@@ -11,8 +11,12 @@ import math
 import torch
 
 from repro_torch.kernels.flash_attention.decode import (
+    SPLIT_CHUNK,
+    SPLIT_WARPS,
     decode_schedule,
     page_block_kv,
+    split_decode_schedule,
+    split_step_slots,
 )
 from repro_torch.kernels.flash_attention.kernel import MAX_BLOCK_KV, NEG_INF
 
@@ -204,4 +208,116 @@ def decode_ref(
         pv, l, _ = _masked_softmax_pv(s, mask, vb.to(acc), "kgst,tkd->kgsd")
         out = pv / torch.clamp(l, min=1e-30)  # (K, G, S, D)
         outs.append(out.permute(2, 0, 1, 3).reshape(S, H, D))
+    return torch.stack(outs).to(q.dtype)
+
+
+def _ordered_merge(parts):
+    """Softmax partials (m, l, acc) merged in the order given, as the split
+    route merges its warps and then its chunks: M = max m, each part
+    weighted by exp(m - M) (M = 0 while every part has seen nothing)."""
+    M = parts[0][0]
+    for m, _, _ in parts[1:]:
+        M = torch.maximum(M, m)
+    Mu = torch.where(M == -math.inf, torch.zeros_like(M), M)
+    L = torch.zeros_like(parts[0][1])
+    A = torch.zeros_like(parts[0][2])
+    for m, l, a in parts:
+        e = torch.exp(m - Mu)
+        L = L + l * e
+        A = A + a * e
+    return M, L, A
+
+
+def decode_split_ref(
+    q: torch.Tensor,        # (B, 1, H, D): one new token
+    k_cache: torch.Tensor,  # (B, T, K, D) cache, or the (P, page_size, K, D) pool
+    v_cache: torch.Tensor,
+    index: torch.Tensor,    # () or (B,) int: the token's position
+    *,
+    window: int | None = None,
+    softcap: float | None = None,
+    pruned: bool = True,
+    tables: torch.Tensor | None = None,
+    kv_len: int | None = None,
+    k_scale: torch.Tensor | None = None,  # paged (P, K); dense (B, NP, K)
+    v_scale: torch.Tensor | None = None,
+    scale_page: int | None = None,
+    chunk: int = SPLIT_CHUNK,
+) -> torch.Tensor:
+    """The plain twin of flash decode's split route (one token): the same
+    function as `decode_ref`, in the kernel's order of sums.  Each chunk of
+    `split_decode_schedule` is cut into steps of `split_step_slots(D)` slots
+    dealt to `SPLIT_WARPS` warps in turn; each warp's softmax partial over
+    its live slots, (m, l, acc), is merged in warp order, and the chunks in
+    chunk order (`_ordered_merge`), all in fp32 (float64 for float64
+    inputs).  Codes enter the products as they are, with the scales
+    factored out: score j times (its K scale x 1/sqrt(D)), p_j times its V
+    scale in P V while l sums the unscaled p — where `decode_ref`
+    dequantizes first, so the two agree up to fp32 rounding."""
+    B, S, H, D = q.shape
+    if S != 1:
+        raise ValueError("the split route takes one token")
+    K = k_cache.shape[2]
+    G = H // K
+    paged = tables is not None
+    quant = k_scale is not None
+    if quant and v_scale is None:
+        raise ValueError("quantized decode requires both k/v scales")
+    if paged:
+        if kv_len is None:
+            raise ValueError("paged decode requires kv_len")
+        T, page_size = int(kv_len), k_cache.shape[1]
+    else:
+        T = k_cache.shape[1]
+        if quant and scale_page is None:
+            raise ValueError("dense quantized decode requires scale_page")
+    idx = [int(i) for i in torch.as_tensor(index).reshape(-1).expand(B).tolist()]
+    acc = _acc_dtype(q)
+    scale = 1.0 / math.sqrt(D)
+    step = split_step_slots(D)
+    outs = []
+    for b in range(B):
+        i = idx[b]
+        row_lo = max(0, i - window + 1) if window is not None else 0
+        row_hi = max(1, min(T, i + 1))
+        qf = q[b, 0].to(acc).reshape(K, G, D)
+        chunks = []
+        for c, _ in split_decode_schedule(T, i, window=window, pruned=pruned, chunk=chunk):
+            warps = []
+            for w in range(SPLIT_WARPS):
+                slots = torch.tensor(
+                    [x for j in range(w, chunk // step, SPLIT_WARPS)
+                     for x in range(c * chunk + j * step, c * chunk + (j + 1) * step)
+                     if row_lo <= x < row_hi], dtype=torch.long, device=q.device)
+                if slots.numel() == 0:  # a warp that saw nothing
+                    warps.append((torch.full((K, G, 1), -math.inf, dtype=acc, device=q.device),
+                                  torch.zeros((K, G, 1), dtype=acc, device=q.device),
+                                  torch.zeros((K, G, D), dtype=acc, device=q.device)))
+                    continue
+                if paged:
+                    page = tables[b].to(torch.long)[slots // page_size]
+                    kb, vb = k_cache[page, slots % page_size], v_cache[page, slots % page_size]
+                    if quant:
+                        ks, vs = k_scale[page], v_scale[page]  # (n, K)
+                else:
+                    kb, vb = k_cache[b, slots], v_cache[b, slots]
+                    if quant:
+                        row = slots // scale_page
+                        ks, vs = k_scale[b, row], v_scale[b, row]
+                s = torch.einsum("kgd,tkd->kgt", qf, kb.to(acc))
+                s = s * (ks.to(acc).T[:, None, :] * scale if quant else scale)
+                if softcap is not None:
+                    s = torch.tanh(s / softcap) * softcap
+                m = torch.amax(s, dim=-1, keepdim=True)
+                p = torch.exp(s - m)
+                l = torch.sum(p, dim=-1, keepdim=True)
+                pv = p * vs.to(acc).T[:, None, :] if quant else p
+                warps.append((m, l, torch.einsum("kgt,tkd->kgd", pv, vb.to(acc))))
+            chunks.append(_ordered_merge(warps))
+        if chunks:
+            _, L, A = _ordered_merge(chunks)
+            out = A / torch.clamp(L, min=1e-30)
+        else:
+            out = torch.zeros((K, G, D), dtype=acc, device=q.device)
+        outs.append(out.reshape(1, H, D))
     return torch.stack(outs).to(q.dtype)

@@ -334,7 +334,7 @@ def test_widened_decode_rows_equal_the_prefill_rows_on_the_card(S, P, H, K, D, w
     K1's body: its rows of a suffix over a resident prefix equal K1's rows of
     the whole prompt bit for bit, so a prefix-shared and an unshared
     admission write the same rows.  Both entry points report the tensor-core
-    route; a single token keeps the FMA mode."""
+    route; a single token takes the split route."""
     from repro_torch.kernels.flash_attention.decode import flash_decode_fwd
     from repro_torch.kernels.flash_attention.ops import flash_decode
     from repro_torch.runtime.pages import build_linear_pool
@@ -359,5 +359,5 @@ def test_widened_decode_rows_equal_the_prefill_rows_on_the_card(S, P, H, K, D, w
     torch.cuda.synchronize()
     assert torch.equal(full[:, P:], suffix)
     one = flash_decode(q[:, P:P + 1], k[None], v[None], index, window=window)
-    assert flash_decode_fwd.last_route == "fma" and ops.flash_decode.tc_launches == before + 1
+    assert flash_decode_fwd.last_route == "tc_split" and ops.flash_decode.tc_launches == before + 1
     _close("single token", one, full[:, P:P + 1], BF16_TOL)
