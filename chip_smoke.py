@@ -15,7 +15,8 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    accumulate in fp32, so what is left is the order of the sums and the
    rounding of the output (one bf16 step of a value at 4x the RMS is 3e-2 of
    the RMS), while a dropped KV block moves a long-context row by more.
-   K1, K3 and K2's widened-q mode, whose bf16 route sums on the tensor
+   K1, K3 and K2's widened-q mode (over bf16 values and over int8 / e4m3 /
+   e5m2 codes, `widened_codes_cases`), whose bf16 route sums on the tensor
    cores in another order than the plain version, are held to the plain
    version evaluated in float64 (`exact`, `check_exact`), with the same
    tolerances: the fp32 plain version's own rounding of its largest
@@ -33,7 +34,14 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    give the shortest and the longest request's rows bit for bit when that
    request is called alone (`split_gates`); its achieved GB/s is printed;
    and the widened-q case prints how far a single-token row lies from the
-   widened row of the same token;
+   widened row of the same token.  Every widened bf16 q over codes (a
+   quantized pool's suffixes and first prefills) must report the
+   tensor-core route; a prefix-shared suffix must equal the whole prompt's
+   rows bit for bit over a bf16 and an int8 pool, both on the tensor cores
+   (`shared_prefill_identity`).  The chunk-parallel WKV kernel is held at
+   the reference test's tolerance, and in fp32 at FP32_TOL against its
+   twin in its own order of sums; one call's CUDA launches are counted from
+   a profiler trace;
 4. serves the launchers' reduced configuration (head_dim 16) on the card and
    checks that the attention kernels were launched there too;
 5. serves full-width, full-depth yi-6b (random weights from a seed) through
@@ -46,7 +54,10 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
 6. serves the same model through the main path proper, `serve_continuous`
    and `serve_stream` over the paged pool — a bf16 and an int8 pool, prefix
    sharing on and off, chunked prefill — with exact launch counts, and
-   profiles one continuous wave at batch 8 (`continuous_phase`);
+   profiles one continuous wave at batch 8 (`continuous_phase`); the int8
+   and bf16 pools' first-prefill logits are read against the plain
+   (`eager`) path over the same pool at the full-depth logit gate, its RMS
+   half gated, on four prompts (`pool_prefill_logit_gate`);
 7. serves full-width, full-depth recurrentgemma-2b (RG-LRU kernel K5, and
    the attention and RMSNorm kernels over its local-attention rings) and
    rwkv6-3b (WKV kernel K6) through `serve` and `serve_batch`, with exact
@@ -205,6 +216,13 @@ def exact_error(torch, got, want) -> tuple[float, float]:
     return err, want.pow(2).mean().sqrt().item()
 
 
+def exact_codes(fn, q, k, v, index, kw):
+    """`exact` over a quantized cache: q and the scales in float64, the codes
+    as they are, so that every value code x scale enters exactly."""
+    kw = {**kw, "k_scale": kw["k_scale"].double(), "v_scale": kw["v_scale"].double()}
+    return fn(q.double(), k, v, index, **kw)
+
+
 def check_exact(torch, name, got, want, rel_tol) -> tuple[float, float]:
     """`check_close` against an exact result, as `exact_error` measures it."""
     if got.shape != want.shape:
@@ -229,13 +247,15 @@ def live_pairs(S, T, causal, window) -> int:
 
 
 ROUTE_COUNTERS = ("flash_attention_tc", "flash_attention_fma", "flash_attention_bwd_tc",
-                  "flash_attention_bwd_fma", "flash_decode_tc", "flash_decode_split")
+                  "flash_attention_bwd_fma", "flash_decode_tc", "flash_decode_split",
+                  "flash_decode_fma")
 
 
 def route_counts(reset: bool = False) -> dict:
-    """The route counters of K1, K3 and K2's widened-q and single-token
-    tensor-core routes — each launch counted by the route its kernel's entry
-    point reported — and, with `reset`, set to 0 first."""
+    """The route counters of K1, K3 and K2 (widened q and single token on
+    the tensor cores, an fp32 q on the FMA body) — each launch counted by
+    the route its kernel's entry point reported — and, with `reset`, set to
+    0 first."""
     from repro_torch.kernels.flash_attention import ops
 
     out = {}
@@ -682,18 +702,22 @@ def quantized_decode_cases(torch, gen):
                 torch, name, got, lambda: flash_decode(q, pk, pv, index, **kw),
                 lambda b: flash_decode(q[b:b + 1], pk, pv, index[b:b + 1],
                                        **{**kw, "tables": tables[b:b + 1]}), idx)
-        elif flash_decode_fwd.last_route != "fma":
+        elif flash_decode_fwd.last_route != "tc":  # widened q over codes
             raise AssertionError(f"{name}: launched the {flash_decode_fwd.last_route} route")
         else:
-            extra = {"route": "fma"}
+            extra = {"route": "tc"}
         dense = flash_decode(q, kc, vc, index, k_scale=ks, v_scale=vs, scale_page=ps)
-        want = decode_ref(q, pk, pv, index, **kw)
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
             raise AssertionError(f"{name}: a dead page reached the output")
         if not torch.equal(got, dense):
             raise AssertionError(f"{name}: paged output differs from dense output")
-        err, rms = check_close(torch, name, got, want, BF16_TOL)
+        if S == 1:
+            want = decode_ref(q, pk, pv, index, **kw)
+            err, rms = check_close(torch, name, got, want, BF16_TOL)
+        else:  # the tensor-core mode, held as K2's widened q over values
+            err, rms = check_exact(torch, name, got, exact_codes(decode_ref, q, pk, pv, index,
+                                                                  kw), BF16_TOL)
         # against K2 over the bf16 values the codes quantize
         fp = flash_decode(q, k, v, index)
         vs_fp = (got.float() - fp.float()).abs().max().item()
@@ -740,60 +764,128 @@ def quantized_decode_cases(torch, gen):
                       ref_rms=rms, ms=ms, plain_ms=None, bound_ms=None, bound_by=None,
                       library_ms=None, **extra))
 
-    # widened q over codes (the FMA route) at the continuous path's shape: a
-    # 512-token suffix over a 1024-token prefix in a shuffled int8 pool —
-    # what the int8 pool's suffix prefills launch
-    S, Tw = 512, 1536
-    nbw = Tw // ps
-    q = torch.randn((1, S, H, D), generator=gen, device="cuda").to(torch.bfloat16)
-    codes, scales = [], []
-    for x in (k, v):
-        pages = x[:1, :Tw].float().reshape(nbw, ps, K, D)
-        sc = kv_scale_from_absmax(pages.abs().amax(dim=(1, 3)), dt)
-        codes.append(quantize_kv_write(pages, sc[:, None, :], dt))
-        scales.append(sc)
-    perm = torch.randperm(nbw, generator=gen, device="cuda")
-    pooled = [torch.empty_like(t_) for t_ in codes + scales]
-    for dst, src_ in zip(pooled, codes + scales):
-        dst[perm] = src_
-    kw = dict(tables=perm[None].to(torch.int32), kv_len=Tw, k_scale=pooled[2],
-              v_scale=pooled[3])
-    index = torch.tensor([Tw - S], dtype=torch.int32, device="cuda")
-    name = "paged_int8_suffix512_over_prefix1024"
-    got = flash_decode(q, pooled[0], pooled[1], index, **kw)
-    torch.cuda.synchronize()
-    if flash_decode_fwd.last_route != "fma":
-        raise AssertionError(f"{name}: launched the {flash_decode_fwd.last_route} route")
-    err, rms = check_close(torch, name, got, decode_ref(q, pooled[0], pooled[1], index, **kw),
-                           BF16_TOL)
-    ms = time_ms(torch, [lambda: flash_decode(q, pooled[0], pooled[1], index, **kw)], 5)
-    plain = time_ms(torch, [lambda: decode_ref(q, pooled[0], pooled[1], index, **kw)], 2)
-    pairs = S * (Tw - S) + S * (S + 1) // 2
-    nbytes = Tw * K * D * 2 + nbw * K * 2 * 4 + 2 * q.numel() * q.element_size()
-    b_ms, b_by = bound(nbytes, 4.0 * D * pairs * H, "bf16")
-    cases.append(dict(case=name, main=False, max_abs_err=err, ref_rms=rms, ms=ms,
-                      plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                      route="fma"))
+    return cases
+
+
+def widened_codes_cases(torch, gen):
+    """K2d's widened q over codes on the tensor cores (flash_decode.cu route
+    1 over int8 / fp8 codes), at the continuous path's shapes: a 512-token
+    yi-6b suffix over a 1024-token prefix in a shuffled page pool — what the
+    quantized pool's suffix prefills launch — over int8, e4m3 and e5m2
+    codes, the int8 codes also as a dense cache with a scale row every 128
+    slots (bit for bit the pool's output), and a quantized pool's first
+    prefill, 1024 tokens at index 0 (main: run (c)'s 32 first prefills; K1
+    read the dequantized fp32 values for them before, the
+    `fp32_kv_S1024_bf16` prefill case).  Each must report the tensor-core
+    route and is held, as K2's widened q over values, to the plain version
+    in float64 (`exact_error`); the error against the tc route over the
+    bf16 values the codes quantize is printed, and so is that route's time
+    (`values_tc_ms`).  One case at gemma-2b's head (8 q heads over 1 KV
+    head of 256) times the D-256 instantiation, which spills, against the
+    same shape over bf16 values."""
+    from repro_torch.kernels.flash_attention.decode import flash_decode_fwd
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_decode,
+        kv_scale_from_absmax,
+        quantize_kv_write,
+        resolve_cache_dtype,
+    )
+    from repro_torch.kernels.flash_attention.ref import decode_ref
+
+    ps = 128
+    inputs = {}
+
+    def head(H, K, D):  # K / V of 1536 slots and q of 512 and 1024 tokens, once a head
+        if (H, K, D) not in inputs:
+            kv = [torch.randn((1, 1536, K, D), generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(2)]
+            inputs[H, K, D] = kv, {
+                S: torch.randn((1, S, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+                for S in (512, 1024)}
+        return inputs[H, K, D]
+
+    yi, gemma = (32, 4, 128), (8, 1, 256)
+    cases, outputs = [], {}
+    for name, dtype_name, S, Tw, layout, main, shape in [
+        ("paged_int8_suffix512_over_prefix1024", "int8", 512, 1536, "paged", False, yi),
+        ("paged_float8_e4m3fn_suffix512_over_prefix1024", "float8_e4m3fn", 512, 1536,
+         "paged", False, yi),
+        ("paged_float8_e5m2_suffix512_over_prefix1024", "float8_e5m2", 512, 1536, "paged",
+         False, yi),
+        ("dense_int8_scale_page128_suffix512_over_prefix1024", "int8", 512, 1536, "dense",
+         False, yi),
+        ("paged_int8_first_prefill_S1024", "int8", 1024, 1024, "paged", True, yi),
+        ("paged_int8_D256_H8_K1_suffix512_over_prefix1024", "int8", 512, 1536, "paged",
+         False, gemma),
+    ]:
+        H, K, D = shape
+        (k, v), qs = head(H, K, D)
+        dt = resolve_cache_dtype(dtype_name)
+        nbw = Tw // ps
+        q = qs[S]
+        codes, scales = [], []
+        for x in (k, v):
+            pages = x[:, :Tw].float().reshape(nbw, ps, K, D)
+            sc = kv_scale_from_absmax(pages.abs().amax(dim=(1, 3)), dt)
+            codes.append(quantize_kv_write(pages, sc[:, None, :], dt))
+            scales.append(sc)
+        index = torch.tensor([Tw - S], dtype=torch.int32, device="cuda")
+        if layout == "paged":
+            perm = torch.randperm(nbw, generator=gen, device="cuda")
+            pooled = [torch.empty_like(t_) for t_ in codes + scales]
+            for dst, src_ in zip(pooled, codes + scales):
+                dst[perm] = src_
+            kc, vc = pooled[0], pooled[1]
+            kw = dict(tables=perm[None].to(torch.int32), kv_len=Tw, k_scale=pooled[2],
+                      v_scale=pooled[3])
+        else:
+            kc, vc = (c.reshape(1, Tw, K, D) for c in codes)
+            kw = dict(k_scale=scales[0][None], v_scale=scales[1][None], scale_page=ps)
+        got = flash_decode(q, kc, vc, index, **kw)
+        torch.cuda.synchronize()
+        if flash_decode_fwd.last_route != "tc":
+            raise AssertionError(f"{name}: launched the {flash_decode_fwd.last_route} route")
+        extra = {"route": "tc"}
+        if layout == "dense":  # the int8 pool's codes and scales, laid out densely
+            if not torch.equal(got, outputs[dtype_name, S, shape]):
+                raise AssertionError(f"{name}: dense output differs from the paged output")
+            extra["bitwise_equal_to_paged"] = True
+        outputs[dtype_name, S, shape] = got
+        err, rms = check_exact(torch, name, got, exact_codes(decode_ref, q, kc, vc, index, kw),
+                               BF16_TOL)
+        values = (k[:, :Tw], v[:, :Tw])
+        fp = flash_decode(q, *values, index)
+        extra["max_abs_err_vs_bf16_values"] = (got.float() - fp.float()).abs().max().item()
+        ms = time_ms(torch, [lambda: flash_decode(q, kc, vc, index, **kw)], 20)
+        plain = time_ms(torch, [lambda: decode_ref(q, kc, vc, index, **kw)], 2)
+        extra["values_tc_ms"] = time_ms(torch, [lambda: flash_decode(q, *values, index)], 20)
+        pairs = S * (Tw - S) + S * (S + 1) // 2
+        nbytes = Tw * K * D * 2 + nbw * K * 2 * 4 + 2 * q.numel() * q.element_size()
+        b_ms, b_by = bound(nbytes, 4.0 * D * pairs * H, "bf16")
+        cases.append(dict(case=name, main=main, max_abs_err=err, ref_rms=rms, ms=ms,
+                          plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                          **extra))
+        del codes, scales, kc, vc, kw, got, fp
+    del k, v, qs, inputs, outputs
+    torch.cuda.empty_cache()
     return cases
 
 
 def shared_prefill_identity(torch, gen) -> dict:
     """The design property behind "a prefix-shared admission serves the same
-    tokens as an unshared one": the prefill kernel over a whole prompt and
-    the widened-q decode kernel over its suffix, against the prefix resident
-    in a shuffled page pool, walk the same 64-slot blocks with the same
-    online softmax — so the suffix rows agree bit for bit.  Checked at yi-6b's
-    shapes (prefix 1024, suffix 200), over a bf16 pool (both kernels run the
-    tensor-core body, attend_tc.cuh) and an int8 pool (the prefill kernel
-    then reads the dequantized fp32 values, as the first prefill of a
-    quantized pool does, on the FMA body the quantized decode runs)."""
+    tokens as an unshared one": the whole prompt's first prefill and the
+    widened-q decode kernel over its suffix, against the prefix resident in
+    a shuffled page pool, walk the same 64-slot tiles with the same online
+    softmax — so the suffix rows agree bit for bit.  Checked at yi-6b's
+    shapes (prefix 1024, suffix 200), over a bf16 pool (the whole prompt
+    through the prefill kernel; both on the tensor-core body, attend_tc.cuh)
+    and an int8 pool (the whole prompt through the widened-q decode kernel
+    at index 0 over the pool's codes, as a quantized pool's first prefill
+    attends; both on the tensor-core body over codes, scales factored
+    out)."""
     from repro_torch.kernels.flash_attention.decode import flash_decode_fwd
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
-    from repro_torch.kernels.flash_attention.ops import (
-        dequantize_kv,
-        flash_attention,
-        flash_decode,
-    )
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_decode
     from repro_torch.runtime.pages import build_linear_pool, quantize_linear_pool
 
     P, S, H, K, D = 1024, 1224, 32, 4, 128
@@ -805,19 +897,20 @@ def shared_prefill_identity(torch, gen) -> dict:
     out = {}
     for pool in ("bf16", "int8"):
         if pool == "bf16":
-            kk, vv, kw = k[None], v[None], {}
-            ck, cv = pk, pv
+            full = flash_attention(q, k[None], v[None], causal=True)
+            first = flash_attention_fwd.last_route
+            ck, cv, kw = pk, pv, {}
         else:
             ck, cv, ksc, vsc = quantize_linear_pool(pk, pv, "int8")
             kw = dict(k_scale=ksc, v_scale=vsc)
-            kk = dequantize_kv(ck, ksc[:, None, :]).reshape(-1, K, D)[None, :S]
-            vv = dequantize_kv(cv, vsc[:, None, :]).reshape(-1, K, D)[None, :S]
-        full = flash_attention(q, kk, vv, causal=True)
+            full = flash_decode(q, ck, cv, torch.zeros_like(index), tables=tables, kv_len=S,
+                                **kw)
+            first = flash_decode_fwd.last_route
         suffix = flash_decode(q[:, P:], ck, cv, index, tables=tables, kv_len=S, **kw)
         torch.cuda.synchronize()
-        routes = (flash_attention_fwd.last_route, flash_decode_fwd.last_route)
-        if routes != (("tc", "tc") if pool == "bf16" else ("fma", "fma")):
-            raise AssertionError(f"{pool} pool: routes (prefill, decode) {routes}")
+        routes = (first, flash_decode_fwd.last_route)
+        if routes != ("tc", "tc"):
+            raise AssertionError(f"{pool} pool: routes (whole prompt, suffix) {routes}")
         if not torch.equal(full[:, P:], suffix):
             diff = (full[:, P:].float() - suffix.float()).abs().max().item()
             raise AssertionError(f"{pool} pool: suffix-over-prefix rows differ from the "
@@ -861,26 +954,22 @@ def rglru_cases(torch, gen):
 def wkv_cases(torch, gen):
     """K6: the WKV recurrence against its plain version, bf16 r / k / v, fp32
     decays and a nonzero fp32 initial state; a ragged length and strong decays
-    (w = exp(-exp(3 N(0,1)))) besides the main case.  Gated at the reference
-    test's own scale-aware tolerance (tests/test_kernels.py, TestWKV6):
-    rtol 5e-3, atol 5e-3 (max |y| + 1) for y, 5e-3 for the last state."""
+    (w = exp(-exp(3 N(0,1)))) besides the main case, and rwkv6-3b's prefill
+    shape (B2 S512).  Gated at the reference test's own scale-aware
+    tolerance (tests/test_kernels.py, TestWKV6): rtol 5e-3, atol 5e-3 (max
+    |y| + 1) for y, 5e-3 for the last state.  An fp32 case is gated at
+    FP32_TOL against the chunk-parallel twin (`wkv_chunk_parallel`, the
+    kernel's own order of sums); its error against the sequential form is
+    printed beside.  The CUDA launches of one main-case call are counted
+    from a `torch.profiler` trace of it (`cuda_launches_per_call`).
+    The kernel's products run on the tensor cores: `bound_ms` is the larger
+    of the bytes bound and the operations at the bf16 tensor-core rate, the
+    operations at fp32's rate printed beside (`bound_ms_fp32_ops`)."""
+    from repro_torch.kernels.rwkv6.kernel import CHUNK
     from repro_torch.kernels.rwkv6.ops import wkv
-    from repro_torch.kernels.rwkv6.ref import wkv_scan
+    from repro_torch.kernels.rwkv6.ref import wkv_chunk_parallel, wkv_scan
 
-    cases = []
-    for name, B, S, H, decay, main in [("rwkv6_B1_S2048_H40_C64_bf16", 1, 2048, 40, 0.5, True),
-                                       ("ragged_B2_S1000_H40_C64_bf16", 2, 1000, 40, 0.5, False),
-                                       ("strong_decay_B1_S512_H40_C64_bf16", 1, 512, 40, 3.0,
-                                        False)]:
-        C = 64
-        r, k, v = (torch.randn((B, S, H, C), generator=gen, device="cuda").to(torch.bfloat16)
-                   for _ in range(3))
-        w = torch.exp(-torch.exp(decay * torch.randn((B, S, H, C), generator=gen, device="cuda")))
-        u = 0.5 * torch.randn((H, C), generator=gen, device="cuda")
-        s0 = torch.randn((B, H, C, C), generator=gen, device="cuda")
-        y, s_last = wkv(r, k, v, w, u, s0)
-        y_ref, s_ref = wkv_scan(r, k, v, w, u, s0)
-        torch.cuda.synchronize()
+    def check(name, y, s_last, y_ref, s_ref):
         if y.shape != y_ref.shape or y.dtype != y_ref.dtype or s_last.dtype != torch.float32:
             raise AssertionError(f"{name}: output {y.shape} {y.dtype} {s_last.dtype}")
         if not (torch.isfinite(y.float()).all() and torch.isfinite(s_last).all()):
@@ -892,15 +981,46 @@ def wkv_cases(torch, gen):
                 and bool((ds <= 5e-3 + 5e-3 * s_ref.abs()).all())):
             raise AssertionError(f"{name}: y off by {dy.max().item()} at scale {scale}, "
                                  f"state off by {ds.max().item()}")
-        err, rms = dy.max().item(), y_ref.float().pow(2).mean().sqrt().item()
+        return dy.max().item(), ds.max().item(), scale
+
+    cases = []
+    for name, B, S, H, decay, dtype, main in [
+        ("rwkv6_B1_S2048_H40_C64_bf16", 1, 2048, 40, 0.5, torch.bfloat16, True),
+        ("ragged_B2_S1000_H40_C64_bf16", 2, 1000, 40, 0.5, torch.bfloat16, False),
+        ("strong_decay_B1_S512_H40_C64_bf16", 1, 512, 40, 3.0, torch.bfloat16, False),
+        ("rwkv6_prefill_B2_S512_H40_C64_bf16", 2, 512, 40, 0.5, torch.bfloat16, False),
+        ("ragged_B2_S1000_H40_C64_fp32", 2, 1000, 40, 3.0, torch.float32, False),
+    ]:
+        C = 64
+        r, k, v = (torch.randn((B, S, H, C), generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        w = torch.exp(-torch.exp(decay * torch.randn((B, S, H, C), generator=gen, device="cuda")))
+        u = 0.5 * torch.randn((H, C), generator=gen, device="cuda")
+        s0 = torch.randn((B, H, C, C), generator=gen, device="cuda")
+        y, s_last = wkv(r, k, v, w, u, s0)
+        y_ref, s_ref = wkv_scan(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        err, err_state, scale = check(name, y, s_last, y_ref, s_ref)
+        extra = {"max_abs_err_state": err_state, "y_scale": scale, "chunk": CHUNK}
+        if dtype == torch.float32:  # held to the twin in its order of sums
+            y_tw, s_tw = wkv_chunk_parallel(r, k, v, w, u, s0, chunk=CHUNK)
+            extra["max_abs_err_vs_wkv_scan"] = err
+            err, _ = check_close(torch, name, y, y_tw, FP32_TOL)
+            check_close(torch, name + "/s_last", s_last, s_tw, FP32_TOL)
+        rms = y_ref.float().pow(2).mean().sqrt().item()
         ms = time_ms(torch, [lambda: wkv(r, k, v, w, u, s0)], 10)
+        if main:
+            extra["cuda_launches_per_call"] = device_kernels(
+                torch, lambda: wkv(r, k, v, w, u, s0), "wkv6_")
         plain = time_ms(torch, [lambda: wkv_scan(r, k, v, w, u, s0)], 1)
-        nbytes = B * S * H * C * (3 * 2 + 4 + 2) + 4 * H * C + 2 * 4 * B * H * C * C
+        el = r.element_size()
+        nbytes = B * S * H * C * (3 * el + 4 + el) + 4 * H * C + 2 * 4 * B * H * C * C
         flops = B * S * H * (5.0 * C * C + 4.0 * C)
-        b_ms, b_by = bound(nbytes, flops, "fp32")
+        b_ms, b_by = bound(nbytes, flops, "bf16")
+        extra["bound_ms_fp32_ops"] = bound(nbytes, flops, "fp32")[0]
         cases.append(dict(case=name, main=main, max_abs_err=err, ref_rms=rms, ms=ms,
                           plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                          max_abs_err_state=ds.max().item(), y_scale=scale))
+                          **extra))
     return cases
 
 
@@ -1061,6 +1181,25 @@ def flash_bwd_cases(torch, gen):
         del q, k, v, do, out, lse, got, delta
         torch.cuda.empty_cache()
     return lse_cases, dq_cases, dkv_cases
+
+
+def device_kernels(torch, fn, match: str) -> int | None:
+    """The kernels whose name holds `match` that one call of `fn` runs on
+    the card, from a `torch.profiler` trace of it; None when the profiler
+    recorded no device activity at all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not rows:
+        return None
+    n = sum(e.count for e in rows if match in e.key)
+    if not n:
+        raise AssertionError(f"the profiler saw no {match}* kernel in the call")
+    return n
 
 
 def kernel_entry(name, source, replaces, cases, launches, launches_by_run, **extra):
@@ -1269,24 +1408,27 @@ def continuous_phase(torch, server) -> dict:
                 raise AssertionError(f"{tag}: tokens of the wrong shape or range")
         st = server.last_step_counts
         calls = sum(st.values())
+        # a quantized pool's first prefills attend over its codes through K2
+        first = layers * st["prefill"]
         k2 = layers * (st["decode"] + st["suffix_prefill"] + st["rescore"])
-        want = {"flash_attention": layers * (st["probe"] + st["prefill"]),
-                "flash_decode": k2, "flash_decode_quantized": k2 if quantized else 0,
+        want = {"flash_attention": layers * st["probe"] + (0 if quantized else first),
+                "flash_decode": k2 + (first if quantized else 0),
+                "flash_decode_quantized": k2 + first if quantized else 0,
                 "rmsnorm": (2 * layers + 1) * calls}
         log(f"continuous {tag}: launches {counts}, expected {want} from steps {st}")
         if counts != want:
             raise AssertionError(f"{tag}: launch counters {counts} != expected {want}")
-        # routes, as the entry points reported them: K1 on the tensor cores
-        # but for a quantized pool's first prefills, which attend over its
-        # dequantized fp32 K / V (the FMA route); every suffix prefill over a
-        # bf16 pool on K2's tensor-core mode, none over a quantized one
-        # and every single-token step (decode, re-score) on the split
-        # route, over either pool
-        fma = layers * st["prefill"] if quantized else 0
-        want_routes = {"flash_attention_tc": want["flash_attention"] - fma,
-                       "flash_attention_fma": fma,
-                       "flash_decode_tc": 0 if quantized else layers * st["suffix_prefill"],
-                       "flash_decode_split": layers * (st["decode"] + st["rescore"])}
+        # routes, as the entry points reported them: every K1 launch on the
+        # tensor cores; every widened K2 launch (suffix prefills, and a
+        # quantized pool's first prefills) on K2's tensor-core mode over bf16
+        # values or codes; every single-token step (decode, re-score) on the
+        # split route, over either pool; nothing on an FMA body
+        want_routes = {"flash_attention_tc": want["flash_attention"],
+                       "flash_attention_fma": 0,
+                       "flash_decode_tc": layers * st["suffix_prefill"]
+                       + (first if quantized else 0),
+                       "flash_decode_split": layers * (st["decode"] + st["rescore"]),
+                       "flash_decode_fma": 0}
         log(f"continuous {tag}: routes {routes}, expected {want_routes}")
         if any(routes[k] != v for k, v in want_routes.items()):
             raise AssertionError(f"{tag}: routes {routes} != expected {want_routes}")
@@ -1377,6 +1519,7 @@ def continuous_phase(torch, server) -> dict:
     }
     log("continuous " + json.dumps(summary))
     log("continuous-diagnostic " + json.dumps(sharing_diagnostic(torch, server, prompts)))
+    log("pool-prefill-logits " + json.dumps(pool_prefill_logit_gate(torch, server)))
     log("profile-wave " + json.dumps(profiled["wave"]))
     return {tag: {**report[tag]["launches"], **report[tag]["routes"]}
             for tag in ("a_bf16_shared", "c_int8_shared")}
@@ -1426,6 +1569,102 @@ def sharing_diagnostic(torch, server, prompts) -> dict:
     gemm["decode_rows_8_of_10_vs_alone_8"] = bool(torch.equal((x[:10] @ wq)[:8], x[:8] @ wq))
     gemm["decode_rows_6_of_8_vs_alone_6"] = bool(torch.equal((x[:8] @ wq)[:6], x[:6] @ wq))
     return {"first_token_logits_shared_vs_unshared": rows, "gemm_row_independence": gemm}
+
+
+def pool_prefill_logit_gate(torch, server) -> dict:
+    """A first prefill into a paged pool, under the `cuda` impl against the
+    plain (`eager`) impl of the same server and weights: the bf16 pool
+    (K1), and the int8 pool, whose first prefill attends over its codes
+    through K2's widened mode at index 0 under `cuda` and over the
+    dequantized codes through the plain attention under `eager`; and, over
+    the int8 pool, the route its first prefill took before K2's widened
+    mode ran over codes (`k1_fp32`: K1 over the pool's dequantized fp32
+    values).  Four prompts of run (c)'s first-prefill length, 1088 tokens;
+    the logits an admission returns (the last prompt token's) read against
+    LOGIT_MAX_TOL / LOGIT_RMS_TOL of the logit scale, the dense prefill's
+    gate in `serve_phase` (`within_gate`).  Gated: the RMS half, `cuda`
+    against `eager`, for both pools.  The worst logit is read, not gated:
+    over the int8 pool it moves by about 2 % of the scale between any two
+    of the three routes, `k1_fp32` against `eager` included (PERF.md §6).
+    Also read: each int8 route against the bf16 pool's `cuda`
+    logits (what quantizing the pool costs), whether the argmax agrees,
+    and the top-2 margin."""
+    import numpy as np
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention, paged_gather_kv
+    from repro_torch.nn import attention as attn_mod
+    from repro_torch.runtime.pages import PagedCacheManager
+
+    mcfg = server.woven.program.cfg
+    impls = server.woven.state.impls
+    cuda_impls = list(impls)
+    captured = {}
+    first_token = server._first_token
+    flash_decode = attn_mod.flash_decode
+
+    def capture(manager, rid, logits):
+        captured["logits"] = logits[0].float().clone()
+        return first_token(manager, rid, logits)
+
+    def k1_over_dequantized(q, pk, pv, index, *, window, tables, kv_len, k_scale, v_scale,
+                            softcap, pruned, **_):
+        if k_scale is None or int(index.max()) != 0:
+            raise AssertionError("only a quantized pool's first prefill takes K1 here")
+        k, v = paged_gather_kv(pk, pv, tables, kv_len, k_scale=k_scale, v_scale=v_scale)
+        return flash_attention(q, k, v, causal=True, window=window, softcap=softcap,
+                               pruned=pruned)
+
+    def admit(prompt, dtype, route):
+        impls[:] = [] if route == "eager" else cuda_impls
+        attn_mod.flash_decode = k1_over_dequantized if route == "k1_fp32" else flash_decode
+        manager = PagedCacheManager(16, 128, max_len=server.cfg.max_cache_len,
+                                    prefix_sharing=False, cache_dtype=dtype)
+        server._paged_admit(manager, 0, prompt, len(prompt) + 1, None)
+        del manager
+        x = captured.pop("logits")
+        if not torch.isfinite(x).all() or x.shape[-1] != mcfg.vocab:
+            raise AssertionError(f"{dtype} pool, {route}: logits {x.shape}, not all finite")
+        return x
+
+    def gap(x, y):
+        g = {"max_abs_err": (x - y).abs().max().item(),
+             "rms_err": (x - y).pow(2).mean().sqrt().item(),
+             "logit_scale": y.abs().max().item(),
+             "argmax_equal": bool((x.argmax(-1) == y.argmax(-1)).all()),
+             "top2_margin": (lambda t: (t[..., 0] - t[..., 1]).min().item())(
+                 y.topk(2, dim=-1).values)}
+        g["within_gate"] = (g["max_abs_err"] <= LOGIT_MAX_TOL * g["logit_scale"]
+                            and g["rms_err"] <= LOGIT_RMS_TOL * g["logit_scale"])
+        return g
+
+    server._first_token = capture
+    report = []
+    try:
+        for seed in (2, 3, 4, 5):
+            prompt = np.random.default_rng(seed).integers(0, mcfg.vocab, 1088)
+            got = {(None, r): admit(prompt, None, r) for r in ("cuda", "eager")}
+            got.update({("int8", r): admit(prompt, "int8", r)
+                        for r in ("cuda", "eager", "k1_fp32")})
+            for dtype in (None, "int8"):
+                x, y = got[dtype, "cuda"], got[dtype, "eager"]
+                rms, scale = (x - y).pow(2).mean().sqrt().item(), y.abs().max().item()
+                if not rms <= LOGIT_RMS_TOL * scale:
+                    raise AssertionError(f"{dtype or 'bf16'} pool's first prefill, cuda vs "
+                                         f"eager: rms {rms} at scale {scale}")
+            report.append({
+                "seed": seed, "tokens": len(prompt),
+                "bf16_cuda_vs_eager": gap(got[None, "cuda"], got[None, "eager"]),
+                "int8_cuda_vs_eager": gap(got["int8", "cuda"], got["int8", "eager"]),
+                "int8_k1_fp32_vs_eager": gap(got["int8", "k1_fp32"], got["int8", "eager"]),
+                "int8_cuda_vs_k1_fp32": gap(got["int8", "cuda"], got["int8", "k1_fp32"]),
+                **{f"int8_{r}_vs_bf16_cuda": gap(got["int8", r], got[None, "cuda"])
+                   for r in ("cuda", "eager", "k1_fp32")}})
+            del got
+    finally:
+        impls[:] = cuda_impls
+        attn_mod.flash_decode = flash_decode
+        server._first_token = first_token
+    return {"readings": report}
 
 
 def serve_phase(torch):
@@ -2127,10 +2366,11 @@ def main() -> int:
     dec = decode_cases(torch, gen)
     wide = widened_decode_cases(torch, gen)
     quant = quantized_decode_cases(torch, gen)
+    wcodes = widened_codes_cases(torch, gen)
     lru = rglru_cases(torch, gen)
     wkv6 = wkv_cases(torch, gen)
     lse_c, dq_c, dkv_c = flash_bwd_cases(torch, gen)
-    for c in norm + pre + dec + wide + quant + lru + wkv6 + lse_c + dq_c + dkv_c:
+    for c in norm + pre + dec + wide + quant + wcodes + lru + wkv6 + lse_c + dq_c + dkv_c:
         log("kernel-case " + json.dumps({k: v for k, v in c.items() if k != "main"}))
     log("shared-prefill-identity " + json.dumps(shared_prefill_identity(torch, gen)))
 
@@ -2146,7 +2386,9 @@ def main() -> int:
     train = train_phase(torch)
 
     # `launches`: the continuous main path, bf16 pool (run a); the quantized
-    # mode over the int8 pool (run c).  Every counted run is listed beside.
+    # mode over the int8 pool (run c): its single tokens on the split route,
+    # its widened q (suffix and first prefills) on the tensor-core mode over
+    # codes.  Every counted run is listed beside.
     a, c = cont["a_bf16_shared"], cont["c_int8_shared"]
 
     def by_run(key):
@@ -2177,8 +2419,10 @@ def main() -> int:
                      gb_s=next(x["gb_s"] for x in dec if x["main"])),
         kernel_entry("flash_decode_quantized", "src/repro_torch/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_attention/decode.py:454", quant,
-                     c["flash_decode_quantized"], by_run("flash_decode_quantized"),
+                     c["flash_decode_quantized"] - c["flash_decode_tc"],
+                     by_run("flash_decode_quantized"),
                      tensor_core_launches=c["flash_decode_split"],
+                     fma_launches=c["flash_decode_fma"],
                      split_source="src/repro_torch/csrc/decode_split.cuh",
                      gb_s=next(x["gb_s"] for x in quant if x["main"])),
         kernel_entry("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
@@ -2217,10 +2461,19 @@ def main() -> int:
         "flash_decode_widened_tc", "src/repro_torch/csrc/flash_decode.cu",
         "src/repro/kernels/flash_attention/decode.py:454", wide, a["flash_decode_tc"],
         by_run("flash_decode_tc")))
+    # the same mode over int8 / fp8 codes: run (c)'s suffix prefills and the
+    # int8 pool's first prefills
+    kernels.append(kernel_entry(
+        "flash_decode_widened_codes_tc", "src/repro_torch/csrc/flash_decode.cu",
+        "src/repro/kernels/flash_attention/decode.py:454", wcodes, c["flash_decode_tc"],
+        {"continuous_c_int8": c["flash_decode_tc"]}, fma_launches=c["flash_decode_fma"]))
+    kernels[-1]["library_ms_note"] = "no single PyTorch call attends over an int8 paged pool"
     kernels[2]["library_ms_note"] = ("no single PyTorch call attends over an int8 "
                                      "paged pool")
     kernels[4]["library_ms_note"] = "no single PyTorch call computes a linear recurrence"
     kernels[5]["library_ms_note"] = "no single PyTorch call computes the WKV recurrence"
+    kernels[5]["cuda_launches_per_call"] = next(
+        c["cuda_launches_per_call"] for c in wkv6 if c["main"])
     idle = [e["name"] for e in kernels if not e["launches"]]
     if idle:
         raise AssertionError(f"kernels not launched on their main path: {idle}")

@@ -26,15 +26,20 @@
 //   cores, the dequant scales are factored out of the products, and the
 //   chunks are combined in chunk order.
 // - 1, widened q (S > 1 bf16 tokens: a prefix-shared admission's suffix, a
-//   prefill chunk) over bf16 values: the tensor-core mode
+//   prefill chunk, and a quantized pool's first prefill at index 0) over
+//   bf16 values or int8 / fp8 codes: the tensor-core mode
 //   (flash_decode_tc_kernel), K1's bf16 body (attend_tc.cuh) over 64-slot
 //   tiles of the cache, grid (q blocks of 64 tokens, H, B), each token's row
 //   masked exactly as below.  A row's bits then equal K1's for the same row
-//   of the whole prompt: a shared and an unshared admission write the same
-//   suffix rows.  Slots outside the request's live range are zero-filled,
-//   never read.
+//   of the whole prompt (over codes: this mode's own row of the whole
+//   prompt at index 0): a shared and an unshared admission write the same
+//   suffix rows.  Codes are copied as they are beside their per-slot
+//   scales, widened to bf16 exactly in shared memory, and the scales are
+//   factored out of the products, as the split route does; a slot's scale
+//   is read per slot, so a tile may span pages smaller than 64 slots.
+//   Slots outside the request's live range are zero-filled, never read.
 // - 0, the rest (an fp32 q — the accuracy policy — over fp32 values or
-//   codes, and a bf16 q's widened rows over codes): the FMA body
+//   codes): the FMA body
 //   (attend_core.cuh, flash_decode_kernel), grid (B, K, row tiles).  The
 //   block loads index[b] itself, computes lo / hi with the reference's
 //   arithmetic and loops exactly over the live blocks.  Row r of KV head kh
@@ -175,7 +180,7 @@ flash_decode_kernel(DecodeArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// Widened q over bf16 values: the tensor-core mode
+// Widened q over bf16 values or codes: the tensor-core mode
 // ---------------------------------------------------------------------------
 
 // The block's q rows: tokens q0 + r of one (request, head), at positions
@@ -193,6 +198,7 @@ struct DecodeTcRows {
 // 64-slot tiles of a dense cache or, through the request's block table, of
 // a page pool; slots outside [slot_begin, slot_end) are zero-filled.
 struct CacheTcTiles {
+  static constexpr bool kCodes = false;
   const tc::bf16* k; const tc::bf16* v;  // at head kh (and request b when dense)
   int64_t k_st, v_st, k_sp, v_sp;        // slot strides, page strides
   const int* table;                      // this request's row, or nullptr
@@ -220,7 +226,69 @@ struct CacheTcTiles {
   }
 };
 
-template <int DP>
+// The same tiles over int8 / fp8 codes: a stage holds tile jb's K codes
+// ([R][DP] bytes), its V codes, then the R slots' K scales and V scales
+// (fp32; a slot's scale row is its page, or slot / scale_page when dense);
+// slots outside [slot_begin, slot_end) read as code 0 and scale 0.
+template <typename TK>
+struct CacheTcCodeTiles {
+  static constexpr bool kCodes = true;
+  const TK* k; const TK* v;               // at head kh (and request b when dense)
+  int64_t k_st, v_st, k_sp, v_sp;         // slot strides, page strides
+  const int* table;                       // this request's row, or nullptr
+  int page_size, slot_begin, slot_end;
+  const float* ksc; const float* vsc;     // at head kh (and request b when dense)
+  int64_t sc_p;                           // elements between scale rows
+  int scale_page;                         // dense: slots per scale row
+  template <int R, int CH, int NT>
+  __device__ __forceinline__ void load(unsigned char* st, int jb, int D) const {
+    constexpr int DP = CH * 8;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < R * CH; i += NT) {
+      const int r = i / CH, c = i % CH, slot = jb * R + r;
+      const bool ok = slot >= slot_begin && slot < slot_end && c * 8 < D;
+      int64_t ko = 0, vo = 0;
+      if (ok) {
+        if (table != nullptr) {
+          const int64_t page = table[slot / page_size], at = slot % page_size;
+          ko = page * k_sp + at * k_st;
+          vo = page * v_sp + at * v_st;
+        } else {
+          ko = (int64_t)slot * k_st;
+          vo = (int64_t)slot * v_st;
+        }
+      }
+      tc::cp_async8(st + r * DP + c * 8, ok ? k + ko + c * 8 : k, ok);
+      tc::cp_async8(st + (R + r) * DP + c * 8, ok ? v + vo + c * 8 : v, ok);
+    }
+    float* sc = reinterpret_cast<float*>(st + 2 * R * DP);
+    for (int r = threadIdx.x; r < R; r += NT) {
+      const int slot = jb * R + r;
+      const bool ok = slot >= slot_begin && slot < slot_end;
+      const int64_t row = !ok ? 0 : table != nullptr ? (int64_t)table[slot / page_size]
+                                                     : (int64_t)(slot / scale_page);
+      tc::cp_async4(sc + r, ok ? ksc + row * sc_p : ksc, ok);
+      tc::cp_async4(sc + R + r, ok ? vsc + row * sc_p : vsc, ok);
+    }
+  }
+  // a landed stage's codes widened into the swizzled bf16 K / V tiles
+  template <int R, int CH, int NT>
+  __device__ __forceinline__ void widen(tc::bf16* ks, tc::bf16* vs,
+                                        const unsigned char* st) const {
+    constexpr int DP = CH * 8;
+    // at D 256 the body already holds 64 output sums a thread: widening one
+    // chunk at a time keeps it clear of spills
+#pragma unroll(CH > 16 ? 1 : 4)
+    for (int i = threadIdx.x; i < R * CH; i += NT) {
+      const int r = i / CH, c = i % CH;
+      *reinterpret_cast<uint4*>(ks + tc::swz<CH>(r, c)) = codes_to_bf16x8<TK>(st + r * DP + c * 8);
+      *reinterpret_cast<uint4*>(vs + tc::swz<CH>(r, c)) =
+          codes_to_bf16x8<TK>(st + (R + r) * DP + c * 8);
+    }
+  }
+};
+
+template <int DP, typename TK>
 __global__ void __launch_bounds__(TcShape<DP>::NT)
 flash_decode_tc_kernel(DecodeArgs a) {
   using Sh = TcShape<DP>;
@@ -244,21 +312,37 @@ flash_decode_tc_kernel(DecodeArgs a) {
       static_cast<const tc::bf16*>(a.q) + b * a.q_sb + (int64_t)h * a.q_sh + (int64_t)q0 * a.q_ss,
       static_cast<tc::bf16*>(a.o) + b * a.o_sb + (int64_t)h * a.o_sh + (int64_t)q0 * a.o_ss,
       a.q_ss, a.o_ss, nrows, index + q0, a.T, a.window};
-  CacheTcTiles tiles{
-      static_cast<const tc::bf16*>(a.k) + (paged ? 0 : b * a.k_sb) + kh * a.k_sh,
-      static_cast<const tc::bf16*>(a.v) + (paged ? 0 : b * a.v_sb) + kh * a.v_sh,
-      a.k_st, a.v_st, a.k_sb, a.v_sb,
-      paged ? a.tables + (int64_t)b * a.NB : nullptr,
-      a.page_size, slot_begin, slot_end};
-  tc_attend<DP>(rows, tiles, a.D, a.pruned ? lo : 0, a.pruned ? hi : nk, lo, hi, a.scale,
-                a.softcap);
+  const int* table = paged ? a.tables + (int64_t)b * a.NB : nullptr;
+  const TK* kp = static_cast<const TK*>(a.k) + (paged ? 0 : b * a.k_sb) + kh * a.k_sh;
+  const TK* vp = static_cast<const TK*>(a.v) + (paged ? 0 : b * a.v_sb) + kh * a.v_sh;
+  const int walk_begin = a.pruned ? lo : 0, walk_end = a.pruned ? hi : nk;
+  if constexpr (IsCode<TK>::value) {
+    const int64_t sc_off = (paged ? 0 : b * a.sc_b) + kh * a.sc_k;
+    CacheTcCodeTiles<TK> tiles{kp, vp, a.k_st, a.v_st, a.k_sb, a.v_sb, table,
+                               a.page_size, slot_begin, slot_end,
+                               a.ksc + sc_off, a.vsc + sc_off, a.sc_p, a.scale_page};
+    tc_attend<DP>(rows, tiles, a.D, walk_begin, walk_end, lo, hi, a.scale, a.softcap);
+  } else {
+    CacheTcTiles tiles{kp, vp, a.k_st, a.v_st, a.k_sb, a.v_sb, table,
+                       a.page_size, slot_begin, slot_end};
+    tc_attend<DP>(rows, tiles, a.D, walk_begin, walk_end, lo, hi, a.scale, a.softcap);
+  }
 }
 
-template <int DP>
+template <int DP, typename TK>
 static cudaError_t launch_decode_tc(const DecodeArgs& a, int B, int H, cudaStream_t stream) {
   using Sh = TcShape<DP>;
   dim3 grid((a.S + Sh::BQ - 1) / Sh::BQ, H, B);
-  return launch_with_smem(flash_decode_tc_kernel<DP>, grid, dim3(Sh::NT), Sh::smem, stream, a);
+  return launch_with_smem(flash_decode_tc_kernel<DP, TK>, grid, dim3(Sh::NT),
+                          IsCode<TK>::value ? Sh::smem_codes : Sh::smem, stream, a);
+}
+
+// The tensor-core mode at the padded head dim of `a.D` (64, 128 or 256).
+template <typename TK>
+static cudaError_t launch_decode_tc_d(const DecodeArgs& a, int B, int H, cudaStream_t stream) {
+  if (a.D <= 64) return launch_decode_tc<64, TK>(a, B, H, stream);
+  if (a.D <= 128) return launch_decode_tc<128, TK>(a, B, H, stream);
+  return launch_decode_tc<256, TK>(a, B, H, stream);
 }
 
 template <typename T, typename TK>
@@ -274,14 +358,13 @@ static cudaError_t launch_decode(const DecodeArgs& a, int B, int K, cudaStream_t
   return launch_with_smem(flash_decode_kernel<T, TK, 16>, grid, block, smem, stream, a);
 }
 
-// The FMA body over codes (bf16 values never reach it: one bf16 token takes
-// the split route, widened bf16 q the tensor-core mode).
-template <typename T>
+// The FMA body over codes, for an fp32 q (a bf16 q over codes takes the
+// split route for one token, the tensor-core mode for more).
 static cudaError_t launch_decode_codes(const DecodeArgs& a, int kv_dtype, int B, int K,
                                        cudaStream_t stream) {
-  if (kv_dtype == 2) return launch_decode<T, int8_t>(a, B, K, stream);
-  if (kv_dtype == 3) return launch_decode<T, __nv_fp8_e4m3>(a, B, K, stream);
-  if (kv_dtype == 4) return launch_decode<T, __nv_fp8_e5m2>(a, B, K, stream);
+  if (kv_dtype == 2) return launch_decode<float, int8_t>(a, B, K, stream);
+  if (kv_dtype == 3) return launch_decode<float, __nv_fp8_e4m3>(a, B, K, stream);
+  if (kv_dtype == 4) return launch_decode<float, __nv_fp8_e5m2>(a, B, K, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -297,8 +380,8 @@ static cudaError_t launch_decode_codes(const DecodeArgs& a, int kv_dtype, int B,
 // takes the split route: it needs `part`, fp32 scratch of B * H *
 // ceil(T / split_chunk) * (D + 2) floats, and `tickets`, B * K *
 // ceil(G / 16) ints that are 0 (the kernel leaves them 0); `split_chunk`
-// must equal the compiled chunk.  S > 1 bf16 tokens over bf16 values take
-// the tensor-core mode.  Both have their tiles compiled in (block_kv is not
+// must equal the compiled chunk.  S > 1 bf16 tokens over bf16 values or
+// codes take the tensor-core mode.  Both have their tiles compiled in (block_kv is not
 // read).  *route is set to the route launched (2 split, 1 tensor cores, 0
 // FMA; -1 none).  Returns the CUDA error code of the launch (0 = success).
 extern "C" int repro_torch_flash_decode(
@@ -342,14 +425,14 @@ extern "C" int repro_torch_flash_decode(
     if (kv_dtype == 3) return (int)launch_decode_split_d<__nv_fp8_e4m3>(a, B, K, s);
     return (int)launch_decode_split_d<__nv_fp8_e5m2>(a, B, K, s);
   }
-  if (dtype == 0 && kv_dtype == 0) {
+  if (dtype == 0) {  // S > 1 bf16 tokens over bf16 values or codes
     *route = 1;
-    if (D <= 64) return (int)launch_decode_tc<64>(a, B, H, s);
-    if (D <= 128) return (int)launch_decode_tc<128>(a, B, H, s);
-    return (int)launch_decode_tc<256>(a, B, H, s);
+    if (kv_dtype == 0) return (int)launch_decode_tc_d<__nv_bfloat16>(a, B, H, s);
+    if (kv_dtype == 2) return (int)launch_decode_tc_d<int8_t>(a, B, H, s);
+    if (kv_dtype == 3) return (int)launch_decode_tc_d<__nv_fp8_e4m3>(a, B, H, s);
+    return (int)launch_decode_tc_d<__nv_fp8_e5m2>(a, B, H, s);
   }
   *route = 0;
   if (kv_dtype == 1) return (int)launch_decode<float, float>(a, B, K, s);
-  if (dtype == 0) return (int)launch_decode_codes<__nv_bfloat16>(a, kv_dtype, B, K, s);
-  return (int)launch_decode_codes<float>(a, kv_dtype, B, K, s);
+  return (int)launch_decode_codes(a, kv_dtype, B, K, s);
 }

@@ -86,6 +86,7 @@ struct PrefillTcRows {
 
 // K / V tiles of a dense (B, T, K, D) operand: slots past T read as 0.
 struct DenseTcTiles {
+  static constexpr bool kCodes = false;
   const tc::bf16* k; const tc::bf16* v;  // at (batch, KV head)
   int64_t k_st, v_st;
   int T;

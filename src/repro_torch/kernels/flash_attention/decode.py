@@ -20,11 +20,14 @@ reports the one it launched, kept in `flash_decode_fwd.last_route`):
   the products, and the chunks are combined in chunk order.  The chunk is
   fixed: a request's rows do not depend on the batch, the card or paging.
   Its plain twin is `ref.decode_split_ref`.
-- "tc": S > 1 bf16 tokens over bf16 values run K1's tensor-core body in
-  64-slot tiles: a suffix's rows equal K1's rows of the whole prompt bit for
-  bit.
-- "fma": an fp32 q (over fp32 values or codes), and S > 1 bf16 tokens over
-  codes.
+- "tc": S > 1 bf16 tokens over bf16 values or int8 / fp8 codes run K1's
+  tensor-core body in 64-slot tiles: a suffix's rows equal K1's rows of the
+  whole prompt bit for bit over values, and this route's own rows of the
+  whole prompt at index 0 over codes (a quantized pool's first prefill
+  takes this route too).  Over codes the tiles' codes are widened to bf16
+  exactly and the scales are factored out of the products, as on the
+  split route; its plain twin is `ref.decode_widened_codes_ref`.
+- "fma": an fp32 q (over fp32 values or codes).
 """
 
 from __future__ import annotations
@@ -148,11 +151,9 @@ def split_step_slots(D: int) -> int:
 
 def decode_route(q_dtype, kv_dtype, S: int) -> str:
     """The route a CUDA launch takes (what the entry point reports)."""
-    if q_dtype == torch.bfloat16 and S == 1:
-        return "tc_split"  # over bf16 values or int8 / fp8 codes
-    if q_dtype == kv_dtype == torch.bfloat16:
-        return "tc"
-    return "fma"
+    if q_dtype == torch.bfloat16 and (kv_dtype == torch.bfloat16 or kv_dtype in QUANT_DTYPES):
+        return "tc_split" if S == 1 else "tc"
+    return "fma"  # an fp32 q, over fp32 values or codes
 
 
 _TICKETS: dict = {}  # device -> int32 counters of the split route, 0 between calls

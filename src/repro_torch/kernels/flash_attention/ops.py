@@ -16,11 +16,12 @@ runs the forward alone, without `lse`, as serving always did.
 Each CUDA launch of K1 / K3 takes one of two routes, chosen by the type
 pair (`kernel.attention_route`), reported by the kernel's entry point and
 counted as reported beside `launches`: `tc_launches` (bf16 q, k, v — the
-tensor cores) and `fma_launches` (fp32, and a bf16 q over the fp32 K / V of
-a dequantized page pool).  K2 counts its widened-q launches over bf16
-values, which run K1's tensor-core body, in `flash_decode.tc_launches`, and
+tensor cores) and `fma_launches` (fp32, and a bf16 q over fp32 K / V).  K2
+counts its widened-q launches with a bf16 q (over bf16 values or int8 /
+fp8 codes), which run K1's tensor-core body, in `flash_decode.tc_launches`,
 its single-token launches with a bf16 q, which run the split route, in
-`flash_decode.split_launches`.  Block sizes left
+`flash_decode.split_launches`, and the rest (an fp32 q) in
+`flash_decode.fma_launches`.  Block sizes left
 unspecified (None) take the FMA route's tile capacity; woven `flash_block_*`
 extras override and are clamped to that capacity.  Backward blocks left
 unspecified take the forward's, as the reference's `_resolve_blocks` does
@@ -314,11 +315,12 @@ def flash_decode(
     chunking of the walk, the GQA group on the tensor cores, the scales
     factored out of the products, the chunks combined in order: the same
     bits for a request whatever its batch, paged or dense) and counts in
-    `flash_decode.split_launches`; S > 1 bf16 tokens over bf16 values run
-    K1's tensor-core body (their rows equal K1's for the same rows of the
-    whole prompt, bit for bit) and count in `flash_decode.tc_launches`;
-    the rest (an fp32 q, and S > 1 bf16 tokens over codes) run the FMA
-    body.  The tensor-core routes' tiles are compiled in, so `block_kv`
+    `flash_decode.split_launches`; S > 1 bf16 tokens over bf16 values or
+    codes run K1's tensor-core body (their rows equal the same rows of the
+    whole prompt, bit for bit; over codes the scales are factored out of
+    the products) and count in `flash_decode.tc_launches`; an fp32 q runs
+    the FMA body and counts in `flash_decode.fma_launches`.  The
+    tensor-core routes' tiles are compiled in, so `block_kv`
     does not change their result.
     """
     block_kv = DEFAULT_BLOCK_KV_DEC if block_kv is None else int(block_kv)
@@ -344,10 +346,13 @@ def flash_decode(
         flash_decode.tc_launches += 1
     elif flash_decode_fwd.last_route == "tc_split":
         flash_decode.split_launches += 1
+    else:
+        flash_decode.fma_launches += 1
     return out
 
 
 flash_decode.launches = 0  # kernel launches made through this wrapper
 flash_decode.quantized_launches = 0  # of which in the quantized-pool mode
-flash_decode.tc_launches = 0  # of which widened q on the tensor cores (bf16)
+flash_decode.tc_launches = 0  # of which widened bf16 q on the tensor cores
 flash_decode.split_launches = 0  # of which one bf16 token on the split route
+flash_decode.fma_launches = 0  # of which an fp32 q on the FMA body

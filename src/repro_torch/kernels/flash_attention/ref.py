@@ -18,7 +18,12 @@ from repro_torch.kernels.flash_attention.decode import (
     split_decode_schedule,
     split_step_slots,
 )
-from repro_torch.kernels.flash_attention.kernel import MAX_BLOCK_KV, NEG_INF
+from repro_torch.kernels.flash_attention.kernel import (
+    MAX_BLOCK_KV,
+    NEG_INF,
+    TC_BLOCK_KV,
+    TC_BLOCK_Q,
+)
 
 
 def _masked_softmax_pv(scores: torch.Tensor, mask: torch.Tensor,
@@ -321,3 +326,120 @@ def decode_split_ref(
             out = torch.zeros((K, G, D), dtype=acc, device=q.device)
         outs.append(out.reshape(1, H, D))
     return torch.stack(outs).to(q.dtype)
+
+
+def _bf16_parts(x: torch.Tensor, n: int) -> list[torch.Tensor]:
+    """fp32 x as n bf16-exact parts that sum to it, as the tensor-core body
+    splits P (`c_to_a_parts`): part j is the top 16 bits of what parts
+    0..j-1 left of x, every subtraction exact."""
+    parts = []
+    for _ in range(n):
+        top = (x.view(torch.int32) & -65536).view(torch.float32)  # 0xffff0000
+        parts.append(top)
+        x = x - top
+    return parts
+
+
+def decode_widened_codes_ref(
+    q: torch.Tensor,        # (B, S, H, D) bf16: the S new tokens
+    k_cache: torch.Tensor,  # (B, T, K, D) cache, or the (P, page_size, K, D) pool
+    v_cache: torch.Tensor,  # of int8 / fp8 codes (or bf16 values)
+    index: torch.Tensor,    # () or (B,) int: the first new token's position
+    *,
+    window: int | None = None,
+    softcap: float | None = None,
+    pruned: bool = True,
+    tables: torch.Tensor | None = None,
+    kv_len: int | None = None,
+    k_scale: torch.Tensor | None = None,  # paged (P, K); dense (B, NP, K)
+    v_scale: torch.Tensor | None = None,
+    scale_page: int | None = None,        # dense only: slots per scale row
+) -> torch.Tensor:
+    """The plain twin of flash decode's tensor-core mode (S >= 1 bf16 tokens;
+    its main use: widened q over a quantized cache): the same function as
+    `decode_ref`, in the kernel's order of sums.  Each request's tokens go
+    in blocks of `TC_BLOCK_Q` rows; a block walks the `TC_BLOCK_KV`-slot
+    tiles from its first row's window to its last row's boundary with an
+    online softmax (m = -inf while a row has seen nothing, p = exp(s - m)).
+    Codes enter the products as they are, with the scales factored out:
+    score j times (its K scale x 1/sqrt(D)), p_j times its V scale in P V
+    while l sums the unscaled p; P enters P V as three bf16 parts, summed
+    smallest first.  All fp32 (float64 inputs stay float64, P whole), so it
+    agrees with `decode_ref` up to fp32 rounding.  A row's result depends on
+    its own tiles only: the rows of a call at index P equal rows P.. of the
+    whole prompt's call at index 0 when P is a multiple of `TC_BLOCK_Q`."""
+    B, S, H, D = q.shape
+    K = k_cache.shape[2]
+    G = H // K
+    paged = tables is not None
+    quant = k_scale is not None
+    if quant and v_scale is None:
+        raise ValueError("quantized decode requires both k/v scales")
+    if paged:
+        if kv_len is None:
+            raise ValueError("paged decode requires kv_len")
+        T, page_size = int(kv_len), k_cache.shape[1]
+    else:
+        T = k_cache.shape[1]
+        if quant and scale_page is None:
+            raise ValueError("dense quantized decode requires scale_page")
+    idx = [int(i) for i in torch.as_tensor(index).reshape(-1).expand(B).tolist()]
+    acc = _acc_dtype(q)
+    scale = 1.0 / math.sqrt(D)
+    BQ, BKV = TC_BLOCK_Q, TC_BLOCK_KV
+    nk = -(-T // BKV)
+    out = torch.zeros((B, S, H, D), dtype=acc, device=q.device)
+    for b in range(B):
+        i0 = idx[b]
+        for q0 in range(0, S, BQ):
+            n = min(BQ, S - q0)
+            pos = i0 + q0 + torch.arange(n, device=q.device)[:, None]  # (n, 1)
+            row_lo = pos - window + 1 if window is not None else torch.zeros_like(pos)
+            row_hi = torch.clamp(pos + 1, 1, T)
+            hi = -(-max(1, min(T, i0 + q0 + n)) // BKV)
+            lo = 0
+            if window is not None:
+                lo = max(0, min((i0 + q0 + 1 - window) // BKV, hi - 1))
+            qf = q[b, q0:q0 + n].to(acc).reshape(n, K, G, D)
+            m = torch.full((K, G, n, 1), -math.inf, dtype=acc, device=q.device)
+            l = torch.zeros((K, G, n, 1), dtype=acc, device=q.device)
+            o = torch.zeros((K, G, n, D), dtype=acc, device=q.device)
+            for jb in range(lo, hi) if pruned else range(nk):
+                if not lo <= jb < hi:
+                    continue  # streamed only (the unpruned baseline)
+                slots = torch.arange(jb * BKV, min((jb + 1) * BKV, T), device=q.device)
+                if paged:
+                    page = tables[b].to(torch.long)[slots // page_size]
+                    kb, vb = k_cache[page, slots % page_size], v_cache[page, slots % page_size]
+                    if quant:
+                        ks, vs = k_scale[page], v_scale[page]  # (t, K)
+                else:
+                    kb, vb = k_cache[b, slots], v_cache[b, slots]
+                    if quant:
+                        row = slots // scale_page
+                        ks, vs = k_scale[b, row], v_scale[b, row]
+                s_ = torch.einsum("skgd,tkd->kgst", qf, kb.to(acc))
+                s_ = s_ * (ks.to(acc).T[:, None, None, :] * scale if quant else scale)
+                if softcap is not None:
+                    s_ = torch.tanh(s_ / softcap) * softcap
+                live = (slots[None, :] >= row_lo) & (slots[None, :] < row_hi)  # (n, t)
+                s_ = torch.where(live, s_, torch.full_like(s_, -math.inf))
+                m_new = torch.maximum(m, torch.amax(s_, dim=-1, keepdim=True))
+                m_use = torch.where(m_new == -math.inf, torch.zeros_like(m_new), m_new)
+                alpha = torch.exp(m - m_use)
+                p = torch.exp(s_ - m_use)
+                l = l * alpha + torch.sum(p, dim=-1, keepdim=True)
+                m = m_new
+                pv = p * vs.to(acc).T[:, None, None, :] if quant else p
+                vf = vb.to(acc)
+                if acc == torch.float32:
+                    parts = _bf16_parts(pv, 3)
+                    t = torch.einsum("kgst,tkd->kgsd", parts[2], vf)
+                    t = t + torch.einsum("kgst,tkd->kgsd", parts[1], vf)
+                    t = t + torch.einsum("kgst,tkd->kgsd", parts[0], vf)
+                else:
+                    t = torch.einsum("kgst,tkd->kgsd", pv, vf)
+                o = o * alpha + t
+            res = o / torch.clamp(l, min=1e-30)  # (K, G, n, D)
+            out[b, q0:q0 + n] = res.permute(2, 0, 1, 3).reshape(n, H, D)
+    return out.to(q.dtype)

@@ -1,9 +1,12 @@
 """Binding of the CUDA WKV kernel (`csrc/wkv6.cu`).
 
 Replaces the reference's `wkv_fwd`.  The kernel reads r / k / v / w in the
-model layout (B, S, H, C) and walks time sequentially, so it needs neither a
-transposed copy nor padding of a ragged last chunk; the reference's `chunk`
-knob has no counterpart here."""
+model layout (B, S, H, C) and runs the chunked parallel form over chunks of
+`CHUNK` steps, every chunk a block of its own: each chunk's state increment,
+then the states entering the chunks (a scan over chunks, one thread per
+state element), then each chunk's output.  A ragged last chunk needs no
+padding from the caller.  One call is three CUDA launches; the wrapper
+counts it once.  Its plain twin is `ref.wkv_chunk_parallel`."""
 
 from __future__ import annotations
 
@@ -11,7 +14,8 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIM = 64  # the kernel's one head size: one thread per value channel
+HEAD_DIM = 64  # the kernel's one head size
+CHUNK = 32     # steps of a chunk: `kWkvChunk` of wkv6.cu, which refuses another
 
 
 def wkv_fwd(r, k, v, w, u, s0):
@@ -40,11 +44,17 @@ def wkv_fwd(r, k, v, w, u, s0):
         raise ValueError("wkv_fwd takes contiguous tensors")
     if B * S * H == 0:
         raise ValueError("empty input: there is nothing to launch")
+    n = -(-S // CHUNK)
     y = torch.empty_like(r)
     s_last = torch.empty_like(s0)
+    # fp32 scratch: each chunk's state increment, then the state entering it,
+    # and each chunk's decay
+    states = torch.empty((B, H, n, C, C), dtype=torch.float32, device=r.device)
+    decay = torch.empty((B, H, n, C), dtype=torch.float32, device=r.device)
     err = build.library().repro_torch_wkv6(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-        s0.data_ptr(), y.data_ptr(), s_last.data_ptr(), code, B, S, H,
+        s0.data_ptr(), y.data_ptr(), s_last.data_ptr(), states.data_ptr(),
+        decay.data_ptr(), code, B, S, H, CHUNK,
         torch.cuda.current_stream(r.device).cuda_stream)
     build.check_launch(err, "wkv6")
     return y, s_last

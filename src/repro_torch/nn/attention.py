@@ -543,11 +543,14 @@ class Attention(Module):
         With no shared prefix the attention is `_attend_dense`, the dense
         prefill's own dispatch (over the *dequantized* values when the pool
         is quantized, so the first logits match every later read of the
-        pool).  With a prefix, the suffix queries attend over the
-        pool-resident K/V: through the widened-q `flash_decode` kernel at
-        index = prefix_len under the `cuda` impl (the same block walk as the
-        prefill kernel, so sharing stays bit-invisible), else through the
-        gathered logical view and the plain attention.
+        pool) — but a quantized pool under the `cuda` impl attends over its
+        codes through the widened-q `flash_decode` kernel at index 0, the
+        route and tiling every suffix over a shared prefix takes.  With a
+        prefix, the suffix queries attend over the pool-resident K/V:
+        through the widened-q `flash_decode` kernel at index = prefix_len
+        under the `cuda` impl (the same block walk as the whole prompt's, so
+        sharing stays bit-invisible), else through the gathered logical view
+        and the plain attention.
 
         Serving layout only: one request at a time (B = 1).
         """
@@ -595,6 +598,13 @@ class Attention(Module):
         if quant:
             new_cache["ksc"], new_cache["vsc"] = ksc, vsc
 
+        total = prefix_len + S
+        if (prefix_len or quant) and self._use_kernel(ctx, q):
+            index = torch.full((B,), prefix_len, dtype=torch.int32, device=q.device)
+            out = flash_decode(q, pk, pv, index, window=self._kernel_window(),
+                               tables=block_tables, kv_len=total, k_scale=ksc,
+                               v_scale=vsc, **self._decode_kw(ctx))
+            return out, new_cache
         if prefix_len == 0:
             if quant:
                 k_att = dequantize_kv(k_w, ksc[page])[None]
@@ -602,14 +612,6 @@ class Attention(Module):
                 out = self._attend_dense(q, k_att, v_att, positions, ctx, policy)
             else:
                 out = self._attend_dense(q, k_new, v_new, positions, ctx, policy)
-            return out, new_cache
-
-        total = prefix_len + S
-        if self._use_kernel(ctx, q):
-            index = torch.full((B,), prefix_len, dtype=torch.int32, device=q.device)
-            out = flash_decode(q, pk, pv, index, window=self._kernel_window(),
-                               tables=block_tables, kv_len=total, k_scale=ksc,
-                               v_scale=vsc, **self._decode_kw(ctx))
             return out, new_cache
 
         k_log, v_log = paged_gather_kv(pk, pv, block_tables, total,

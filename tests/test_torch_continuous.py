@@ -400,7 +400,9 @@ def test_ring_pools_raise_naming_their_slice():
 def test_continuous_serving_launches_the_kernels_on_the_card():
     """On the card the paged path launches flash decode (its quantized mode
     for an int8 pool) once per layer per decode step, suffix prefill and
-    re-score; `python3 chip_smoke.py` holds the counts at full width."""
+    re-score, and — the int8 pool's first prefills attend over its codes —
+    per first prefill; `python3 chip_smoke.py` holds the counts at full
+    width."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
     from repro_torch.launch.serve import build_server
@@ -416,8 +418,9 @@ def test_continuous_serving_launches_the_kernels_on_the_card():
     assert all(o.shape == (4,) for o in out)
     got = tuple(a - b for a, b in zip((flash_attention.launches, flash_decode.launches,
                                        flash_decode.quantized_launches), before))
-    k2 = layers * (steps["decode"] + steps["suffix_prefill"] + steps["rescore"])
-    assert got == (layers * (steps["probe"] + steps["prefill"]), k2, k2)
+    k2 = layers * (steps["decode"] + steps["suffix_prefill"] + steps["rescore"]
+                   + steps["prefill"])
+    assert got == (layers * steps["probe"], k2, k2)
 
 
 def test_cache_policies_weave_the_pool_dtype_as_the_reference():
