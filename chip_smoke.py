@@ -38,7 +38,10 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    quantized pool's suffixes and first prefills) must report the
    tensor-core route; a prefix-shared suffix must equal the whole prompt's
    rows bit for bit over a bf16 and an int8 pool, both on the tensor cores
-   (`shared_prefill_identity`).  The chunk-parallel WKV kernel is held at
+   (`shared_prefill_identity`).  The RG-LRU scan (K5) is held bit for bit
+   to its plain version on every case, one CUDA launch a call, and its
+   kernel time over the recurrent serve's prefills is printed
+   (`rglru_cases`, `rglru_serve_times`).  The chunk-parallel WKV kernel is held at
    the reference test's tolerance, and in fp32 at FP32_TOL against its
    twin in its own order of sums; one call's CUDA launches are counted from
    a profiler trace;
@@ -94,6 +97,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 # published peaks of one H100 SXM (dense): what `bound_ms` is computed against
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+L2_BYTES = 50_000_000  # one H100's L2 cache
 
 # worst error of a kernel case, as a share of the RMS of the plain output
 BF16_TOL = 5e-2
@@ -107,6 +111,10 @@ QUANT_VS_FP_TOL = 0.05
 # error within 1e-2 (an H100 reads 1.8e-2 and 4e-3).
 LOGIT_MAX_TOL = 2e-2
 LOGIT_RMS_TOL = 1e-2
+# the recurrent serve's traffic (`serve_recurrent`): one solo `serve` of
+# B2 x 512 tokens, then a `serve_batch` of prompts of these lengths
+SERVE_SOLO = (2, 512)
+SERVE_BATCH_LENS = [200, 600, 1000, 1400, 1800, 2200, 2600, 3000]
 
 
 def log(msg: str) -> None:
@@ -920,35 +928,87 @@ def shared_prefill_identity(torch, gen) -> dict:
     return out
 
 
+def rglru_inputs(torch, gen, B, S, D):
+    """K5's inputs: decays in (0, 1), gated inputs and a nonzero initial state."""
+    return (torch.rand((B, S, D), generator=gen, device="cuda"),
+            torch.randn((B, S, D), generator=gen, device="cuda"),
+            torch.randn((B, D), generator=gen, device="cuda"))
+
+
+def rglru_bytes(B, S, D) -> int:
+    """a and b read once, y written once, h0 read and h_last written."""
+    return 4 * (3 * B * S * D + 2 * B * D)
+
+
+def rglru_time(torch, a, b, h0) -> float:
+    """K5's device time: CUDA events around the replay of a CUDA graph of at
+    least 20 calls (issued one by one, the wrapper's Python sets the pace:
+    ~0.03 ms a call on the H100 machine's host, longer than the kernel at most
+    shapes here), one a copy of the inputs, with enough copies that one cycle
+    moves three times the 50 MB L2 (three at the main shape): every call finds
+    its inputs cold, as a prefill does."""
+    from repro_torch.kernels.rglru.ops import rglru
+
+    n = -(-3 * L2_BYTES // rglru_bytes(*a.shape))
+    copies = [(a, b)] + [(a.clone(), b.clone()) for _ in range(n - 1)]
+    return time_ms(torch, [(lambda aa=aa, bb=bb: rglru(aa, bb, h0)) for aa, bb in copies],
+                   max(20, n), graph=True)
+
+
 def rglru_cases(torch, gen):
     """K5: the RG-LRU scan against its plain version, fp32 with a nonzero
-    initial state.  The kernel repeats the plain version's two roundings per
-    step, so the two agree bit for bit (printed); gated at the fp32 bound."""
+    initial state: the main case, the recurrent serve's solo prefill (B2
+    S512) and longest prompt (B1 S3000), one step, ragged lengths, a D that
+    is no multiple of the slab (B1 S257 D2568) and one that is no multiple
+    of 4 (the kernel's 4-byte feed).  The kernel repeats the plain version's
+    two roundings per step in the same order, so y and h_last are gated bit
+    for bit on every case (and at the fp32 bound, whose error reads 0).  The
+    main case's CUDA launches are counted from a profiler trace and gated
+    at 1 (`cuda_launches_per_call`)."""
     from repro_torch.kernels.rglru.ops import rglru
     from repro_torch.kernels.rglru.ref import rglru_scan
 
     cases = []
     for name, B, S, D, main in [("rgemma_B1_S2048_D2560_fp32", 1, 2048, 2560, True),
+                                ("B2_S512_D2560_fp32", 2, 512, 2560, False),
+                                ("B1_S3000_D2560_fp32", 1, 3000, 2560, False),
+                                ("B1_S1_D2560_fp32", 1, 1, 2560, False),
                                 ("B1_S17_D2560_fp32", 1, 17, 2560, False),
-                                ("B2_S1000_D2560_fp32", 2, 1000, 2560, False)]:
-        a = torch.rand((B, S, D), generator=gen, device="cuda")
-        b = torch.randn((B, S, D), generator=gen, device="cuda")
-        h0 = torch.randn((B, D), generator=gen, device="cuda")
+                                ("B2_S1000_D2560_fp32", 2, 1000, 2560, False),
+                                ("B1_S257_D2568_fp32", 1, 257, 2568, False),
+                                ("B3_S33_D1001_fp32", 3, 33, 1001, False)]:
+        a, b, h0 = rglru_inputs(torch, gen, B, S, D)
         y, h_last = rglru(a, b, h0)
         y_ref, h_ref = rglru_scan(a, b, h0)
         torch.cuda.synchronize()
         err, rms = check_close(torch, name, y, y_ref, FP32_TOL)
         check_close(torch, name + "/h_last", h_last, h_ref, FP32_TOL)
-        # two copies: 2 x 63 MB read and written, past the 50 MB L2
-        copies = [(a, b)] + [(a.clone(), b.clone()) for _ in range(1 if main else 0)]
-        ms = time_ms(torch, [(lambda aa=aa, bb=bb: rglru(aa, bb, h0)) for aa, bb in copies], 20)
+        if not (torch.equal(y, y_ref) and torch.equal(h_last, h_ref)):
+            raise AssertionError(f"{name}: y / h_last are not bit for bit the plain scan's")
+        ms = rglru_time(torch, a, b, h0)
         plain = time_ms(torch, [lambda: rglru_scan(a, b, h0)], 1)
-        b_ms, b_by = bound(4 * (3 * B * S * D + 2 * B * D), 2.0 * B * S * D, "fp32")
+        nbytes = rglru_bytes(B, S, D)
+        b_ms, b_by = bound(nbytes, 2.0 * B * S * D, "fp32")
+        extra = {}
+        if main:
+            n = device_kernels(torch, lambda: rglru(a, b, h0), "rglru")
+            if n != 1:
+                raise AssertionError(f"{name}: {n} CUDA launches a call, not 1")
+            extra["cuda_launches_per_call"] = n
         cases.append(dict(case=name, main=main, max_abs_err=err, ref_rms=rms, ms=ms,
                           plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                          bitwise_equal=bool(torch.equal(y, y_ref) and torch.equal(h_last, h_ref))))
-        del copies
+                          gb_s=nbytes / ms / 1e6, bitwise_equal=True, **extra))
     return cases
+
+
+def rglru_serve_times(torch, gen) -> dict:
+    """K5's time at each prefill shape of the recurrent serve
+    (`serve_recurrent`): the solo `serve`, then each `serve_batch` prompt
+    alone, at recurrentgemma-2b's width."""
+    out = {}
+    for B, S in [SERVE_SOLO] + [(1, n) for n in SERVE_BATCH_LENS]:
+        out[f"B{B}_S{S}"] = rglru_time(torch, *rglru_inputs(torch, gen, B, S, 2560))
+    return out
 
 
 def wkv_cases(torch, gen):
@@ -1181,6 +1241,23 @@ def flash_bwd_cases(torch, gen):
         del q, k, v, do, out, lse, got, delta
         torch.cuda.empty_cache()
     return lse_cases, dq_cases, dkv_cases
+
+
+def rglru_serve_entry(cases, serve_ms: dict, launches: int) -> dict:
+    """K5's main-case figures and its kernel time over the recurrent serve:
+    each prefill shape's time x the RG-LRU layers (every prefill launches
+    once a layer, so the serve's launches split evenly over its prefills)."""
+    layers, rest = divmod(launches, len(serve_ms))
+    if rest:
+        raise AssertionError(f"rglru: {launches} launches do not split over "
+                             f"{len(serve_ms)} prefills")
+    main = next(c for c in cases if c["main"])
+    total = layers * sum(serve_ms.values())
+    log(f"rglru: kernel time over the recurrent serve {total:.4f} ms "
+        f"({layers} launches at each of {serve_ms})")
+    return {"cuda_launches_per_call": main["cuda_launches_per_call"], "gb_s": main["gb_s"],
+            "serve_ms_by_shape": serve_ms, "serve_launches_by_shape": layers,
+            "serve_kernel_ms": total}
 
 
 def device_kernels(torch, fn, match: str) -> int | None:
@@ -1974,9 +2051,8 @@ def serve_recurrent(torch, arch, published) -> dict:
                 "wkv": layers if prefill and not hybrid else 0}
 
     rng = np.random.default_rng(0)
-    solo = rng.integers(0, mcfg.vocab, (2, 512), dtype=np.int32)
-    lens = [200, 600, 1000, 1400, 1800, 2200, 2600, 3000]
-    batch = [rng.integers(0, mcfg.vocab, n).astype(np.int64) for n in lens]
+    solo = rng.integers(0, mcfg.vocab, SERVE_SOLO, dtype=np.int32)
+    batch = [rng.integers(0, mcfg.vocab, n).astype(np.int64) for n in SERVE_BATCH_LENS]
     server.serve(rng.integers(0, mcfg.vocab, (1, 16), dtype=np.int32), decode_tokens=2)
 
     def main_path():
@@ -2082,7 +2158,7 @@ def serve_recurrent(torch, arch, published) -> dict:
         "ttft_ms_B2_S512": ttft_ms, "eager_ttft_ms_B2_S512": report["bf16"]["ttft_ms_b"],
         "solo_serve_s_B2_S512_N32": solo_s,
         "decode_ms_per_token_B2": (solo_s * 1e3 - ttft_ms) / decode_tokens,
-        "batch_serve_s_B8_N32": batch_s, "batch_prompt_tokens": lens,
+        "batch_serve_s_B8_N32": batch_s, "batch_prompt_tokens": SERVE_BATCH_LENS,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     log("recurrent " + json.dumps(summary))
@@ -2368,6 +2444,7 @@ def main() -> int:
     quant = quantized_decode_cases(torch, gen)
     wcodes = widened_codes_cases(torch, gen)
     lru = rglru_cases(torch, gen)
+    lru_serve = rglru_serve_times(torch, gen)
     wkv6 = wkv_cases(torch, gen)
     lse_c, dq_c, dkv_c = flash_bwd_cases(torch, gen)
     for c in norm + pre + dec + wide + quant + wcodes + lru + wkv6 + lse_c + dq_c + dkv_c:
@@ -2471,6 +2548,7 @@ def main() -> int:
     kernels[2]["library_ms_note"] = ("no single PyTorch call attends over an int8 "
                                      "paged pool")
     kernels[4]["library_ms_note"] = "no single PyTorch call computes a linear recurrence"
+    kernels[4].update(rglru_serve_entry(lru, lru_serve, rec["recurrentgemma-2b"]["rglru"]))
     kernels[5]["library_ms_note"] = "no single PyTorch call computes the WKV recurrence"
     kernels[5]["cuda_launches_per_call"] = next(
         c["cuda_launches_per_call"] for c in wkv6 if c["main"])

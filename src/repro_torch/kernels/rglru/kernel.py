@@ -1,8 +1,11 @@
 """Binding of the CUDA RG-LRU scan (`csrc/rglru.cu`).
 
-Replaces the reference's `rglru_fwd`.  The kernel walks time with the state
-in a register, so it needs no time padding and no channel tiling: the
-reference's `block_d` / `chunk` knobs have no counterpart here."""
+Replaces the reference's `rglru_fwd`.  The kernel tiles channels into slabs,
+one block each, and streams each slab's time steps through a ring of tiles
+in shared memory, walking every channel in order with its state in a
+register.  Slab, tile and ring depth are compiled in and a ragged slab or
+time tail is masked in the kernel, so nothing is padded and the reference's
+`block_d` / `chunk` knobs size nothing here.  One launch a call."""
 
 from __future__ import annotations
 

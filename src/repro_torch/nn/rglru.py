@@ -100,8 +100,8 @@ class RGLRU(Module):
                 from repro_torch.kernels.rglru.ops import rglru
 
                 # the reference's woven `rglru_block_d` / `rglru_chunk` tile
-                # its TPU kernel; the CUDA scan has no tiles, so the extras
-                # are accepted and have nothing to set
+                # its TPU kernel; the CUDA scan's slab and tile are compiled
+                # in, so the extras are accepted and have nothing to set
                 h_seq, h_last = rglru(a, b, state)
             elif impl == "scan":
                 h_seq, h_last = rglru_scan(a, b, state)
