@@ -60,7 +60,14 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    profiles one continuous wave at batch 8 (`continuous_phase`); the int8
    and bf16 pools' first-prefill logits are read against the plain
    (`eager`) path over the same pool at the full-depth logit gate, its RMS
-   half gated, on four prompts (`pool_prefill_logit_gate`);
+   half gated, on four prompts (`pool_prefill_logit_gate`); then serves
+   the same traffic speculatively and under the resilience layer
+   (`speculative_phase`: self-draft at k = 2 / 4 over the bf16 pool and k =
+   2 over the int8 pool with exact launch counts, fp32 at a depth of 4
+   against plain greedy bit for bit, four injected-fault runs under
+   `pool_audit`, gemma-2b drafting for yi-6b) and profiles one verify wave;
+   K2's widened mode at the verify shape is held and timed with the other
+   kernel cases (`verify_decode_cases`);
 7. serves full-width, full-depth recurrentgemma-2b (RG-LRU kernel K5, and
    the attention and RMSNorm kernels over its local-attention rings) and
    rwkv6-3b (WKV kernel K6) through `serve` and `serve_batch`, with exact
@@ -879,6 +886,80 @@ def widened_codes_cases(torch, gen):
     return cases
 
 
+def verify_decode_cases(torch, gen):
+    """K2's widened mode at the speculative verify step's shape
+    (`speculative_phase`): yi-6b's eight requests, S = k+1 bf16 tokens (k =
+    2, and 4 beside), each over ~1050-1100 resident slots of a shuffled
+    128-slot page pool (dead pages NaN) 4096 slots wide.  Held, as K1, to
+    the plain version in float64, and to the same bits on a second call;
+    printed: how far a single-token row (the split route, as a plain decode
+    step computes it) lies from the widened row of the same token.  Timed
+    from a CUDA graph (one call is shorter than Python takes to issue it),
+    with its plain version and SDPA over the gathered K / V with a prebuilt
+    mask."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.decode import flash_decode_fwd
+    from repro_torch.kernels.flash_attention.ops import flash_decode, paged_gather_kv
+    from repro_torch.kernels.flash_attention.ref import decode_ref
+
+    B, H, K, D, T = 8, 32, 4, 128, 4096
+    idx = [1050 + 7 * b for b in range(B)]
+    cases = []
+    for S, main in ((3, True), (5, False)):
+        name = f"yi6b_verify_B8_S{S}_paged128_index1050_1099_bf16"
+        q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+        k = torch.randn((B, T, K, D), generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn((B, T, K, D), generator=gen, device="cuda").to(torch.bfloat16)
+        index = torch.tensor(idx, dtype=torch.int32, device="cuda")
+        pk, pv, tables = poisoned_pool(torch, gen, k, v, idx, 128, None, S)
+        kw = dict(tables=tables, kv_len=T)
+        got = flash_decode(q, pk, pv, index, **kw)
+        torch.cuda.synchronize()
+        if flash_decode_fwd.last_route != "tc":
+            raise AssertionError(f"{name}: launched the {flash_decode_fwd.last_route} mode")
+        if not torch.equal(got, flash_decode(q, pk, pv, index, **kw)):
+            raise AssertionError(f"{name}: a second call gave other bits")
+        singles = torch.cat([flash_decode(q[:, s:s + 1], pk, pv, index + s, **kw)
+                             for s in range(S)], dim=1)
+        torch.cuda.synchronize()
+        if flash_decode_fwd.last_route != "tc_split":
+            raise AssertionError(f"{name}: single tokens took the "
+                                 f"{flash_decode_fwd.last_route} route")
+        diff = (singles.float() - got.float()).abs()
+        extra = {"single_token_vs_verify_row_max_abs_diff": diff.max().item(),
+                 "single_token_vs_verify_rows_bitwise_equal_share":
+                     (diff == 0).all(dim=-1).float().mean().item()}
+        want = exact(decode_ref, (q, pk, pv), index=index, **kw)
+        err, rms = check_exact(torch, name, got, want, BF16_TOL)
+        plain_out = decode_ref(q, pk, pv, index, **kw)
+        extra["max_abs_err_vs_fp32_plain"] = (got.float() - plain_out.float()).abs().max().item()
+        extra["fp32_plain_max_abs_err"] = exact_error(torch, plain_out, want)[0]
+        del want, plain_out
+        ms = time_ms(torch, [lambda: flash_decode(q, pk, pv, index, **kw)], 20, graph=True)
+        plain = time_ms(torch, [lambda: decode_ref(q, pk, pv, index, **kw)], 2)
+        kd, vd = paged_gather_kv(pk, pv, tables, T)
+        G = H // K
+        kt = kd.transpose(1, 2).repeat_interleave(G, dim=1)
+        vt = vd.transpose(1, 2).repeat_interleave(G, dim=1)
+        last = (index[:, None] + torch.arange(S, device="cuda"))[:, None, :, None]
+        mask = torch.arange(T, device="cuda") < (last + 1).clamp(1, T)
+        qt = q.transpose(1, 2)
+        lib = time_ms(torch, [lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                     attn_mask=mask)],
+                      10, graph=True)
+        pairs = int(mask.sum().item())
+        live = int(mask.any(dim=2).sum().item())  # K / V slots some row sees
+        nbytes = (live * K * D * 2 + 2 * q.numel()) * q.element_size()
+        b_ms, b_by = bound(nbytes, 4.0 * D * pairs * H, "bf16")
+        cases.append(dict(case=name, main=main, max_abs_err=err, ref_rms=rms, ms=ms,
+                          plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                          ms_over_library_ms=ms / lib, card=nvidia_smi_line(), **extra))
+        del q, k, v, pk, pv, kd, vd, kt, vt, mask
+    torch.cuda.empty_cache()
+    return cases
+
+
 def shared_prefill_identity(torch, gen) -> dict:
     """The design property behind "a prefix-shared admission serves the same
     tokens as an unshared one": the whole prompt's first prefill and the
@@ -1379,12 +1460,14 @@ def reduced_phase(torch):
         raise AssertionError("reduced configuration: tokens of the wrong shape or range")
 
 
-def profile_wave(torch, gen, batch: int) -> tuple[dict, dict]:
+def profile_wave(torch, gen, batch: int, shares: tuple = ()) -> tuple[dict, dict]:
     """Where one continuous wave's time goes: `gen` (a `serve_stream`
     generator) has just yielded a wave's closing event, so the next `next()`
     runs the following wave whole and yields its first event only after the
     wave's tokens are on the host (the device is done).  That call runs under
-    `torch.profiler`; returns the event and the reading."""
+    `torch.profiler`; returns the event and the reading.  `shares` names
+    kernels (substrings of their symbols) whose device time and share of the
+    busy time are reported too."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1395,7 +1478,7 @@ def profile_wave(torch, gen, batch: int) -> tuple[dict, dict]:
     rows = sorted(((_device_us(e), e.count, e.key) for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    return first, {
+    reading = {
         "wave": first["wave"], "batch_before": batch, "wave_wall_ms": wall_ms,
         "device_busy_ms": busy_ms if busy_ms > 0 else None,
         "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms > 0 else None,
@@ -1403,6 +1486,12 @@ def profile_wave(torch, gen, batch: int) -> tuple[dict, dict]:
         "top_kernels_ms": [{"kernel": key[:80], "ms": us / 1e3, "calls": count}
                            for us, count, key in rows[:8]],
     }
+    for match in shares:
+        ms = sum(us for us, _, key in rows if match in key) / 1e3
+        reading[f"{match}_ms"] = ms
+        reading[f"{match}_calls"] = sum(c for _, c, key in rows if match in key)
+        reading[f"{match}_share_of_busy"] = ms / busy_ms if busy_ms > 0 else None
+    return first, reading
 
 
 def _device_us(event) -> float:
@@ -1410,6 +1499,103 @@ def _device_us(event) -> float:
         if hasattr(event, attr):
             return float(getattr(event, attr))
     return 0.0
+
+
+def continuous_traffic(mcfg):
+    """The continuous traffic (`continuous_phase`): ten prompts, their
+    arrival waves and the serving options."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    system = rng.integers(0, mcfg.vocab, 1024)
+    suffixes = [64, 200, 330, 460, 600, 730, 860, 1024]
+    prompts = [np.concatenate([system, rng.integers(0, mcfg.vocab, s)]) for s in suffixes]
+    twin = np.concatenate([system, rng.integers(0, mcfg.vocab, 100)])
+    prompts += [twin, twin.copy()]
+    arrivals = [0] * 6 + [2, 2, 4, 4]
+    return prompts, dict(max_batch=8, page_size=128, arrival_waves=arrivals)
+
+
+def counted_serve(torch, fn):
+    """Run `fn` with the serving kernels' launch and route counters at 0 and
+    no plain version allowed; returns fn's result, the wall time, the
+    counts and the routes."""
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_decode
+    from repro_torch.kernels.rmsnorm import ops as norm_ops
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+
+    def forbidden(*a, **k):
+        raise AssertionError("a plain version ran on the card's main path")
+
+    saved = (attn_ops.attention_ref, attn_ops.decode_ref, norm_ops.rmsnorm_ref)
+    attn_ops.attention_ref = attn_ops.decode_ref = norm_ops.rmsnorm_ref = forbidden
+    flash_attention.launches = flash_decode.launches = rmsnorm.launches = 0
+    flash_decode.quantized_launches = 0
+    route_counts(reset=True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        attn_ops.attention_ref, attn_ops.decode_ref, norm_ops.rmsnorm_ref = saved
+    counts = {"flash_attention": flash_attention.launches,
+              "flash_decode": flash_decode.launches,
+              "flash_decode_quantized": flash_decode.quantized_launches,
+              "rmsnorm": rmsnorm.launches}
+    return out, wall, counts, route_counts()
+
+
+def expected_launches(st: dict, layers: int, quantized: bool) -> tuple[dict, dict]:
+    """The launches and routes a paged serve's model calls (`st`,
+    `Server.last_step_counts`) must give: K1 for the probes and, over a bf16
+    pool, the first prefills; K2's widened mode for suffix prefills, verify
+    steps and an int8 pool's first prefills (over its codes); K2's split
+    route for decode, re-score and draft steps; RMSNorm twice a layer and
+    once at the end of every call; nothing on an FMA body."""
+    calls = sum(st.values())
+    first = layers * st["prefill"]
+    k2 = layers * (st["decode"] + st["suffix_prefill"] + st["rescore"] + st["verify"]
+                   + st["draft"])
+    want = {"flash_attention": layers * st["probe"] + (0 if quantized else first),
+            "flash_decode": k2 + (first if quantized else 0),
+            "flash_decode_quantized": k2 + first if quantized else 0,
+            "rmsnorm": (2 * layers + 1) * calls}
+    routes = {"flash_attention_tc": want["flash_attention"], "flash_attention_fma": 0,
+              "flash_decode_tc": layers * (st["suffix_prefill"] + st["verify"])
+              + (first if quantized else 0),
+              "flash_decode_split": layers * (st["decode"] + st["rescore"] + st["draft"]),
+              "flash_decode_fma": 0}
+    return want, routes
+
+
+def check_paged_run(server, phase, tag, prompts, out, counts, routes, quantized) -> None:
+    """Gates of a counted paged serve: every outcome ok, tokens of the right
+    shape and range, and the launch counters and routes exactly what the
+    server's own step counts say (`expected_launches`)."""
+    mcfg, n = server.woven.program.cfg, server.cfg.decode_tokens
+    bad = [o for o in server.last_outcomes if o["status"] != "ok"]
+    if bad or len(out) != len(prompts):
+        raise AssertionError(f"{phase} {tag}: outcomes {bad}")
+    for o in out:
+        if o.shape != (n,) or o.min() < 0 or o.max() >= mcfg.vocab:
+            raise AssertionError(f"{phase} {tag}: tokens of the wrong shape or range")
+    st = server.last_step_counts
+    # a quantized pool's first prefills attend over its codes through K2
+    want, want_routes = expected_launches(st, mcfg.num_layers, quantized)
+    log(f"{phase} {tag}: launches {counts}, expected {want} from steps {st}")
+    if counts != want:
+        raise AssertionError(f"{phase} {tag}: launch counters {counts} != expected {want}")
+    # routes, as the entry points reported them: every K1 launch on the
+    # tensor cores; every widened K2 launch (suffix prefills, verify steps,
+    # and a quantized pool's first prefills) on K2's tensor-core mode over
+    # bf16 values or codes; every single-token step (decode, re-score,
+    # draft) on the split route, over either pool; nothing on an FMA body
+    log(f"{phase} {tag}: routes {routes}, expected {want_routes}")
+    if any(routes[k] != v for k, v in want_routes.items()):
+        raise AssertionError(f"{phase} {tag}: routes {routes} != expected {want_routes}")
 
 
 def continuous_phase(torch, server) -> dict:
@@ -1436,79 +1622,12 @@ def continuous_phase(torch, server) -> dict:
     wall time, TTFT and the largest gap per request, peak memory."""
     import numpy as np
 
-    from repro_torch.kernels.flash_attention import ops as attn_ops
-    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_decode
-    from repro_torch.kernels.rmsnorm import ops as norm_ops
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm
-
     mcfg = server.woven.program.cfg
     layers, n = mcfg.num_layers, server.cfg.decode_tokens
-    rng = np.random.default_rng(1)
-    system = rng.integers(0, mcfg.vocab, 1024)
-    suffixes = [64, 200, 330, 460, 600, 730, 860, 1024]
-    prompts = [np.concatenate([system, rng.integers(0, mcfg.vocab, s)]) for s in suffixes]
-    twin = np.concatenate([system, rng.integers(0, mcfg.vocab, 100)])
-    prompts += [twin, twin.copy()]
-    arrivals = [0] * 6 + [2, 2, 4, 4]
-    kw = dict(max_batch=8, page_size=128, arrival_waves=arrivals)
-
-    def forbidden(*a, **k):
-        raise AssertionError("a plain version ran on the card's main path")
-
-    def counted(fn):
-        """Run `fn` with the launch counters at 0 and no plain version."""
-        saved = (attn_ops.attention_ref, attn_ops.decode_ref, norm_ops.rmsnorm_ref)
-        attn_ops.attention_ref = attn_ops.decode_ref = norm_ops.rmsnorm_ref = forbidden
-        flash_attention.launches = flash_decode.launches = rmsnorm.launches = 0
-        flash_decode.quantized_launches = 0
-        route_counts(reset=True)
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        finally:
-            attn_ops.attention_ref, attn_ops.decode_ref, norm_ops.rmsnorm_ref = saved
-        counts = {"flash_attention": flash_attention.launches,
-                  "flash_decode": flash_decode.launches,
-                  "flash_decode_quantized": flash_decode.quantized_launches,
-                  "rmsnorm": rmsnorm.launches}
-        return out, wall, counts, route_counts()
+    prompts, kw = continuous_traffic(mcfg)
 
     def check_run(tag, out, counts, routes, quantized):
-        bad = [o for o in server.last_outcomes if o["status"] != "ok"]
-        if bad or len(out) != len(prompts):
-            raise AssertionError(f"{tag}: outcomes {bad}")
-        for o in out:
-            if o.shape != (n,) or o.min() < 0 or o.max() >= mcfg.vocab:
-                raise AssertionError(f"{tag}: tokens of the wrong shape or range")
-        st = server.last_step_counts
-        calls = sum(st.values())
-        # a quantized pool's first prefills attend over its codes through K2
-        first = layers * st["prefill"]
-        k2 = layers * (st["decode"] + st["suffix_prefill"] + st["rescore"])
-        want = {"flash_attention": layers * st["probe"] + (0 if quantized else first),
-                "flash_decode": k2 + (first if quantized else 0),
-                "flash_decode_quantized": k2 + first if quantized else 0,
-                "rmsnorm": (2 * layers + 1) * calls}
-        log(f"continuous {tag}: launches {counts}, expected {want} from steps {st}")
-        if counts != want:
-            raise AssertionError(f"{tag}: launch counters {counts} != expected {want}")
-        # routes, as the entry points reported them: every K1 launch on the
-        # tensor cores; every widened K2 launch (suffix prefills, and a
-        # quantized pool's first prefills) on K2's tensor-core mode over bf16
-        # values or codes; every single-token step (decode, re-score) on the
-        # split route, over either pool; nothing on an FMA body
-        want_routes = {"flash_attention_tc": want["flash_attention"],
-                       "flash_attention_fma": 0,
-                       "flash_decode_tc": layers * st["suffix_prefill"]
-                       + (first if quantized else 0),
-                       "flash_decode_split": layers * (st["decode"] + st["rescore"]),
-                       "flash_decode_fma": 0}
-        log(f"continuous {tag}: routes {routes}, expected {want_routes}")
-        if any(routes[k] != v for k, v in want_routes.items()):
-            raise AssertionError(f"{tag}: routes {routes} != expected {want_routes}")
+        check_paged_run(server, "continuous", tag, prompts, out, counts, routes, quantized)
 
     runs, report = {}, {}
     torch.cuda.reset_peak_memory_stats()
@@ -1516,7 +1635,7 @@ def continuous_phase(torch, server) -> dict:
                               ("c_int8_shared", True, "int8"), ("c_int8_shared_again", True, "int8")):
         server.cfg.cache_dtype = dtype
         try:
-            out, wall, counts, routes = counted(lambda: server.serve_continuous(
+            out, wall, counts, routes = counted_serve(torch, lambda: server.serve_continuous(
                 prompts, prefix_sharing=share, **kw))
         finally:
             server.cfg.cache_dtype = None
@@ -1545,7 +1664,7 @@ def continuous_phase(torch, server) -> dict:
                 return stop.value
             events.append(ev)
 
-    out, wall, counts, routes = counted(stream)
+    out, wall, counts, routes = counted_serve(torch, stream)
     # the same wave's neighbours ran without the profiler (batch 8, no
     # admission): the wall time the idle share is read against
     near = [e["dt_s"] for e in events if e["event"] == "wave"
@@ -1562,7 +1681,7 @@ def continuous_phase(torch, server) -> dict:
         "prefill_chunk_events": sum(e["event"] == "prefill_chunk" for e in events)}
     if not report["d_stream_chunk512"]["prefill_chunk_events"]:
         raise AssertionError("the chunked stream ran no chunk")
-    batch_out, wall, _, _ = counted(lambda: server.serve_batch(prompts))
+    batch_out, wall, _, _ = counted_serve(torch, lambda: server.serve_batch(prompts))
     runs["serve_batch"] = batch_out
     report["serve_batch"] = {"wall_s": wall}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1602,6 +1721,266 @@ def continuous_phase(torch, server) -> dict:
             for tag in ("a_bf16_shared", "c_int8_shared")}
 
 
+def speculative_phase(torch, server) -> dict:
+    """Speculative decoding and the resilience layer on the main path, at
+    full width and depth: `serve_continuous` over the continuous traffic
+    (`continuous_traffic`) with a draft, on the server `serve_phase` built.
+
+    Runs: the plain serves of the traffic over a bf16 and an int8 pool
+    (baselines); (s1) bf16 pool, self-draft, k = 2; (s2) the same at k = 4;
+    (s3) int8 pool, k = 2; one verify wave at batch 8 of (s1) profiled;
+    (s4) yi-6b at full width and a depth of 4 layers in fp32, k = 2, against
+    its own plain serve; (r1)-(r4) (s1) with `pool_audit` under an unarmed
+    injector, a `raise` and a `nan_logits` at `verify_step` (visit 1) and a
+    `raise` at `draft_step`; (x) the registry's pairing, full-width gemma-2b
+    drafting for yi-6b (a vocabulary of 256000 to yi's 64000), four
+    requests, k = 2, and (x_oov) the same with the draft's logits below
+    64000 masked, so that every proposal lies outside yi's vocabulary (with
+    random weights and a tied embedding, gemma-2b echoes its input token,
+    which is always in range).
+
+    Gated: (s1)-(s3) every outcome ok, `emitted_spec` + requests = the tokens
+    served, the step counts equal `last_spec_stats`' (no plain decode round),
+    exact launch counts and every bf16 launch on a tensor-core route
+    (`check_paged_run`: verify steps on K2's widened mode, draft steps on its
+    split route), and fewer target steps than the plain serve's decode
+    steps; (s4) exact launch counts and the plain serve's bits (fp32 q rows
+    take the FMA body, widened or not); (r1) no event and (s1)'s bits; (r2) one
+    retry and (s1)'s bits; (r3) exactly one request quarantined; (r4)
+    speculation degraded; (r1)-(r4) no exception, every audit passed, the
+    pool empty at the end; (x) the serve returns and the CUDA context still
+    computes, and after (x_oov) every request is quarantined for non-finite
+    verify logits, as the reference's are, and a plain serve follows.  Printed, not gated: acceptance, mean tokens per verify, token
+    agreement with the plain serve (a bf16 verify row and a single-token row
+    sum in other orders, and cuBLAS rounds by row count), verify rounds per
+    request against ceil((n-1)/(k+1)), the survivors' agreement in
+    (r1)-(r4), (x)'s outcomes and how many of its draft's argmaxes lay
+    outside yi's vocabulary."""
+    import numpy as np
+
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core.program import Program
+    from repro_torch.core.strategies.resilience import FaultInjector
+    from repro_torch.launch.serve import build_server
+    from repro_torch.launch.weave import cuda_kernel_aspects, default_weave
+    from repro_torch.models.registry import build_model, draft_for, get_config
+    from repro_torch.nn.dtypes import PolicyResolver
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    mcfg = server.woven.program.cfg
+    layers, n = mcfg.num_layers, server.cfg.decode_tokens
+    prompts, kw = continuous_traffic(mcfg)
+    served = n * len(prompts)
+
+    def serve(srv, dtype=None, **extra):
+        srv.cfg.cache_dtype = dtype
+        try:
+            return counted_serve(torch, lambda: srv.serve_continuous(prompts, **kw, **extra))
+        finally:
+            srv.cfg.cache_dtype = None
+
+    def agree(x, y):
+        return float(np.mean([(p == q).mean() for p, q in zip(x, y)]))
+
+    def same(x, y):
+        return all(np.array_equal(p, q) for p, q in zip(x, y))
+
+    runs, report = {}, {}
+    for tag, dtype in (("plain_bf16", None), ("plain_int8", "int8")):
+        out, wall, counts, routes = serve(server, dtype)
+        check_paged_run(server, "speculative", tag, prompts, out, counts, routes,
+                        dtype is not None)
+        runs[tag] = out
+        report[tag] = {"wall_s": wall, "steps": dict(server.last_step_counts),
+                       "launches": counts}
+
+    spec_counts = {}
+    for tag, k, dtype, base in (("s1_bf16_k2", 2, None, "plain_bf16"),
+                                ("s2_bf16_k4", 4, None, "plain_bf16"),
+                                ("s3_int8_k2", 2, "int8", "plain_int8")):
+        out, wall, counts, routes = serve(server, dtype, draft_len=k)
+        check_paged_run(server, "speculative", tag, prompts, out, counts, routes,
+                        dtype is not None)
+        st, sp = server.last_step_counts, server.last_spec_stats
+        if sp["emitted_spec"] + len(prompts) != sum(len(o) for o in out) or \
+                sum(len(o) for o in out) != served:
+            raise AssertionError(f"{tag}: emitted {sp['emitted_spec']} + {len(prompts)} "
+                                 f"first tokens != {served} served")
+        if (st["verify"], st["draft"], st["decode"]) != \
+                (sp["verify_steps"], sp["draft_steps"], sp["decode_steps"]) \
+                or sp["decode_steps"] or sp["draft_steps"] != (k + 1) * sp["rounds"]:
+            raise AssertionError(f"{tag}: steps {st} against the spec stats {sp}")
+        plain_steps = report[base]["steps"]["decode"]
+        if not sp["target_steps"] < plain_steps:
+            raise AssertionError(f"{tag}: {sp['target_steps']} target steps, the plain "
+                                 f"serve {plain_steps}")
+        runs[tag] = out
+        spec_counts[tag] = {**counts, **routes, "verify_launches": layers * st["verify"]}
+        report[tag] = {
+            "wall_s": wall, "steps": dict(st), "launches": counts, "routes": routes,
+            "acceptance": sp["acceptance"],
+            "mean_tokens_per_verify": sp["mean_tokens_per_verify"],
+            "verify_latency_s": sp["verify_latency_s"],
+            "target_steps": sp["target_steps"], "plain_decode_steps": plain_steps,
+            "verify_rounds_per_request": sp["request_rounds"] / len(prompts),
+            "ideal_rounds_per_request": -(-(n - 1) // (k + 1)),
+            "token_agreement_vs_plain": agree(out, runs[base]),
+            "bit_identical_to_plain": same(out, runs[base]),
+            "pool": server.last_pool_stats}
+
+    # one verify wave at batch 8 (s1's shape) under the profiler
+    events, profiled = [], {}
+
+    def stream():
+        gen = server.serve_stream(prompts, draft_len=2, **kw)
+        while True:
+            try:
+                if not profiled and events and events[-1]["event"] == "wave" \
+                        and events[-1]["wave"] >= 4 and events[-1]["batch"] == 8 \
+                        and events[-1]["k"] == 2:
+                    ev, profiled["wave"] = profile_wave(
+                        torch, gen, 8, shares=("flash_decode_tc", "flash_decode_split"))
+                else:
+                    ev = next(gen)
+            except StopIteration as stop:
+                return stop.value
+            events.append(ev)
+
+    out, wall, counts, routes = counted_serve(torch, stream)
+    check_paged_run(server, "speculative", "s1_stream_profiled", prompts, out, counts,
+                    routes, False)
+    wave = profiled["wave"]
+    near = [e["dt_s"] for e in events if e["event"] == "wave" and e["batch"] == 8
+            and e["k"] == 2 and abs(e["wave"] - wave["wave"]) in (1, 2)]
+    if near and wave["device_busy_ms"]:
+        wave["unprofiled_wave_wall_ms"] = 1e3 * sum(near) / len(near)
+        wave["device_idle_share_unprofiled"] = \
+            1.0 - wave["device_busy_ms"] / wave["unprofiled_wave_wall_ms"]
+    report["s1_stream_profiled"] = {"wall_s": wall,
+                                    "bit_identical_to_s1": same(out, runs["s1_bf16_k2"])}
+
+    # (r1)-(r4): the resilience layer on (s1)'s serve
+    for tag, inj in (("r1_unarmed", FaultInjector()),
+                     ("r2_verify_raise", FaultInjector.single("verify_step", "raise", at=1)),
+                     ("r3_verify_nan", FaultInjector.single("verify_step", "nan_logits",
+                                                            at=1)),
+                     ("r4_draft_raise", FaultInjector.single("draft_step", "raise", at=1))):
+        out, wall, counts, routes = serve(server, draft_len=2, fault_injector=inj,
+                                          pool_audit=True)
+        fs = server.last_fault_stats
+        statuses = [o["status"] for o in server.last_outcomes]
+        ok = [r for r, s_ in enumerate(statuses) if s_ == "ok"]
+        if fs["audits"] < 1 or server.last_pool_stats["live_pages"] != 0:
+            raise AssertionError(f"{tag}: audits {fs['audits']}, live pages "
+                                 f"{server.last_pool_stats['live_pages']} at the end")
+        if tag == "r1_unarmed" and (fs["events"] or fs["actions"] or len(ok) != len(prompts)
+                                    or not same(out, runs["s1_bf16_k2"])):
+            raise AssertionError(f"{tag}: {fs['events']} events, statuses {statuses}, or "
+                                 "other tokens than (s1)")
+        if tag == "r2_verify_raise" and (fs["retries"] != 1 or len(ok) != len(prompts)
+                                         or not same(out, runs["s1_bf16_k2"])):
+            raise AssertionError(f"{tag}: {fs['retries']} retries, statuses {statuses}, or "
+                                 "other tokens than (s1)")
+        if tag == "r3_verify_nan" and (statuses.count("quarantined") != 1
+                                       or len(ok) != len(prompts) - 1):
+            raise AssertionError(f"{tag}: statuses {statuses}")
+        if tag == "r4_draft_raise" and (not fs["degraded"] or len(ok) != len(prompts)):
+            raise AssertionError(f"{tag}: degraded {fs['degraded']}, statuses {statuses}")
+        report[tag] = {
+            "wall_s": wall, "events": fs["events"], "retries": fs["retries"],
+            "audits": fs["audits"], "quarantined": fs["quarantined"],
+            "degraded": fs["degraded"], "statuses": statuses,
+            "actions": [(a["point"], a["kind"]) for a in fs["actions"]],
+            "survivors_token_agreement_vs_s1": agree([out[r] for r in ok],
+                                                     [runs["s1_bf16_k2"][r] for r in ok]),
+            "spec": {key: server.last_spec_stats[key] for key in
+                     ("verify_steps", "draft_steps", "decode_steps")}}
+
+    # (s4): fp32 at full width, a depth of 4, against its own plain serve
+    cfg4 = get_config("yi-6b").replace(num_layers=4)
+    woven = default_weave(Program(model=build_model(cfg4), cfg=cfg4, kind="serve",
+                                  device="cuda"),
+                          SHAPES["prefill_32k"], {}, extra_aspects=cuda_kernel_aspects())
+    woven.state.policies = PolicyResolver.default("double")
+    fsrv = Server(woven, ServerConfig(max_cache_len=server.cfg.max_cache_len,
+                                      decode_tokens=n, seed=0))
+    fp = {}
+    for tag, k in (("s4_fp32_plain", 0), ("s4_fp32_k2", 2)):
+        out, wall, counts, routes = serve(fsrv, draft_len=k)
+        want, _ = expected_launches(fsrv.last_step_counts, 4, False)
+        if counts != want or any(o["status"] != "ok" for o in fsrv.last_outcomes):
+            raise AssertionError(f"{tag}: launches {counts} != {want}, or outcomes "
+                                 f"{fsrv.last_outcomes}")
+        fp[tag] = out
+        report[tag] = {"wall_s": wall, "launches": counts, "routes": routes,
+                       "steps": dict(fsrv.last_step_counts)}
+    sp = fsrv.last_spec_stats
+    if not same(fp["s4_fp32_k2"], fp["s4_fp32_plain"]):
+        # fp32 q rows take the FMA body widened or not, and the identity
+        # held in every card run so far (PERF.md): a difference is a fault
+        raise AssertionError("(s4): the fp32 speculative serve parts from plain greedy")
+    report["s4_fp32_k2"].update({
+        "bit_identical_to_plain": same(fp["s4_fp32_k2"], fp["s4_fp32_plain"]),
+        "token_agreement_vs_plain": agree(fp["s4_fp32_k2"], fp["s4_fp32_plain"]),
+        "acceptance": sp["acceptance"], "target_steps": sp["target_steps"],
+        "plain_decode_steps": report["s4_fp32_plain"]["steps"]["decode"]})
+    del fsrv, woven
+    torch.cuda.empty_cache()
+
+    # (x): the registry's pairing — gemma-2b drafting for yi-6b; (x_oov): the
+    # same draft with its logits below yi's vocabulary masked, so that every
+    # proposal is an id yi's embedding does not hold
+    dname = draft_for("yi-6b")
+    dsrv = build_server(dname, reduced=False, device="cuda",
+                        cfg=ServerConfig(max_cache_len=server.cfg.max_cache_len,
+                                         decode_tokens=n, seed=0))
+    rng = np.random.default_rng(7)
+    xprompts = [rng.integers(0, mcfg.vocab, 256) for _ in range(4)]
+    draft_step = dsrv.decode_vc
+    oov = {"argmaxes": 0, "outside_target_vocab": 0, "mask": False}
+
+    def observed_draft_step(variant, params, inputs, cache):
+        logits, new_cache = draft_step(variant, params, inputs, cache)
+        if oov["mask"]:
+            logits[..., :mcfg.vocab] = float("-inf")
+        top = logits[:, -1].argmax(dim=-1)
+        oov["argmaxes"] += top.numel()
+        oov["outside_target_vocab"] += int((top >= mcfg.vocab).sum())
+        return logits, new_cache
+
+    dsrv.decode_vc = observed_draft_step
+    for tag, mask in (("x_registry_draft", False), ("x_oov_draft", True)):
+        oov.update(argmaxes=0, outside_target_vocab=0, mask=mask)
+        out = server.serve_continuous(xprompts, page_size=128, draft_len=2, draft=dsrv)
+        torch.cuda.synchronize()
+        if torch.arange(8, device="cuda").sum().item() != 28:
+            raise AssertionError(f"({tag}): the CUDA context no longer computes")
+        outcomes = [(o["status"], o["reason"], o["tokens"]) for o in server.last_outcomes]
+        if mask and any(o[:2] != ("quarantined", "non-finite verify logits")
+                        for o in outcomes):
+            raise AssertionError(f"({tag}): outcomes {outcomes}")
+        report[tag] = {
+            "draft": dname, "draft_vocab": dsrv.woven.program.cfg.vocab,
+            "target_vocab": mcfg.vocab, "outcomes": outcomes,
+            "draft_argmaxes": oov["argmaxes"],
+            "draft_argmaxes_outside_target_vocab": oov["outside_target_vocab"],
+            "spec": {key: server.last_spec_stats[key] for key in
+                     ("acceptance", "verify_steps", "proposed", "accepted")},
+            "tokens": [len(o) for o in out]}
+    server.serve_continuous(xprompts, page_size=128)
+    if any(o["status"] != "ok" for o in server.last_outcomes):
+        raise AssertionError(f"(x): a plain serve after it: {server.last_outcomes}")
+    del dsrv, draft_step
+    torch.cuda.empty_cache()
+
+    card = nvidia_smi_line()
+    log("speculative " + json.dumps({"card": card, "model": "yi-6b", "layers": layers,
+                                     "requests": len(prompts), "decode_tokens": n,
+                                     "runs": report}))
+    log("profile-verify-wave " + json.dumps({"card": card, **wave}))
+    return spec_counts
+
+
 def sharing_diagnostic(torch, server, prompts) -> dict:
     """Where the shared and the unshared runs part (printed, not gated): the
     first-token logits of each prefix sharer, admitted over its donor's pages
@@ -1613,9 +1992,9 @@ def sharing_diagnostic(torch, server, prompts) -> dict:
     captured = {}
     first_token = server._first_token
 
-    def capture(manager, rid, logits):
+    def capture(manager, rid, logits, fault=None):
         captured[rid] = logits[0, -1].float().clone()
-        return first_token(manager, rid, logits)
+        return first_token(manager, rid, logits, fault)
 
     server._first_token = capture
     try:
@@ -1679,9 +2058,9 @@ def pool_prefill_logit_gate(torch, server) -> dict:
     first_token = server._first_token
     flash_decode = attn_mod.flash_decode
 
-    def capture(manager, rid, logits):
+    def capture(manager, rid, logits, fault=None):
         captured["logits"] = logits[0].float().clone()
-        return first_token(manager, rid, logits)
+        return first_token(manager, rid, logits, fault)
 
     def k1_over_dequantized(q, pk, pv, index, *, window, tables, kv_len, k_scale, v_scale,
                             softcap, pruned, **_):
@@ -2443,17 +2822,20 @@ def main() -> int:
     wide = widened_decode_cases(torch, gen)
     quant = quantized_decode_cases(torch, gen)
     wcodes = widened_codes_cases(torch, gen)
+    verify = verify_decode_cases(torch, gen)
     lru = rglru_cases(torch, gen)
     lru_serve = rglru_serve_times(torch, gen)
     wkv6 = wkv_cases(torch, gen)
     lse_c, dq_c, dkv_c = flash_bwd_cases(torch, gen)
-    for c in norm + pre + dec + wide + quant + wcodes + lru + wkv6 + lse_c + dq_c + dkv_c:
+    for c in (norm + pre + dec + wide + quant + wcodes + verify + lru + wkv6 + lse_c + dq_c
+              + dkv_c):
         log("kernel-case " + json.dumps({k: v for k, v in c.items() if k != "main"}))
     log("shared-prefill-identity " + json.dumps(shared_prefill_identity(torch, gen)))
 
     reduced_phase(torch)
     serve_counts, server = serve_phase(torch)
     cont = continuous_phase(torch, server)
+    spec = speculative_phase(torch, server)
     del server
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2471,6 +2853,8 @@ def main() -> int:
     def by_run(key):
         return {"serve_and_serve_batch": serve_counts.get(key, 0),
                 "continuous_a_bf16": a.get(key, 0), "continuous_c_int8": c.get(key, 0),
+                "speculative_s1_bf16": spec["s1_bf16_k2"].get(key, 0),
+                "speculative_s3_int8": spec["s3_int8_k2"].get(key, 0),
                 "recurrentgemma_serve": rec["recurrentgemma-2b"].get(key, 0),
                 "rwkv6_serve": rec["rwkv6-3b"].get(key, 0),
                 "train_gemma_6_steps": train["launches_6_steps"].get(key, 0)}
@@ -2545,6 +2929,14 @@ def main() -> int:
         "src/repro/kernels/flash_attention/decode.py:454", wcodes, c["flash_decode_tc"],
         {"continuous_c_int8": c["flash_decode_tc"]}, fma_launches=c["flash_decode_fma"]))
     kernels[-1]["library_ms_note"] = "no single PyTorch call attends over an int8 paged pool"
+    # the same mode at the speculative verify step's shape: `launches` are
+    # (s1)'s verify steps x layers; the int8 pool's beside
+    kernels.append(kernel_entry(
+        "flash_decode_verify", "src/repro_torch/csrc/flash_decode.cu",
+        "src/repro/kernels/flash_attention/decode.py:454", verify,
+        spec["s1_bf16_k2"]["verify_launches"],
+        {run: spec[run]["verify_launches"] for run in
+         ("s1_bf16_k2", "s2_bf16_k4", "s3_int8_k2")}))
     kernels[2]["library_ms_note"] = ("no single PyTorch call attends over an int8 "
                                      "paged pool")
     kernels[4]["library_ms_note"] = "no single PyTorch call computes a linear recurrence"

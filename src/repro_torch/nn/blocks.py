@@ -116,10 +116,19 @@ class Embedding(Module):
         }
 
     def forward(self, params, tokens, *, ctx: Ctx):
+        """Rows of the table, indexed as the reference's `jnp.take` in fill
+        mode indexes them: an id in [-vocab, 0) counts from the end, and an
+        id outside [-vocab, vocab) (a foreign draft model's token, say)
+        gives a row of NaN.  No out-of-range id reaches `F.embedding`: on
+        the card one would trip a device-side assert."""
         with ctx.scope(self.name):
             policy = ctx.policy()
             table = cast(params["table"], policy.compute_dtype)
-            x = F.embedding(tokens, table)
+            # remainder lands every id in [0, vocab); the mask then blanks
+            # the rows of ids that were outside [-vocab, vocab)
+            x = F.embedding(torch.remainder(tokens, self.vocab), table)
+            outside = (tokens < -self.vocab) | (tokens >= self.vocab)
+            x = x.masked_fill(outside[..., None], float("nan"))
             if self.scale_by_dim:
                 x = x * torch.tensor(np.sqrt(self.dim), dtype=policy.compute_dtype,
                                      device=x.device)

@@ -41,8 +41,10 @@ sharing is invisible to the kernel: two table rows naming one physical page
 stream the same bytes an unshared layout holds, so paged output equals it
 bit for bit.
 
-Not ported here: `rollback` (speculative decoding) and `PoolAuditor` /
-`audit_pool` (the resilience layer) arrive with their slices.
+A speculative verify step writes a whole draft block; `rollback` trims the
+rejected tail by refcount alone (no page copy).  `PoolAuditor` /
+`audit_pool` check the pool's invariants at the resilience layer's
+barriers.
 """
 
 from __future__ import annotations
@@ -829,13 +831,13 @@ class PagedCacheManager:
     def _pop_scales(self, freed: Sequence[int]) -> None:
         """Reset freed pages' sidecar rows to the free-page sentinel: a
         page's scale lives exactly as long as the page does."""
-        if not freed:
-            return
-        idx = torch.as_tensor(list(freed), dtype=torch.long,
-                              device=self._device())
-        for name in self._groups:
+        idx = None
+        for name in self._groups if freed else ():
             pools = self._pools.get(name)
             if pools and "ksc" in pools:
+                if idx is None:  # one host-to-device copy, quantized pools only
+                    idx = torch.as_tensor(list(freed), dtype=torch.long,
+                                          device=pools["ksc"].device)
                 _zero_scale_rows(pools["ksc"], idx)
                 _zero_scale_rows(pools["vsc"], idx)
 
@@ -946,6 +948,38 @@ class PagedCacheManager:
         for rid in rids:
             self._meta[rid]["length"] += advance
 
+    def rollback(self, rid, new_length: int) -> list[int]:
+        """Speculative-misprediction rollback: shrink the request to
+        `new_length` live tokens in O(1) pool operations per tail page.
+
+        Table entries past the slots `new_length` needs are released
+        tail-first (refcount decrement — donor pages shared with other
+        requests just lose this reference, their bytes are never touched
+        or copied), freed pages are purged from the prefix index and their
+        scale rows return to the free-page sentinel, and the hoisted
+        `kv_pos` map is rewound so stale draft slots mask dead.  The
+        over-written K/V bytes in still-held pages are left in place: they
+        sit past the live boundary, so attention never reads them and the
+        next decode step overwrites them.  Copy-on-write splits performed
+        for the rejected write are *not* undone — the private copy holds
+        the request's valid prefix slots.  Returns the pages actually
+        freed."""
+        m = self._meta[rid]
+        if new_length < 0 or new_length > m["length"]:
+            raise ValueError(
+                f"rollback({rid!r}) to {new_length} outside [0, "
+                f"{m['length']}]")
+        m["length"] = new_length
+        freed = self.pool.truncate(rid, self._slots_needed(new_length))
+        if freed:
+            self._purge_keys(freed)
+            self._pop_scales(freed)
+        if "kv_pos" in m:
+            kvp = m["kv_pos"]
+            ar = torch.arange(kvp.shape[-1], dtype=torch.int32, device=kvp.device)
+            m["kv_pos"] = torch.where(ar < new_length, kvp, torch.full_like(kvp, -1))
+        return freed
+
     # -- introspection -----------------------------------------------------------
 
     def _group_page_bytes(self, name: str, info: dict) -> int:
@@ -993,6 +1027,152 @@ class PagedCacheManager:
             "cache_dtype": (str(self.cache_dtype).removeprefix("torch.")
                             if self.cache_dtype is not None else None),
         }
+
+
+# ---------------------------------------------------------------------------
+# Invariant auditing (fault-isolation debug barrier)
+# ---------------------------------------------------------------------------
+
+
+class PoolInvariantError(RuntimeError):
+    """A pool/manager invariant does not hold — state corruption caught at
+    the barrier where it happened, not three steps later."""
+
+
+class PoolAuditor:
+    """Invariant checker over a PagePool (and optionally the manager that
+    owns it).  Run at retire/rollback barriers under the `pool_audit`
+    debug knob: every check is host-side bookkeeping except the
+    scale-sidecar sentinel check, which is gated separately because it
+    reads the device.
+
+    Invariants:
+      * refcount conservation — every page's refcount equals the number
+        of table entries mapping it, across all live tables;
+      * free/referenced disjointness — no page is both on the free list
+        and referenced (and the free list holds no duplicates);
+      * conservation — free + distinct referenced pages partition the
+        pool exactly;
+      * table liveness — every table entry is a valid page id with
+        refcount >= 1, and no table maps the same page at two logical
+        positions;
+      * manager consistency — tables and per-request meta cover the same
+        request ids, each table spans the pages its live length needs and
+        never exceeds its `final_len` reservation, and every prefix-index
+        entry points at a live page;
+      * scale-sidecar consistency (`check_device=True`) — free pages'
+        quantization scale rows sit at the 0.0 free-page sentinel (one
+        reduction on the device and one scalar read back per sidecar).
+    """
+
+    def __init__(self, target: "PagePool | PagedCacheManager", *,
+                 check_device: bool = False):
+        if isinstance(target, PagedCacheManager):
+            self.manager: PagedCacheManager | None = target
+            self.pool = target.pool
+        else:
+            self.manager = None
+            self.pool = target
+        self.check_device = check_device
+
+    def _fail(self, violations: list[str]) -> None:
+        if violations:
+            raise PoolInvariantError(
+                "pool invariant violation(s): " + "; ".join(violations))
+
+    def audit(self) -> dict[str, Any]:
+        """Check every invariant; raises PoolInvariantError on the first
+        audit with violations, returns a summary dict otherwise."""
+        pool = self.pool
+        bad: list[str] = []
+        free = list(pool._free)
+        free_set = set(free)
+        if len(free) != len(free_set):
+            bad.append("free list holds duplicate pages")
+        mapped: dict[int, int] = {}
+        for rid, table in pool.tables.items():
+            seen_here: set[int] = set()
+            for logical, p in enumerate(table):
+                if not (0 <= p < pool.num_pages):
+                    bad.append(f"table {rid!r}[{logical}] = {p} out of range")
+                    continue
+                if p in seen_here:
+                    bad.append(f"table {rid!r} maps page {p} twice")
+                seen_here.add(p)
+                mapped[p] = mapped.get(p, 0) + 1
+        for p in range(pool.num_pages):
+            refs = pool._refs[p]
+            n_mapped = mapped.get(p, 0)
+            if refs != n_mapped:
+                bad.append(
+                    f"page {p}: refcount {refs} != {n_mapped} table entries")
+            if p in free_set and refs > 0:
+                bad.append(f"page {p} both free and referenced ({refs})")
+            if p not in free_set and refs == 0:
+                bad.append(f"page {p} neither free nor referenced (leak)")
+        if len(free_set) + len(mapped) != pool.num_pages:
+            bad.append(
+                f"conservation: {len(free_set)} free + {len(mapped)} live "
+                f"!= {pool.num_pages} pages")
+        checks = 4
+        if self.manager is not None:
+            checks += self._audit_manager(bad)
+        self._fail(bad)
+        return {"checks": checks, "live_pages": len(mapped),
+                "free_pages": len(free_set),
+                "requests": len(pool.tables)}
+
+    def _audit_manager(self, bad: list[str]) -> int:
+        mgr = self.manager
+        pool = self.pool
+        if set(pool.tables) != set(mgr._meta):
+            bad.append(
+                f"tables {sorted(map(repr, pool.tables))} != meta "
+                f"{sorted(map(repr, mgr._meta))}")
+        for rid, meta in mgr._meta.items():
+            table = pool.tables.get(rid)
+            if table is None:
+                continue
+            if mgr._groups:
+                need = mgr._slots_needed(meta["length"])
+                cap = mgr._slots_needed(meta["final_len"])
+                if len(table) < need:
+                    bad.append(
+                        f"table {rid!r} holds {len(table)} pages, live "
+                        f"length {meta['length']} needs {need}")
+                if len(table) > cap:
+                    bad.append(
+                        f"table {rid!r} holds {len(table)} pages past its "
+                        f"final_len reservation ({cap})")
+        for key, page in mgr._prefix_index.items():
+            if not (0 <= page < pool.num_pages) or pool._refs[page] <= 0:
+                bad.append(f"prefix key {key[:2]} maps dead page {page}")
+        checks = 3
+        if self.check_device:
+            checks += self._audit_sidecars(bad)
+        return checks
+
+    def _audit_sidecars(self, bad: list[str]) -> int:
+        mgr = self.manager
+        free = sorted(self.pool._free)
+        if not free:
+            return 1
+        for name in mgr._groups:
+            pools = mgr._pools.get(name)
+            if not pools or "ksc" not in pools:
+                continue
+            idx = torch.as_tensor(free, dtype=torch.long, device=pools["ksc"].device)
+            for key in ("ksc", "vsc"):
+                if bool(pools[key].index_select(-2, idx).ne(0.0).any()):
+                    bad.append(
+                        f"group {name!r} {key} sidecar: free pages hold "
+                        "non-sentinel scales")
+        return 1
+
+
+def audit_pool(target, **kwargs) -> dict[str, Any]:
+    """One-shot invariant audit — `PoolAuditor(target).audit()`."""
+    return PoolAuditor(target, **kwargs).audit()
 
 
 # ---------------------------------------------------------------------------

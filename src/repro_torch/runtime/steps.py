@@ -5,8 +5,7 @@ This is where the separation of concerns pays off: the functions below read
 ANTAREX aspects set lands here, and libVC keeps one closure per variant.
 PyTorch runs eagerly, so there is nothing to compile: a step is a plain
 closure.  The serving steps run under `torch.no_grad()`; the train step
-records the forward and differentiates it.  The verify step arrives with
-its slice.
+records the forward and differentiates it.
 """
 
 from __future__ import annotations
@@ -195,6 +194,38 @@ def build_decode_step(woven: WovenProgram, *, mesh=None, variant: str | None = N
         return logits, new_cache
 
     return decode_step
+
+
+def build_verify_step(woven: WovenProgram, *, mesh=None,
+                      variant: str | None = None,
+                      draft_len: int | None = None):
+    """Speculative-decoding verify step: one decode-mode call whose inputs
+    carry a whole draft block (S = draft_len + 1 tokens per request).  The
+    model's decode path returns logits for *all* S positions — row i is
+    scored with draft token i attending through cache slot index + i via
+    the widened-q `flash_decode` mode — so the host can accept the longest
+    prefix where the target's argmax chain reproduces the draft.
+
+    Structurally this is build_decode_step at S > 1 (and, like it, writes
+    the block into the cache in place); this function exists so the server
+    can pin the draft span on a *copied* weave state (the
+    "speculative_draft_len" extra) without disturbing the plain decode
+    variant's state."""
+    program = woven.program
+    state = woven.variant_state(variant)
+    if draft_len is not None:
+        state = state.copy()
+        state.extra["speculative_draft_len"] = int(draft_len)
+    model = program.model
+
+    def verify_step(params, inputs, cache):
+        ctx = state.make_ctx(mesh=mesh)
+        with torch.no_grad():
+            logits, new_cache = model(params, inputs, ctx=ctx, mode="decode",
+                                      cache=cache)
+        return logits, new_cache
+
+    return verify_step
 
 
 def stack_request_caches(model, caches: list) -> Any:

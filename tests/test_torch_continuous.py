@@ -367,24 +367,59 @@ def test_paged_prefill_and_decode_logits_equal_dense():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(draft_len=2), "item 6"), (dict(draft=object()), "item 6"),
-    (dict(deadline_s=1.0), "item 8"), (dict(pool_audit=True), "item 8"),
-    (dict(preemption=object()), "item 8"), (dict(qos={}), "item 8"),
-    (dict(slo_ttft_s=0.5), "item 8"), (dict(fault_injector=object()), "item 8"),
+    (dict(qos={}), "item 8b"), (dict(qos=True), "item 8b"),
+    (dict(slo_ttft_s=0.5), "item 8b"), (dict(slo_tok_s=0.1), "item 8b"),
+    (dict(qos={}, slo_ttft_s=0.5), "item 8b"),
 ])
 def test_options_of_later_slices_raise(srv, kw, item):
+    """Only the QoS governor and its SLOs are refused now (speculative
+    decoding and the resilience layer are ported: their options serve)."""
     with pytest.raises(NotImplementedError, match=item):
         srv.serve_continuous(SMALL, page_size=8, **kw)
 
 
+@pytest.mark.parametrize("extra", ["serve_qos", "qos_governor"])
+def test_woven_qos_extras_raise(extra):
+    srv = _server(woven_extra={extra: {}})
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        srv.serve_continuous(SMALL, page_size=8)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(draft_len=2), dict(deadline_s=60.0), dict(pool_audit=True),
+    dict(preemption="handler"), dict(fault_injector="unarmed"),
+])
+def test_options_of_ported_slices_serve(srv, kw):
+    """The options items 6 and 8a brought: each serves the same tokens."""
+    from repro_torch.core.strategies.resilience import FaultInjector
+    from repro_torch.distributed.fault import PreemptionHandler
+
+    kw = {k: {"handler": PreemptionHandler(install=False),
+              "unarmed": FaultInjector()}.get(v, v) for k, v in kw.items()}
+    base = srv.serve_continuous(SMALL, page_size=8)
+    for a, b in zip(base, srv.serve_continuous(SMALL, page_size=8, **kw)):
+        np.testing.assert_array_equal(a, b)
+    assert all(o["status"] == "ok" for o in srv.last_outcomes)
+
+
 @pytest.mark.parametrize("field,value,item", [
-    ("draft_len", 2, "item 6"), ("retries", 1, "item 8"), ("deadline_s", 1.0, "item 8"),
-    ("pool_audit", False, "item 8"), ("slo_tok_s", 0.1, "item 8"),
+    ("slo_ttft_s", 0.5, "item 8b"), ("slo_tok_s", 0.1, "item 8b"),
 ])
 def test_config_fields_of_later_slices_raise(field, value, item):
     srv = _server(**{field: value})
     with pytest.raises(NotImplementedError, match=item):
         _drain(srv.serve_stream(SMALL, page_size=8))
+
+
+@pytest.mark.parametrize("field,value", [
+    ("draft_len", 2), ("retries", 1), ("deadline_s", 60.0), ("pool_audit", False),
+])
+def test_config_fields_of_ported_slices_serve(srv, field, value):
+    base = srv.serve_continuous(SMALL, page_size=8)
+    other = _server(**{field: value})
+    for a, b in zip(base, other.serve_continuous(SMALL, page_size=8)):
+        np.testing.assert_array_equal(a, b)
+    assert (other.last_spec_stats is not None) == (field == "draft_len")
 
 
 def test_ring_pools_raise_naming_their_slice():
