@@ -67,7 +67,17 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    against plain greedy bit for bit, four injected-fault runs under
    `pool_audit`, gemma-2b drafting for yi-6b) and profiles one verify wave;
    K2's widened mode at the verify shape is held and timed with the other
-   kernel cases (`verify_decode_cases`);
+   kernel cases (`verify_decode_cases`); then serves the same traffic under
+   the QoS governor (`qos_phase`: mARGOt re-planning max_batch, prefill
+   chunk, draft length and the modeled DVFS point every wave — reactive
+   off twice with the same operating points, SLOs on the model's scale
+   moving the draft length and replaying the draft, reactive on, a modeled
+   power budget, fp32 at a depth of 4 bit for bit ungoverned) and through a
+   two-replica fleet with a hot spare over one copy of the weights
+   (`fleet_phase`: clean, a replica lost mid-decode, a drain, fp32 at a
+   depth of 4 bit for bit one server), exact launch counts in every run;
+   every K2 shape those runs launched is held against its plain version
+   (`governed_shape_cases`);
 7. serves full-width, full-depth recurrentgemma-2b (RG-LRU kernel K5, and
    the attention and RMSNorm kernels over its local-attention rings) and
    rwkv6-3b (WKV kernel K6) through `serve` and `serve_batch`, with exact
@@ -1758,14 +1768,10 @@ def speculative_phase(torch, server) -> dict:
     outside yi's vocabulary."""
     import numpy as np
 
-    from repro_torch.configs.base import SHAPES
-    from repro_torch.core.program import Program
     from repro_torch.core.strategies.resilience import FaultInjector
     from repro_torch.launch.serve import build_server
-    from repro_torch.launch.weave import cuda_kernel_aspects, default_weave
-    from repro_torch.models.registry import build_model, draft_for, get_config
-    from repro_torch.nn.dtypes import PolicyResolver
-    from repro_torch.runtime.server import Server, ServerConfig
+    from repro_torch.models.registry import draft_for
+    from repro_torch.runtime.server import ServerConfig
 
     mcfg = server.woven.program.cfg
     layers, n = mcfg.num_layers, server.cfg.decode_tokens
@@ -1897,13 +1903,7 @@ def speculative_phase(torch, server) -> dict:
                      ("verify_steps", "draft_steps", "decode_steps")}}
 
     # (s4): fp32 at full width, a depth of 4, against its own plain serve
-    cfg4 = get_config("yi-6b").replace(num_layers=4)
-    woven = default_weave(Program(model=build_model(cfg4), cfg=cfg4, kind="serve",
-                                  device="cuda"),
-                          SHAPES["prefill_32k"], {}, extra_aspects=cuda_kernel_aspects())
-    woven.state.policies = PolicyResolver.default("double")
-    fsrv = Server(woven, ServerConfig(max_cache_len=server.cfg.max_cache_len,
-                                      decode_tokens=n, seed=0))
+    fsrv = fp32_depth4_server(server)
     fp = {}
     for tag, k in (("s4_fp32_plain", 0), ("s4_fp32_k2", 2)):
         out, wall, counts, routes = serve(fsrv, draft_len=k)
@@ -1924,7 +1924,7 @@ def speculative_phase(torch, server) -> dict:
         "token_agreement_vs_plain": agree(fp["s4_fp32_k2"], fp["s4_fp32_plain"]),
         "acceptance": sp["acceptance"], "target_steps": sp["target_steps"],
         "plain_decode_steps": report["s4_fp32_plain"]["steps"]["decode"]})
-    del fsrv, woven
+    del fsrv
     torch.cuda.empty_cache()
 
     # (x): the registry's pairing — gemma-2b drafting for yi-6b; (x_oov): the
@@ -1979,6 +1979,552 @@ def speculative_phase(torch, server) -> dict:
                                      "runs": report}))
     log("profile-verify-wave " + json.dumps({"card": card, **wave}))
     return spec_counts
+
+
+def fp32_depth4_server(server):
+    """yi-6b at full width and a depth of 4 layers in fp32 (policy `double`),
+    random weights from seed 0, serving `server`'s cache length and decode
+    budget: where the bit-for-bit gates of a change that moves scheduling
+    only (speculation, the governor, the fleet) run, since a bf16 row
+    depends on the row count cuBLAS sees."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core.program import Program
+    from repro_torch.launch.weave import cuda_kernel_aspects, default_weave
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.nn.dtypes import PolicyResolver
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    cfg4 = get_config("yi-6b").replace(num_layers=4)
+    woven = default_weave(Program(model=build_model(cfg4), cfg=cfg4, kind="serve",
+                                  device=server.device),
+                          SHAPES["prefill_32k"], {}, extra_aspects=cuda_kernel_aspects())
+    woven.state.policies = PolicyResolver.default("double")
+    return Server(woven, ServerConfig(max_cache_len=server.cfg.max_cache_len,
+                                      decode_tokens=server.cfg.decode_tokens, seed=0))
+
+
+class DecodeShapes:
+    """While active, counts every K2 launch by (route as the entry point
+    reported it, q's type, batch, q tokens, over codes): the shapes a run
+    gave the kernel, for `governed_shape_cases` to hold against the plain
+    version.  Wraps the wrapper's launch only; the counts it keeps are its
+    own (the launch counters are untouched)."""
+
+    def __init__(self):
+        self.shapes: dict[tuple, int] = {}
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops
+
+        real = self.real = ops.flash_decode_fwd
+
+        def recorded(q, *args, **kw):
+            out = real(q, *args, **kw)
+            recorded.last_route = real.last_route
+            key = (real.last_route, str(q.dtype).replace("torch.", ""), int(q.shape[0]),
+                   int(q.shape[1]), kw.get("k_scale") is not None)
+            self.shapes[key] = self.shapes.get(key, 0) + 1
+            return out
+
+        recorded.last_route = getattr(real, "last_route", None)
+        ops.flash_decode_fwd = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.flash_attention import ops
+
+        ops.flash_decode_fwd = self.real
+
+
+def governed_shape_cases(torch, gen, shapes: dict) -> list:
+    """Every K2 shape the governed and the fleet runs launched (`DecodeShapes`),
+    each held against its plain version with the gates its route holds
+    elsewhere: a single bf16 token (the split route) the same bits twice, a
+    request's rows alone as in its batch, within BF16_TOL of the plain
+    version; S > 1 bf16 tokens (K1's tensor-core body: chunks, suffixes,
+    verify steps) the same bits twice and within BF16_TOL of the plain
+    version in float64 (`check_exact`); an fp32 q (the FMA body) within
+    FP32_TOL.  yi-6b's heads over a shuffled 128-slot page pool with dead
+    pages NaN: a verify or single-token batch at ~1050 resident slots, a
+    chunk or suffix over a 1024-token prefix."""
+    from repro_torch.kernels.flash_attention.decode import flash_decode_fwd
+    from repro_torch.kernels.flash_attention.ops import flash_decode
+    from repro_torch.kernels.flash_attention.ref import decode_ref
+
+    H, K, D, ps = 32, 4, 128, 128
+    cases = []
+    for (route, dt, B, S, codes), n in sorted(shapes.items()):
+        name = f"{route}_B{B}_S{S}_{dt}"
+        if codes:
+            raise AssertionError(f"{name}: the governed runs serve bf16 pools, not codes")
+        dtype = getattr(torch, dt)
+        idx = [(1050 if S <= 8 else 1024) + 7 * b for b in range(B)]
+        T = -(-(max(idx) + S) // ps) * ps
+        q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((B, T, K, D), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((B, T, K, D), generator=gen, device="cuda").to(dtype)
+        index = torch.tensor(idx, dtype=torch.int32, device="cuda")
+        pk, pv, tables = poisoned_pool(torch, gen, k, v, idx, ps, None, S)
+        kw = dict(tables=tables, kv_len=T)
+
+        def call():
+            return flash_decode(q, pk, pv, index, **kw)
+
+        got = call()
+        torch.cuda.synchronize()
+        if flash_decode_fwd.last_route != route:
+            raise AssertionError(f"{name}: launched the {flash_decode_fwd.last_route} route")
+        extra = {}
+        if route == "tc_split":
+            extra = split_gates(
+                torch, name, got, call,
+                lambda b: flash_decode(q[b:b + 1], pk, pv, index[b:b + 1],
+                                       tables=tables[b:b + 1], kv_len=T), idx)
+            err, rms = check_close(torch, name, got, decode_ref(q, pk, pv, index, **kw),
+                                   BF16_TOL)
+        elif route == "tc":
+            if not torch.equal(got, call()):
+                raise AssertionError(f"{name}: a second call gave other bits")
+            err, rms = check_exact(torch, name, got,
+                                   exact(decode_ref, (q, pk, pv), index=index, **kw), BF16_TOL)
+        else:
+            err, rms = check_close(torch, name, got, decode_ref(q, pk, pv, index, **kw),
+                                   FP32_TOL)
+        cases.append({"case": name, "route": route, "batch": B, "q_tokens": S,
+                      "launches": n, "max_abs_err": err, "ref_rms": rms, **extra})
+        del q, k, v, pk, pv
+    torch.cuda.empty_cache()
+    return cases
+
+
+class PowerDraw:
+    """Samples the card's `power.draw` from `nvidia-smi` every `PERIOD`
+    seconds on a thread while active (an observation printed beside the
+    governor's modeled power, not a gate); the thread is joined on exit.
+    Every run of `qos_phase`, governed or not, is timed under it."""
+
+    PERIOD = 0.25
+
+    def __init__(self):
+        import threading
+
+        self.samples = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            try:
+                out = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=power.draw", "--format=csv,noheader,nounits"],
+                    capture_output=True, text=True, timeout=5).stdout
+                self.samples.append(float(out.split()[0]))
+            except (OSError, ValueError, IndexError, subprocess.SubprocessError):
+                pass
+            self._stop.wait(self.PERIOD)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def reading(self) -> dict:
+        s = self.samples
+        return {"samples": len(s), "mean_w": sum(s) / len(s) if s else None,
+                "max_w": max(s) if s else None}
+
+
+def governed(gov):
+    """Instrument a QoSGovernor: the host time of each `decide` and
+    `observe_wave`, and per wave the operating point in force with its
+    observed and modeled (the analytic model at the planned load, before
+    any reactive rescaling) latency — `wave_s` for a decode-only wave,
+    `tok_s` for a wave that also admitted or prefilled."""
+    log_ = {"decide_s": [], "observe_s": [], "waves": []}
+    decide, observe = gov.decide, gov.observe_wave
+
+    def timed_decide(**kw):
+        t0 = time.perf_counter()
+        out = decide(**kw)
+        log_["decide_s"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_observe(dt_s, **kw):
+        cur = gov.margot.current
+        metric = "tok_s" if kw.get("prefill_tokens") else "wave_s"
+        log_["waves"].append((tuple(sorted(gov.current_knobs.items())), metric, dt_s,
+                              cur.mean(metric) if cur is not None else None))
+        t0 = time.perf_counter()
+        observe(dt_s, **kw)
+        log_["observe_s"].append(time.perf_counter() - t0)
+
+    gov.decide, gov.observe_wave = timed_decide, timed_observe
+    return log_
+
+
+def governor_report(gov, log_, power) -> dict:
+    """What one governed run chose and what it cost on the host."""
+    import numpy as np
+
+    by_op: dict[tuple, dict] = {}
+    for knobs, metric, dt, modeled in log_["waves"]:
+        row = by_op.setdefault((knobs, metric), {"obs": [], "model": []})
+        row["obs"].append(dt)
+        if modeled is not None:
+            row["model"].append(modeled)
+    fit = [{"op": dict(knobs), "metric": metric, "waves": len(r["obs"]),
+            "observed_s": float(np.mean(r["obs"])),
+            "modeled_s": float(np.mean(r["model"])) if r["model"] else None,
+            "observed_over_modeled": (float(np.mean(r["obs"]) / np.mean(r["model"]))
+                                      if r["model"] else None)}
+           for (knobs, metric), r in by_op.items()]
+    st = gov.stats()
+    seconds = sum(dt for _, _, dt, _ in log_["waves"])
+    return {
+        "op_history": st["op_history"], "switches": st["switches"],
+        "distinct_ops": st["distinct_ops"], "waves": st["waves"], "tokens": st["tokens"],
+        "energy_j_modeled": st["energy_j"], "tokens_per_joule_modeled": st["tokens_per_joule"],
+        "power_w_modeled_mean": st["energy_j"] / seconds if seconds else None,
+        "power_draw_w_nvidia_smi": power.reading(), "capper": st["power"],
+        "decide_us": {"calls": len(log_["decide_s"]),
+                      "mean": 1e6 * float(np.mean(log_["decide_s"])),
+                      "max": 1e6 * float(np.max(log_["decide_s"]))},
+        "observe_wave_us": {"calls": len(log_["observe_s"]),
+                            "mean": 1e6 * float(np.mean(log_["observe_s"])),
+                            "max": 1e6 * float(np.max(log_["observe_s"]))},
+        "wave_fit": fit,
+    }
+
+
+def latency_summary(server, wall) -> dict:
+    import numpy as np
+
+    ttft = [o["ttft_s"] for o in server.last_outcomes if o["ttft_s"] is not None]
+    gaps = [o["tok_gap_max_s"] for o in server.last_outcomes if o["tok_gap_max_s"] is not None]
+    return {"wall_s": wall, "ttft_s_median": float(np.median(ttft)),
+            "ttft_s_max": float(max(ttft)), "tok_gap_max_s": float(max(gaps))}
+
+
+# the governed runs' policy: every wave re-planned, the draft length governed
+QOS_BASE = {"reselect_every": 1, "reactive": False, "draft_len": (0, 2, 4)}
+# SLOs on the analytic wave model's own scale (milliseconds a wave): with
+# `reactive` off the Goals meet the modeled metrics alone, and these bind
+# there — the draft length falls to 0 as load rises and comes back after
+QOS_MODEL_SLO = {"slo_ttft_s": 0.02, "slo_tok_s": 0.01}
+# the modeled node power budget of (q3), half the 700 W the model peaks at,
+# with the DVFS knob governed
+QOS_POWER = {"power_cap_w": 350.0, "freq": (0.5, 0.75, 1.0)}
+
+
+def qos_phase(torch, server, fsrv, shapes: DecodeShapes) -> dict:
+    """The QoS governor on the main path, at full width and depth: the
+    continuous traffic (`continuous_traffic`) through `serve_continuous`
+    under a `QoSGovernor` (`runtime/qos.py`), self-drafting at the governed
+    draft length.
+
+    Runs (every one of (u)-(q3) under `PowerDraw`'s sampler): (u)
+    ungoverned, its median TTFT and largest gap the SLO base;
+    (q1) `QOS_BASE` (reactive off, draft_len in (0, 2, 4)) with slo_ttft_s
+    and slo_tok_s at 1.5x (u)'s, twice; (q1m) `QOS_BASE` with
+    `QOS_MODEL_SLO`, under `pool_audit` and an audit of both pools after
+    every wave; (q2) (q1) with `reactive` on; (q3) `QOS_BASE` with
+    `QOS_POWER`; (q4) the fp32 depth-4 server `fsrv`, (q1m)'s policy
+    against its ungoverned serve.
+
+    Gated: every outcome ok and exact launches by route from each run's
+    own step counts (`check_paged_run`); distinct_ops >= 2 in (q1), (q1m)
+    and (q3); (q1)'s op_history the same on both runs; in (q1m) the draft
+    length at 0 and then above it, the draft replayed (`_draft_sync`), every
+    per-wave audit passing; in (q3) freq < 1 in force at some wave; (q4)
+    bit for bit its ungoverned serve.  Printed: each run's op_history,
+    switches, modeled energy and tokens per joule, observed against
+    modeled wave latency per operating point, the governor's host time per
+    call, TTFT / gap / wall beside (u), bf16 token agreement with (u), and
+    the card's power draw beside the modeled power."""
+    import numpy as np
+
+    from repro_torch.runtime import server as server_mod
+    from repro_torch.runtime.pages import PoolAuditor
+    from repro_torch.runtime.qos import QoSGovernor
+
+    mcfg = server.woven.program.cfg
+    layers = mcfg.num_layers
+    prompts, kw = continuous_traffic(mcfg)
+
+    def agree(x, y):
+        return float(np.mean([(p == q).mean() for p, q in zip(x, y)]))
+
+    report, runs, counted = {}, {}, {}
+    # (u) runs under the same power sampler as the governed runs, so the
+    # walls and latencies compare like with like
+    with shapes, PowerDraw() as power:
+        out, wall, counts, routes = counted_serve(
+            torch, lambda: server.serve_continuous(prompts, **kw))
+    check_paged_run(server, "qos", "u_ungoverned", prompts, out, counts, routes, False)
+    runs["u"] = out
+    report["u_ungoverned"] = {**latency_summary(server, wall), "launches": counts,
+                              "steps": dict(server.last_step_counts),
+                              "power_draw_w_nvidia_smi": power.reading()}
+    card_slo = {"slo_ttft_s": 1.5 * report["u_ungoverned"]["ttft_s_median"],
+                "slo_tok_s": 1.5 * report["u_ungoverned"]["tok_gap_max_s"]}
+
+    managers = []
+    plain_manager = server_mod.PagedCacheManager
+
+    class Audited(plain_manager):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            managers.append(self)
+
+    def audit_wave(ev):
+        if ev["event"] == "wave":
+            for m in managers:
+                PoolAuditor(m, check_device=m is managers[0]).audit()
+            audits[0] += 1
+
+    audits = [0]
+    replays = [0]
+    sync = server._draft_sync
+
+    def counted_sync(draft_srv, dmanager, rids, active, outputs, lengths):
+        before = draft_srv._steps["draft"]
+        sync(draft_srv, dmanager, rids, active, outputs, lengths)
+        replays[0] += draft_srv._steps["draft"] - before
+
+    server._draft_sync = counted_sync
+    try:
+        for tag, policy, extra in (
+                ("q1_card_slo", {**QOS_BASE, **card_slo}, {}),
+                ("q1_card_slo_again", {**QOS_BASE, **card_slo}, {}),
+                ("q1m_model_slo", {**QOS_BASE, **QOS_MODEL_SLO}, {"pool_audit": True}),
+                ("q2_reactive", {**QOS_BASE, **card_slo, "reactive": True}, {}),
+                ("q3_power_cap", {**QOS_BASE, **QOS_POWER}, {})):
+            gov = QoSGovernor(policy, broker=server.broker)
+            glog = governed(gov)
+            events = []
+            on_event = events.append
+            replays[0] = audits[0] = 0
+            managers.clear()
+            if tag.startswith("q1m"):
+                server_mod.PagedCacheManager = Audited
+
+                def on_event(ev):
+                    events.append(ev)
+                    audit_wave(ev)
+            try:
+                with shapes, PowerDraw() as power:
+                    out, wall, counts, routes = counted_serve(torch, lambda: (
+                        server.serve_continuous(prompts, **kw, qos=gov, on_event=on_event,
+                                                **extra)))
+            finally:
+                server_mod.PagedCacheManager = plain_manager
+            check_paged_run(server, "qos", tag, prompts, out, counts, routes, False)
+            if server.last_qos_stats is None:
+                raise AssertionError(f"qos {tag}: the serve ran ungoverned")
+            rep = governor_report(gov, glog, power)
+            waves = [e for e in events if e["event"] == "wave"]
+            rep.update(latency_summary(server, wall))
+            rep.update({"launches": counts, "steps": dict(server.last_step_counts),
+                        "spec": {k_: server.last_spec_stats[k_] for k_ in
+                                 ("rounds", "verify_steps", "draft_steps", "decode_steps",
+                                  "acceptance")},
+                        "draft_replayed_steps": replays[0],
+                        "k_by_wave": [e["op"]["k"] for e in waves],
+                        "freq_min_in_force": min(e["op"]["freq"] for e in waves),
+                        "token_agreement_vs_ungoverned": agree(out, runs["u"])})
+            if tag.startswith("q1m"):
+                rep["per_wave_audits"] = audits[0]
+                if audits[0] != len(waves):
+                    raise AssertionError(f"qos {tag}: {audits[0]} audits for {len(waves)} waves")
+            report[tag], runs[tag] = rep, out
+            counted[tag] = {**counts, **routes,
+                            "verify_launches": layers * server.last_step_counts["verify"]}
+            if tag != "q2_reactive" and rep["distinct_ops"] < 2:
+                raise AssertionError(f"qos {tag}: {rep['distinct_ops']} distinct operating points")
+    finally:
+        del server._draft_sync  # the class's own again
+    if report["q1_card_slo"]["op_history"] != report["q1_card_slo_again"]["op_history"]:
+        raise AssertionError("qos (q1): two runs chose other operating points")
+    ks = [h["knobs"]["draft_len"] for h in report["q1m_model_slo"]["op_history"]]
+    if 0 not in ks or ks[-1] == 0 or not report["q1m_model_slo"]["draft_replayed_steps"]:
+        raise AssertionError(f"qos (q1m): draft lengths {ks}, "
+                             f"{report['q1m_model_slo']['draft_replayed_steps']} replayed steps")
+    if not report["q3_power_cap"]["freq_min_in_force"] < 1.0:
+        raise AssertionError("qos (q3): freq never fell below 1 under the power budget")
+
+    # (q4): fp32 at a depth of 4, governed against ungoverned, bit for bit
+    fp = {}
+    for tag, qos in (("q4_fp32_ungoverned", None),
+                     ("q4_fp32_governed", {**QOS_BASE, **QOS_MODEL_SLO})):
+        with shapes:
+            out, wall, counts, routes = counted_serve(
+                torch, lambda: fsrv.serve_continuous(prompts, **kw, qos=qos))
+        want, _ = expected_launches(fsrv.last_step_counts, 4, False)
+        if counts != want or any(o["status"] != "ok" for o in fsrv.last_outcomes):
+            raise AssertionError(f"qos {tag}: launches {counts} != {want}, or outcomes "
+                                 f"{fsrv.last_outcomes}")
+        fp[tag] = out
+        report[tag] = {"wall_s": wall, "launches": counts, "routes": routes,
+                       "steps": dict(fsrv.last_step_counts),
+                       "op_history": (fsrv.last_qos_stats or {}).get("op_history")}
+    same = all(np.array_equal(a, b) for a, b in zip(fp["q4_fp32_governed"],
+                                                    fp["q4_fp32_ungoverned"]))
+    report["q4_fp32_governed"]["bit_identical_to_ungoverned"] = same
+    if not same:
+        raise AssertionError("qos (q4): the governed fp32 serve parts from the ungoverned one")
+
+    log("qos " + json.dumps({"card": nvidia_smi_line(), "model": "yi-6b", "layers": layers,
+                             "requests": len(prompts), "slo_from_u": card_slo,
+                             "runs": report}))
+    return counted
+
+
+# the fleet: two replicas of four decode slots and one hot spare; a round
+# routes up to six requests to a replica, so a replica's wave queues two
+FLEET = {"replicas": 2, "spares": 1, "wave_size": 6}
+FLEET_MAX_BATCH = 4
+
+
+def fleet_phase(torch, server, fsrv, shapes: DecodeShapes) -> dict:
+    """The serving fleet at full width and depth: `FLEET`'s replicas and
+    spare of `server`'s woven program (`runtime/fleet.ServingFleet` over
+    `replica_factory` with `server`'s param tree: one copy of the weights,
+    one page pool per replica serve), the continuous traffic's prompts.
+
+    Runs: (f1) clean; (f2) a replica lost at its second dispatch
+    (`FaultInjector.single("replica_loss", "raise", at=1)`), half-way
+    through its decode; (f3) replica 0
+    drained (`request_drain(0)`); (f4) the fp32 depth-4 server's fleet
+    against one `Server` of it.  Gated: every outcome ok; every replica
+    holds `server`'s param tree and the peak memory stays under twice the
+    weights; exact launches by route from the replicas' own step counts
+    (in (f4), for both serves, by count alone); affinity_hits > 0 in (f1); `replica_loss`, `declared_dead` and
+    `spare_in` and at least one re-dispatch in (f2); (f3) hands its queue
+    to a peer; (f4) bit for bit.  Printed: `last_fleet_stats`, peak memory,
+    wall, and bf16 token agreement with the single server's ungoverned
+    serve of the same prompts."""
+    import numpy as np
+
+    from repro_torch.core.strategies.resilience import FaultInjector
+    from repro_torch.runtime.fleet import ServingFleet, replica_factory
+    from repro_torch.runtime.server import ServerConfig, _step_counts
+
+    mcfg = server.woven.program.cfg
+    layers, n = mcfg.num_layers, server.cfg.decode_tokens
+    prompts, kw = continuous_traffic(mcfg)
+
+    def counted_factory(base, steps):
+        make = replica_factory(base.woven, ServerConfig(
+            max_cache_len=base.cfg.max_cache_len, decode_tokens=n,
+            page_size=kw["page_size"], max_batch=FLEET_MAX_BATCH, seed=0), params=base.params)
+
+        def replica():
+            srv = make()
+            serve = srv.serve_continuous
+
+            def counted(*a, **k):
+                out = serve(*a, **k)
+                for key, v in (srv.last_step_counts or {}).items():
+                    steps[key] += v
+                return out
+
+            srv.serve_continuous = counted
+            return srv
+
+        return replica
+
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in server.woven.program.model.parameters())
+    report, counted, outs = {}, {}, {}
+    for tag, fkw, inj, drain in (
+            ("f1_clean", {}, None, None),
+            # the loss lands mid-decode (every request of a replica's wave
+            # decodes at once, so the default kill_step, n - 1, would find
+            # them all done)
+            ("f2_replica_loss", {"kill_step": n // 2},
+             FaultInjector.single("replica_loss", "raise", at=1), None),
+            ("f3_drain", {}, None, 0)):
+        steps = _step_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        fleet = ServingFleet(counted_factory(server, steps), injector=inj, **FLEET, **fkw)
+        if drain is not None:
+            fleet.request_drain(drain)
+        with shapes:
+            out, wall, counts, routes = counted_serve(
+                torch, lambda: fleet.serve(prompts, decode_tokens=n))
+        peak = torch.cuda.max_memory_allocated()
+        st = fleet.last_fleet_stats
+        want, want_routes = expected_launches(steps, layers, False)
+        log(f"fleet {tag}: launches {counts}, expected {want} from steps {steps}")
+        if counts != want or any(routes[k] != v for k, v in want_routes.items()):
+            raise AssertionError(f"fleet {tag}: launches {counts} / routes {routes} != "
+                                 f"{want} / {want_routes}")
+        if st["outcomes"] != {"ok": len(prompts)}:
+            raise AssertionError(f"fleet {tag}: outcomes {st['outcomes']}")
+        servers = [r.server for r in fleet.replicas] + [r.server for r in fleet.spares]
+        # the fleet's own memory (pools, activations) on top of what was
+        # resident: less than one more copy of the weights
+        if any(s.params is not server.params for s in servers) \
+                or not peak - resident < weight_bytes:
+            raise AssertionError(f"fleet {tag}: a replica holds its own weights (peak "
+                                 f"{peak} bytes over {resident} resident, weights "
+                                 f"{weight_bytes})")
+        kinds = [e["kind"] for e in st["events"]]
+        report[tag] = {
+            "wall_s": wall, "peak_memory_gb": peak / 1e9,
+            "peak_over_resident_gb": (peak - resident) / 1e9,
+            "weights_gb": weight_bytes / 1e9,
+            "rounds": st["rounds"], "outcomes": st["outcomes"],
+            "redispatched": st["redispatched"], "affinity_hits": st["affinity_hits"],
+            "replicas_with_prefix_hits": st["replicas_with_prefix_hits"],
+            "event_kinds": kinds, "events": st["events"], "replicas": st["replicas"],
+            "launches": counts, "steps": dict(steps),
+            "replica_of_request": [o["replica"] for o in fleet.last_outcomes]}
+        outs[tag], counted[tag] = out, {**counts, **routes, "verify_launches": 0}
+    if not report["f1_clean"]["affinity_hits"] > 0:
+        raise AssertionError("fleet (f1): no request routed by prefix affinity")
+    f2 = report["f2_replica_loss"]
+    if not {"replica_loss", "declared_dead", "spare_in"} <= set(f2["event_kinds"]) \
+            or f2["redispatched"] < 1:
+        raise AssertionError(f"fleet (f2): events {f2['event_kinds']}, "
+                             f"{f2['redispatched']} re-dispatched")
+    drains = [e for e in report["f3_drain"]["events"] if e["kind"] == "drain"]
+    if not drains or drains[0]["host"] != 0 or drains[0]["handoff"] < 1:
+        raise AssertionError(f"fleet (f3): drain events {drains}")
+
+    # (f4): fp32 at a depth of 4, the fleet against one server, bit for bit;
+    # both serves under exact launch counts (routes unchecked in fp32, as in
+    # (q4))
+    with shapes:
+        single, _, counts, _ = counted_serve(torch, lambda: fsrv.serve_continuous(
+            prompts, max_batch=kw["max_batch"], page_size=kw["page_size"]))
+    want, _ = expected_launches(fsrv.last_step_counts, 4, False)
+    if counts != want:
+        raise AssertionError(f"fleet (f4) single server: launches {counts} != {want}")
+    steps = _step_counts()
+    fleet = ServingFleet(counted_factory(fsrv, steps), **FLEET)
+    with shapes:
+        fout, _, counts, _ = counted_serve(torch, lambda: fleet.serve(prompts, decode_tokens=n))
+    want, _ = expected_launches(steps, 4, False)
+    if counts != want:
+        raise AssertionError(f"fleet (f4): launches {counts} != {want} from steps {steps}")
+    same = all(np.array_equal(a, b) for a, b in zip(fout, single))
+    report["f4_fp32"] = {"outcomes": fleet.last_fleet_stats["outcomes"], "launches": counts,
+                         "bit_identical_to_single_server": same}
+    if not same or fleet.last_fleet_stats["outcomes"] != {"ok": len(prompts)}:
+        raise AssertionError(f"fleet (f4): {report['f4_fp32']}")
+    base = server.serve_continuous(prompts, max_batch=kw["max_batch"], page_size=kw["page_size"])
+    for tag in ("f1_clean", "f2_replica_loss", "f3_drain"):
+        report[tag]["token_agreement_vs_single_server"] = float(np.mean(
+            [(p == q).mean() for p, q in zip(outs[tag], base)]))
+    log("fleet " + json.dumps({"card": nvidia_smi_line(), "model": "yi-6b", "layers": layers,
+                               "requests": len(prompts), "runs": report}, default=str))
+    return counted
 
 
 def sharing_diagnostic(torch, server, prompts) -> dict:
@@ -2836,7 +3382,15 @@ def main() -> int:
     serve_counts, server = serve_phase(torch)
     cont = continuous_phase(torch, server)
     spec = speculative_phase(torch, server)
-    del server
+    shapes = DecodeShapes()
+    fsrv = fp32_depth4_server(server)
+    qos = qos_phase(torch, server, fsrv, shapes)
+    fleet = fleet_phase(torch, server, fsrv, shapes)
+    del server, fsrv
+    torch.cuda.empty_cache()
+    governed_cases = governed_shape_cases(torch, gen, shapes.shapes)
+    for c in governed_cases:
+        log("governed-shape-case " + json.dumps(c))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     rec = recurrent_phase(torch)
@@ -2855,6 +3409,8 @@ def main() -> int:
                 "continuous_a_bf16": a.get(key, 0), "continuous_c_int8": c.get(key, 0),
                 "speculative_s1_bf16": spec["s1_bf16_k2"].get(key, 0),
                 "speculative_s3_int8": spec["s3_int8_k2"].get(key, 0),
+                **{f"qos_{run}": qos[run].get(key, 0) for run in qos},
+                **{f"fleet_{run}": fleet[run].get(key, 0) for run in fleet},
                 "recurrentgemma_serve": rec["recurrentgemma-2b"].get(key, 0),
                 "rwkv6_serve": rec["rwkv6-3b"].get(key, 0),
                 "train_gemma_6_steps": train["launches_6_steps"].get(key, 0)}
@@ -2935,8 +3491,12 @@ def main() -> int:
         "flash_decode_verify", "src/repro_torch/csrc/flash_decode.cu",
         "src/repro/kernels/flash_attention/decode.py:454", verify,
         spec["s1_bf16_k2"]["verify_launches"],
-        {run: spec[run]["verify_launches"] for run in
-         ("s1_bf16_k2", "s2_bf16_k4", "s3_int8_k2")}))
+        {**{run: spec[run]["verify_launches"] for run in
+            ("s1_bf16_k2", "s2_bf16_k4", "s3_int8_k2")},
+         **{f"qos_{run}": qos[run]["verify_launches"] for run in qos}}))
+    # every K2 shape the governed and fleet runs launched, held against the
+    # plain version (`governed_shape_cases`)
+    kernels[1]["qos_fleet_shape_cases"] = governed_cases
     kernels[2]["library_ms_note"] = ("no single PyTorch call attends over an int8 "
                                      "paged pool")
     kernels[4]["library_ms_note"] = "no single PyTorch call computes a linear recurrence"

@@ -42,10 +42,11 @@ from repro_torch.core.weaver import Aspect, Weaver
 
 JOIN_POINTS = ("admit", "paged_prefill", "decode_step", "verify_step",
                "draft_step", "cow", "rollback", "retire")
-# fleet-level join points (the reference's runtime/fleet.ServingFleet, not
-# ported yet: ROADMAP Queue 1 item 8b): one routing decision, one replica
-# dispatch, one drain check.  Kept separate from JOIN_POINTS so the
-# within-replica fault sweep keeps its exact 8-point matrix.
+# fleet-level join points (runtime/fleet.ServingFleet): one routing
+# decision, one replica dispatch, one drain check — the injector drives the
+# kill-a-replica / SIGTERM-drain scenarios the same way it drives the
+# serving sweep.  Kept separate from JOIN_POINTS so the within-replica fault
+# sweep keeps its exact 8-point matrix.
 FLEET_JOIN_POINTS = ("route", "replica_loss", "drain")
 ALL_JOIN_POINTS = JOIN_POINTS + FLEET_JOIN_POINTS
 FAULT_KINDS = ("raise", "nan_logits", "pool_exhausted", "deadline")
@@ -264,9 +265,9 @@ class ResilienceAspect(Aspect):
         weaver.set_extra("serve_resilience", dict(self.policy))
 
 
-# default fleet recovery policy (the reference's runtime/fleet.ServingFleet
-# falls back to this when no FleetResilienceAspect was woven and the
-# constructor leaves the knobs unset; the fleet is ROADMAP Queue 1 item 8b)
+# default fleet recovery policy (runtime/fleet.ServingFleet falls back to
+# this when no FleetResilienceAspect was woven and the constructor leaves
+# the knobs unset)
 DEFAULT_FLEET_POLICY: dict[str, Any] = {
     "retries": 2,              # re-dispatches per request after replica loss
     "backoff_s": 0.0,          # base backoff before a re-dispatch (doubles)
@@ -280,13 +281,7 @@ DEFAULT_FLEET_POLICY: dict[str, Any] = {
 
 
 class FleetResilienceAspect(Aspect):
-    """Weave the fleet-level serving policy (the reference's
-    `runtime/fleet.ServingFleet`).
-
-    Copied with the rest of this module, but nothing in this package
-    reads the `fleet_injector` / `fleet_resilience` extras yet: the serving
-    fleet is ported with ROADMAP Queue 1 item 8b, and until then weaving
-    this aspect only records the policy.
+    """Weave the fleet-level serving policy (runtime/fleet.ServingFleet).
 
     The same AOP argument one level up: replica placement, prefix-affinity
     routing, replica-loss re-dispatch and graceful drain are extra-

@@ -13,14 +13,19 @@ Modes:
                   structured outcome;
   --stream        drive the `serve_stream` event loop directly, printing
                   per-token events with TTFT / inter-token latency columns
-                  (`--prefill-chunk` spreads long admissions over waves).
+                  (`--prefill-chunk` spreads long admissions over waves;
+                  `--slo-ttft-s` / `--slo-tok-s` serve under the QoS
+                  governor, each wave printing the operating point in force);
+  --fleet N       route the requests across N replicas of a `ServingFleet`
+                  (one woven program, one copy of the weights) and print
+                  each request's outcome and replica.
 
 `--continuous` and `--stream` serve the attention families only: for the
 recurrent ones (recurrentgemma-2b, rwkv6-3b) they exit with the server's
 refusal.  `--reduced` (the default) serves the small smoke configuration,
 `--full` the published one.  On the card the hand-written CUDA kernels are
-woven onto the attention, RMSNorm, RG-LRU and WKV joinpoints.  `--fleet` belongs to the fleet slice, which is
-not ported yet.
+woven onto the attention, RMSNorm, RG-LRU and WKV joinpoints.
+`python -m repro_torch.launch.fleet` drives the fleet's failure scenarios.
 """
 
 from __future__ import annotations
@@ -34,21 +39,25 @@ from repro_torch.configs.base import SHAPES
 from repro_torch.core.program import Program
 from repro_torch.launch.weave import cuda_kernel_aspects, default_weave
 from repro_torch.models.registry import ARCHS
+from repro_torch.runtime.fleet import ServingFleet, replica_factory
 from repro_torch.runtime.server import Server, ServerConfig
-
-_FLEET = "the multi-replica fleet arrives with the fleet slice"
 
 
 def _print_outcomes(outcomes) -> None:
     for o in outcomes:
-        print(f"  rid {o['rid']}: {o['status']:<18} tokens={o['tokens']}"
+        rep = f" replica={o['replica']}" if "replica" in o else ""
+        print(f"  rid {o['rid']}: {o['status']:<18} tokens={o['tokens']}{rep}"
               + (f"  ({o['reason']})" if o["reason"] else ""))
 
 
 def _stream(server: Server, prompts, args) -> None:
-    """Drive `serve_stream`, one line per event, then one per request."""
+    """Drive `serve_stream`, one line per event, then one per request.  An
+    SLO governs the serve under `DEFAULT_QOS_POLICY` and these SLOs."""
+    governed = args.slo_ttft_s is not None or args.slo_tok_s is not None
     gen = server.serve_stream(prompts, decode_tokens=args.decode_tokens,
-                              prefill_chunk=args.prefill_chunk)
+                              prefill_chunk=args.prefill_chunk,
+                              qos={} if governed else None,
+                              slo_ttft_s=args.slo_ttft_s, slo_tok_s=args.slo_tok_s)
     t_start = time.perf_counter()
     last_tok: dict[int, float] = {}
     print(f"{'wave':>5} {'event':<14} {'rid':>4} {'ttft_ms':>8} {'gap_ms':>7}  detail")
@@ -68,7 +77,7 @@ def _stream(server: Server, prompts, args) -> None:
             detail = f"token={ev['token']} index={ev['index']}"
         elif kind == "wave":
             detail = (f"batch={ev['batch']} emitted={ev['emitted']} "
-                      f"prefill_tokens={ev['prefill_tokens']}")
+                      f"prefill_tokens={ev['prefill_tokens']} op={ev['op']}")
         else:
             detail = " ".join(f"{k}={v}" for k, v in ev.items()
                               if k not in ("event", "wave", "t", "rid"))
@@ -80,15 +89,24 @@ def _stream(server: Server, prompts, args) -> None:
                   if o["tok_gap_max_s"] is not None else "-")
         print(f"  rid {o['rid']}: {o['status']:<18} tokens={o['tokens']} "
               f"ttft={ttft_ms} max_gap={gap_ms}")
+    q = server.last_qos_stats
+    if q is not None:
+        print(f"qos: {q['switches']} OP switch(es), {q['distinct_ops']} distinct OP(s), "
+              f"objective={q['objective']}, energy={q['energy_j']:.1f}J (modeled)")
+
+
+def build_woven(arch: str, *, reduced: bool, device: str):
+    """`Program.from_arch` -> `default_weave`, with the CUDA kernel aspects
+    on the card."""
+    program = Program.from_arch(arch, kind="serve", reduced=reduced, device=device)
+    extra = cuda_kernel_aspects() if program.device.type == "cuda" else None
+    return default_weave(program, SHAPES["prefill_32k"], {}, extra_aspects=extra)
 
 
 def build_server(arch: str, *, reduced: bool, device: str, cfg: ServerConfig) -> Server:
-    """`Program.from_arch` -> `default_weave` (+ the CUDA kernel aspects on
-    the card) -> `Server`: how every launcher of the port builds a server."""
-    program = Program.from_arch(arch, kind="serve", reduced=reduced, device=device)
-    extra = cuda_kernel_aspects() if program.device.type == "cuda" else None
-    woven = default_weave(program, SHAPES["prefill_32k"], {}, extra_aspects=extra)
-    return Server(woven, cfg)
+    """`build_woven` -> `Server`: how every launcher of the port builds a
+    server."""
+    return Server(build_woven(arch, reduced=reduced, device=device), cfg)
 
 
 def main(argv=None) -> int:
@@ -115,18 +133,35 @@ def main(argv=None) -> int:
                          "events with TTFT / inter-token latency")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="chunked-prefill tokens per wave (stream mode)")
-    ap.add_argument("--fleet", type=int, default=0, metavar="N", help=_FLEET)
+    ap.add_argument("--slo-ttft-s", type=float, default=None,
+                    help="TTFT SLO: serves under the QoS governor (stream mode)")
+    ap.add_argument("--slo-tok-s", type=float, default=None,
+                    help="inter-token SLO: serves under the QoS governor (stream mode)")
+    ap.add_argument("--fleet", type=int, default=0, metavar="N",
+                    help="route the requests across N fleet replicas "
+                         "(implies --continuous)")
     args = ap.parse_args(argv)
-    if args.fleet:
-        ap.exit(2, f"--fleet is not ported yet: {_FLEET}\n")
 
     cfg = ServerConfig(
         max_cache_len=args.prompt_len + args.decode_tokens + 1,
         decode_tokens=args.decode_tokens,
     )
+    rng = np.random.default_rng(0)
+    if args.fleet > 0:
+        woven = build_woven(args.arch, reduced=args.reduced, device=args.device)
+        prompts = [rng.integers(0, woven.program.cfg.vocab, args.prompt_len)
+                   .astype(np.int64) for _ in range(args.requests)]
+        fleet = ServingFleet(replica_factory(woven, cfg), replicas=args.fleet)
+        fleet.serve(prompts, decode_tokens=args.decode_tokens)
+        stats = fleet.last_fleet_stats
+        print(f"fleet of {args.fleet}: {stats['outcomes']} in {stats['rounds']} "
+              f"round(s); affinity hits {stats['affinity_hits']}; on "
+              f"{woven.program.device}")
+        _print_outcomes(fleet.last_outcomes)
+        return 0
+
     server = build_server(args.arch, reduced=args.reduced, device=args.device, cfg=cfg)
     vocab = server.woven.program.cfg.vocab
-    rng = np.random.default_rng(0)
 
     if args.stream or args.continuous or args.batch_serve:
         prompts = [rng.integers(0, vocab, args.prompt_len).astype(np.int64)

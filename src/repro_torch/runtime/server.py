@@ -14,15 +14,16 @@ Two serving paths:
     int8 / fp8 pool (`cache_dtype`), speculative decoding (a draft model's
     proposals scored by one widened-q verify step, the rejected tail rolled
     back) and the woven resilience layer (fault join points, retries,
-    quarantine, deadlines, pool audits, graceful drain).
+    quarantine, deadlines, pool audits, graceful drain) and the QoS
+    governor (`runtime/qos.QoSGovernor`: mARGOt re-selects max_batch,
+    prefill chunk, draft length and the modeled DVFS point as load shifts,
+    against TTFT / inter-token SLOs and a power budget).
 
 Both paths serve the dense family (yi-6b, gemma-2b); the recurrent families
 (recurrentgemma-2b's RG-LRU state, rwkv6-3b's WKV state) serve through
 `serve` / `serve_batch` only: their state is not paged, and `serve_stream` /
 `serve_continuous` refuse them with the reference's `ValueError` before a
-pool is allocated.  Not ported yet, and refused with `NotImplementedError`
-naming its ROADMAP Queue 1 item when a caller asks for it: the QoS
-governor and its SLOs (item 8b).
+pool is allocated.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ from repro_torch.runtime.pages import (
     cdiv,
     paged_compatible,
 )
+from repro_torch.runtime.qos import QoSGovernor
 from repro_torch.runtime.steps import (
     build_decode_step,
     build_paged_prefill_step,
@@ -61,8 +63,6 @@ from repro_torch.runtime.steps import (
     stack_request_caches,
 )
 from repro_torch.versioning.libvc import LibVC
-
-_QOS = "the QoS governor and its SLOs are not ported yet (ROADMAP Queue 1 item 8b)"
 
 
 def _step_counts() -> dict[str, int]:
@@ -105,8 +105,8 @@ class ServerConfig:
     pool_audit: bool | None = None
     # streaming (serve_stream): tokens of a long admission prefilled per
     # decode wave (0/None: one-shot admission), and the QoS governor's
-    # per-request latency SLOs (seconds; not ported yet: a value raises,
-    # ROADMAP Queue 1 item 8b)
+    # per-request latency SLOs (seconds), which override a governed
+    # serve's policy
     prefill_chunk: int | None = None
     slo_ttft_s: float | None = None
     slo_tok_s: float | None = None
@@ -116,12 +116,16 @@ class Server:
     def __init__(self, woven: WovenProgram, cfg: ServerConfig, *, mesh=None,
                  margot=None, broker: ExamonBroker | None = None,
                  memo: MemoTable | None = None, draft: "Server | None" = None,
-                 device: "str | torch.device | None" = None):
+                 device: "str | torch.device | None" = None,
+                 params: dict[str, Any] | None = None):
         """`device` defaults to the program's (the card unless the program
         was built for the CPU); a card that is absent raises.  `draft` is
         the server whose model drafts for speculative decoding (the
         registry's `draft_for` pairing, or any server on the same device);
-        None self-drafts when a draft length is asked for."""
+        None self-drafts when a draft length is asked for.  `params` is the
+        param tree of another server of the same woven program, on the same
+        device, to share (a fleet's replicas hold one copy of the weights);
+        None draws them from `cfg.seed`."""
         if mesh is not None:
             raise NotImplementedError(
                 "device meshes are not ported yet (a later slice)")
@@ -167,8 +171,8 @@ class Server:
         self.probe_vc = build("probe")
         self.paged_prefill_vc = build("paged_prefill")
         self.rescore_vc = build("rescore")
-        self.params = init_params(woven.program.model, cfg.seed,
-                                  woven.state.policies, self.device)
+        self.params = params if params is not None else init_params(
+            woven.program.model, cfg.seed, woven.state.policies, self.device)
         self.served = 0
         # latency histories are sliding windows (deques), not unbounded lists
         self.history_window = 4096
@@ -179,6 +183,7 @@ class Server:
         self.last_spec_stats: dict[str, Any] | None = None  # speculative serve
         self.last_fault_stats: dict[str, Any] | None = None  # resilience layer
         self.last_outcomes: list[dict[str, Any]] | None = None  # per request
+        self.last_qos_stats: dict[str, Any] | None = None  # QoS governor
         # model calls of the last serve_stream, by kind: what its kernel
         # launches follow from
         self.last_step_counts: dict[str, int] | None = None
@@ -526,9 +531,8 @@ class Server:
         length == target accepted length at round start) by replaying the
         target's emitted tokens through the draft cache.  Static-k serves
         never need this — rollback keeps both pools in sync — but a draft
-        length lowered to 0 for some waves (the QoS governor's knob, a
-        later slice) leaves the draft behind by the tokens those plain
-        waves emitted."""
+        length lowered to 0 for some waves (the QoS governor's knob) leaves
+        the draft behind by the tokens those plain waves emitted."""
         for r in rids:
             dlen = int(dmanager._meta[r]["length"])
             tgt = int(active[r]["pos"])
@@ -545,18 +549,43 @@ class Server:
                 dmanager.absorb([r], dnew)
                 dlen += 1
 
-    def _check_later_slices(self, state, *, qos, slo_ttft_s, slo_tok_s) -> None:
-        """Refuse, by name, every option of a layer that is not ported yet —
-        nothing a caller asks for is silently ignored."""
-        asked = {
-            "qos": (qos not in (None, False) or state.extra.get("qos_governor") is not None
-                    or state.extra.get("serve_qos") is not None),
-            "slo": (slo_ttft_s, slo_tok_s, self.cfg.slo_ttft_s,
-                    self.cfg.slo_tok_s) != (None,) * 4,
-        }
-        named = [name for name, on in asked.items() if on]
-        if named:
-            raise NotImplementedError(f"{', '.join(named)}: {_QOS}")
+    def _qos_governor(self, state, qos, slo_ttft_s=None, slo_tok_s=None):
+        """Resolve the serving QoS control plane: an explicit QoSGovernor
+        (or policy dict) argument wins, then a woven `qos_governor`
+        instance, then the woven `serve_qos` policy (QoSAspect); `False`
+        forces it off.  ServerConfig / argument SLOs override the policy's
+        before the governor is built."""
+        if qos is False:
+            return None
+        if isinstance(qos, QoSGovernor):
+            return qos
+        if qos is None:
+            gov = state.extra.get("qos_governor")
+            if gov is not None:
+                return gov
+        pol = qos if isinstance(qos, dict) else state.extra.get("serve_qos")
+        if pol is None:
+            return None
+        pol = dict(pol)
+        for key, val in (("slo_ttft_s", self.cfg.slo_ttft_s),
+                         ("slo_tok_s", self.cfg.slo_tok_s),
+                         ("slo_ttft_s", slo_ttft_s), ("slo_tok_s", slo_tok_s)):
+            if val is not None:
+                pol[key] = float(val)
+        if not pol.get("enabled", True):
+            return None
+        return QoSGovernor(pol, broker=self.broker)
+
+    def _qos_enabled(self, qos) -> bool:
+        """Cheap pre-check (no governor construction) used by the memo
+        gate: would serve_stream run under a QoS control plane?"""
+        if qos is False:
+            return False
+        if qos is not None:
+            return True
+        extra = self.woven.state.extra
+        return extra.get("qos_governor") is not None \
+            or extra.get("serve_qos") is not None
 
     def serve_continuous(self, prompts: list[np.ndarray], *,
                          decode_tokens: int | None = None,
@@ -590,9 +619,8 @@ class Server:
         splits it copy-on-write), and finished requests retire at once.
         Greedy decode, equal per request to `serve` / `serve_batch` wherever
         the matrix products do not depend on the batch (exactly so on the
-        CPU).  Speculative decoding, the resilience layer and graceful
-        drain are `serve_stream`'s; the QoS options raise
-        `NotImplementedError`."""
+        CPU).  Speculative decoding, the resilience layer, graceful drain
+        and the QoS governor are `serve_stream`'s."""
         if not prompts:
             return []
         n = decode_tokens or self.cfg.decode_tokens
@@ -605,9 +633,10 @@ class Server:
         if cache_dtype:  # quantized pools emit different (clipped) logits
             key = key + (("cache_dtype", cache_dtype),)
         # armed fault injection, deadline policies and preemption make a
-        # serve non-reproducible from its prompt key alone; chunked and
-        # arrival-clocked serves keep token parity but carry per-wave stats
-        # a memo hit would skip: all of them bypass the table
+        # serve non-reproducible from its prompt key alone; chunked,
+        # governed and arrival-clocked serves keep token parity but carry
+        # per-wave stats and governor state a memo hit would skip: all of
+        # them bypass the table
         pre_inj = fault_injector if fault_injector is not None \
             else self.woven.state.extra.get("fault_injector")
         pre_deadline = deadline_s if deadline_s is not None \
@@ -616,7 +645,8 @@ class Server:
             else self.cfg.prefill_chunk
         memo_ok = (pre_inj is None or not pre_inj.armed) \
             and pre_deadline is None and preemption is None \
-            and not chunk_pre and arrival_waves is None
+            and not chunk_pre and arrival_waves is None \
+            and not self._qos_enabled(qos)
         if memo_ok and self.memo is not None and self.memo.running:
             hit, out = self.memo.lookup(key)
             if hit:
@@ -628,6 +658,7 @@ class Server:
                 self.last_fault_stats = None
                 self.last_outcomes = None
                 self.last_step_counts = None
+                self.last_qos_stats = None
                 return out
         gen = self.serve_stream(
             prompts, decode_tokens=n, page_size=page_size,
@@ -686,7 +717,10 @@ class Server:
           {"event": "token",  "rid": r, "token": t, "index": i}
           {"event": "outcome","rid": r, "status": s, "reason": ..., "tokens": n}
           {"event": "wave",   "batch": B, "dt_s": dt, "emitted": e,
-           "prefill_tokens": p, "k": k_eff, "op": None}
+           "prefill_tokens": p, "k": k_eff, "op": o}
+
+        (`o` is the operating point in force under the QoS governor —
+        max_batch, chunk, k, freq — and None on an ungoverned serve.)
 
         Chunked prefill (`prefill_chunk` > 0, or ServerConfig's): a long
         admission reserves its block table up front, then prefills one
@@ -732,10 +766,23 @@ class Server:
         admitted; in-flight requests finish their decode, and the waiting
         queue returns structured `drained` outcomes.
 
+        QoS (`qos`, a QoSGovernor or a policy dict; else a woven QoSAspect;
+        `qos=False` forces it off; `slo_ttft_s` / `slo_tok_s`, or
+        ServerConfig's, override the policy's SLOs): every
+        `reselect_every` waves the governor re-plans the operating point
+        for the current load — `max_batch` (clamped to the serve's own),
+        `prefill_chunk` (unless the caller fixed one), `draft_len` (the
+        verify slack and the draft pool are sized for the grid's largest,
+        and a draft left behind by plain waves is replayed before the next
+        verify round) and the modeled `freq`.  Knob moves change only
+        scheduling: every emitted token is still a target argmax.  Each
+        wave's latency is observed (`observe_wave`), each first token's
+        TTFT too; `last_qos_stats` holds the governor's `stats()` and every
+        `wave` event carries the operating point in force as `op`.
+
         `last_pool_stats`, `last_spec_stats`, `last_fault_stats`,
-        `last_step_counts` and `decode_step_latencies` describe the serve.
-        The QoS governor and its SLOs (ROADMAP Queue 1 item 8b) raise
-        `NotImplementedError`.
+        `last_qos_stats`, `last_step_counts` and `decode_step_latencies`
+        describe the serve.
         """
         if not prompts:
             return []
@@ -745,8 +792,6 @@ class Server:
         variant = self._begin()
         state = self.woven.variant_state(
             None if variant in (None, "__default__") else variant)
-        self._check_later_slices(state, qos=qos, slo_ttft_s=slo_ttft_s,
-                                 slo_tok_s=slo_tok_s)
         ps = page_size or self._page_size(state)
         cache_dtype = self._cache_dtype(state)
         res = self._resilience(state)
@@ -756,18 +801,26 @@ class Server:
             res["pool_audit"] = bool(pool_audit)
         inj = fault_injector if fault_injector is not None \
             else state.extra.get("fault_injector")
-        chunk = int((prefill_chunk if prefill_chunk is not None
-                     else self.cfg.prefill_chunk) or 0)
+        gov = self._qos_governor(state, qos, slo_ttft_s, slo_tok_s)
+        # chunked prefill: explicit argument, then ServerConfig, then the
+        # governor's prefill_chunk knob (0/None: one-shot admission)
+        chunk_cfg = prefill_chunk if prefill_chunk is not None \
+            else self.cfg.prefill_chunk
 
         if k is None:
             k = int(state.extra.get("speculative_draft_len", 0) or 0)
         k = max(0, int(k))
+        # the governor may raise draft_len at runtime: reserve verify slack
+        # (and size the draft pool) for the largest knob value
+        k_max = k
+        if gov is not None:
+            k_max = max([k] + [int(v) for v in gov.knob_values("draft_len")])
 
         lengths = [int(np.asarray(p).reshape(-1).shape[0]) for p in prompts]
         # speculative verify steps write up to k slots past the accepted
         # length before rolling back — reserve that slack at admission so
         # draft-block writes can never outrun the block table
-        finals = [min(S + n - 1 + k, self.cfg.max_cache_len) for S in lengths]
+        finals = [min(S + n - 1 + k_max, self.cfg.max_cache_len) for S in lengths]
         max_batch = max_batch or self.cfg.max_batch or len(prompts)
         pool_pages = pool_pages or self.cfg.pool_pages \
             or max(sum(cdiv(f, ps) for f in finals), 1)
@@ -782,7 +835,7 @@ class Server:
 
         draft_srv = draft or self.draft or self  # self-speculation default
         dmanager: PagedCacheManager | None = None
-        if k:
+        if k_max:
             # the draft keeps its own (unshared) page pool with the same
             # continuous-batching dynamics; sized for full concurrency so a
             # draft admission can never fail behind a target admission
@@ -818,6 +871,10 @@ class Server:
                  "proposed": 0, "accepted": 0, "emitted_spec": 0,
                  "draft_steps": 0, "verify_steps": 0, "decode_steps": 0}
         grouped = {"admissions": 0}  # identical-prompt shared re-scores
+        # the live operating point: base values from the arguments / config,
+        # re-selected by the governor as load shifts (closures read this)
+        knobs = {"max_batch": max_batch, "chunk": int(chunk_cfg or 0),
+                 "k": k, "freq": 1.0}
 
         evq: list[dict] = []
         wave = 0
@@ -841,6 +898,8 @@ class Server:
             m["tok_t"].append(m["first_t"])
             wavestat["emitted"] += 1
             _emit("token", rid=rid, token=tok, index=0)
+            if gov is not None:
+                gov.observe("ttft_s", m["first_t"] - m["arrive_t"])
 
         # -- resilience machinery ---------------------------------------------
         # every fault the policy can absorb lands in `outcome` / `actions`
@@ -991,6 +1050,7 @@ class Server:
                     grouped["admissions"] += 1
             cont = None
             if tok is None:
+                chunk = int(knobs["chunk"] or 0)
                 if chunk > 0:
                     tok, cont = self._paged_admit_chunked(
                         manager, rid, prompts[rid], finals[rid], variant,
@@ -1015,7 +1075,7 @@ class Server:
                 # pools evict on write, which breaks the widened-q verify
                 # mask — speculation runs on linear pools only
                 spec["checked"] = True
-                spec["on"] = bool(k) and not manager._ring_pool()
+                spec["on"] = bool(k_max) and not manager._ring_pool()
             if spec["on"]:
                 # the draft admits in lockstep (its length must equal the
                 # target's accepted length at every round start); a draft
@@ -1042,8 +1102,8 @@ class Server:
 
         def admit_ready() -> None:
             # chunked prefills in flight hold reserved pages and will join
-            # the decode batch: max_batch bounds active + prefilling
-            while waiting and len(active) + len(prefilling) < max_batch:
+            # the decode batch: the max_batch knob bounds active + prefilling
+            while waiting and len(active) + len(prefilling) < int(knobs["max_batch"]):
                 rid = None
                 if manager.prefix_sharing and len(waiting) > 1:
                     # prefix-aware admission: a sharer queued behind a
@@ -1072,7 +1132,7 @@ class Server:
                 base = np.asarray(prompts[rid], np.int64).reshape(-1)
                 for cand in [c for c in waiting if np.array_equal(
                         np.asarray(prompts[c], np.int64).reshape(-1), base)]:
-                    if len(active) + len(prefilling) >= max_batch \
+                    if len(active) + len(prefilling) >= int(knobs["max_batch"]) \
                             or not manager.can_admit(finals[cand],
                                                      tokens=prompts[cand]):
                         break
@@ -1130,6 +1190,20 @@ class Server:
                     arrived = True
                 if arrived:
                     _admit_or_drain()
+            # the governor re-selects the serving operating point as load
+            # shifts (every reselect_every waves); knob moves only change
+            # scheduling — every emitted token stays a target argmax
+            if gov is not None and wave % gov.reselect_every == 0:
+                op = gov.decide(wave=wave, waiting=len(waiting) + len(pending),
+                                active=len(active) + len(prefilling))
+                v = op.get("max_batch")
+                knobs["max_batch"] = min(max_batch, int(v)) if v else max_batch
+                if chunk_cfg is None and op.get("prefill_chunk") is not None:
+                    knobs["chunk"] = int(op["prefill_chunk"])
+                if op.get("draft_len") is not None:
+                    knobs["k"] = min(k_max, int(op["draft_len"]))
+                if op.get("freq") is not None:
+                    knobs["freq"] = float(op["freq"])
             if wave == 0:
                 _admit_or_drain()
             # preemption arriving mid-serve drains the queue at the next
@@ -1218,13 +1292,13 @@ class Server:
             rids = list(active)
             # a verify round writes k+1 slots per request; past the final_len
             # clamp (cache capacity) the round falls back to plain decode
-            k_eff = k if spec["on"] else 0
+            k_eff = int(knobs["k"]) if spec["on"] else 0
             S = k_eff + 1 if (k_eff and all(
                 active[r]["pos"] + k_eff + 1 <= finals[r] for r in rids)) else 1
 
             if S > 1:
                 # a draft left behind the target's accepted length (plain
-                # waves of a variable draft length) catches up first;
+                # waves of a governed draft length) catches up first;
                 # static-k serves never enter the replay loop
                 try:
                     self._draft_sync(draft_srv, dmanager, rids, active,
@@ -1416,12 +1490,20 @@ class Server:
                 if hit_nan:
                     _audit()
 
-            # wave boundary: one "wave" event carries the batch shape and
-            # this wave's emission / prefill work
-            _emit("wave", batch=len(rids), dt_s=time.perf_counter() - t_wave,
+            # wave boundary: one "wave" event carries the batch shape, the
+            # operating point in force and this wave's emission / prefill
+            # work; the governor observes the same numbers
+            dt_wave = time.perf_counter() - t_wave
+            _emit("wave", batch=len(rids), dt_s=dt_wave,
                   emitted=wavestat["emitted"],
                   prefill_tokens=wavestat["prefill_tokens"],
-                  k=(k_eff if S > 1 else 0), op=None)
+                  k=(k_eff if S > 1 else 0),
+                  op=(dict(knobs) if gov is not None else None))
+            if gov is not None:
+                gov.observe_wave(dt_wave, batch=len(rids),
+                                 emitted=wavestat["emitted"],
+                                 prefill_tokens=wavestat["prefill_tokens"],
+                                 wave=wave)
             wave += 1
 
         if aborted is not None:
@@ -1453,7 +1535,7 @@ class Server:
         self.last_step_counts = dict(self._steps)
         if draft_srv is not self:
             draft_srv.last_step_counts = dict(draft_srv._steps)
-        if k:
+        if k_max:
             p = stats["proposed"]
             stats["acceptance"] = stats["accepted"] / p if p else 0.0
             stats["mean_tokens_per_verify"] = (
@@ -1476,6 +1558,7 @@ class Server:
                                  "injected_events": injected,
                                  "actions": actions,
                                  "outcomes": by_status, **fstats}
+        self.last_qos_stats = gov.stats() if gov is not None else None
 
         def _outcome_row(r):
             m = rq[r]

@@ -11,7 +11,8 @@ reference's outputs are computed once per module.
 Inside the port, held exactly: stream == continuous == batch, shared ==
 unshared (int8 too), chunked == one-shot, logical-clock arrivals, the
 admission-control and copy-on-write cases of `tests/test_paged_serving.py`,
-and every option of a later slice raises `NotImplementedError` naming it."""
+and every serving option (speculative, resilience, QoS) serves the same
+tokens."""
 
 import dataclasses
 
@@ -372,17 +373,35 @@ def test_paged_prefill_and_decode_logits_equal_dense():
     (dict(qos={}, slo_ttft_s=0.5), "item 8b"),
 ])
 def test_options_of_later_slices_raise(srv, kw, item):
-    """Only the QoS governor and its SLOs are refused now (speculative
-    decoding and the resilience layer are ported: their options serve)."""
-    with pytest.raises(NotImplementedError, match=item):
-        srv.serve_continuous(SMALL, page_size=8, **kw)
+    """The QoS options (ROADMAP Queue 1 `item`, the last of the serving
+    options to be ported) serve the ungoverned tokens.  As in the
+    reference, a policy dict governs the serve (`last_qos_stats` set); an
+    SLO alone or `qos=True` names no policy, so the serve runs ungoverned
+    (and bypasses the memo table all the same)."""
+    base = srv.serve_continuous(SMALL, page_size=8)
+    for a, b in zip(base, srv.serve_continuous(SMALL, page_size=8, **kw)):
+        np.testing.assert_array_equal(a, b)
+    assert all(o["status"] == "ok" for o in srv.last_outcomes)
+    governed = isinstance(kw.get("qos"), dict)
+    assert (srv.last_qos_stats is not None) == governed
+    if governed:
+        assert srv.last_qos_stats["waves"] > 0 and srv.last_qos_stats["op_history"]
 
 
 @pytest.mark.parametrize("extra", ["serve_qos", "qos_governor"])
 def test_woven_qos_extras_raise(extra):
-    srv = _server(woven_extra={extra: {}})
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        srv.serve_continuous(SMALL, page_size=8)
+    """A woven policy (`serve_qos`) or governor instance (`qos_governor`)
+    governs a serve that names no QoS option, with the ungoverned tokens."""
+    from repro_torch.runtime.qos import QoSGovernor
+
+    value = {} if extra == "serve_qos" else QoSGovernor({})
+    srv = _server(woven_extra={extra: value})
+    base = _server().serve_continuous(SMALL, page_size=8)
+    for a, b in zip(base, srv.serve_continuous(SMALL, page_size=8)):
+        np.testing.assert_array_equal(a, b)
+    assert srv.last_qos_stats is not None and srv.last_qos_stats["waves"] > 0
+    if extra == "qos_governor":
+        assert srv.last_qos_stats["waves"] == value.waves
 
 
 @pytest.mark.parametrize("kw", [
@@ -406,9 +425,16 @@ def test_options_of_ported_slices_serve(srv, kw):
     ("slo_ttft_s", 0.5, "item 8b"), ("slo_tok_s", 0.1, "item 8b"),
 ])
 def test_config_fields_of_later_slices_raise(field, value, item):
+    """ServerConfig's SLOs (ported with ROADMAP Queue 1 `item`) override a
+    governed serve's policy; the serve gives the ungoverned tokens."""
     srv = _server(**{field: value})
-    with pytest.raises(NotImplementedError, match=item):
-        _drain(srv.serve_stream(SMALL, page_size=8))
+    base = _server().serve_continuous(SMALL, page_size=8)
+    for a, b in zip(base, _drain(srv.serve_stream(SMALL, page_size=8, qos={}))):
+        np.testing.assert_array_equal(a, b)
+    assert srv.last_qos_stats is not None
+    gov = srv._qos_governor(srv.woven.state, {})
+    assert gov.policy[field] == value
+    assert [g.value for g in gov.margot.states["throughput"].constraints] == [value]
 
 
 @pytest.mark.parametrize("field,value", [

@@ -167,7 +167,8 @@ def test_launcher_cli_on_cpu(capsys):
     assert "served 2 on cpu" in out and "batched wave: 3 request(s)" in out
     assert "continuous wave: 3 request(s)" in out
     assert " token " in out and out.count(": ok ") == 5
-    with pytest.raises(SystemExit) as exc:
-        launcher.main(["--device", "cpu", "--fleet", "2"])
-    assert exc.value.code == 2
-    assert "not ported yet" in capsys.readouterr().err
+    assert launcher.main(["--device", "cpu", "--fleet", "2", "--requests", "3",
+                          "--prompt-len", "6", "--decode-tokens", "3"]) == 0
+    out = capsys.readouterr().out
+    assert "fleet of 2: {'ok': 3}" in out and out.count(": ok ") == 3
+    assert "replica=0" in out and "replica=1" in out

@@ -93,6 +93,31 @@ class TestTraining:
         assert t.libvc.dispatch_counts == {"__default__": 3}
 
 
+class TestVariantSwitching:
+    def test_libvc_variant_switch_in_trainer(self):
+        """`tests/test_system.py::TestVariantSwitching` on the port: a
+        low-precision version woven beside the default and a `Multiversion`
+        knob over both; the trainer's libVC dispatches either by name, each
+        giving a finite loss."""
+        from repro_torch.core.strategies.precision import CreateLowPrecVersion
+        from repro_torch.core.strategies.versioning import Multiversion
+
+        program = Program.from_arch("yi-6b", kind="train", reduced=True, device="cpu")
+        woven = default_weave(
+            program, SHAPES["train_4k"], {}, overrides={"accum_steps": 1},
+            extra_aspects=[CreateLowPrecVersion("*", "half", "_f"), Multiversion("version")])
+        assert woven.knobs["version"].values == ("__default__", "f")
+        pipeline = TokenPipeline(PipelineConfig(
+            vocab=program.cfg.vocab, seq_len=16, global_batch=4))
+        trainer = Trainer(woven, pipeline, TrainerConfig(steps=2, log_every=0))
+        trainer.init_state()
+        batch = trainer._batch()
+        p1, o1, m1 = trainer.libvc(None, trainer.params, trainer.opt_state, batch, 0)
+        p2, o2, m2 = trainer.libvc("f", p1, o1, batch, 0)
+        assert np.isfinite(float(m1["loss"])) and np.isfinite(float(m2["loss"]))
+        assert set(trainer.libvc.versions) == {"__default__", "f"}
+
+
 class TestMonitoringIntegration:
     def test_sensors_publish_during_training(self):
         broker = ExamonBroker()
