@@ -77,7 +77,13 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    (`fleet_phase`: clean, a replica lost mid-decode, a drain, fp32 at a
    depth of 4 bit for bit one server), exact launch counts in every run;
    every K2 shape those runs launched is held against its plain version
-   (`governed_shape_cases`);
+   (`governed_shape_cases`); then serves mixtral-8x22b (MoE, sliding window
+   4096: a linear and a ring page pool), grok-1-314b (MoE, soft-cap),
+   qwen2-72b and nemotron-4-340b (head_dim 192) at their published widths
+   and the depth one card holds through `serve_continuous`, with exact
+   launch counts, MoE's refusal of sharing, chunking and speculation, the
+   ring pool's page bound and the logit gate against the plain path
+   (`families_phase`; its K1 / K2 shapes are cases of step 3);
 7. serves full-width, full-depth recurrentgemma-2b (RG-LRU kernel K5, and
    the attention and RMSNorm kernels over its local-attention rings) and
    rwkv6-3b (WKV kernel K6) through `serve` and `serve_batch`, with exact
@@ -330,6 +336,21 @@ def rmsnorm_cases(torch, gen):
     return cases
 
 
+def by_kv_head(fn):
+    """`fn` (an attention of q (B, S, H, D) over K / V (B, T, K, D)) taken one
+    KV head and its q group at a time, the outputs joined on the head axis:
+    the same function in 1/K of the plain version's memory (mixtral's
+    6000-token prompt holds 13.8 GB of float64 scores over all 48 heads)."""
+    import torch
+
+    def run(q, k, v, **kw):
+        G = q.shape[2] // k.shape[2]
+        return torch.cat([fn(q[:, :, g * G:(g + 1) * G], k[:, :, g:g + 1], v[:, :, g:g + 1],
+                             **kw) for g in range(k.shape[2])], dim=2)
+
+    return run
+
+
 def prefill_cases(torch, gen):
     import torch.nn.functional as F
 
@@ -351,15 +372,26 @@ def prefill_cases(torch, gen):
         # the int8 pool's first prefill: bf16 q over the dequantized fp32 K/V
         ("fp32_kv_S1024_bf16", 1024, 32, 4, 128, (torch.bfloat16, torch.float32), {},
          BF16_TOL, False),
+        # the families phase's admissions: mixtral's longest prompt past its
+        # 4096-token window (G = 6), grok's soft-cap at its longest prompt,
+        # nemotron's G = 12 at head_dim 192 (the D-256 instantiation, 64
+        # columns of padding)
+        ("mixtral_S6000_H48_K8_D128_w4096_bf16", 6000, 48, 8, 128, torch.bfloat16,
+         dict(window=4096), BF16_TOL, False),
+        ("grok_S2000_H48_K8_D128_softcap30_bf16", 2000, 48, 8, 128, torch.bfloat16,
+         dict(softcap=30.0), BF16_TOL, False),
+        ("nemotron_S2000_H96_K8_D192_bf16", 2000, 96, 8, 192, torch.bfloat16, {}, BF16_TOL,
+         False),
     ]:
         dtype, kv_dtype = dtype if isinstance(dtype, tuple) else (dtype, dtype)
+        ref = by_kv_head(attention_ref) if S * S * H > 1e9 else attention_ref
         q = torch.randn((1, S, H, D), generator=gen, device="cuda").to(dtype)
         k = torch.randn((1, S, K, D), generator=gen, device="cuda").to(kv_dtype)
         v = torch.randn((1, S, K, D), generator=gen, device="cuda").to(kv_dtype)
         ref_kw = {a: b for a, b in kw.items() if a != "pruned"}
         got = flash_attention(q, k, v, causal=True, **kw)
-        want = exact(attention_ref, (q, k, v), causal=True, **ref_kw)
-        plain_out = attention_ref(q, k, v, causal=True, **ref_kw)
+        want = exact(ref, (q, k, v), causal=True, **ref_kw)
+        plain_out = ref(q, k, v, causal=True, **ref_kw)
         torch.cuda.synchronize()
         err, rms = check_exact(torch, name, got, want, tol)
         # printed beside: against the fp32 plain version, and that version's
@@ -368,7 +400,7 @@ def prefill_cases(torch, gen):
         plain_err = exact_error(torch, plain_out, want)[0]
         del want, plain_out
         ms = time_ms(torch, [lambda: flash_attention(q, k, v, causal=True, **kw)], 5)
-        plain = time_ms(torch, [lambda: attention_ref(q, k, v, causal=True, **ref_kw)], 3)
+        plain = time_ms(torch, [lambda: ref(q, k, v, causal=True, **ref_kw)], 3)
         lib = None
         # one library call; it has no softcap and takes one dtype
         if "softcap" not in kw and kv_dtype == dtype:
@@ -530,6 +562,70 @@ def decode_cases(torch, gen):
     cases.append(dict(case=name, main=False, max_abs_err=err, ref_rms=rms, ms=ms, plain_ms=None,
                       bound_ms=None, bound_by=None, library_ms=None,
                       bitwise_equal_to_dense=True, **extra))
+
+    # the families phase's decode steps, each over a page pool of 128 (shuffled
+    # tables, dead pages poisoned) and bit for bit the dense layout of the
+    # same slots (the paged == stacked identity): mixtral's ring pool past
+    # its 4096-token window (K2's paged ring mode) and its linear pool under
+    # the window, grok's soft-cap, nemotron's G = 12 at head_dim 192 (the
+    # D-256 instantiation)
+    B4 = 4
+    for name, idx, Tc, window, softcap, (Hc, Kc, Dc) in [
+        ("mixtral_paged_ring_B4_W4096_H48_K8_D128_bf16", [4500, 5000, 5500, 6000], 4096,
+         None, None, (48, 8, 128)),
+        ("mixtral_paged_window4096_B4_T4096_H48_K8_D128_bf16", [1000, 1700, 2300, 3000], 4096,
+         4096, None, (48, 8, 128)),
+        ("grok_paged_softcap30_B4_T2048_H48_K8_D128_bf16", [512, 1000, 1500, 2030], 2048,
+         None, 30.0, (48, 8, 128)),
+        ("nemotron_paged_B4_T2048_H96_K8_D192_bf16", [512, 1000, 1500, 2030], 2048, None,
+         None, (96, 8, 192)),
+    ]:
+        q, k, v = make(B4, 1, Tc, Hc, Kc, Dc, torch.bfloat16)
+        index = torch.tensor(idx, dtype=torch.int32, device="cuda")
+        pk, pv, tables = poisoned_pool(torch, gen, k, v, idx, 128, window, 1)
+        kw = dict(window=window, softcap=softcap)
+        paged = flash_decode(q, pk, pv, index, tables=tables, kv_len=Tc, **kw)
+        torch.cuda.synchronize()
+        extra = split_gates(
+            torch, name, paged,
+            lambda: flash_decode(q, pk, pv, index, tables=tables, kv_len=Tc, **kw),
+            lambda b: flash_decode(q[b:b + 1], pk, pv, index[b:b + 1], tables=tables[b:b + 1],
+                                   kv_len=Tc, **kw), idx)
+        dense = flash_decode(q, k, v, index, **kw)
+        torch.cuda.synchronize()
+        if not torch.isfinite(paged).all():
+            raise AssertionError(f"{name}: a dead page reached the output")
+        if not torch.equal(dense, paged):
+            raise AssertionError(f"{name}: paged output differs from the dense layout's")
+        want = decode_ref(q, pk, pv, index, tables=tables, kv_len=Tc, **kw)
+        err, rms = check_close(torch, name, paged, want, BF16_TOL)
+        ms = time_ms(torch, [lambda: flash_decode(q, pk, pv, index, tables=tables, kv_len=Tc,
+                                                  **kw)], 20, graph=True)
+        plain = time_ms(torch, [lambda: decode_ref(q, pk, pv, index, tables=tables, kv_len=Tc,
+                                                   **kw)], 2)
+        lib = None
+        if softcap is None:  # one library call over the dense slots, mask prebuilt
+            G = Hc // Kc
+            last = index[:, None, None, None]
+            kp = torch.arange(Tc, device="cuda")
+            mask = kp < (last + 1).clamp(1, Tc)
+            if window is not None:
+                mask = mask & (kp > last - window)
+            kt = k.transpose(1, 2).repeat_interleave(G, dim=1)
+            vt = v.transpose(1, 2).repeat_interleave(G, dim=1)
+            qt = q.transpose(1, 2)
+            lib = time_ms(torch, [lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask)], 10, graph=True)
+            del kt, vt
+        slots = live_slots(idx, 1, Tc, window)
+        nbytes = (slots * Kc * Dc * 2 + 2 * q.numel()) * q.element_size()
+        b_ms, b_by = bound(nbytes, 4.0 * Dc * slots * Hc, "bf16")
+        cases.append(dict(case=name, main=False, max_abs_err=err, ref_rms=rms, ms=ms,
+                          plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                          gb_s=nbytes / ms / 1e6, bitwise_equal_to_dense=True, **extra,
+                          **({} if lib is not None else {
+                              "library_ms_note": "no single PyTorch call soft-caps scores"})))
+        del pk, pv
     return cases
 
 
@@ -1558,13 +1654,15 @@ def counted_serve(torch, fn):
     return out, wall, counts, route_counts()
 
 
-def expected_launches(st: dict, layers: int, quantized: bool) -> tuple[dict, dict]:
+def expected_launches(st: dict, layers: int, quantized: bool,
+                      rmsnorm: bool = True) -> tuple[dict, dict]:
     """The launches and routes a paged serve's model calls (`st`,
     `Server.last_step_counts`) must give: K1 for the probes and, over a bf16
     pool, the first prefills; K2's widened mode for suffix prefills, verify
     steps and an int8 pool's first prefills (over its codes); K2's split
     route for decode, re-score and draft steps; RMSNorm twice a layer and
-    once at the end of every call; nothing on an FMA body."""
+    once at the end of every call (none where the model's norm is a
+    LayerNorm, `rmsnorm=False`); nothing on an FMA body."""
     calls = sum(st.values())
     first = layers * st["prefill"]
     k2 = layers * (st["decode"] + st["suffix_prefill"] + st["rescore"] + st["verify"]
@@ -1572,7 +1670,7 @@ def expected_launches(st: dict, layers: int, quantized: bool) -> tuple[dict, dic
     want = {"flash_attention": layers * st["probe"] + (0 if quantized else first),
             "flash_decode": k2 + (first if quantized else 0),
             "flash_decode_quantized": k2 + first if quantized else 0,
-            "rmsnorm": (2 * layers + 1) * calls}
+            "rmsnorm": (2 * layers + 1) * calls if rmsnorm else 0}
     routes = {"flash_attention_tc": want["flash_attention"], "flash_attention_fma": 0,
               "flash_decode_tc": layers * (st["suffix_prefill"] + st["verify"])
               + (first if quantized else 0),
@@ -1594,7 +1692,8 @@ def check_paged_run(server, phase, tag, prompts, out, counts, routes, quantized)
             raise AssertionError(f"{phase} {tag}: tokens of the wrong shape or range")
     st = server.last_step_counts
     # a quantized pool's first prefills attend over its codes through K2
-    want, want_routes = expected_launches(st, mcfg.num_layers, quantized)
+    want, want_routes = expected_launches(st, mcfg.num_layers, quantized,
+                                          mcfg.norm_type != "layernorm")
     log(f"{phase} {tag}: launches {counts}, expected {want} from steps {st}")
     if counts != want:
         raise AssertionError(f"{phase} {tag}: launch counters {counts} != expected {want}")
@@ -2813,6 +2912,235 @@ def serve_phase(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 6b: the remaining decoder-only families at full width
+# ---------------------------------------------------------------------------
+
+# the depth each family runs at on one 80 GB card, and why it is cut (the
+# width is the published one; bf16 weights from seed 0)
+FAMILY_DEPTHS = {
+    "mixtral-8x22b": (4, "56 layers of 2.50 B parameters (experts 2.42 B) need 281 GB"),
+    "grok-1-314b": (2, "64 layers of 4.92 B parameters need 630 GB"),
+    "qwen2-72b": (4, "80 layers of 0.88 B parameters need 141 GB"),
+    "nemotron-4-340b": (2, "96 layers of 3.45 B parameters need 663 GB, beside 18.9 GB "
+                           "of untied embeddings"),
+}
+FAMILY_PAGE = 128
+
+
+def family_servers(torch, arch, max_cache_len):
+    """`arch` at its published width and `FAMILY_DEPTHS`' depth (one layer
+    stack), woven to the CUDA kernels, and the same program woven to the
+    plain implementations over the same param tree."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core.program import Program
+    from repro_torch.launch.weave import cuda_kernel_aspects, default_weave
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    depth, why = FAMILY_DEPTHS[arch]
+    published = get_config(arch)
+    cfg = published.replace(num_layers=depth, layer_groups=())
+    scfg = ServerConfig(max_cache_len=max_cache_len, decode_tokens=32, seed=0)
+
+    def woven(kernels):
+        program = Program(model=build_model(cfg), cfg=cfg, kind="serve",
+                          device=torch.device("cuda"))
+        return default_weave(program, SHAPES["prefill_32k"], {},
+                             extra_aspects=cuda_kernel_aspects() if kernels else None)
+
+    t0 = time.perf_counter()
+    server = Server(woven(True), scfg)
+    eager = Server(woven(False), scfg, params=server.params)
+    if any(impl == "cuda" for _, _, impl in eager.woven.state.impls):
+        raise AssertionError("the comparison server must run the plain implementations")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in server.woven.program.model.parameters())
+    log(f"families: {arch} at full width (d_model {cfg.d_model}, {cfg.n_heads} q / "
+        f"{cfg.kv_heads} KV heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}), depth cut {published.num_layers} -> {depth} (layer groups "
+        f"{published.layer_groups or '()'} -> one stack): {why}; {n_params / 1e9:.2f} B "
+        f"parameters on the card in {time.perf_counter() - t0:.1f} s")
+    return server, eager
+
+
+class RouteRecorder:
+    """While active, keeps every MoE routing's top-k experts in call order
+    (`MoEMLP.route`), for the two paths of a logit gate to be compared."""
+
+    def __enter__(self):
+        from repro_torch.nn.moe import MoEMLP
+
+        self.calls, self.real = [], MoEMLP.route
+
+        def recorded(module, *a, **k):
+            out = self.real(module, *a, **k)
+            self.calls.append(out[1].cpu())
+            return out
+
+        MoEMLP.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.nn.moe import MoEMLP
+
+        MoEMLP.route = self.real
+
+
+def family_logit_gate(torch, server, eager, toks, pair) -> dict:
+    """`logit_gap` of the kernel path against the plain path, gated at the
+    full-depth logit gate (2e-2 worst, 1e-2 RMS of the logit scale); for a
+    MoE model, how many tokens the two paths routed to other experts."""
+    with RouteRecorder() as rec:
+        gap = logit_gap(torch, server, eager, toks, pair)
+    if rec.calls:  # the kernel path's routings, then the plain path's, in order
+        half = len(rec.calls) // 2
+        pairs = list(zip(rec.calls[:half], rec.calls[half:]))
+        gap["tokens_routed_differently"] = sum(
+            int((a.sort(-1).values != b.sort(-1).values).any(-1).sum()) for a, b in pairs)
+        gap["routings_compared"] = sum(int(a[..., 0].numel()) for a, _ in pairs)
+    for what in ("prefill", "first_decode"):
+        r = gap[what]
+        if not (r["max_abs_err"] <= LOGIT_MAX_TOL * r["logit_scale"]
+                and r["rms_err"] <= LOGIT_RMS_TOL * r["logit_scale"]):
+            raise AssertionError(f"families {pair}: {what} logits differ by {r} "
+                                 f"(routing {gap.get('tokens_routed_differently')})")
+    return gap
+
+
+def family_run(torch, server, tag, prompts, *, gated_spec: bool, ring_pages: int | None):
+    """One counted `serve_continuous` (max_batch 4, page 128) with the
+    launch gates of `check_paged_run`; under MoE also asked for a draft
+    length of 2 and a prefill chunk of 128, which the server must refuse
+    (no speculation, no chunk, no shared page), with the tokens of a plain
+    run of the same prompts.  `ring_pages`: the pool must be a ring pool of
+    at most that many pages a request.  Returns the counts and the report."""
+    import numpy as np
+
+    kw = dict(max_batch=4, page_size=FAMILY_PAGE)
+    asked = dict(draft_len=2, prefill_chunk=128) if gated_spec else {}
+    torch.cuda.reset_peak_memory_stats()
+    out, wall, counts, routes = counted_serve(
+        torch, lambda: server.serve_continuous(prompts, **kw, **asked))
+    check_paged_run(server, "families", tag, prompts, out, counts, routes, False)
+    st, pool = dict(server.last_step_counts), dict(server.last_pool_stats)
+    report = {"card": nvidia_smi_line(), "wall_s": wall, "launches": counts, "routes": routes,
+              "steps": st, "pool": pool,
+              "ttft_s": [o["ttft_s"] for o in server.last_outcomes],
+              "tok_gap_max_s": [o["tok_gap_max_s"] for o in server.last_outcomes],
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if routes["flash_decode_tc"] or st["suffix_prefill"] or st["verify"] or st["draft"]:
+        raise AssertionError(f"families {tag}: a widened K2 launch, a chunk or a "
+                             f"speculative step ran: {routes}, steps {st}")
+    if pool["prefix_hits"] or pool["cow_splits"]:
+        raise AssertionError(f"families {tag}: pages were shared: {pool}")
+    if gated_spec:
+        if server.last_spec_stats is not None:
+            raise AssertionError(f"families {tag}: speculation ran under MoE: "
+                                 f"{server.last_spec_stats}")
+        plain, _, pcounts, proutes = counted_serve(
+            torch, lambda: server.serve_continuous(prompts, **kw))
+        check_paged_run(server, "families", tag + "_plain", prompts, plain, pcounts, proutes,
+                        False)
+        same = all(np.array_equal(a, b) for a, b in zip(out, plain))
+        report["tokens_equal_plain_run"] = same
+        if not same:
+            raise AssertionError(f"families {tag}: the gated serve's tokens differ from a "
+                                 "plain run's")
+    if ring_pages is not None:
+        linear = sum(-(-(len(p) + server.cfg.decode_tokens) // FAMILY_PAGE) for p in prompts)
+        bound_pages = len(prompts) * ring_pages
+        report["ring_pages_bound"], report["linear_pages_needed"] = bound_pages, linear
+        if not pool["peak_live_pages"] <= bound_pages < linear:
+            raise AssertionError(f"families {tag}: {pool['peak_live_pages']} live pages: not "
+                                 f"a ring pool of {ring_pages} pages a request")
+    return {**counts, **routes, "verify_launches": server.woven.program.cfg.num_layers
+            * st["verify"]}, report
+
+
+def moe_drop_tap(torch, server, prompt) -> dict:
+    """The `moe_drop_frac` tap of the first layer's MoE feed-forward over a
+    prompt's normalised embeddings, at the capacity the prefill used (taps
+    are off inside a layer stack, so the layer runs alone)."""
+    from repro_torch.nn.module import Ctx
+
+    model, params = server.woven.program.model, server.params
+    ctx = Ctx(policies=server.woven.state.policies, extra=server.woven.state.extra,
+              taps_enabled=["*"])
+    block = model.trunk[0].template
+    layer0 = {k: v[0] for k, v in params["blocks0"]["block"]["ffn"].items()}
+    norm2 = {k: v[0] for k, v in params["blocks0"]["block"]["norm2"].items()}
+    toks = torch.as_tensor(prompt[None], device=server.device).to(torch.int32)
+    with torch.no_grad():
+        x = model.embed(params["embed"], toks, ctx=ctx)
+        block.ffn(layer0, block.norm2(norm2, x, ctx=ctx), ctx=ctx)
+    return {"tokens": int(toks.shape[1]),
+            "moe_drop_frac": float(ctx.taps["ffn/moe_drop_frac"])}
+
+
+def families_phase(torch) -> dict:
+    """The decoder-only families the port serves beside yi-6b, each at its
+    published width and a depth one card holds (`FAMILY_DEPTHS`), random
+    bf16 weights from seed 0, through `serve_continuous` over a paged pool
+    (max_batch 4, page 128, 32 greedy tokens).
+
+    Runs: (m1) mixtral-8x22b, six prompts of 1000..3000 tokens — a linear
+    pool under its 4096-token window — asked for a draft length of 2 and a
+    prefill chunk of 128, which capacity-routed MoE refuses; (m2) the same
+    model, four prompts of 4500..6000 tokens past the window: a ring pool
+    (K2's paged ring mode), asked the same; (g) grok-1-314b (MoE, soft-cap
+    30) and (d) qwen2-72b and nemotron-4-340b (head_dim 192, G = 12,
+    LayerNorm), four prompts of 512..2000 tokens each.  Gates: every
+    outcome ok; exact launches by route (`check_paged_run`): K1 once a
+    layer an admission and probe, K2 once a layer a decode step, all on the
+    split route, K4 as `expected_launches` reckons (none under nemotron's
+    LayerNorm), no plain version; under MoE no speculative step, no chunk,
+    no shared page, `last_spec_stats` None and the tokens of a plain run;
+    (m2)'s pool at most ceil(4096 / 128) pages a request; the first
+    prefill's and decode's logits against the plain path at the full-depth
+    logit gate (`family_logit_gate`).  Printed: TTFT, largest gap, wall, a
+    decode step's busy time, peak memory, the MoE drop fraction of (m2)'s
+    longest prompt, and how many tokens the two paths of the logit gate
+    routed to other experts."""
+    import gc
+
+    import numpy as np
+
+    out, report = {}, {}
+    rng = np.random.default_rng(21)
+    runs = [("mixtral-8x22b", 6144, [
+        ("mixtral_linear", [1000, 1400, 1800, 2200, 2600, 3000], None),
+        ("mixtral_ring", [4500, 5000, 5500, 6000], -(-4096 // FAMILY_PAGE))]),
+        ("grok-1-314b", 2048, [("grok", [512, 1000, 1500, 2000], None)]),
+        ("qwen2-72b", 2048, [("qwen2", [512, 1000, 1500, 2000], None)]),
+        ("nemotron-4-340b", 2048, [("nemotron", [512, 1000, 1500, 2000], None)])]
+    for arch, max_len, arch_runs in runs:
+        torch.cuda.empty_cache()
+        server, eager = family_servers(torch, arch, max_len)
+        mcfg = server.woven.program.cfg
+        moe = mcfg.family == "moe"
+        # a warm-up outside the counted runs (cuBLAS handles, the build)
+        server.serve(rng.integers(0, mcfg.vocab, (1, 16), dtype=np.int32), decode_tokens=2)
+        for tag, lens, ring_pages in arch_runs:
+            prompts = [rng.integers(0, mcfg.vocab, n).astype(np.int64) for n in lens]
+            counts, rep = family_run(torch, server, tag, prompts, gated_spec=moe,
+                                     ring_pages=ring_pages)
+            toks = torch.as_tensor(prompts[0][None].astype(np.int32), device=server.device)
+            rep["logits_vs_eager"] = family_logit_gate(torch, server, eager, toks,
+                                                       f"{tag}: cuda vs eager, "
+                                                       f"{toks.shape[1]} tokens")
+            if ring_pages is not None:
+                rep["moe_drop_tap"] = moe_drop_tap(torch, server, prompts[-1])
+            rep["profile"] = profile_decode(torch, server, toks[:, :512].repeat(2, 1))
+            rep.update(model=arch, layers=mcfg.num_layers, prompt_tokens=lens)
+            log(f"families {tag} " + json.dumps(rep, default=str))
+            out[tag], report[tag] = counts, rep
+        del server, eager
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: serve full-width recurrentgemma-2b and rwkv6-3b
 # ---------------------------------------------------------------------------
 
@@ -3391,7 +3719,9 @@ def main() -> int:
     governed_cases = governed_shape_cases(torch, gen, shapes.shapes)
     for c in governed_cases:
         log("governed-shape-case " + json.dumps(c))
+    gc.collect()
     torch.cuda.empty_cache()
+    fam = families_phase(torch)
     torch.cuda.reset_peak_memory_stats()
     rec = recurrent_phase(torch)
     gc.collect()  # the serving phases' models may sit in reference cycles
@@ -3411,6 +3741,7 @@ def main() -> int:
                 "speculative_s3_int8": spec["s3_int8_k2"].get(key, 0),
                 **{f"qos_{run}": qos[run].get(key, 0) for run in qos},
                 **{f"fleet_{run}": fleet[run].get(key, 0) for run in fleet},
+                **{f"families_{run}": fam[run].get(key, 0) for run in fam},
                 "recurrentgemma_serve": rec["recurrentgemma-2b"].get(key, 0),
                 "rwkv6_serve": rec["rwkv6-3b"].get(key, 0),
                 "train_gemma_6_steps": train["launches_6_steps"].get(key, 0)}
@@ -3483,7 +3814,10 @@ def main() -> int:
     kernels.append(kernel_entry(
         "flash_decode_widened_codes_tc", "src/repro_torch/csrc/flash_decode.cu",
         "src/repro/kernels/flash_attention/decode.py:454", wcodes, c["flash_decode_tc"],
-        {"continuous_c_int8": c["flash_decode_tc"]}, fma_launches=c["flash_decode_fma"]))
+        # the families serve bf16 pools: their quantized launches, all of K2d, are 0
+        {"continuous_c_int8": c["flash_decode_tc"],
+         **{f"families_{run}": fam[run]["flash_decode_quantized"] for run in fam}},
+        fma_launches=c["flash_decode_fma"]))
     kernels[-1]["library_ms_note"] = "no single PyTorch call attends over an int8 paged pool"
     # the same mode at the speculative verify step's shape: `launches` are
     # (s1)'s verify steps x layers; the int8 pool's beside
@@ -3493,7 +3827,8 @@ def main() -> int:
         spec["s1_bf16_k2"]["verify_launches"],
         {**{run: spec[run]["verify_launches"] for run in
             ("s1_bf16_k2", "s2_bf16_k4", "s3_int8_k2")},
-         **{f"qos_{run}": qos[run]["verify_launches"] for run in qos}}))
+         **{f"qos_{run}": qos[run]["verify_launches"] for run in qos},
+         **{f"families_{run}": fam[run]["verify_launches"] for run in fam}}))
     # every K2 shape the governed and fleet runs launched, held against the
     # plain version (`governed_shape_cases`)
     kernels[1]["qos_fleet_shape_cases"] = governed_cases

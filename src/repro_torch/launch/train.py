@@ -10,9 +10,10 @@ raises — pass `--device cpu` to run on the host).  On the card the attention
 joinpoints are woven to the CUDA kernels (K1 forward with `lse`, the fused
 backward K3); every other op runs its plain PyTorch implementation, since
 the RMSNorm, RG-LRU and WKV kernels are forward-only.  Training the hybrid
-(recurrentgemma-2b) and ssm (rwkv6-3b) families on the card waits for a
-later slice: its per-block remat and the recurrent kernels' backward are not
-ported.  A step failure restores the latest checkpoint and resumes (bounded
+(recurrentgemma-2b), ssm (rwkv6-3b) and MoE (mixtral-8x22b, grok-1-314b)
+families on the card waits for a later slice (ROADMAP Queue 1 item 14): the
+per-block remat and the recurrent kernels' backward are not ported, and MoE
+training has not been held on the card.  A step failure restores the latest checkpoint and resumes (bounded
 retries).
 """
 
@@ -30,7 +31,14 @@ from repro_torch.launch.weave import default_weave, train_kernel_aspects
 from repro_torch.models.registry import ARCHS, get_config
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
-_LATER_FAMILIES = ("hybrid", "ssm")
+# families whose training on the card is not ported yet, and why
+_LATER_FAMILIES = {
+    "hybrid": "its recurrent kernels are forward-only and its per-block "
+              "remat is not ported",
+    "ssm": "its recurrent kernels are forward-only",
+    "moe": "the capacity-routed MoE's training has not been measured or "
+           "held on the card",
+}
 
 
 def parse_overrides(sets: list[str]) -> dict:
@@ -55,8 +63,7 @@ def build_trainer(arch: str, *, reduced: bool, device: str, batch: int, seq: int
     if torch.device(device).type == "cuda" and family in _LATER_FAMILIES:
         raise NotImplementedError(
             f"training {arch} ({family}) on the card arrives with a later "
-            "slice: its recurrent kernels are forward-only and the hybrid's "
-            "per-block remat is not ported")
+            f"slice (ROADMAP Queue 1 item 14): {_LATER_FAMILIES[family]}")
     program = Program.from_arch(arch, kind="train", reduced=reduced, device=device)
     aspects = list(extra_aspects or [])
     if program.device.type == "cuda":

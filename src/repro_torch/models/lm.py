@@ -1,14 +1,14 @@
-"""Decoder LM family: dense / hybrid (Griffin) / SSM (RWKV6), the reference's
-`TransformerLM` without its MoE and VLM families.
+"""Decoder LM family: dense / MoE / hybrid (Griffin) / SSM (RWKV6), the
+reference's `TransformerLM` without its VLM family.
 
-  dense  : [norm -> attention -> +res ; norm -> MLP -> +res] x L
-           (a layer stack in weavable groups)
-  hybrid : recurrentgemma 1:2 pattern (rec, rec, local-attn), unrolled
-           (heterogeneous blocks)
-  ssm    : RWKV6 time-mix + channel-mix blocks (a layer stack)
+  dense / moe : [norm -> attention -> +res ; norm -> MLP|MoE -> +res] x L
+                (a layer stack in weavable groups)
+  hybrid      : recurrentgemma 1:2 pattern (rec, rec, local-attn), unrolled
+                (heterogeneous blocks)
+  ssm         : RWKV6 time-mix + channel-mix blocks (a layer stack)
 
-The MoE, VLM and encoder-decoder families raise `NotImplementedError` until
-their slices are ported.
+The VLM and encoder-decoder families raise `NotImplementedError` until their
+slice (ROADMAP Queue 1 item 10b) is ported.
 
 Modes: "dense" (full logits), "prefill" (returns last-token logits + cache:
 KV caches, recurrent states, or — handed a paged cache — the prompt written
@@ -28,15 +28,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.nn.attention import Attention, cache_spec
 from repro_torch.nn.blocks import MLP, Embedding, LayerNorm, Linear, RMSNorm
 from repro_torch.nn.module import Ctx, Module
+from repro_torch.nn.moe import MoEMLP
 from repro_torch.nn.rglru import RecurrentBlock
 from repro_torch.nn.rwkv import ChannelMix, TimeMix, rwkv_state_spec
 from repro_torch.nn.stack import ScannedStack
 
-_PORTED_FAMILIES = ("dense", "hybrid", "ssm")
+_PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 _LATER_FAMILIES = {
-    "moe": "the mixture-of-experts slice",
-    "vlm": "the vision-language slice",
-    "encdec": "the encoder-decoder slice",
+    "vlm": "the vision-language slice (ROADMAP Queue 1 item 10b)",
+    "encdec": "the encoder-decoder slice (ROADMAP Queue 1 item 10b)",
 }
 
 
@@ -66,10 +66,16 @@ class DecoderBlock(Module):
             mask=mask, window=window, softcap=cfg.attn_softcap,
         )
         self.norm2 = _make_norm("norm2", cfg)
-        self.ffn = MLP(
-            "ffn", cfg.d_model, cfg.d_ff, activation=cfg.activation,
-            gated=cfg.gated_mlp,
-        )
+        if cfg.family == "moe":
+            self.ffn: Module = MoEMLP(
+                "ffn", cfg.d_model, cfg.d_ff, num_experts=cfg.num_experts,
+                top_k=cfg.top_k, activation=cfg.activation,
+            )
+        else:
+            self.ffn = MLP(
+                "ffn", cfg.d_model, cfg.d_ff, activation=cfg.activation,
+                gated=cfg.gated_mlp,
+            )
 
     def spec(self):
         return {"norm1": self.norm1, "attn": self.attn, "norm2": self.norm2,

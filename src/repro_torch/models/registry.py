@@ -1,8 +1,10 @@
 """Architecture registry: configs, reduced smoke configs and model constructors.
 
-Only the architectures whose family is ported are registered — the dense
-yi-6b and gemma-2b, the hybrid recurrentgemma-2b and the ssm rwkv6-3b; the
-others join as their slices land."""
+The decoder-only architectures are registered: the dense yi-6b, gemma-2b,
+qwen2-72b and nemotron-4-340b, the mixture-of-experts mixtral-8x22b (with a
+sliding window) and grok-1-314b (with a logit soft-cap), the hybrid
+recurrentgemma-2b and the ssm rwkv6-3b.  The encoder-decoder whisper-small
+and the vision-language internvl2-1b join with ROADMAP Queue 1 item 10b."""
 
 from __future__ import annotations
 
@@ -14,6 +16,10 @@ from repro_torch.configs.base import ModelConfig
 ARCHS = {
     "yi-6b": "repro_torch.configs.yi_6b",
     "gemma-2b": "repro_torch.configs.gemma_2b",
+    "qwen2-72b": "repro_torch.configs.qwen2_72b",
+    "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
+    "grok-1-314b": "repro_torch.configs.grok_1_314b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
 }
@@ -23,7 +29,11 @@ ARCHS = {
 # space (true for the reduced smoke configs, which all use vocab=512).
 # Targets absent from this table self-draft.
 DRAFTS = {
+    "qwen2-72b": "gemma-2b",
     "yi-6b": "gemma-2b",
+    "nemotron-4-340b": "gemma-2b",
+    "grok-1-314b": "yi-6b",
+    "mixtral-8x22b": "yi-6b",
 }
 
 
@@ -45,6 +55,8 @@ def reduced_config(name: str) -> ModelConfig:
         num_layers=2, d_model=64, n_heads=4, kv_heads=max(1, min(cfg.kv_heads, 2)),
         head_dim=16, d_ff=128, vocab=512, layer_groups=(),
     )
+    if cfg.family == "moe":
+        kw.update(num_experts=4, top_k=2)
     if cfg.family == "hybrid":
         kw.update(num_layers=3, lru_width=64, local_window=16, n_heads=4,
                   head_dim=16, kv_heads=1)

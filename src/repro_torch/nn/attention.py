@@ -20,8 +20,11 @@ pools shared by every request, int8 / fp8 ones with `{"ksc", "vsc"}` scale
 sidecars, addressed through the model-hoisted `block_tables` — are written
 in place the same way, at each token's (page, offset).
 
-Cross-attention, ring page pools (the sliding-window families) and the
-meshed KV expansion arrive with the slices that need them.
+Ring page pools — the pools of a sliding-window model whose prompts pass its
+window — keep a request's last W tokens at slot = position % W of its block
+table, with a per-request `pos` row saying which position each slot holds.
+Cross-attention (ROADMAP Queue 1 item 10b) and the meshed KV expansion
+arrive with the slices that need them.
 """
 
 from __future__ import annotations
@@ -43,9 +46,6 @@ from repro_torch.nn.blocks import apply_rope, rope_angles
 from repro_torch.nn.module import Ctx, Module, ParamSpec, cast
 
 NEG_INF = -1e30
-
-_RING_POOLS = ("ring page pools (sliding-window families) are not ported yet: "
-               "they arrive with ROADMAP Queue 1 item 10 (mixtral)")
 
 
 # ---------------------------------------------------------------------------
@@ -185,7 +185,8 @@ class Attention(Module):
         super().__init__()
         if cross:
             raise NotImplementedError(
-                "cross-attention is not ported yet (the encoder-decoder slice)")
+                "cross-attention is not ported yet (the encoder-decoder slice, "
+                "ROADMAP Queue 1 item 10b)")
         self.name = name
         self.d_model = d_model
         self.n_heads, self.kv_heads, self.head_dim = n_heads, kv_heads, head_dim
@@ -560,8 +561,6 @@ class Attention(Module):
         B, S = q.shape[0], q.shape[1]
         if B != 1:
             raise ValueError("paged prefill packs one request at a time")
-        if "pos" in cache:
-            raise NotImplementedError(_RING_POOLS)
         k_new = self._proj(params, x, "k", self.kv_heads, policy)
         v_new = self._proj(params, x, "v", self.kv_heads, policy)
         if self.use_rope:
@@ -571,6 +570,24 @@ class Attention(Module):
 
         pk, pv = cache["pk"], cache["pv"]
         ps = pk.shape[1]
+        if "pos" in cache:
+            # a ring pool never shares a prefix (slot contents depend on the
+            # wrap), so the whole prompt is here: keep its last W tokens at
+            # slot = position % W — `_build_cache`'s ring packing, addressed
+            # through the block table — and attend over the whole prompt
+            W = cache["pos"].shape[-1]
+            keep = min(W, S)
+            pos_w = positions[0, -keep:].to(torch.int32)
+            slots = (pos_w % W).to(torch.long)
+            page = block_tables[0].to(torch.long)[slots // ps]
+            off = slots % ps
+            _write_slots(pk, page, off, cast(k_new[0, -keep:], pk.dtype))
+            _write_slots(pv, page, off, cast(v_new[0, -keep:], pv.dtype))
+            pos = torch.full((W,), -1, dtype=torch.int32, device=q.device)
+            pos[slots] = pos_w
+            new_cache = {"pk": pk, "pv": pv, "pos": pos, "index": cache["index"] + S}
+            out = self._attend_dense(q, k_new, v_new, positions, ctx, policy)
+            return out, new_cache
         quant = "ksc" in cache
         ksc = vsc = None
         slots = prefix_len + torch.arange(S, device=q.device)
@@ -643,7 +660,13 @@ class Attention(Module):
         request's last page and keeps its bytes.  A quantized pool records a
         page's scale at its first write (offset 0 — linear slots fill in
         order) and quantizes every later token of the page at that fixed
-        scale."""
+        scale.
+
+        A ring pool (`pos` in the cache: a sliding window the prompt has
+        passed) decodes one token at a time: it is written at slot =
+        index % W, evicting the position W back, its `pos` entry set, and
+        the kernel walks all W slots with no window (the ring layout is the
+        window).  Ring pools never share, so a re-score never reaches one."""
         if block_tables is None:
             raise ValueError("paged caches need block_tables (the model "
                              "hoists cache['block_tables'] to every layer)")
@@ -652,7 +675,8 @@ class Attention(Module):
             raise ValueError("paged caches are per-request: index must be "
                              f"(B,), got shape {tuple(idx.shape)}")
         if "pos" in cache:
-            raise NotImplementedError(_RING_POOLS)
+            return self._decode_ring_paged(q, k_new, v_new, positions, ctx, policy,
+                                           cache, block_tables, skip_write)
         B, S = q.shape[0], q.shape[1]
         pk, pv = cache["pk"], cache["pv"]
         ps = pk.shape[1]
@@ -705,6 +729,43 @@ class Attention(Module):
         k_log, v_log = paged_gather_kv(pk, pv, block_tables, kv_len,
                                        k_scale=ksc, v_scale=vsc)
         mask = _mask_dense(positions, kv_pos, self.mask, self.window)[:, None, None]
+        out = eager_attention(q, k_log, v_log, mask, softcap=self.softcap,
+                              accum_dtype=policy.accum_dtype)
+        return out, new_cache
+
+
+    def _decode_ring_paged(self, q, k_new, v_new, positions, ctx, policy, cache,
+                           block_tables, skip_write):
+        """`_decode_paged` over a ring pool (see there)."""
+        if q.shape[1] > 1:
+            raise ValueError("ring pools decode one token at a time (eviction "
+                             "breaks the widened-q mask); the server gates "
+                             "speculative decoding to linear pools")
+        if skip_write:
+            raise ValueError("re-score is a linear prefix-shared contract — "
+                             "ring pools never share")
+        idx = cache["index"]
+        pk, pv, pos = cache["pk"], cache["pv"], cache["pos"]
+        ps, W = pk.shape[1], pos.shape[-1]
+        bidx = torch.arange(q.shape[0], device=q.device)
+        slot = (idx % W).to(torch.long)
+        page = block_tables.to(torch.long)[bidx, slot // ps]
+        off = slot % ps
+        _write_slots(pk, page, off, cast(k_new[:, 0], pk.dtype))
+        _write_slots(pv, page, off, cast(v_new[:, 0], pv.dtype))
+        pos[bidx, slot] = idx.to(pos.dtype)
+        new_cache = {"pk": pk, "pv": pv, "pos": pos, "index": idx + 1}
+
+        if self._use_kernel(ctx, q):
+            # the ring layout *is* the window: the walk covers all W slots
+            out = flash_decode(q, pk, pv, idx, window=None, tables=block_tables,
+                               kv_len=W, **self._decode_kw(ctx))
+            return out, new_cache
+
+        # plain path: the logical ring view through the table, masked by
+        # the position each slot holds
+        k_log, v_log = paged_gather_kv(pk, pv, block_tables, W)
+        mask = _mask_dense(positions, pos, self.mask, self.window)[:, None, None]
         out = eager_attention(q, k_log, v_log, mask, softcap=self.softcap,
                               accum_dtype=policy.accum_dtype)
         return out, new_cache

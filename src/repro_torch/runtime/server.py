@@ -803,7 +803,12 @@ class Server:
             else state.extra.get("fault_injector")
         gov = self._qos_governor(state, qos, slo_ttft_s, slo_tok_s)
         # chunked prefill: explicit argument, then ServerConfig, then the
-        # governor's prefill_chunk knob (0/None: one-shot admission)
+        # governor's prefill_chunk knob (0/None: one-shot admission).
+        # Capacity-routed MoE couples a prefill's tokens within their group
+        # (capacity and drops see the whole dispatch), so a chunked prefill
+        # would not give the one-shot bits: the gate stays off there.
+        moe = self.woven.program.cfg.family == "moe"
+        chunk_ok = not moe
         chunk_cfg = prefill_chunk if prefill_chunk is not None \
             else self.cfg.prefill_chunk
 
@@ -826,6 +831,12 @@ class Server:
             or max(sum(cdiv(f, ps) for f in finals), 1)
         share = self.cfg.prefix_sharing if prefix_sharing is None \
             else prefix_sharing
+        if moe:
+            # the group coupling again: a prefix's K/V depend on the tokens
+            # routed beside it, so a sharer's recompute could write other
+            # bytes into pages its donor still maps.  Sharing stays off; the
+            # direct-to-pool paged prefill still applies.
+            share = False
         manager = PagedCacheManager(
             pool_pages, ps, max_len=self.cfg.max_cache_len,
             window=getattr(self.woven.program.cfg, "attn_window", None),
@@ -833,6 +844,11 @@ class Server:
         self.decode_step_latencies = deque(maxlen=self.history_window)
         self._steps = _step_counts()
 
+        if k_max and moe:
+            # an S-token verify step routes its tokens as one group, with
+            # other capacity and drop decisions than S one-token steps: its
+            # logits would not be plain decode's.  Speculation stays off.
+            k = k_max = 0
         draft_srv = draft or self.draft or self  # self-speculation default
         dmanager: PagedCacheManager | None = None
         if k_max:
@@ -873,7 +889,8 @@ class Server:
         grouped = {"admissions": 0}  # identical-prompt shared re-scores
         # the live operating point: base values from the arguments / config,
         # re-selected by the governor as load shifts (closures read this)
-        knobs = {"max_batch": max_batch, "chunk": int(chunk_cfg or 0),
+        knobs = {"max_batch": max_batch,
+                 "chunk": int(chunk_cfg or 0) if chunk_ok else 0,
                  "k": k, "freq": 1.0}
 
         evq: list[dict] = []
@@ -1198,7 +1215,8 @@ class Server:
                                 active=len(active) + len(prefilling))
                 v = op.get("max_batch")
                 knobs["max_batch"] = min(max_batch, int(v)) if v else max_batch
-                if chunk_cfg is None and op.get("prefill_chunk") is not None:
+                if chunk_ok and chunk_cfg is None \
+                        and op.get("prefill_chunk") is not None:
                     knobs["chunk"] = int(op["prefill_chunk"])
                 if op.get("draft_len") is not None:
                     knobs["k"] = min(k_max, int(op["draft_len"]))

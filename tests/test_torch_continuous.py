@@ -448,13 +448,20 @@ def test_config_fields_of_ported_slices_serve(srv, field, value):
     assert (other.last_spec_stats is not None) == (field == "draft_len")
 
 
-def test_ring_pools_raise_naming_their_slice():
-    """A sliding-window model whose prompts ring the pool needs the ring
-    page pool of a later slice."""
-    cfg = reduced_config("yi-6b").replace(attn_window=4)
-    srv = _server(model_cfg=cfg)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        srv.serve_continuous([np.arange(1, 9, dtype=np.int32)], page_size=4)
+def test_ring_pool_serves_the_reference_tokens():
+    """A sliding-window model whose prompts pass its window is served from a
+    ring page pool: the port's tokens are the batch path's and the
+    reference server's on the same weights, and the pool holds at most
+    ceil(W / page) pages a request."""
+    jsrv, tsrv = _servers("yi-6b", attn_window=4)
+    prompts = [np.arange(1, 9, dtype=np.int32), np.arange(3, 14, dtype=np.int32)]
+    want = jsrv.serve_continuous(prompts, page_size=4)
+    got = tsrv.serve_continuous(prompts, page_size=4)
+    for g, w, b in zip(got, want, tsrv.serve_batch(prompts)):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, b)
+    assert tsrv.last_pool_stats["peak_live_pages"] <= len(prompts)
+    assert tsrv.last_pool_stats["prefix_hits"] == jsrv.last_pool_stats["prefix_hits"] == 0
 
 
 @pytest.mark.gpu

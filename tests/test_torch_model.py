@@ -173,12 +173,15 @@ def test_state_dict_keys_are_reference_paths():
     assert param_count(tmodel) == sum(int(np.prod(s)) for s in want.values())
 
 
-def test_unported_families_and_meshes_raise():
+def test_vlm_and_encdec_families_and_meshes_raise():
+    """The vision-language and encoder-decoder families arrive with ROADMAP
+    Queue 1 item 10b and raise naming it; a mesh still raises."""
     from repro_torch.configs.base import ModelConfig
 
-    moe = ModelConfig(name="m", family="moe", num_layers=1, d_model=8, n_heads=1,
-                      kv_heads=1, d_ff=8, vocab=8)
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        tbuild(moe)
+    for family in ("vlm", "encdec"):
+        cfg = ModelConfig(name="m", family=family, num_layers=1, d_model=8, n_heads=1,
+                          kv_heads=1, d_ff=8, vocab=8)
+        with pytest.raises(NotImplementedError, match="item 10b"):
+            tbuild(cfg)
     with pytest.raises(NotImplementedError, match="mesh"):
         TCtx(mesh=object())

@@ -221,3 +221,28 @@ def test_recurrent_kernels_match_plain_versions_on_the_card():
     scale = y_ref.float().abs().max().item() + 1.0
     torch.testing.assert_close(y.float(), y_ref.float(), rtol=5e-3, atol=5e-3 * scale)
     torch.testing.assert_close(s_last, s_ref, rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.gpu
+def test_reduced_mixtral_ring_pool_launches_paged_ring_decode_on_the_card():
+    """On the card a reduced mixtral serve over a ring pool launches K2's
+    paged ring mode once per layer per decode step (split route), K1 once
+    per layer per admission and probe; `python3 chip_smoke.py` holds the
+    counts at full width (`families_phase`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_decode
+    from repro_torch.launch.serve import build_server
+    from repro_torch.runtime.server import ServerConfig
+
+    srv = build_server("mixtral-8x22b", reduced=True, device="cuda",
+                       cfg=ServerConfig(max_cache_len=32, decode_tokens=4))
+    layers = srv.woven.program.cfg.num_layers
+    flash_attention.launches = flash_decode.launches = flash_decode.split_launches = 0
+    rings = [(np.arange(20) % 50 + 1).astype(np.int32), (np.arange(18) % 31 + 2).astype(np.int32)]
+    out = srv.serve_continuous(rings, page_size=8)
+    st = srv.last_step_counts
+    assert len(out) == len(rings) and srv.last_spec_stats is None
+    assert flash_decode.launches == flash_decode.split_launches == layers * st["decode"] > 0
+    assert flash_attention.launches == layers * (st["prefill"] + st["probe"])
+    assert srv.last_pool_stats["peak_live_pages"] <= len(rings) * 2

@@ -37,15 +37,18 @@ torch.set_num_threads(1)
 OVERRIDES = {"flash_block_q": 32, "flash_block_kv": 32, "flash_block_kv_dec": 16}
 
 
-def _servers(arch, head_dim=None):
+def _servers(arch, head_dim=None, **replace):
     """Both servers, built the way the launchers build them.  `head_dim=64`
     swaps in the variant of the reduced config whose attention reaches the
-    kernels (the reduced default, 16, stays on the plain path in both)."""
+    kernels (the reduced default, 16, stays on the plain path in both);
+    `replace` changes other fields of the reduced config in both."""
     jprog = JProgram.from_arch(arch, kind="serve", reduced=True)
     tprog = TProgram.from_arch(arch, kind="serve", reduced=True, device="cpu")
     if head_dim is not None:
-        jcfg = jprog.cfg.replace(head_dim=head_dim)
-        tcfg = tprog.cfg.replace(head_dim=head_dim)
+        replace["head_dim"] = head_dim
+    if replace:
+        jcfg = jprog.cfg.replace(**replace)
+        tcfg = tprog.cfg.replace(**replace)
         jprog = dataclasses.replace(jprog, cfg=jcfg, model=jbuild(jcfg))
         tprog = dataclasses.replace(tprog, cfg=tcfg, model=tbuild(tcfg))
     jwoven = jweave(jprog, JSHAPES["prefill_32k"], {}, overrides=dict(OVERRIDES),
