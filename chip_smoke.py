@@ -83,7 +83,14 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    and the depth one card holds through `serve_continuous`, with exact
    launch counts, MoE's refusal of sharing, chunking and speculation, the
    ring pool's page bound and the logit gate against the plain path
-   (`families_phase`; its K1 / K2 shapes are cases of step 3);
+   (`families_phase`; its K1 / K2 shapes are cases of step 3); then runs
+   whisper-small (encoder-decoder, 12 + 12 layers) and internvl2-1b (an
+   image prefix, 24 layers) at full width and depth through the woven
+   prefill / decode steps in a greedy loop, with exact launches by route
+   (K1 non-causal in the encoder, K2 over the cross cache at index T - 1),
+   the cross cache unwritten, the logit gate against the eager twin, and
+   internvl2-1b's text-only requests through `serve_continuous`
+   (`frontends_phase`; its K1 / K2 shapes are `frontend_kernel_cases`);
 7. serves full-width, full-depth recurrentgemma-2b (RG-LRU kernel K5, and
    the attention and RMSNorm kernels over its local-attention rings) and
    rwkv6-3b (WKV kernel K6) through `serve` and `serve_batch`, with exact
@@ -563,12 +570,12 @@ def decode_cases(torch, gen):
                       bound_ms=None, bound_by=None, library_ms=None,
                       bitwise_equal_to_dense=True, **extra))
 
-    # the families phase's decode steps, each over a page pool of 128 (shuffled
-    # tables, dead pages poisoned) and bit for bit the dense layout of the
-    # same slots (the paged == stacked identity): mixtral's ring pool past
-    # its 4096-token window (K2's paged ring mode) and its linear pool under
-    # the window, grok's soft-cap, nemotron's G = 12 at head_dim 192 (the
-    # D-256 instantiation)
+    # the families and frontends phases' decode steps, each over a page pool
+    # of 128 (shuffled tables, dead pages poisoned) and bit for bit the dense
+    # layout of the same slots (the paged == stacked identity): mixtral's ring
+    # pool past its 4096-token window (K2's paged ring mode) and its linear
+    # pool under the window, grok's soft-cap, nemotron's G = 12 at head_dim
+    # 192 (the D-256 instantiation), internvl2-1b's G = 7 at head_dim 64
     B4 = 4
     for name, idx, Tc, window, softcap, (Hc, Kc, Dc) in [
         ("mixtral_paged_ring_B4_W4096_H48_K8_D128_bf16", [4500, 5000, 5500, 6000], 4096,
@@ -579,6 +586,8 @@ def decode_cases(torch, gen):
          None, 30.0, (48, 8, 128)),
         ("nemotron_paged_B4_T2048_H96_K8_D192_bf16", [512, 1000, 1500, 2030], 2048, None,
          None, (96, 8, 192)),
+        ("internvl_paged_B4_T2048_H14_K2_D64_bf16", [256, 900, 1500, 2047], 2048, None,
+         None, (14, 2, 64)),
     ]:
         q, k, v = make(B4, 1, Tc, Hc, Kc, Dc, torch.bfloat16)
         index = torch.tensor(idx, dtype=torch.int32, device="cuda")
@@ -652,6 +661,88 @@ def poisoned_pool(torch, gen, k, v, idx, ps, window, q_span):
     pk[dead] = float("nan")
     pv[dead] = float("nan")
     return pk, pv, tables
+
+
+def frontend_kernel_cases(torch, gen) -> tuple[list, list]:
+    """The frontends phase's new K1 / K2 modes and shapes, rows of the K1 and
+    K2 entries.  K1 non-causal at whisper-small's encoder (B8 S1500 H12 D64:
+    1500 = 23 x 64 + 28, so only the `hi(r) = T` bound masks the last
+    tile's padded KV columns) and ragged at S1000, K1 causal at
+    internvl2-1b's prefill (B4 S768, G = 7), each against float64
+    (`check_exact`) and timed beside SDPA; K2 over whisper's cross cache
+    (B8 T1500 K12 G1 D64 at index T - 1: the fixed full prefix, one live q
+    row of the split route's 16), against its plain version, two calls the
+    same bits and every request's rows alone those of the batch."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_decode
+    from repro_torch.kernels.flash_attention.ref import attention_ref, decode_ref
+
+    k1 = []
+    for name, B, S, H, K, causal in [
+        ("whisper_encoder_B8_S1500_H12_K12_D64_noncausal_bf16", 8, 1500, 12, 12, False),
+        ("noncausal_ragged_B8_S1000_H12_K12_D64_bf16", 8, 1000, 12, 12, False),
+        ("internvl_prefill_B4_S768_H14_K2_D64_bf16", 4, 768, 14, 2, True),
+    ]:
+        D, G = 64, H // K
+        q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+        k = torch.randn((B, S, K, D), generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn((B, S, K, D), generator=gen, device="cuda").to(torch.bfloat16)
+        got = flash_attention(q, k, v, causal=causal)
+        want = exact(attention_ref, (q, k, v), causal=causal)
+        plain_out = attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err, rms = check_exact(torch, name, got, want, BF16_TOL)
+        err_plain = (got.float() - plain_out.float()).abs().max().item()
+        plain_err = exact_error(torch, plain_out, want)[0]
+        del want, plain_out
+        ms = time_ms(torch, [lambda: flash_attention(q, k, v, causal=causal)], 5)
+        plain = time_ms(torch, [lambda: attention_ref(q, k, v, causal=causal)], 3)
+        qt = q.transpose(1, 2)
+        kt = k.transpose(1, 2).repeat_interleave(G, dim=1)
+        vt = v.transpose(1, 2).repeat_interleave(G, dim=1)
+        lib = time_ms(torch, [lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal)], 5)
+        del kt, vt
+        flops = 4.0 * D * B * live_pairs(S, S, causal, None) * H
+        nbytes = 2 * q.numel() * q.element_size() + (k.numel() + v.numel()) * k.element_size()
+        b_ms, b_by = bound(nbytes, flops, "bf16")
+        k1.append(dict(case=name, main=False, causal=causal, max_abs_err=err, ref_rms=rms,
+                       max_abs_err_vs_fp32_plain=err_plain, fp32_plain_max_abs_err=plain_err,
+                       ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                       ms_over_library_ms=ms / lib))
+
+    name = "whisper_cross_B8_T1500_H12_K12_D64_index1499_bf16"
+    B, T, H, K, D = 8, 1500, 12, 12, 64
+    q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn((B, T, K, D), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((B, T, K, D), generator=gen, device="cuda").to(torch.bfloat16)
+    index = torch.full((B,), T - 1, dtype=torch.int32, device="cuda")
+    got = flash_decode(q, k, v, index)
+    torch.cuda.synchronize()
+    extra = split_gates(torch, name, got, lambda: flash_decode(q, k, v, index),
+                        lambda b: flash_decode(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                               index[b:b + 1]), [T - 1] * B)
+    for b in range(1, B):  # every index is the same: `split_gates` held request 0
+        if not torch.equal(flash_decode(q[b:b + 1], k[b:b + 1], v[b:b + 1], index[b:b + 1]),
+                           got[b:b + 1]):
+            raise AssertionError(f"{name}: request {b}'s rows depend on its batch")
+    err, rms = check_close(torch, name, got, decode_ref(q, k, v, index), BF16_TOL)
+    # four copies of the 36.9 MB cache keep each launch's reads cold in the L2
+    copies = [(k, v)] + [(k.clone(), v.clone()) for _ in range(3)]
+    ms = time_ms(torch, [(lambda kk=kk, vv=vv: flash_decode(q, kk, vv, index))
+                         for kk, vv in copies], 20, graph=True)
+    plain = time_ms(torch, [lambda: decode_ref(q, k, v, index)], 2)
+    qt = q.transpose(1, 2)
+    libs = [(kk.transpose(1, 2), vv.transpose(1, 2)) for kk, vv in copies]
+    lib = time_ms(torch, [(lambda kk=kk, vv=vv: F.scaled_dot_product_attention(qt, kk, vv))
+                          for kk, vv in libs], 20, graph=True)
+    nbytes = (B * T * K * D * 2 + 2 * q.numel()) * q.element_size()
+    b_ms, b_by = bound(nbytes, 4.0 * D * B * T * H, "bf16")
+    k2 = [dict(case=name, main=False, max_abs_err=err, ref_rms=rms, ms=ms, plain_ms=plain,
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib, gb_s=nbytes / ms / 1e6,
+               **extra)]
+    return k1, k2
 
 
 def widened_decode_cases(torch, gen):
@@ -1486,11 +1577,8 @@ def kernel_entry(name, source, replaces, cases, launches, launches_by_run, **ext
 
 
 def profile_decode(torch, server, toks, steps: int = 4) -> dict:
-    """Where one decode step's time goes: `steps` steps timed on the host's
-    clock without the profiler, then the same steps under `torch.profiler`
-    for the device's busy time and the kernels that take most of it."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Where one decode step's time goes over a server's own prefill of
+    `toks` (`profile_steps`)."""
     B, S = toks.shape
     logits, cache = server.prefill_vc(None, server.params, {"tokens": toks})
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
@@ -1505,6 +1593,15 @@ def profile_decode(torch, server, toks, steps: int = 4) -> dict:
             pos += 1
         torch.cuda.synchronize()
 
+    return profile_steps(torch, run, steps, f"decode_step_wall_ms_B{B}")
+
+
+def profile_steps(torch, run, steps: int, wall_key: str) -> dict:
+    """`run(n)` (n steps, then a synchronize) timed on the host's clock
+    without the profiler, then the same steps under `torch.profiler` for
+    the device's busy time and the kernels that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
     run(2)  # warm up
     t0 = time.perf_counter()
     run(steps)
@@ -1512,21 +1609,15 @@ def profile_decode(torch, server, toks, steps: int = 4) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(steps)
 
-    def device_us(event):
-        for attr in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(event, attr):
-                return float(getattr(event, attr))
-        return 0.0
-
     # kernel rows only: an operator's row repeats the time of the kernels it launched
-    rows = sorted(((device_us(e), e.count, e.key) for e in prof.key_averages()
+    rows = sorted(((_device_us(e), e.count, e.key) for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3 / steps
     if busy_ms <= 0:  # the profiler saw no kernel: a reading, not a failed phase
-        return {"decode_step_wall_ms_B2": wall_ms, "device_busy_ms_per_step": None,
+        return {wall_key: wall_ms, "device_busy_ms_per_step": None,
                 "device_idle_share": None, "note": "the profiler recorded no device time"}
     return {
-        "decode_step_wall_ms_B2": wall_ms, "device_busy_ms_per_step": busy_ms,
+        wall_key: wall_ms, "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_launches_per_step": sum(r[1] for r in rows) / steps,
         "top_kernels_ms_per_step": [
@@ -2927,32 +3018,44 @@ FAMILY_DEPTHS = {
 FAMILY_PAGE = 128
 
 
+def woven_program(torch, cfg, kernels: bool, policy: str | None = None,
+                  extra: dict | None = None):
+    """The model of `cfg` on the card, woven as the launchers weave it
+    (`default_weave`, + `cuda_kernel_aspects` with `kernels`, else the plain
+    implementations), at the `half` policy or `policy`, with `extra` on the
+    weave state."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core.program import Program
+    from repro_torch.launch.weave import cuda_kernel_aspects, default_weave
+    from repro_torch.models.registry import build_model
+    from repro_torch.nn.dtypes import PolicyResolver
+
+    program = Program(model=build_model(cfg), cfg=cfg, kind="serve",
+                      device=torch.device("cuda"))
+    woven = default_weave(program, SHAPES["prefill_32k"], {},
+                          extra_aspects=cuda_kernel_aspects() if kernels else None)
+    if not kernels and any(impl == "cuda" for _, _, impl in woven.state.impls):
+        raise AssertionError("the comparison path must run the plain implementations")
+    if policy is not None:
+        woven.state.policies = PolicyResolver.default(policy)
+    woven.state.extra.update(extra or {})
+    return woven
+
+
 def family_servers(torch, arch, max_cache_len):
     """`arch` at its published width and `FAMILY_DEPTHS`' depth (one layer
     stack), woven to the CUDA kernels, and the same program woven to the
     plain implementations over the same param tree."""
-    from repro_torch.configs.base import SHAPES
-    from repro_torch.core.program import Program
-    from repro_torch.launch.weave import cuda_kernel_aspects, default_weave
-    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.models.registry import get_config
     from repro_torch.runtime.server import Server, ServerConfig
 
     depth, why = FAMILY_DEPTHS[arch]
     published = get_config(arch)
     cfg = published.replace(num_layers=depth, layer_groups=())
     scfg = ServerConfig(max_cache_len=max_cache_len, decode_tokens=32, seed=0)
-
-    def woven(kernels):
-        program = Program(model=build_model(cfg), cfg=cfg, kind="serve",
-                          device=torch.device("cuda"))
-        return default_weave(program, SHAPES["prefill_32k"], {},
-                             extra_aspects=cuda_kernel_aspects() if kernels else None)
-
     t0 = time.perf_counter()
-    server = Server(woven(True), scfg)
-    eager = Server(woven(False), scfg, params=server.params)
-    if any(impl == "cuda" for _, _, impl in eager.woven.state.impls):
-        raise AssertionError("the comparison server must run the plain implementations")
+    server = Server(woven_program(torch, cfg, True), scfg)
+    eager = Server(woven_program(torch, cfg, False), scfg, params=server.params)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in server.woven.program.model.parameters())
     log(f"families: {arch} at full width (d_model {cfg.d_model}, {cfg.n_heads} q / "
@@ -2998,12 +3101,7 @@ def family_logit_gate(torch, server, eager, toks, pair) -> dict:
         gap["tokens_routed_differently"] = sum(
             int((a.sort(-1).values != b.sort(-1).values).any(-1).sum()) for a, b in pairs)
         gap["routings_compared"] = sum(int(a[..., 0].numel()) for a, _ in pairs)
-    for what in ("prefill", "first_decode"):
-        r = gap[what]
-        if not (r["max_abs_err"] <= LOGIT_MAX_TOL * r["logit_scale"]
-                and r["rms_err"] <= LOGIT_RMS_TOL * r["logit_scale"]):
-            raise AssertionError(f"families {pair}: {what} logits differ by {r} "
-                                 f"(routing {gap.get('tokens_routed_differently')})")
+    gate_logits(f"families {pair} (routing {gap.get('tokens_routed_differently')})", gap)
     return gap
 
 
@@ -3141,6 +3239,292 @@ def families_phase(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6c: the encoder-decoder and the image prefix at full width and depth
+# ---------------------------------------------------------------------------
+
+# whisper-small: 8 clips of 1500 stub frames (a 30-second window: 3000 mel
+# frames, 1500 after the stride-2 convolution `frames` stands in for), a
+# 4-token start-of-transcript prompt, 64 greedy tokens in its 448-token text
+# context.  internvl2-1b: 4 requests of 256 image embeddings (one 448 x 448
+# tile after pixel shuffle) and 512 text tokens, 64 greedy tokens.  `gate`:
+# the policy the logit gate holds the kernel path to the eager twin in.
+# internvl2-1b's is fp32, as rwkv6's is (`serve_recurrent`): at 24 layers
+# over 768 positions its bf16 logits part by 2.67 % of the logit scale
+# (worst) between two plain forms of the attention alone (the eager one and
+# its blocked online softmax), beyond the 2e-2 gate, while the kernel path
+# lies 2.39 % from the one and 2.01 % from the other, and 4.6e-6 from the
+# eager path in fp32 (an H100 80GB HBM3 at 700 W); the bf16 readings and
+# that floor are printed beside.
+FRONTEND_RUNS = {
+    "whisper-small": dict(batch=8, stub=1500, prompt=4, tokens=64, cache_max_len=448,
+                          gate="bf16"),
+    "internvl2-1b": dict(batch=4, stub=256, prompt=512, tokens=64, cache_max_len=1024,
+                         gate="fp32"),
+}
+# internvl2-1b's text-only traffic through `serve_continuous` (`family_run`)
+FRONTEND_TEXT_LENS = [256, 600, 1000, 1400, 1800, 2048]
+
+
+def frontend_programs(torch, arch, policy: str | None = None):
+    """The kernel path, its eager twin, and one param tree for both: random
+    weights from seed 0 (bf16 at the `half` policy)."""
+    from repro_torch.models.registry import get_config
+    from repro_torch.nn.module import init_params
+
+    t0 = time.perf_counter()
+    kern = woven_program(torch, get_config(arch), True, policy)
+    eager = woven_program(torch, get_config(arch), False, policy)
+    params = init_params(kern.program.model, 0, kern.state.policies, "cuda")
+    torch.cuda.synchronize()
+    cfg = kern.program.cfg
+    n_params = sum(p.numel() for p in kern.program.model.parameters())
+    log(f"frontends: {arch} at full width and depth ({cfg.num_layers} layers"
+        f"{f' + {cfg.enc_layers} encoder layers' if cfg.enc_layers else ''}, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} q / {cfg.kv_heads} KV heads of "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), policy "
+        f"{policy or 'half'}: {n_params} parameters ({n_params / 1e9:.3f} B; "
+        f"cfg.param_count() {cfg.param_count()}) on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return kern, eager, params
+
+
+def first_logits(torch, woven, params, inputs, cache_max_len, pos0, tok=None):
+    """A prefill's logits and the first decode step's (fed `tok`, else the
+    prefill's argmax) on one woven program."""
+    from repro_torch.runtime.steps import build_decode_step, build_prefill_step
+
+    logits, cache = build_prefill_step(woven, cache_max_len=cache_max_len)(params, inputs)
+    if tok is None:
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    pos = torch.full((tok.shape[0], 1), pos0, dtype=torch.int32, device="cuda")
+    first, _ = build_decode_step(woven)(params, {"tokens": tok, "positions": pos}, cache)
+    return logits, first, tok
+
+
+def frontend_run(torch, arch) -> tuple[dict, dict, tuple]:
+    """One model of `frontends_phase`: a counted prefill and a counted greedy
+    loop on the kernel path, the logit gate and the token agreement against
+    the eager twin, a decode-step profile.  Returns the counts (prefill and
+    loop together, with routes), the report and `frontend_programs`'
+    programs and params."""
+    import numpy as np
+
+    from repro_torch.runtime.steps import build_decode_step, build_prefill_step
+
+    run = FRONTEND_RUNS[arch]
+    torch.cuda.reset_peak_memory_stats()
+    kern, eager, params = frontend_programs(torch, arch)
+    cfg, model = kern.program.cfg, kern.program.model
+    B, n, P = run["batch"], run["tokens"], run["stub"]
+    encdec = cfg.family == "encdec"
+    rng = np.random.default_rng(22)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (B, run["prompt"]), dtype=np.int32),
+                             device="cuda")
+    stub32 = torch.as_tensor(rng.standard_normal((B, P, cfg.d_model), dtype=np.float32),
+                             device="cuda")
+    stub = stub32.to(torch.bfloat16)
+    inputs = {"tokens": tokens, ("frames" if encdec else "embeds"): stub}
+    pos0 = run["prompt"] + (0 if encdec else P)  # the decoder's positions count the prefix
+    steps = {}
+    for tag, woven in (("kernel", kern), ("eager", eager)):
+        steps[tag] = (build_prefill_step(woven, cache_max_len=run["cache_max_len"]),
+                      build_decode_step(woven))
+
+    def greedy(tag, logits, cache, check_cross=False):
+        """n greedy decode steps from a prefill's `logits` and `cache`: the
+        tokens fed (B, n), the first step's logits, the cache."""
+        decode = steps[tag][1]
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        cross = cache["decoder"]["cross"] if check_cross else None
+        fed, first = [], None
+        for i in range(n):
+            pos = torch.full((B, 1), pos0 + i, dtype=torch.int32, device="cuda")
+            logits, cache = decode(params, {"tokens": tok, "positions": pos}, cache)
+            if cross is not None:  # the same tensors, never written
+                now = cache["decoder"]["cross"]
+                if any(now[k] is not cross[k] or now[k].data_ptr() != ptr[k]
+                       for k in ("ck", "cv")):
+                    raise AssertionError(f"frontends {arch}: decode step {i} replaced "
+                                         "the cross cache")
+            first = logits if first is None else first
+            fed.append(tok)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        return torch.cat(fed, dim=1), first, cache
+
+    # warm-up outside the counted runs (cuBLAS handles, the kernels' build)
+    logits, cache = steps["kernel"][0](params, inputs)
+    greedy("kernel", logits, cache)
+    del logits, cache
+
+    per_layer_norms = 0 if cfg.norm_type == "layernorm" else 2 * cfg.num_layers + 1
+    k1 = cfg.num_layers + (cfg.enc_layers if encdec else 0)
+    zero = {"flash_attention": 0, "flash_attention_bwd": 0, "flash_decode": 0, "rmsnorm": 0,
+            "rglru": 0, "wkv": 0, "flash_attention_lse": 0}
+    want_prefill = {**zero, "flash_attention": k1, "rmsnorm": per_layer_norms}
+    want_loop = {**zero, "flash_decode": 2 * cfg.num_layers * n if encdec
+                 else cfg.num_layers * n, "rmsnorm": per_layer_norms * n}
+
+    t0 = time.perf_counter()
+    (logits_k, cache), c_pre, r_pre = counted_run(
+        torch, lambda: steps["kernel"][0](params, inputs), f"frontends {arch} prefill")
+    prefill_s = time.perf_counter() - t0
+    log(f"frontends {arch}: prefill launches {c_pre}, expected {want_prefill}; routes {r_pre}")
+    if c_pre != want_prefill:
+        raise AssertionError(f"frontends {arch}: prefill launches {c_pre} != {want_prefill}")
+    ptr, checksum = {}, {}
+    if encdec:
+        cross = cache["decoder"]["cross"]
+        ptr = {k: cross[k].data_ptr() for k in ("ck", "cv")}
+        checksum = {k: cross[k].double().sum().item() for k in ("ck", "cv")}
+    t0 = time.perf_counter()
+    (fed_k, first_k, cache), c_loop, r_loop = counted_run(
+        torch, lambda: greedy("kernel", logits_k, cache, check_cross=encdec),
+        f"frontends {arch} decode")
+    loop_s = time.perf_counter() - t0
+    log(f"frontends {arch}: {n} decode steps' launches {c_loop}, expected {want_loop}; "
+        f"routes {r_loop}")
+    if c_loop != want_loop:
+        raise AssertionError(f"frontends {arch}: decode launches {c_loop} != {want_loop}")
+    if fed_k.shape != (B, n) or int(fed_k.min()) < 0 or int(fed_k.max()) >= cfg.vocab:
+        raise AssertionError(f"frontends {arch}: tokens of the wrong shape or range")
+    if encdec:
+        cross = cache["decoder"]["cross"]
+        again = {k: cross[k].double().sum().item() for k in ("ck", "cv")}
+        if again != checksum or any(cross[k].data_ptr() != ptr[k] for k in ptr):
+            raise AssertionError(f"frontends {arch}: the cross cache was written: "
+                                 f"{checksum} -> {again}")
+
+    def decode_steps(k):
+        nonlocal cache
+        for i in range(k):
+            pos = torch.full((B, 1), pos0 + n + i, dtype=torch.int32, device="cuda")
+            _, cache = steps["kernel"][1](params, {"tokens": fed_k[:, -1:], "positions": pos},
+                                          cache)
+        torch.cuda.synchronize()
+
+    profile = profile_steps(torch, decode_steps, 4, f"decode_step_wall_ms_B{B}")
+    del cache
+    encoder_s = None
+    if encdec:  # the encoder alone, on the kernel path
+        ctx = kern.state.make_ctx()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            model.encode(params, stub, ctx=ctx)
+        torch.cuda.synchronize()
+        encoder_s = time.perf_counter() - t0
+
+    # the eager twin: the same prefill and first decode (fed the kernel
+    # path's first token), then its own greedy tokens; beside them the gap
+    # between two plain forms of the prefill, the bf16 floor the gate sits on
+    logits_e, first_e, _ = first_logits(torch, eager, params, inputs, run["cache_max_len"],
+                                        pos0, fed_k[:, :1])
+    blocked = woven_program(torch, cfg, False, extra={"eager_attn_block": 256})
+    logits_b = build_prefill_step(blocked, cache_max_len=run["cache_max_len"])(params, inputs)[0]
+    gap = {"pair": f"{arch}: cuda vs eager, B{B}, bf16",
+           "prefill": logit_diff(torch, "prefill", logits_k, logits_e),
+           "first_decode": logit_diff(torch, "first_decode", first_k, first_e),
+           "prefill_plain_blocked_vs_plain": logit_diff(torch, "prefill", logits_b, logits_e),
+           "prefill_cuda_vs_plain_blocked": logit_diff(torch, "prefill", logits_k, logits_b)}
+    del logits_e, first_e, logits_b, blocked
+    gaps = {"bf16": gap}
+    if run["gate"] == "fp32":
+        k32, e32, p32 = frontend_programs(torch, arch, policy="double")
+        inputs32 = {**inputs, ("frames" if encdec else "embeds"): stub32}
+        a = first_logits(torch, k32, p32, inputs32, run["cache_max_len"], pos0)
+        b = first_logits(torch, e32, p32, inputs32, run["cache_max_len"], pos0, a[2])
+        gaps["fp32"] = {"pair": f"{arch}: cuda vs eager, B{B}, fp32",
+                        "prefill": logit_diff(torch, "prefill", a[0], b[0]),
+                        "first_decode": logit_diff(torch, "first_decode", a[1], b[1])}
+        del k32, e32, p32, a, b
+    for tag, g in gaps.items():
+        log(f"frontends {arch} logits ({tag}): " + json.dumps(g))
+    gate_logits(f"frontends {arch} ({run['gate']})", gaps[run["gate"]])
+    fed_e, _, _ = greedy("eager", *steps["eager"][0](params, inputs))
+    differ = fed_k != fed_e
+    report = {
+        "card": nvidia_smi_line(), "model": arch, "batch": B, "stub_len": P,
+        "prompt_tokens": run["prompt"], "decode_tokens": n, "parameters": sum(
+            p.numel() for p in model.parameters()), "param_count": cfg.param_count(),
+        "prefill_launches": c_pre, "decode_launches": c_loop, "routes_prefill": r_pre,
+        "routes_decode": r_loop, "prefill_wall_ms": prefill_s * 1e3,
+        "encoder_wall_ms": None if encoder_s is None else encoder_s * 1e3,
+        "decode_loop_wall_ms_per_step": loop_s * 1e3 / n, "profile": profile,
+        "logits_vs_eager": gaps, "gated_logits": run["gate"],
+        "greedy_token_agreement_vs_eager": 1.0 - float(differ.float().mean()),
+        "greedy_first_divergence": [int(d.nonzero()[0, 0]) if d.any() else n
+                                    for d in differ],
+        "cross_cache_unwritten": encdec or None,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    counts = {key: c_pre[key] + c_loop[key] for key in c_pre}
+    counts.update({key: r_pre[key] + r_loop[key] for key in r_pre})
+    return counts, report, (kern, eager, params)
+
+
+def frontends_phase(torch) -> dict:
+    """whisper-small's encoder-decoder and internvl2-1b's image prefix at
+    their published width and depth, random bf16 weights from seed 0, on the
+    path the reference drives them by: the woven `build_prefill_step` /
+    `build_decode_step` in a greedy loop (`Server` takes tokens only).
+
+    Runs: (w) whisper-small, 8 clips of 1500 stub frames, a 4-token prompt,
+    64 greedy tokens (cache 448); (v) internvl2-1b, 4 requests of 256 image
+    embeddings and 512 tokens, 64 greedy tokens at positions 768 + i (cache
+    1024); (t) internvl2-1b's text-only requests through `serve_continuous`
+    (`family_run`: six prompts of 256..2048 tokens, max_batch 4, page 128,
+    32 tokens; K2's paged split route at G = 7, K1 on admission).  Gates:
+    exact launches by route — (w) a prefill K1 24 (12 non-causal in the
+    encoder, 12 causal), a decode step K2 24 (12 over the self cache, 12
+    cross over the 1500 encoder slots at index 1499), no K4 (LayerNorm);
+    (v) a prefill K1 24, a step K2 24, K4 2 x 24 + 1 a call; all on the
+    tensor-core / split routes, no plain version — the cross cache handed
+    back by every decode step as the same tensors and unwritten, and the
+    first prefill's and decode's full-depth logits against the eager twin
+    at the logit gate (`gate_logits`; (w) in bf16, (v) in fp32, see
+    `FRONTEND_RUNS`); (t) `family_run`'s and `family_logit_gate`'s gates.
+    Printed: prefill wall (the encoder apart), a decode step's busy and idle
+    time, peak memory, the bf16 logit gaps beside the gap between two plain
+    forms of the prefill, the greedy tokens' agreement with the eager twin,
+    the phase's seconds."""
+    import numpy as np
+
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    t_phase = time.perf_counter()
+    out = {}
+    counts, report, _ = frontend_run(torch, "whisper-small")
+    log("frontends whisper " + json.dumps(report, default=str))
+    out["whisper"] = counts
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts, report, (kern, eager, params) = frontend_run(torch, "internvl2-1b")
+    log("frontends internvl_image " + json.dumps(report, default=str))
+    out["internvl_image"] = counts
+
+    scfg = ServerConfig(max_cache_len=2176, decode_tokens=32, seed=0)
+    server = Server(kern, scfg, params=params)
+    eager_srv = Server(eager, scfg, params=params)
+    rng = np.random.default_rng(23)
+    vocab = kern.program.cfg.vocab
+    server.serve(rng.integers(0, vocab, (1, 16), dtype=np.int32), decode_tokens=2)
+    prompts = [rng.integers(0, vocab, n).astype(np.int64) for n in FRONTEND_TEXT_LENS]
+    counts, rep = family_run(torch, server, "internvl_text", prompts, gated_spec=False,
+                             ring_pages=None)
+    toks = torch.as_tensor(prompts[0][None].astype(np.int32), device="cuda")
+    rep["logits_vs_eager"] = family_logit_gate(torch, server, eager_srv, toks,
+                                               f"internvl_text: cuda vs eager, "
+                                               f"{toks.shape[1]} tokens")
+    rep.update(model="internvl2-1b", prompt_tokens=FRONTEND_TEXT_LENS)
+    log("frontends internvl_text " + json.dumps(rep, default=str))
+    out["internvl_text"] = counts
+    del server, eager_srv, kern, eager, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"frontends: phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: serve full-width recurrentgemma-2b and rwkv6-3b
 # ---------------------------------------------------------------------------
 
@@ -3247,15 +3631,32 @@ def logit_gap(torch, a, b, toks, pair: str) -> dict:
         del cache
     out = {"pair": pair, "ttft_ms_a": results[0][2], "ttft_ms_b": results[1][2]}
     for i, what in enumerate(("prefill", "first_decode")):
-        x, y = results[0][i], results[1][i]
-        if not (torch.isfinite(x).all() and torch.isfinite(y).all()):
-            raise AssertionError(f"{what} logits are not finite")
-        if x.shape != y.shape:
-            raise AssertionError(f"{what} logits have shapes {x.shape}, {y.shape}")
-        out[what] = {"max_abs_err": (x - y).abs().max().item(),
-                     "rms_err": (x - y).pow(2).mean().sqrt().item(),
-                     "logit_scale": y.abs().max().item()}
+        out[what] = logit_diff(torch, what, results[0][i], results[1][i])
     return out
+
+
+def logit_diff(torch, what, x, y) -> dict:
+    """Worst and RMS difference of logits `x` against `y`, and `y`'s largest
+    magnitude (the logit scale the gates are shares of)."""
+    x, y = x.float(), y.float()
+    if not (torch.isfinite(x).all() and torch.isfinite(y).all()):
+        raise AssertionError(f"{what} logits are not finite")
+    if x.shape != y.shape:
+        raise AssertionError(f"{what} logits have shapes {x.shape}, {y.shape}")
+    return {"max_abs_err": (x - y).abs().max().item(),
+            "rms_err": (x - y).pow(2).mean().sqrt().item(),
+            "logit_scale": y.abs().max().item()}
+
+
+def gate_logits(tag, gap: dict) -> None:
+    """The full-depth logit gate: for the prefill and the first decode step,
+    the worst logit within LOGIT_MAX_TOL and the RMS within LOGIT_RMS_TOL of
+    the logit scale."""
+    for what in ("prefill", "first_decode"):
+        r = gap[what]
+        if not (r["max_abs_err"] <= LOGIT_MAX_TOL * r["logit_scale"]
+                and r["rms_err"] <= LOGIT_RMS_TOL * r["logit_scale"]):
+            raise AssertionError(f"{tag}: {what} logits differ by {r}")
 
 
 def serve_recurrent(torch, arch, published) -> dict:
@@ -3386,12 +3787,7 @@ def serve_recurrent(torch, arch, published) -> dict:
             g = gap[what]
             log(f"recurrent: {arch} {what} logits ({tag}), {gap['pair']}: max abs error "
                 f"{g['max_abs_err']}, rms {g['rms_err']}, at scale {g['logit_scale']}")
-    for what in ("prefill", "first_decode"):
-        g = report[gated][what]
-        err, rms, scale = g["max_abs_err"], g["rms_err"], g["logit_scale"]
-        if not (err <= LOGIT_MAX_TOL * scale and rms <= LOGIT_RMS_TOL * scale):
-            raise AssertionError(f"{arch}: {what} logits ({gated}) differ by {err} "
-                                 f"(rms {rms}) at scale {scale}")
+    gate_logits(f"{arch} ({gated})", report[gated])
     eager = None
     torch.cuda.empty_cache()
 
@@ -3701,6 +4097,9 @@ def main() -> int:
     lru_serve = rglru_serve_times(torch, gen)
     wkv6 = wkv_cases(torch, gen)
     lse_c, dq_c, dkv_c = flash_bwd_cases(torch, gen)
+    front_k1, front_k2 = frontend_kernel_cases(torch, gen)
+    pre += front_k1
+    dec += front_k2
     for c in (norm + pre + dec + wide + quant + wcodes + verify + lru + wkv6 + lse_c + dq_c
               + dkv_c):
         log("kernel-case " + json.dumps({k: v for k, v in c.items() if k != "main"}))
@@ -3722,6 +4121,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fam = families_phase(torch)
+    fro = frontends_phase(torch)
     torch.cuda.reset_peak_memory_stats()
     rec = recurrent_phase(torch)
     gc.collect()  # the serving phases' models may sit in reference cycles
@@ -3742,6 +4142,7 @@ def main() -> int:
                 **{f"qos_{run}": qos[run].get(key, 0) for run in qos},
                 **{f"fleet_{run}": fleet[run].get(key, 0) for run in fleet},
                 **{f"families_{run}": fam[run].get(key, 0) for run in fam},
+                **{f"frontends_{run}": fro[run].get(key, 0) for run in fro},
                 "recurrentgemma_serve": rec["recurrentgemma-2b"].get(key, 0),
                 "rwkv6_serve": rec["rwkv6-3b"].get(key, 0),
                 "train_gemma_6_steps": train["launches_6_steps"].get(key, 0)}

@@ -22,8 +22,8 @@ from repro_torch.nn.module import Ctx, Module, resolve_device
 class WeaveState:
     """Everything a weave decides; consumed by runtime/steps.py via Ctx."""
 
-    # bf16 storage + bf16 tensor-core compute + fp32 accumulation; an fp32
-    # master copy would live in the optimizer state (training is a later slice).
+    # bf16 storage + bf16 tensor-core compute + fp32 accumulation; the fp32
+    # master copy lives in the optimizer state (optim/adamw.py).
     policies: PolicyResolver = dataclasses.field(
         default_factory=lambda: PolicyResolver.default("half")
     )

@@ -10,10 +10,11 @@ raises — pass `--device cpu` to run on the host).  On the card the attention
 joinpoints are woven to the CUDA kernels (K1 forward with `lse`, the fused
 backward K3); every other op runs its plain PyTorch implementation, since
 the RMSNorm, RG-LRU and WKV kernels are forward-only.  Training the hybrid
-(recurrentgemma-2b), ssm (rwkv6-3b) and MoE (mixtral-8x22b, grok-1-314b)
-families on the card waits for a later slice (ROADMAP Queue 1 item 14): the
-per-block remat and the recurrent kernels' backward are not ported, and MoE
-training has not been held on the card.  A step failure restores the latest checkpoint and resumes (bounded
+(recurrentgemma-2b), ssm (rwkv6-3b), MoE (mixtral-8x22b, grok-1-314b) and
+encoder-decoder (whisper-small) families on the card waits for a later slice
+(ROADMAP Queue 1 item 14): the per-block remat and the recurrent kernels'
+backward are not ported, MoE training has not been held on the card, and
+the token pipeline makes no frames for an encoder.  A step failure restores the latest checkpoint and resumes (bounded
 retries).
 """
 
@@ -38,6 +39,8 @@ _LATER_FAMILIES = {
     "ssm": "its recurrent kernels are forward-only",
     "moe": "the capacity-routed MoE's training has not been measured or "
            "held on the card",
+    "encdec": "the token pipeline makes no frames, and the non-causal K1 "
+              "with lse and K3 have not been held on the card",
 }
 
 

@@ -1,0 +1,224 @@
+"""Whisper-style encoder-decoder backbone (the audio frontend is a stub: the
+caller hands precomputed frame embeddings `frames`, (B, T, d_model)).
+
+Encoder: bidirectional attention blocks over the frame embeddings plus
+sinusoidal positions.  Decoder: causal self-attention, cross-attention to
+the encoder states, MLP.  Both are layer stacks.  A prefill returns the
+last token's logits and `{"decoder": ..., "enc": ...}`: per layer a linear
+self-attention cache and the cross-attention `{"ck", "cv"}` (computed once
+from the encoder states), and the encoder states themselves.  A decode
+step reads `cache["enc"]`, writes the self caches in place and hands the
+cross caches back unwritten.
+
+Positions are sinusoidal (not learned), as in the reference; the backbone's
+dimensions are whisper-small's.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.nn.attention import Attention, cache_spec
+from repro_torch.nn.blocks import MLP, Embedding, LayerNorm, sinusoidal_positions
+from repro_torch.nn.module import Ctx, Module, cast
+from repro_torch.nn.stack import ScannedStack
+
+
+class EncoderBlock(Module):
+    kind = "block"
+
+    def __init__(self, name: str, cfg: ModelConfig):
+        super().__init__()
+        self.name = name
+        self.norm1 = LayerNorm("norm1", cfg.d_model)
+        self.attn = Attention("attn", cfg.d_model, cfg.n_heads, cfg.kv_heads,
+                              cfg.resolved_head_dim, use_rope=False, mask="full")
+        self.norm2 = LayerNorm("norm2", cfg.d_model)
+        self.ffn = MLP("ffn", cfg.d_model, cfg.d_ff, activation="gelu", gated=False,
+                       bias=True)
+
+    def spec(self):
+        return {"norm1": self.norm1, "attn": self.attn, "norm2": self.norm2,
+                "ffn": self.ffn}
+
+    def forward(self, params, x, *, ctx: Ctx, mode="dense", cache=None,
+                positions=None):
+        with ctx.scope(self.name):
+            h = self.norm1(params["norm1"], x, ctx=ctx)
+            h = ctx.constrain(h, ("batch", "seq_act", "embed"))
+            h, _ = self.attn(params["attn"], h, ctx=ctx, positions=positions,
+                             mode="dense")
+            x = x + h
+            h = self.norm2(params["norm2"], x, ctx=ctx)
+            h = ctx.constrain(h, ("batch", "seq_act", "embed"))
+            x = x + self.ffn(params["ffn"], h, ctx=ctx)
+            return x, None
+
+
+class DecoderXBlock(Module):
+    kind = "block"
+
+    def __init__(self, name: str, cfg: ModelConfig):
+        super().__init__()
+        self.name = name
+        self.norm1 = LayerNorm("norm1", cfg.d_model)
+        self.self_attn = Attention("self_attn", cfg.d_model, cfg.n_heads,
+                                   cfg.kv_heads, cfg.resolved_head_dim,
+                                   use_rope=False, mask="causal")
+        self.norm_x = LayerNorm("norm_x", cfg.d_model)
+        self.cross_attn = Attention("cross_attn", cfg.d_model, cfg.n_heads,
+                                    cfg.kv_heads, cfg.resolved_head_dim,
+                                    use_rope=False, mask="full", cross=True)
+        self.norm2 = LayerNorm("norm2", cfg.d_model)
+        self.ffn = MLP("ffn", cfg.d_model, cfg.d_ff, activation="gelu", gated=False,
+                       bias=True)
+
+    def spec(self):
+        return {"norm1": self.norm1, "self_attn": self.self_attn,
+                "norm_x": self.norm_x, "cross_attn": self.cross_attn,
+                "norm2": self.norm2, "ffn": self.ffn}
+
+    def forward(self, params, x, *, ctx: Ctx, mode="dense", cache=None,
+                positions=None, kv_src=None):
+        with ctx.scope(self.name):
+            self_cache = cache.get("self") if cache is not None else None
+            cross_cache = cache.get("cross") if cache is not None else None
+            h = self.norm1(params["norm1"], x, ctx=ctx)
+            h = ctx.constrain(h, ("batch", "seq_act", "embed"))
+            h, self_new = self.self_attn(params["self_attn"], h, ctx=ctx,
+                                         positions=positions, mode=mode,
+                                         cache=self_cache)
+            x = x + h
+            h = self.norm_x(params["norm_x"], x, ctx=ctx)
+            h = ctx.constrain(h, ("batch", "seq_act", "embed"))
+            h, cross_new = self.cross_attn(params["cross_attn"], h, ctx=ctx,
+                                           cache=cross_cache, kv_src=kv_src,
+                                           mode=mode)
+            x = x + h
+            h = self.norm2(params["norm2"], x, ctx=ctx)
+            h = ctx.constrain(h, ("batch", "seq_act", "embed"))
+            x = x + self.ffn(params["ffn"], h, ctx=ctx)
+            new_cache = None
+            if mode != "dense":
+                new_cache = {"self": self_new, "cross": cross_new}
+            return x, new_cache
+
+
+class EncDecLM(Module):
+    kind = "model"
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.name = cfg.name.replace("-", "_")
+        self.cfg = cfg
+        enc_layers = cfg.enc_layers or cfg.num_layers
+        self.embed = Embedding("embed", cfg.vocab, cfg.d_model)
+        self.encoder = ScannedStack("encoder", EncoderBlock("block", cfg), enc_layers)
+        self.enc_norm = LayerNorm("enc_norm", cfg.d_model)
+        self.decoder = ScannedStack("decoder", DecoderXBlock("block", cfg),
+                                    cfg.num_layers)
+        self.final_norm = LayerNorm("final_norm", cfg.d_model)
+
+    def spec(self):
+        return {
+            "embed": self.embed,
+            "encoder": self.encoder,
+            "enc_norm": self.enc_norm,
+            "decoder": self.decoder,
+            "final_norm": self.final_norm,
+        }
+
+    def encode(self, params, frames, *, ctx: Ctx):
+        """frames: (B, T, d_model) stub frame embeddings -> encoder states.
+        Frames and positions are each cast to the compute dtype, then added."""
+        T = frames.shape[1]
+        dtype = ctx.policy().compute_dtype
+        pos = sinusoidal_positions(torch.arange(T, device=frames.device), self.cfg.d_model)
+        x = cast(frames, dtype) + cast(pos, dtype)
+        x = ctx.constrain(x, ("batch", "res_seq", "embed"))
+        x, _ = self.encoder(params["encoder"], x, ctx=ctx, mode="dense")
+        return self.enc_norm(params["enc_norm"], x, ctx=ctx)
+
+    def forward(self, params, inputs: dict, *, ctx: Ctx, mode: str = "dense",
+                cache: dict | None = None):
+        cfg = self.cfg
+        tokens = inputs["tokens"]
+        B, S = tokens.shape
+
+        if ctx.extra.get("skip_trunk"):
+            enc = None
+        elif cache is not None and "enc" in cache and mode == "decode":
+            enc = cache["enc"]
+        else:
+            enc = self.encode(params, inputs["frames"], ctx=ctx)
+
+        positions = inputs.get("positions")
+        if positions is None:
+            positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+        x = self.embed(params["embed"], tokens, ctx=ctx)
+        x = x + cast(sinusoidal_positions(positions, cfg.d_model), x.dtype)
+        x = ctx.constrain(x, ("batch", "res_seq", "embed"))
+
+        new_dec_cache = None
+        if not ctx.extra.get("skip_trunk"):
+            dec_cache = cache.get("decoder") if cache is not None else None
+            x, new_dec_cache = self.decoder(
+                params["decoder"], x, ctx=ctx, mode=mode, cache=dec_cache,
+                positions=positions, block_kwargs={"kv_src": enc},
+            )
+        if mode == "prefill":
+            x = x[:, -1:]
+        x = self.final_norm(params["final_norm"], x, ctx=ctx)
+        logits = self.embed.attend(params["embed"], x, ctx=ctx)
+        logits = ctx.constrain(logits, ("batch", "res_seq", "vocab"))
+        if mode == "dense":
+            return logits, None
+        return logits, {"decoder": new_dec_cache, "enc": enc}
+
+    def component_blocks(self, batch: int, cache_len: int):
+        raise NotImplementedError(
+            "the roofline's per-component blocks arrive with the roofline "
+            "(ROADMAP Queue 1 item 13a)")
+
+    # -- caches -------------------------------------------------------------------
+
+    def cache_specs(self, batch: int, cache_len: int, enc_len: int | None = None) -> dict:
+        """{leaf: (shape, dtype)} cache tree: the decoder's per-layer self
+        and cross caches under a leading layer dim, and the encoder states."""
+        cfg = self.cfg
+        enc_len = enc_len or cache_len
+        L, K, hd = cfg.num_layers, cfg.kv_heads, cfg.resolved_head_dim
+
+        def stk(tree):
+            if isinstance(tree, dict):
+                return {key: stk(value) for key, value in tree.items()}
+            shape, dtype = tree
+            return ((L, *shape), dtype)
+
+        per_layer = {
+            "self": cache_spec(batch, cache_len, K, hd),
+            "cross": {
+                "ck": ((batch, enc_len, K, hd), torch.bfloat16),
+                "cv": ((batch, enc_len, K, hd), torch.bfloat16),
+            },
+        }
+        return {"decoder": stk(per_layer),
+                "enc": ((batch, enc_len, cfg.d_model), torch.bfloat16)}
+
+    def init_cache(self, batch: int, cache_len: int, *, index: int = 0,
+                   enc_len: int | None = None, device="cpu") -> dict:
+        """Concrete zero cache (tests); the self caches' index = `index`."""
+
+        def make(spec):
+            if isinstance(spec, dict):
+                return {key: make(value) for key, value in spec.items()}
+            shape, dtype = spec
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        cache: dict[str, Any] = make(self.cache_specs(batch, cache_len, enc_len))
+        cache["decoder"]["self"]["index"] = torch.full(
+            (self.cfg.num_layers,), index, dtype=torch.int32, device=device)
+        return cache

@@ -1,14 +1,17 @@
-"""Decoder LM family: dense / MoE / hybrid (Griffin) / SSM (RWKV6), the
-reference's `TransformerLM` without its VLM family.
+"""Decoder LM family: dense / MoE / VLM / hybrid (Griffin) / SSM (RWKV6),
+the reference's `TransformerLM`.
 
-  dense / moe : [norm -> attention -> +res ; norm -> MLP|MoE -> +res] x L
-                (a layer stack in weavable groups)
-  hybrid      : recurrentgemma 1:2 pattern (rec, rec, local-attn), unrolled
-                (heterogeneous blocks)
-  ssm         : RWKV6 time-mix + channel-mix blocks (a layer stack)
+  dense / moe / vlm : [norm -> attention -> +res ; norm -> MLP|MoE -> +res] x L
+                      (a layer stack in weavable groups)
+  hybrid            : recurrentgemma 1:2 pattern (rec, rec, local-attn),
+                      unrolled (heterogeneous blocks)
+  ssm               : RWKV6 time-mix + channel-mix blocks (a layer stack)
 
-The VLM and encoder-decoder families raise `NotImplementedError` until their
-slice (ROADMAP Queue 1 item 10b) is ported.
+A VLM's image prefix is a stub: `inputs["embeds"]` (B, P, d_model), cast to
+the token embeddings' dtype, is put before them when given; its decode
+positions count the P image tokens (S + P for the first decoded token).
+Without `embeds` a VLM is a dense text model.  The encoder-decoder family
+is `models/encdec.EncDecLM`.
 
 Modes: "dense" (full logits), "prefill" (returns last-token logits + cache:
 KV caches, recurrent states, or — handed a paged cache — the prompt written
@@ -33,11 +36,7 @@ from repro_torch.nn.rglru import RecurrentBlock
 from repro_torch.nn.rwkv import ChannelMix, TimeMix, rwkv_state_spec
 from repro_torch.nn.stack import ScannedStack
 
-_PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
-_LATER_FAMILIES = {
-    "vlm": "the vision-language slice (ROADMAP Queue 1 item 10b)",
-    "encdec": "the encoder-decoder slice (ROADMAP Queue 1 item 10b)",
-}
+_PORTED_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
 
 
 def _make_norm(name: str, cfg: ModelConfig):
@@ -179,10 +178,8 @@ class TransformerLM(Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         if cfg.family not in _PORTED_FAMILIES:
-            later = _LATER_FAMILIES.get(cfg.family, "a later slice")
-            raise NotImplementedError(
-                f"model family {cfg.family!r} is not ported yet: it arrives "
-                f"with {later}")
+            raise ValueError(f"model family {cfg.family!r} is not a decoder-only "
+                             "family (the encoder-decoder is models/encdec.EncDecLM)")
         self.name = cfg.name.replace("-", "_")
         self.cfg = cfg
         self.embed = Embedding("embed", cfg.vocab, cfg.d_model,
@@ -241,6 +238,8 @@ class TransformerLM(Module):
         tokens = inputs["tokens"]
         B = tokens.shape[0]
         x = self.embed(params["embed"], tokens, ctx=ctx)
+        if self.cfg.family == "vlm" and "embeds" in inputs:
+            x = torch.cat([inputs["embeds"].to(x.dtype), x], dim=1)
         if self.ln0 is not None:
             x = self.ln0(params["ln0"], x, ctx=ctx)
         x = ctx.constrain(x, ("batch", "res_seq", "embed"))

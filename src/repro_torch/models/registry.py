@@ -1,10 +1,12 @@
 """Architecture registry: configs, reduced smoke configs and model constructors.
 
-The decoder-only architectures are registered: the dense yi-6b, gemma-2b,
-qwen2-72b and nemotron-4-340b, the mixture-of-experts mixtral-8x22b (with a
-sliding window) and grok-1-314b (with a logit soft-cap), the hybrid
-recurrentgemma-2b and the ssm rwkv6-3b.  The encoder-decoder whisper-small
-and the vision-language internvl2-1b join with ROADMAP Queue 1 item 10b."""
+All ten of the reference's architectures are registered: the dense yi-6b,
+gemma-2b, qwen2-72b and nemotron-4-340b, the mixture-of-experts
+mixtral-8x22b (with a sliding window) and grok-1-314b (with a logit
+soft-cap), the hybrid recurrentgemma-2b, the ssm rwkv6-3b, the
+encoder-decoder whisper-small and the vision-language internvl2-1b.  The
+reference's per-cell `input_specs` wait for the dry-run's slice (ROADMAP
+Queue 1 item 13b)."""
 
 from __future__ import annotations
 
@@ -18,8 +20,10 @@ ARCHS = {
     "gemma-2b": "repro_torch.configs.gemma_2b",
     "qwen2-72b": "repro_torch.configs.qwen2_72b",
     "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
+    "whisper-small": "repro_torch.configs.whisper_small",
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     "grok-1-314b": "repro_torch.configs.grok_1_314b",
+    "internvl2-1b": "repro_torch.configs.internvl2_1b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
 }
@@ -62,12 +66,20 @@ def reduced_config(name: str) -> ModelConfig:
                   head_dim=16, kv_heads=1)
     if cfg.family == "ssm":
         kw.update(rwkv_head_dim=16, n_heads=4, kv_heads=4)
+    if cfg.family == "encdec":
+        kw.update(enc_layers=2)
+    if cfg.family == "vlm":
+        kw.update(num_image_tokens=8)
     if cfg.attn_window:
         kw.update(attn_window=16)
     return cfg.replace(name=cfg.name + "-reduced", **kw)
 
 
 def build_model(cfg: ModelConfig):
+    if cfg.family == "encdec":
+        from repro_torch.models.encdec import EncDecLM
+
+        return EncDecLM(cfg)
     from repro_torch.models.lm import TransformerLM
 
     return TransformerLM(cfg)

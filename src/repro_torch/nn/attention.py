@@ -23,8 +23,11 @@ in place the same way, at each token's (page, offset).
 Ring page pools — the pools of a sliding-window model whose prompts pass its
 window — keep a request's last W tokens at slot = position % W of its block
 table, with a per-request `pos` row saying which position each slot holds.
-Cross-attention (ROADMAP Queue 1 item 10b) and the meshed KV expansion
-arrive with the slices that need them.
+
+Cross-attention (`cross=True`, whisper's decoder) attends over K/V projected
+from an encoder's states (`kv_src`); its `{"ck", "cv"}` cache is computed
+once and never written.  The meshed KV expansion arrives with the slice
+that needs it.
 """
 
 from __future__ import annotations
@@ -183,10 +186,6 @@ class Attention(Module):
         cross: bool = False,
     ):
         super().__init__()
-        if cross:
-            raise NotImplementedError(
-                "cross-attention is not ported yet (the encoder-decoder slice, "
-                "ROADMAP Queue 1 item 10b)")
         self.name = name
         self.d_model = d_model
         self.n_heads, self.kv_heads, self.head_dim = n_heads, kv_heads, head_dim
@@ -233,6 +232,7 @@ class Attention(Module):
         positions: torch.Tensor | None = None,
         mode: str = "dense",  # dense | prefill | decode
         cache: dict | None = None,
+        kv_src: torch.Tensor | None = None,  # cross-attention source (B,T,d)
         kv_pos: torch.Tensor | None = None,  # hoisted (B,T) decode positions
         block_tables: torch.Tensor | None = None,  # paged caches: (B, NB) pages
         prefix_len: int = 0,  # paged prefill: shared-prefix slots
@@ -247,7 +247,10 @@ class Attention(Module):
             q = self._proj(params, x, "q", self.n_heads, policy)
             q = ctx.constrain(q, ("batch", "seq_act", "heads", None))
 
-            if mode == "decode":
+            if self.cross:
+                out, new_cache = self._cross(params, q, ctx, policy, cache,
+                                             kv_src, mode)
+            elif mode == "decode":
                 out, new_cache = self._decode(params, q, x, positions, ctx, policy,
                                               cache, kv_pos, block_tables,
                                               skip_write=skip_cache_write)
@@ -767,6 +770,40 @@ class Attention(Module):
         k_log, v_log = paged_gather_kv(pk, pv, block_tables, W)
         mask = _mask_dense(positions, pos, self.mask, self.window)[:, None, None]
         out = eager_attention(q, k_log, v_log, mask, softcap=self.softcap,
+                              accum_dtype=policy.accum_dtype)
+        return out, new_cache
+
+    # -- cross attention (whisper decoder) ----------------------------------------
+
+    def _cross(self, params, q, ctx, policy, cache, kv_src, mode="dense"):
+        """Cross-attention over the (fixed-length) encoder states.
+
+        Without a cache, K and V are projected from `kv_src` and returned as
+        the `{"ck", "cv"}` cache; handed one, the cache comes back as the
+        same object and is never written.  A single-token decode step under
+        the `cuda` impl attends through `flash_decode` at `index = T - 1`:
+        the encoder length is fixed, so every slot is live and the causal
+        bound of the last slot is the full mask.  Every multi-token call
+        (prefill, dense) takes the plain attention, as in the reference:
+        no kernel runs there."""
+        if cache is not None and "ck" in cache:
+            k, v = cache["ck"], cache["cv"]
+            new_cache = cache
+        else:
+            if kv_src is None:
+                raise ValueError("cross-attention needs kv_src or a cached "
+                                 "{'ck', 'cv'}")
+            k = self._proj(params, kv_src, "k", self.kv_heads, policy)
+            v = self._proj(params, kv_src, "v", self.kv_heads, policy)
+            new_cache = {"ck": k, "cv": v}
+        B, S = q.shape[0], q.shape[1]
+        T = k.shape[1]
+        if mode == "decode" and S == 1 and self._use_kernel(ctx, q):
+            index = torch.full((B,), T - 1, dtype=torch.int32, device=q.device)
+            out = flash_decode(q, k, v, index, **self._decode_kw(ctx))
+            return out, new_cache
+        mask = torch.ones((B, 1, 1, S, T), dtype=torch.bool, device=q.device)
+        out = eager_attention(q, k, v, mask, softcap=self.softcap,
                               accum_dtype=policy.accum_dtype)
         return out, new_cache
 

@@ -2,8 +2,7 @@
 
 Every block reads its dtype policy from the woven Ctx (ANTAREX precision
 aspects), passes activations through the (inert, single-card) sharding
-constraints, and can emit monitoring taps.  `sinusoidal_positions` arrives
-with the family that uses it.
+constraints, and can emit monitoring taps.
 """
 
 from __future__ import annotations
@@ -331,3 +330,14 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.T
     c = cos[..., None, :]
     out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings for arbitrary positions: fp32
+    angles, [sin | cos] on the last axis."""
+    half = dim // 2
+    step = np.log(10000.0) / max(half - 1, 1)
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                    device=positions.device) * np.float32(step))
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

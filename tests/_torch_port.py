@@ -62,3 +62,26 @@ def perturbed(tree, seed):
         return (x + 0.1 * rng.standard_normal(x.shape)).astype(np.float32)
 
     return leaf(np_tree(tree))
+
+
+def assert_tree_is_the_reference_tree(arch):
+    """The port's param tree for `arch` at its published size has the
+    reference's leaf paths and shapes (shapes only, nothing allocated);
+    returns its parameter count."""
+    import jax
+
+    from repro.models.registry import build_model as jbuild
+    from repro.models.registry import get_config as jget
+    from repro.nn.module import init_params as jinit
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.nn.module import flatten_specs
+
+    jmodel = jbuild(jget(arch))
+    shapes = jax.eval_shape(lambda: jinit(jmodel, jax.random.PRNGKey(0)))
+    want = {"/".join(str(k.key) for k in path): tuple(leaf.shape)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]}
+    tmodel = build_model(get_config(arch))
+    prefix = tmodel.name + "/"
+    got = {p[len(prefix):]: tuple(s.shape) for p, s in flatten_specs(tmodel).items()}
+    assert got == want
+    return sum(int(np.prod(s)) for s in got.values())

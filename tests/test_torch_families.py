@@ -89,13 +89,15 @@ def test_decode_matches_dense(arch):
 
 
 def test_exact_configs_match_assignment():
-    """The port's eight registered configs carry the published dimensions,
+    """The port's ten registered configs carry the published dimensions,
     field for field the reference's."""
     expect = {
         "yi-6b": (32, 4096, 32, 4, 11008, 64000),
         "gemma-2b": (18, 2048, 8, 1, 16384, 256000),
         "qwen2-72b": (80, 8192, 64, 8, 29568, 152064),
         "nemotron-4-340b": (96, 18432, 96, 8, 73728, 256000),
+        "whisper-small": (12, 768, 12, 12, 3072, 51865),
+        "internvl2-1b": (24, 896, 14, 2, 4864, 151655),
         "mixtral-8x22b": (56, 6144, 48, 8, 16384, 32768),
         "grok-1-314b": (64, 6144, 48, 8, 32768, 131072),
         "recurrentgemma-2b": (26, 2560, 10, 1, 7680, 256000),

@@ -174,14 +174,37 @@ def test_state_dict_keys_are_reference_paths():
 
 
 def test_vlm_and_encdec_families_and_meshes_raise():
-    """The vision-language and encoder-decoder families arrive with ROADMAP
-    Queue 1 item 10b and raise naming it; a mesh still raises."""
+    """A mesh still raises.  The vision-language and encoder-decoder
+    families, ported with ROADMAP Queue 1 item 10b, no longer do: a minimal
+    config of each builds (`test_vlm_and_encdec_families_build` runs them)."""
     from repro_torch.configs.base import ModelConfig
+    from repro_torch.models.encdec import EncDecLM
+    from repro_torch.models.lm import TransformerLM
 
-    for family in ("vlm", "encdec"):
+    for family, cls in (("vlm", TransformerLM), ("encdec", EncDecLM)):
         cfg = ModelConfig(name="m", family=family, num_layers=1, d_model=8, n_heads=1,
                           kv_heads=1, d_ff=8, vocab=8)
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            tbuild(cfg)
+        assert type(tbuild(cfg)) is cls
     with pytest.raises(NotImplementedError, match="mesh"):
         TCtx(mesh=object())
+
+
+@pytest.mark.parametrize("arch", ["internvl2-1b", "whisper-small"])
+def test_vlm_and_encdec_families_build(arch):
+    """Both families build from their reduced configs and run a dense
+    forward over their frontend stub's input (`embeds` / `frames`), with the
+    reference's param tree paths and shapes."""
+    cfg = treduced(arch)
+    model = tbuild(cfg)
+    params = tinit(model, 0, None, "cpu")
+    jparams = jinit(jbuild(jreduced(arch)), jax.random.PRNGKey(0))
+    load_jax_params(model, np_tree(jparams))
+    rng = np.random.default_rng(0)
+    inputs = {"tokens": t(rng.integers(0, cfg.vocab, (2, 6)).astype(np.int32))}
+    stub = "embeds" if cfg.family == "vlm" else "frames"
+    n = cfg.num_image_tokens if cfg.family == "vlm" else 10
+    inputs[stub] = t(rng.standard_normal((2, n, cfg.d_model)).astype(np.float32), torch.bfloat16)
+    logits, _ = model(params, inputs, ctx=TCtx(), mode="dense")
+    extra = n if cfg.family == "vlm" else 0
+    assert logits.shape == (2, 6 + extra, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())

@@ -246,3 +246,61 @@ def test_reduced_mixtral_ring_pool_launches_paged_ring_decode_on_the_card():
     assert flash_decode.launches == flash_decode.split_launches == layers * st["decode"] > 0
     assert flash_attention.launches == layers * (st["prefill"] + st["probe"])
     assert srv.last_pool_stats["peak_live_pages"] <= len(rings) * 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b"])
+def test_frontends_launch_their_kernels_on_the_card(arch):
+    """Reduced whisper-small (frames, 20 of them) and internvl2-1b (its 8
+    image embeddings) through the woven prefill / decode steps on the card:
+    K1 once a layer a prefill (non-causal in whisper's encoder), K2 on the
+    split route once a decode step a layer (twice under whisper: the self
+    cache and the cross cache at index T - 1, handed back unwritten), and
+    the logits within 2e-2 of the logit scale of the same steps woven to
+    the plain implementations.  `python3 chip_smoke.py` holds them at full
+    width (`frontends_phase`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core.program import Program
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_decode
+    from repro_torch.launch.weave import cuda_kernel_aspects, default_weave
+    from repro_torch.nn.module import init_params
+    from repro_torch.runtime.steps import build_decode_step, build_prefill_step
+
+    def steps(kernels):
+        program = Program.from_arch(arch, kind="serve", reduced=True, device="cuda")
+        woven = default_weave(program, SHAPES["prefill_32k"], {},
+                              extra_aspects=cuda_kernel_aspects() if kernels else None)
+        return woven, build_prefill_step(woven, cache_max_len=32), build_decode_step(woven)
+
+    (woven, prefill, decode), (_, eprefill, edecode) = steps(True), steps(False)
+    cfg = woven.program.cfg
+    params = init_params(woven.program.model, 0, woven.state.policies, "cuda")
+    encdec = cfg.family == "encdec"
+    rng = np.random.default_rng(0)
+    stub = torch.as_tensor(rng.standard_normal((2, 20 if encdec else cfg.num_image_tokens,
+                                                cfg.d_model), dtype=np.float32),
+                           device="cuda").to(torch.bfloat16)
+    inputs = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (2, 5), dtype=np.int32),
+                                        device="cuda"),
+              ("frames" if encdec else "embeds"): stub}
+    pos = torch.full((2, 1), 5 + (0 if encdec else cfg.num_image_tokens), dtype=torch.int32,
+                     device="cuda")
+    flash_attention.launches = flash_decode.launches = flash_decode.split_launches = 0
+    logits, cache = prefill(params, inputs)
+    assert flash_attention.launches == cfg.num_layers + (cfg.enc_layers if encdec else 0)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    cross = cache["decoder"]["cross"] if encdec else None
+    ck = cross["ck"].clone() if encdec else None
+    logits2, cache = decode(params, {"tokens": tok, "positions": pos}, cache)
+    per_step = cfg.num_layers * (2 if encdec else 1)
+    assert flash_decode.launches == flash_decode.split_launches == per_step
+    if encdec:
+        assert cache["decoder"]["cross"]["ck"] is cross["ck"]
+        assert torch.equal(cross["ck"], ck)
+    elogits, ecache = eprefill(params, inputs)
+    elogits2, _ = edecode(params, {"tokens": tok, "positions": pos}, ecache)
+    for got, want in ((logits, elogits), (logits2, elogits2)):
+        scale = want.float().abs().max()
+        assert float((got.float() - want.float()).abs().max()) <= 2e-2 * float(scale)
