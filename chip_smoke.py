@@ -77,7 +77,16 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    (`fleet_phase`: clean, a replica lost mid-decode, a drain, fp32 at a
    depth of 4 bit for bit one server), exact launch counts in every run;
    every K2 shape those runs launched is held against its plain version
-   (`governed_shape_cases`); then serves mixtral-8x22b (MoE, sliding window
+   (`governed_shape_cases`); then runs the kernel tuner's loop
+   (`tuner_phase`: tunes the card's knobs — yi-6b's page size, pool dtype
+   and draft length at its continuous signature, K3's `dkv_n_split` at
+   gemma-2b's microbatch — into a cache file of its own, holds every
+   tuned value against its plain version, serves the same model through
+   second woven servers over the same weights that weave the tuned rows
+   (a page size other than the default gives the same bf16 tokens bit for
+   bit), with exact launch counts, and feeds the observed latencies back);
+   every phase before it weaves the tuner's aspect over an empty cache;
+   then serves mixtral-8x22b (MoE, sliding window
    4096: a linear and a ring page pool), grok-1-314b (MoE, soft-cap),
    qwen2-72b and nemotron-4-340b (head_dim 192) at their published widths
    and the depth one card holds through `serve_continuous`, with exact
@@ -117,8 +126,10 @@ from __future__ import annotations
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -2717,6 +2728,390 @@ def fleet_phase(torch, server, fsrv, shapes: DecodeShapes) -> dict:
     return counted
 
 
+# ---------------------------------------------------------------------------
+# the kernel tuner on the card: tune, persist, weave, serve, feed back
+# ---------------------------------------------------------------------------
+
+
+def tuner_rows(entry: dict) -> list[dict]:
+    """A tuned entry's operating points as printed: knobs, latency in ms,
+    shared memory, and the pool's HBM or error column where the space has
+    one."""
+    rows = []
+    for r in entry["ops"]:
+        m = r["metrics"]
+        row = {"knobs": r["knobs"], "ms": m["latency_s"][0] * 1e3,
+               "smem_bytes": int(m["smem_bytes"][0])}
+        for col in ("pool_hbm_bytes", "max_logit_err", "tokens_per_hbm_byte",
+                    "tokens_per_step"):
+            if col in m:
+                row[col] = m[col][0]
+        rows.append(row)
+    return rows
+
+
+def paged_from_dense(torch, gen, k, v, ps):
+    """The dense (B, T, K, D) cache as a page pool of page `ps` under
+    shuffled block tables: (k pool, v pool, tables)."""
+    B, T, K, D = k.shape
+    nb = T // ps
+    perm = torch.randperm(B * nb, generator=gen, device="cuda")
+    pk = torch.empty((B * nb, ps, K, D), dtype=k.dtype, device="cuda")
+    pv = torch.empty_like(pk)
+    pk[perm] = k.reshape(B * nb, ps, K, D)
+    pv[perm] = v.reshape(B * nb, ps, K, D)
+    return pk, pv, perm.to(torch.int32).reshape(B, nb).contiguous()
+
+
+def tuned_value_cases(torch, gen, sigs: dict) -> dict:
+    """Every value a tuned space holds, held against the plain version on
+    the card at the tuned signature's shape.
+
+    `page_size`: one bf16 token a request (ragged positions, as the DSE
+    measures) over one dense cache repacked as a shuffled pool at each page
+    size: the split route, every page size's rows equal the dense layout's
+    bit for bit, and within BF16_TOL of the plain version.  `cache_dtype`:
+    the same values quantized per page at each page size — the codes' rows
+    within BF16_TOL of the plain version over the same codes, the paged
+    pool equal to the dense layout of the same codes and scales bit for
+    bit, within QUANT_VS_FP_TOL of the bf16 pool's rows for int8 (e4m3's
+    gap printed, a tuning column).  `draft_len`: the verify step, S =
+    draft_len + 1 tokens at T - S (the DSE's shape), on K2's tensor-core
+    mode, the same bits twice, against the plain version in float64.
+    `dkv_n_split`: K3 at gemma-2b's training microbatch with each split,
+    the same bits twice, every gradient against the plain backward in
+    float64."""
+    from repro_torch.autotune.kernel_tuner import design_space, ragged_index
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.decode import flash_decode_fwd
+    from repro_torch.kernels.flash_attention.ops import flash_decode
+    from repro_torch.kernels.flash_attention.ref import attention_ref, decode_ref, \
+        flash_attention_bwd_ref
+    from repro_torch.runtime.pages import quantize_linear_pool
+
+    out = {"page_size": [], "cache_dtype": [], "draft_len": [], "dkv_n_split": []}
+    sig = sigs["paged_decode"]
+    B, T, H, K, D = sig.shape
+    q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn((B, T, K, D), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((B, T, K, D), generator=gen, device="cuda").to(torch.bfloat16)
+    index = torch.tensor(ragged_index(B, T), dtype=torch.int32, device="cuda")
+    dense = flash_decode(q, k, v, index)
+    torch.cuda.synchronize()
+    if flash_decode_fwd.last_route != "tc_split":
+        raise AssertionError(f"tuner: the dense decode took {flash_decode_fwd.last_route}")
+    pools = {}
+    for ps in design_space(sig)["page_size"]:
+        pk, pv, tables = pools[ps] = paged_from_dense(torch, gen, k, v, ps)
+        kw = dict(tables=tables, kv_len=T)
+        got = flash_decode(q, pk, pv, index, **kw)
+        torch.cuda.synchronize()
+        if flash_decode_fwd.last_route != "tc_split" or not torch.equal(got, dense):
+            raise AssertionError(f"tuner page_size {ps}: route {flash_decode_fwd.last_route}, "
+                                 f"bitwise equal to the dense layout "
+                                 f"{torch.equal(got, dense)}")
+        err, rms = check_close(torch, f"tuner page_size {ps}", got,
+                               decode_ref(q, pk, pv, index, **kw), BF16_TOL)
+        out["page_size"].append({"page_size": ps, "route": "tc_split",
+                                 "bitwise_equal_dense": True, "max_abs_err": err,
+                                 "ref_rms": rms})
+
+    qsig = sigs["quantized_cache"]
+    space = design_space(qsig)
+    for name in space["cache_dtype"]:
+        for ps in space["page_size"]:
+            if name == "float16":  # the fp arm: the bf16 pool, held above
+                continue
+            pk, pv, tables = pools[ps]
+            qk, qv, ksc, vsc = quantize_linear_pool(pk, pv, name)
+            kw = dict(tables=tables, kv_len=T, k_scale=ksc, v_scale=vsc)
+            got = flash_decode(q, qk, qv, index, **kw)
+            torch.cuda.synchronize()
+            if flash_decode_fwd.last_route != "tc_split":
+                raise AssertionError(f"tuner {name} page {ps}: route "
+                                     f"{flash_decode_fwd.last_route}")
+            rows = tables.long()
+            kd = qk[rows].reshape(B, T, K, D)
+            vd = qv[rows].reshape(B, T, K, D)
+            as_dense = flash_decode(q, kd, vd, index, k_scale=ksc[rows].contiguous(),
+                                    v_scale=vsc[rows].contiguous(), scale_page=ps)
+            torch.cuda.synchronize()
+            if not torch.equal(got, as_dense):
+                raise AssertionError(f"tuner {name} page {ps}: the paged pool's rows "
+                                     f"differ from the dense layout of the same codes")
+            err, rms = check_close(torch, f"tuner {name} page {ps}", got,
+                                   decode_ref(q, qk, qv, index, **kw), BF16_TOL)
+            vs_fp = (got.float() - dense.float()).abs().max().item()
+            if name == "int8" and not vs_fp <= QUANT_VS_FP_TOL:
+                raise AssertionError(f"tuner int8 page {ps}: {vs_fp} from the bf16 pool's "
+                                     f"rows (bound {QUANT_VS_FP_TOL})")
+            out["cache_dtype"].append({"cache_dtype": name, "page_size": ps,
+                                       "bitwise_equal_dense_codes": True,
+                                       "max_abs_err": err, "ref_rms": rms,
+                                       "max_abs_diff_vs_bf16_pool": vs_fp})
+            del qk, qv, kd, vd
+    del pools, k, v
+    torch.cuda.empty_cache()
+
+    ssig = sigs["speculative"]
+    B, T, H, K, D = ssig.shape
+    k = torch.randn((B, T, K, D), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((B, T, K, D), generator=gen, device="cuda").to(torch.bfloat16)
+    for d in design_space(ssig)["draft_len"]:
+        S = d + 1
+        q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+        index = torch.full((B,), T - S, dtype=torch.int32, device="cuda")
+        got = flash_decode(q, k, v, index)
+        torch.cuda.synchronize()
+        if flash_decode_fwd.last_route != "tc" or not torch.equal(got, flash_decode(
+                q, k, v, index)):
+            raise AssertionError(f"tuner draft_len {d}: route {flash_decode_fwd.last_route} "
+                                 f"or other bits on a second call")
+        err, rms = check_exact(torch, f"tuner draft_len {d}", got,
+                               exact(decode_ref, (q, k, v), index=index), BF16_TOL)
+        out["draft_len"].append({"draft_len": d, "route": "tc", "bitwise_two_calls": True,
+                                 "max_abs_err": err, "ref_rms": rms})
+    del k, v
+    torch.cuda.empty_cache()
+
+    fsig = sigs["flash_attention"]
+    B, S, H, K, D = fsig.shape
+    q, do = (torch.randn((B, S, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn((B, S, K, D), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    o, lse = ops._forward(q, k, v, causal=True, window=None, softcap=None, block_q=64,
+                          block_kv=64, pruned=True, return_lse=True)
+    want = exact(flash_attention_bwd_ref, (q, k, v, o, lse, do), causal=True)
+    for n in design_space(fsig)["dkv_n_split"]:
+        got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=True, n_split=n)
+        again = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=True, n_split=n)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"tuner dkv_n_split {n}: two K3 calls differ")
+        errs = {g: check_exact(torch, f"tuner dkv_n_split {n} {g}", a, w, BF16_TOL)
+                for g, a, w in zip(("dq", "dk", "dv"), got, want)}
+        out["dkv_n_split"].append({"dkv_n_split": n, "bitwise_two_calls": True,
+                                   **{f"max_abs_err_{g}": e[0] for g, e in errs.items()},
+                                   **{f"ref_rms_{g}": e[1] for g, e in errs.items()}})
+    del q, k, v, do, o, lse, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def tuned_server(server, tuner, batch: int):
+    """A second woven server over `server`'s weights whose tuned knobs come
+    from `tuner`'s rows: `TunedKernelAspect(batch, max_cache_len,
+    cache_len=max_cache_len)` explicitly, so that its serving signatures
+    are the ones tuned (the default weave's aspect, keyed to the prefill
+    shape, is left out)."""
+    import dataclasses
+
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core.strategies.kernels import TunedKernelAspect
+    from repro_torch.launch.weave import cuda_kernel_aspects, default_weave
+    from repro_torch.runtime.server import Server
+
+    T = server.cfg.max_cache_len
+    woven = default_weave(server.woven.program, SHAPES["prefill_32k"], {},
+                          overrides={"tuned_kernels": False},
+                          extra_aspects=cuda_kernel_aspects()
+                          + [TunedKernelAspect(batch, T, cache_len=T, tuner=tuner)])
+    return Server(woven, dataclasses.replace(server.cfg), params=server.params)
+
+
+def tuner_phase(torch, server) -> dict:
+    """The kernel tuner's loop on the card, on full-width, full-depth yi-6b.
+
+    1. Tune into this phase's own cache file (`KernelTuner`, rows keyed
+       `@cuda`): `paged_decode` and `quantized_cache` at the signature
+       `Server._paged_signature` gives the continuous run (B8, the 4096-slot
+       cache, H32 K4 D128, bf16), `speculative` at B8 (and at B1..B7: the
+       feedback keys on the verify rounds' mean live batch),
+       `flash_attention` at gemma-2b's training microbatch (B2 S1024 H8 K1
+       D256 bf16: `dkv_n_split` in {1, 2, 4, 8}).  Printed: every row
+       (knobs, ms, shared memory, the pool's HBM or the error column), the
+       chosen knobs beside today's defaults (page 128, the heuristic's
+       split) and the tuning wall time.
+    2. Every value the spaces hold is held against its plain version
+       (`tuned_value_cases`).
+    3. Serve the continuous traffic's eight prefix sharers, all at wave 0
+       (a live batch of 8 throughout, the tuned signatures' batch), 32
+       tokens each: (k0) `server` at the default page size; (k1) a second
+       woven server over the same weights (`tuned_server`) whose cache
+       holds only the `paged_decode` row; then `refine_kernel_tuner`, and
+       (k1r) a third server weaving the refined row; (k2) one over the
+       full tuned cache (the quantized pool's dtype and page size, the
+       draft length), then `refine_speculative`.  Each refine's latency
+       budget is twice the step it observes, so the re-selection
+       maximizes its knob.  The hot path reads the same file meanwhile.  Gated: every outcome ok and exact launches by
+       route (`check_paged_run`); each tuned space's lookup hit (its
+       extras woven and equal to the row; a miss fails the phase); the
+       pool's page size and dtype the woven ones; (k1)'s and (k1r)'s
+       tokens equal (k0)'s bit for bit, one of them at a page size other
+       than the default — neither the split route nor K1's 64-slot tiles
+       depend on the paging; (k2) speculative at the tuned draft length;
+       both refine calls return knobs.  Printed: the stored
+       `error_coef` — the DSE stores one kernel launch and the server
+       observes a whole 32-layer step, so the paged coefficient lies far
+       above 1.
+    """
+    import numpy as np
+
+    from repro_torch.autotune import kernel_tuner as kt
+
+    mcfg = server.woven.program.cfg
+    B, T = 8, server.cfg.max_cache_len
+    H, K, D = mcfg.n_heads, mcfg.kv_heads, mcfg.resolved_head_dim
+    home = os.path.dirname(os.environ["REPRO_TORCH_TUNER_CACHE"])
+    full_path, paged_path = os.path.join(home, "tuned.json"), os.path.join(home, "paged.json")
+    sigs = {"paged_decode": server._paged_signature(batch=B, dtype=torch.bfloat16),
+            "quantized_cache": kt.quantized_cache_signature(B, T, H, K, D, torch.bfloat16),
+            "speculative": kt.speculative_signature(B, T, H, K, D, torch.bfloat16),
+            "flash_attention": kt.flash_signature((2, 1024, 8, 256), 1, torch.bfloat16,
+                                                  causal=True)}
+    t_phase = time.perf_counter()
+    tuner = kt.KernelTuner(full_path)
+    report = {"card": nvidia_smi_line(), "signatures": {n: s.key() for n, s in sigs.items()},
+              "spaces": {n: kt.design_space(s) for n, s in sigs.items()}}
+    t0 = time.perf_counter()
+    chosen = {}
+    for name, sig in sigs.items():
+        t1 = time.perf_counter()
+        chosen[name] = (kt.tune_quantized_cache(sig, tuner=tuner)
+                        if name == "quantized_cache" else tuner.tune(sig, num_tests=3))
+        entry = tuner.cache.get(tuner._key(sig))
+        report[name] = {"rows": tuner_rows(entry), "chosen": chosen[name],
+                        "tune_s": time.perf_counter() - t1}
+    # refine_speculative keys on the mean live batch of the verify rounds,
+    # which the draft's rejections lower: the verify step is tuned at every
+    # live batch the continuous batcher forms (the aspect weaves B8's row)
+    report["speculative"]["chosen_by_batch"] = {
+        b: tuner.tune(kt.speculative_signature(b, T, H, K, D, torch.bfloat16), num_tests=3)
+        for b in range(1, B)}
+    report["tune_wall_s"] = time.perf_counter() - t0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    from repro_torch.kernels.flash_attention.kernel import dkv_n_split
+
+    report["defaults"] = {"page_size": 128, "cache_dtype": None, "draft_len": 0,
+                          "dkv_n_split_heuristic": dkv_n_split(2, 1, 1024, 8, sms)}
+    if not all(tuner.lookup(s) == chosen[n] for n, s in sigs.items()):
+        raise AssertionError("tuner: a tuned row does not read back")
+    paged_tuner = kt.KernelTuner(paged_path)
+    paged_tuner.cache.put(paged_tuner._key(sigs["paged_decode"]),
+                          tuner.cache.get(tuner._key(sigs["paged_decode"])))
+    log("tuner " + json.dumps(report))
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    t1 = time.perf_counter()
+    cases = tuned_value_cases(torch, gen, sigs)
+    log("tuner-cases " + json.dumps({"wall_s": time.perf_counter() - t1, **cases}))
+
+    prompts, _ = continuous_traffic(mcfg)
+    prompts = prompts[:B]
+    empty = os.environ["REPRO_TORCH_TUNER_CACHE"]
+
+    def serve(srv, tag, path):
+        os.environ["REPRO_TORCH_TUNER_CACHE"] = path
+        try:
+            out, wall, counts, routes = counted_serve(
+                torch, lambda: srv.serve_continuous(prompts, max_batch=B))
+        finally:
+            os.environ["REPRO_TORCH_TUNER_CACHE"] = empty
+        pool = srv.last_pool_stats
+        check_paged_run(srv, "tuner", tag, prompts, out, counts, routes,
+                        pool["cache_dtype"] is not None)
+        rep = {"wall_s": wall, "launches": counts, "routes": routes,
+               "steps": dict(srv.last_step_counts), "page_size": pool["page_size"],
+               "cache_dtype": pool["cache_dtype"], "prefix_hits": pool["prefix_hits"],
+               "decode_step_s_mean": (float(np.mean(srv.decode_step_latencies))
+                                      if srv.decode_step_latencies else None),
+               "ttft_s": [o["ttft_s"] for o in srv.last_outcomes]}
+        log(f"tuner {tag} " + json.dumps({k: v for k, v in rep.items()
+                                          if k not in ("launches", "routes")}))
+        return out, rep
+
+    runs, counted = {}, {}
+    base, runs["k0_default_page"] = serve(server, "k0_default_page", empty)
+
+    def woven_knobs(srv, want: dict):
+        got = {extra: srv.woven.state.extra.get(extra) for extra in want}
+        if got != want:
+            raise AssertionError(f"tuner: woven {got}, the rows hold {want} (a lookup missed)")
+
+    srv1 = tuned_server(server, paged_tuner, B)
+    ps = chosen["paged_decode"]["page_size"]
+    woven_knobs(srv1, {"flash_page_size": ps, "flash_cache_dtype": None,
+                       "speculative_draft_len": None})
+    out1, runs["k1_tuned_page"] = serve(srv1, "k1_tuned_page", paged_path)
+    if runs["k1_tuned_page"]["page_size"] != ps:
+        raise AssertionError(f"tuner (k1): the pool's page size "
+                             f"{runs['k1_tuned_page']['page_size']}, the row's {ps}")
+    same = all(np.array_equal(a, b) for a, b in zip(out1, base))
+    runs["k1_tuned_page"]["bitwise_equal_k0"] = same
+    if not same:
+        raise AssertionError(f"tuner (k1): page size {ps} gave other bf16 tokens than 128")
+    # an SLO at twice the step (k1) observed: every refined row meets it, so
+    # the re-selection maximizes the page size
+    budget = 2 * runs["k1_tuned_page"]["decode_step_s_mean"]
+    refined = srv1.refine_kernel_tuner(latency_budget=budget, tuner=paged_tuner)
+    if refined is None:
+        raise AssertionError("tuner (k1): refine_kernel_tuner found no row to refine")
+    entry = paged_tuner.cache.get(paged_tuner._key(srv1._paged_sig))
+    runs["k1_tuned_page"]["refine"] = {"knobs": refined, **entry["runtime"]}
+    log("tuner k1 refine " + json.dumps(runs["k1_tuned_page"]["refine"]))
+    # the loop closed: a next server weaves the refined row
+    srv1r = tuned_server(server, paged_tuner, B)
+    woven_knobs(srv1r, {"flash_page_size": refined["page_size"], "flash_cache_dtype": None,
+                        "speculative_draft_len": None})
+    out1r, runs["k1r_refined_page"] = serve(srv1r, "k1r_refined_page", paged_path)
+    same = all(np.array_equal(a, b) for a, b in zip(out1r, base))
+    runs["k1r_refined_page"]["bitwise_equal_k0"] = same
+    if runs["k1r_refined_page"]["page_size"] != refined["page_size"] or not same:
+        raise AssertionError(f"tuner (k1r): page {runs['k1r_refined_page']['page_size']} "
+                             f"(refined {refined['page_size']}), bitwise equal to (k0) {same}")
+    if {ps, refined["page_size"]} == {128}:
+        raise AssertionError("tuner (k1r): no page size but the default was served, so the "
+                             "paging identity went untested")
+    del srv1r
+
+    q = chosen["quantized_cache"]
+    srv2 = tuned_server(server, tuner, B)
+    woven_knobs(srv2, {"flash_page_size": q["page_size"], "flash_cache_dtype": q["cache_dtype"],
+                       "speculative_draft_len": chosen["speculative"]["draft_len"]})
+    out2, runs["k2_tuned_all"] = serve(srv2, "k2_tuned_all", full_path)
+    spec = srv2.last_spec_stats
+    want_dtype = q["cache_dtype"] if q["cache_dtype"] in ("int8", "float8_e4m3fn") else None
+    if (runs["k2_tuned_all"]["page_size"], runs["k2_tuned_all"]["cache_dtype"]) != \
+            (q["page_size"], want_dtype) or spec is None \
+            or spec["draft_len"] != chosen["speculative"]["draft_len"]:
+        raise AssertionError(f"tuner (k2): pool {runs['k2_tuned_all']}, spec {spec}, rows {q} "
+                             f"{chosen['speculative']}")
+    runs["k2_tuned_all"].update(
+        acceptance=spec["acceptance"], mean_tokens_per_verify=spec["mean_tokens_per_verify"],
+        token_agreement_vs_k0=float(np.mean([(a == b).mean() for a, b in zip(out2, base)])))
+    refined = srv2.refine_speculative(latency_budget=2 * spec["verify_latency_s"],
+                                      tuner=tuner)
+    batch = max(1, round(spec["request_rounds"] / max(spec["rounds"], 1)))
+    runs["k2_tuned_all"]["refined_batch"] = batch
+    if refined is None:
+        raise AssertionError(f"tuner (k2): refine_speculative found no row at B{batch}")
+    entry = tuner.cache.get(tuner._key(kt.speculative_signature(batch, T, H, K, D,
+                                                                torch.bfloat16)))
+    runs["k2_tuned_all"]["refine"] = {"knobs": refined, **entry["runtime"]}
+    log("tuner k2 refine " + json.dumps(runs["k2_tuned_all"]["refine"]))
+    for tag, rep in runs.items():
+        counted[tag] = {**rep["launches"], **rep["routes"],
+                        "verify_launches": mcfg.num_layers * rep["steps"]["verify"]}
+    log("tuner-serve " + json.dumps({"card": nvidia_smi_line(), "model": "yi-6b",
+                                     "layers": mcfg.num_layers, "requests": len(prompts),
+                                     "phase_wall_s": time.perf_counter() - t_phase,
+                                     "runs": runs}, default=str))
+    del srv1, srv2
+    return {"counts": counted, "cases": cases}
+
+
 def sharing_diagnostic(torch, server, prompts) -> dict:
     """Where the shared and the unshared runs part (printed, not gated): the
     first-token logits of each prefix sharer, admitted over its donor's pages
@@ -4069,6 +4464,17 @@ def main() -> int:
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
+    # every phase weaves the kernel tuner's aspect over an empty cache of its
+    # own (a miss changes nothing); `tuner_phase` tunes beside it
+    tuner_home = tempfile.mkdtemp(prefix="repro_torch_tuner_")
+    os.environ["REPRO_TORCH_TUNER_CACHE"] = os.path.join(tuner_home, "empty.json")
+    try:
+        return run(torch, build, t_start)
+    finally:
+        shutil.rmtree(tuner_home, ignore_errors=True)
+
+
+def run(torch, build, t_start) -> int:
     card = nvidia_smi_line()
     nvcc = subprocess.run([build.find_nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-2]
@@ -4113,6 +4519,7 @@ def main() -> int:
     fsrv = fp32_depth4_server(server)
     qos = qos_phase(torch, server, fsrv, shapes)
     fleet = fleet_phase(torch, server, fsrv, shapes)
+    tun = tuner_phase(torch, server)
     del server, fsrv
     torch.cuda.empty_cache()
     governed_cases = governed_shape_cases(torch, gen, shapes.shapes)
@@ -4141,6 +4548,7 @@ def main() -> int:
                 "speculative_s3_int8": spec["s3_int8_k2"].get(key, 0),
                 **{f"qos_{run}": qos[run].get(key, 0) for run in qos},
                 **{f"fleet_{run}": fleet[run].get(key, 0) for run in fleet},
+                **{f"tuner_{run}": tun["counts"][run].get(key, 0) for run in tun["counts"]},
                 **{f"families_{run}": fam[run].get(key, 0) for run in fam},
                 **{f"frontends_{run}": fro[run].get(key, 0) for run in fro},
                 "recurrentgemma_serve": rec["recurrentgemma-2b"].get(key, 0),
@@ -4229,10 +4637,18 @@ def main() -> int:
         {**{run: spec[run]["verify_launches"] for run in
             ("s1_bf16_k2", "s2_bf16_k4", "s3_int8_k2")},
          **{f"qos_{run}": qos[run]["verify_launches"] for run in qos},
+         **{f"tuner_{run}": tun["counts"][run]["verify_launches"] for run in tun["counts"]},
          **{f"families_{run}": fam[run]["verify_launches"] for run in fam}}))
     # every K2 shape the governed and fleet runs launched, held against the
     # plain version (`governed_shape_cases`)
     kernels[1]["qos_fleet_shape_cases"] = governed_cases
+    # every value the kernel tuner's spaces hold, held against the plain
+    # version (`tuned_value_cases`)
+    entry = {e["name"]: e for e in kernels}
+    entry["flash_decode"]["tuner_page_size_cases"] = tun["cases"]["page_size"]
+    entry["flash_decode_quantized"]["tuner_cache_dtype_cases"] = tun["cases"]["cache_dtype"]
+    entry["flash_attention_bwd_dkv"]["tuner_dkv_n_split_cases"] = tun["cases"]["dkv_n_split"]
+    entry["flash_decode_verify"]["tuner_draft_len_cases"] = tun["cases"]["draft_len"]
     kernels[2]["library_ms_note"] = ("no single PyTorch call attends over an int8 "
                                      "paged pool")
     kernels[4]["library_ms_note"] = "no single PyTorch call computes a linear recurrence"

@@ -239,6 +239,14 @@ def dkv_n_split(B: int, K: int, T: int, G: int, sms: int) -> int:
     return G
 
 
+def check_n_split(n_split: int, G: int) -> int:
+    """A requested `dkv_n_split`, which must divide the group G."""
+    n_split = int(n_split)
+    if n_split < 1 or G % n_split:
+        raise ValueError(f"dkv_n_split {n_split} must divide the group {G}")
+    return n_split
+
+
 def dkv_split_schedule(
     S: int, T: int, G: int, n_split: int, block_q: int, block_kv: int, *,
     causal: bool = True, window: int | None = None, pruned: bool = True,
@@ -249,10 +257,8 @@ def dkv_split_schedule(
     interval [q_lo, q_hi) (every q block without pruning), from its last q
     block back to its first, all the split's heads at each — computed with
     the kernel's own arithmetic (csrc/flash_bwd.cu)."""
-    if n_split < 1 or G % n_split:
-        raise ValueError(f"n_split {n_split} must divide the group {G}")
+    per = G // check_n_split(n_split, G)
     nq, nk = cdiv(S, block_q), cdiv(T, block_kv)
-    per = G // n_split
     out = []
     for ik in range(nk):
         lo, hi = 0, nq
@@ -366,6 +372,7 @@ def flash_attention_bwd(
     pruned: bool = True,
     passes: int = 3,
     delta: torch.Tensor | None = None,
+    n_split: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The fused backward: (dq, dk, dv) in the model layout, dq in q's type,
     dk / dv (B, T, K, D) in k's type — group-summed over the G q heads of
@@ -385,7 +392,10 @@ def flash_attention_bwd(
     On the tensor-core route (bf16) the dk / dv pass splits each KV head's
     group across `dkv_n_split` blocks for the device: with more than one,
     the blocks write fp32 partial sums to a scratch tensor that a third
-    launch, part of pass 2, adds in split order."""
+    launch, part of pass 2, adds in split order.  `n_split` sets that number
+    (a divisor of the group: the kernel tuner's `dkv_n_split` knob); None
+    takes `dkv_n_split`'s heuristic.  The FMA route has no split and
+    ignores it."""
     code, _ = check_qkv(q, k, v)
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
@@ -417,8 +427,13 @@ def flash_attention_bwd(
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, T, K, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, T, K, D), dtype=k.dtype, device=q.device)
-    n_split = 1 if route != "tc" else dkv_n_split(
-        B, K, T, H // K, torch.cuda.get_device_properties(q.device).multi_processor_count)
+    if route != "tc":
+        n_split = 1
+    elif n_split is None:
+        n_split = dkv_n_split(
+            B, K, T, H // K, torch.cuda.get_device_properties(q.device).multi_processor_count)
+    else:
+        n_split = check_n_split(n_split, H // K)
     partial = (torch.empty((2, n_split, B, T, K, D), dtype=torch.float32,
                            device=q.device) if n_split > 1 and passes & 2 else None)
     reported = build.route_out()

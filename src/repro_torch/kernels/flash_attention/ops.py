@@ -22,11 +22,16 @@ fp8 codes), which run K1's tensor-core body, in `flash_decode.tc_launches`,
 its single-token launches with a bf16 q, which run the split route, in
 `flash_decode.split_launches`, and the rest (an fp32 q) in
 `flash_decode.fma_launches`.  Block sizes left
-unspecified (None) take the FMA route's tile capacity; woven `flash_block_*`
+unspecified (None) are looked up in the kernel tuner's cache for the
+tensor's device (`autotune.kernel_tuner`, a memoised dict read that never
+measures), else take the FMA route's tile capacity; woven `flash_block_*`
 extras override and are clamped to that capacity.  Backward blocks left
 unspecified take the forward's, as the reference's `_resolve_blocks` does
 (then clamped to the backward's capacity).  The tensor-core route's tiles
-are compiled in: any requested block maps to them (`kernel.route_blocks`).
+are compiled in: any requested block maps to them (`kernel.route_blocks`);
+its knob is `dkv_n_split`, the blocks K3's dk / dv pass splits a KV head's
+group across (looked up the same way when unspecified, else the kernel's
+heuristic).
 
 The quantization primitives of the int8 / fp8 page pool live here too, as in
 the reference: a page stores narrow codes beside one fp32 scale per KV head,
@@ -41,6 +46,7 @@ from repro_torch.kernels.flash_attention.decode import flash_decode_fwd
 from repro_torch.kernels.flash_attention.kernel import (
     MAX_BLOCK_KV,
     MAX_BLOCK_Q,
+    check_n_split,
     flash_attention_fwd,
 )
 from repro_torch.kernels.flash_attention.kernel import (
@@ -141,14 +147,14 @@ class _FlashCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, block_q, block_kv,
-                block_q_bwd, block_kv_bwd, pruned):
+                block_q_bwd, block_kv_bwd, pruned, dkv_n_split):
         out, lse = _forward(q, k, v, causal=causal, window=window,
                             softcap=softcap, block_q=block_q,
                             block_kv=block_kv, pruned=pruned, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.opts = dict(causal=causal, window=window, softcap=softcap,
                         block_q=block_q_bwd, block_kv=block_kv_bwd,
-                        pruned=pruned)
+                        pruned=pruned, n_split=dkv_n_split)
         return out
 
     @staticmethod
@@ -156,7 +162,32 @@ class _FlashCore(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
                                          **ctx.opts)
-        return (dq, dk, dv) + (None,) * 8
+        return (dq, dk, dv) + (None,) * 9
+
+
+def _resolve_blocks(q, k, *, causal, window, block_q, block_kv, block_q_bwd,
+                    block_kv_bwd, dkv_n_split):
+    """Fill unspecified knobs from the kernel tuner's cache for q's device,
+    as the reference's `_resolve_blocks` does: (block_q, block_kv,
+    block_q_bwd, block_kv_bwd, dkv_n_split).  Untuned backward blocks take
+    the resolved forward blocks; an untuned `dkv_n_split` stays None (the
+    kernel's heuristic).  A `dkv_n_split` that does not divide the group
+    raises, whatever the device."""
+    if None in (block_q, block_kv, block_q_bwd, block_kv_bwd, dkv_n_split):
+        from repro_torch.autotune.kernel_tuner import tuned_flash_blocks
+
+        tuned = tuned_flash_blocks(q.shape, k.shape[2], q.dtype, causal=causal,
+                                   window=window, device=q.device.type)
+    else:
+        tuned = {}
+    bq = int(block_q if block_q is not None else tuned.get("block_q", DEFAULT_BLOCK_Q))
+    bkv = int(block_kv if block_kv is not None else tuned.get("block_kv", DEFAULT_BLOCK_KV))
+    bqb = int(block_q_bwd if block_q_bwd is not None else tuned.get("block_q_bwd", bq))
+    bkvb = int(block_kv_bwd if block_kv_bwd is not None else tuned.get("block_kv_bwd", bkv))
+    split = dkv_n_split if dkv_n_split is not None else tuned.get("dkv_n_split")
+    if split is not None:
+        split = check_n_split(split, q.shape[2] // max(k.shape[2], 1))
+    return bq, bkv, bqb, bkvb, split
 
 
 def flash_attention(
@@ -172,16 +203,17 @@ def flash_attention(
     block_q_bwd: int | None = None,
     block_kv_bwd: int | None = None,
     pruned: bool = True,
+    dkv_n_split: int | None = None,
 ) -> torch.Tensor:
-    block_q = DEFAULT_BLOCK_Q if block_q is None else int(block_q)
-    block_kv = DEFAULT_BLOCK_KV if block_kv is None else int(block_kv)
-    block_q_bwd = block_q if block_q_bwd is None else int(block_q_bwd)
-    block_kv_bwd = block_kv if block_kv_bwd is None else int(block_kv_bwd)
+    block_q, block_kv, block_q_bwd, block_kv_bwd, dkv_n_split = _resolve_blocks(
+        q, k, causal=causal, window=window, block_q=block_q, block_kv=block_kv,
+        block_q_bwd=block_q_bwd, block_kv_bwd=block_kv_bwd, dkv_n_split=dkv_n_split)
     if q.device.type != "cpu" and q.numel() == 0:
         return torch.empty_like(q)  # nothing to launch, nothing counted
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashCore.apply(q, k, v, causal, window, softcap, block_q,
-                                block_kv, block_q_bwd, block_kv_bwd, pruned)
+                                block_kv, block_q_bwd, block_kv_bwd, pruned,
+                                dkv_n_split)
     return _forward(q, k, v, causal=causal, window=window, softcap=softcap,
                     block_q=block_q, block_kv=block_kv, pruned=pruned,
                     return_lse=False)
@@ -207,12 +239,14 @@ def flash_attention_bwd(
     block_q: int | None = None,
     block_kv: int | None = None,
     pruned: bool = True,
+    n_split: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) in the model layout; dk / dv have the K KV heads.  A CPU
-    tensor takes the plain version; a CUDA tensor launches the two-pass
-    kernel (one call, counted once in `launches` and once by route: a dq
-    pass and a dk / dv pass, with the reduce of its split partials on the
-    tensor-core route) or raises."""
+    tensor takes the plain version (which has no split: `n_split` is
+    ignored there); a CUDA tensor launches the two-pass kernel (one call,
+    counted once in `launches` and once by route: a dq pass and a dk / dv
+    pass split across `n_split` blocks a KV head, with the reduce of its
+    split partials on the tensor-core route) or raises."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
                                        window=window, softcap=softcap)
@@ -220,7 +254,7 @@ def flash_attention_bwd(
         q, k, v, out, lse, do, causal=causal, window=window, softcap=softcap,
         block_q=DEFAULT_BLOCK_Q if block_q is None else block_q,
         block_kv=DEFAULT_BLOCK_KV if block_kv is None else block_kv,
-        pruned=pruned)
+        pruned=pruned, n_split=n_split)
     flash_attention_bwd.launches += 1
     if _flash_attention_bwd_kernel.last_route == "tc":  # as the entry point reported it
         flash_attention_bwd.tc_launches += 1
@@ -321,9 +355,21 @@ def flash_decode(
     the products) and count in `flash_decode.tc_launches`; an fp32 q runs
     the FMA body and counts in `flash_decode.fma_launches`.  The
     tensor-core routes' tiles are compiled in, so `block_kv`
-    does not change their result.
+    does not change their result.  `block_kv=None` resolves from the kernel
+    tuner's cache for q's device (the `block_kv_dec` knob of the FMA body;
+    the paged signature first, then the dense one), else the default.
     """
-    block_kv = DEFAULT_BLOCK_KV_DEC if block_kv is None else int(block_kv)
+    if block_kv is None:  # the kernel tuner's block, as the reference's lookup
+        from repro_torch.autotune.kernel_tuner import tuned_decode_blocks, tuned_paged_blocks
+
+        if tables is not None:
+            tuned = tuned_paged_blocks(q.shape, int(kv_len or 0), k_cache.shape[2],
+                                       q.dtype, window=window, device=q.device.type)
+        else:
+            tuned = tuned_decode_blocks(q.shape, k_cache.shape[1], k_cache.shape[2],
+                                        q.dtype, window=window, device=q.device.type)
+        block_kv = tuned.get("block_kv_dec", DEFAULT_BLOCK_KV_DEC)
+    block_kv = int(block_kv)
     if q.device.type == "cpu":
         return decode_ref(q, k_cache, v_cache, index, window=window,
                           softcap=softcap, block_kv=block_kv, pruned=pruned,

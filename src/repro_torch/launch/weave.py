@@ -12,7 +12,11 @@ from typing import Any, Mapping
 
 from repro_torch.configs.base import SHAPES, ShapeConfig
 from repro_torch.core.program import Program
-from repro_torch.core.strategies.kernels import BlockSizeAspect, KernelAspect
+from repro_torch.core.strategies.kernels import (
+    BlockSizeAspect,
+    KernelAspect,
+    TunedKernelAspect,
+)
 from repro_torch.core.strategies.parallelization import (
     AccumAspect,
     AutoShard,
@@ -58,9 +62,10 @@ def default_weave(
     rules_override = overrides.pop("rules", None)
     if rules_override:
         aspects.append(ShardingAspect(rules_override))
-    # the reference weaves DSE-tuned blocks here (TunedKernelAspect); the
-    # tuner is a later slice, so the flag is accepted and nothing is woven
-    overrides.pop("tuned_kernels", None)
+    # DSE-tuned knobs first (a cache lookup among the program device's
+    # rows), explicit overrides win
+    if overrides.pop("tuned_kernels", True):
+        aspects.append(TunedKernelAspect(shape.global_batch, shape.seq_len))
     block_sizes = {k: int(v) for k, v in list(overrides.items())
                    if k.startswith(("flash_block", "wkv_chunk"))}
     if block_sizes:

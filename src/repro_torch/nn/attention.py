@@ -299,14 +299,15 @@ class Attention(Module):
         dispatch."""
         S = q.shape[1]
         if self._use_kernel(ctx, q):
-            # woven extras win; unset blocks take the kernel's defaults
+            # woven extras win; unset knobs take the tuner's or the kernel's
             blocks = {
                 name: int(ctx.extra[key]) if ctx.extra.get(key) is not None
                 else None
                 for name, key in (("block_q", "flash_block_q"),
                                   ("block_kv", "flash_block_kv"),
                                   ("block_q_bwd", "flash_block_q_bwd"),
-                                  ("block_kv_bwd", "flash_block_kv_bwd"))
+                                  ("block_kv_bwd", "flash_block_kv_bwd"),
+                                  ("dkv_n_split", "flash_dkv_n_split"))
             }
             out = flash_attention(
                 q, k, v,

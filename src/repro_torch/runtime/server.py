@@ -179,6 +179,11 @@ class Server:
         self.latencies: deque[float] = deque(maxlen=self.history_window)
         self.decode_step_latencies: deque[float] = \
             deque(maxlen=self.history_window)  # serve_stream steps
+        # the kernel tuner's feedback (refine_kernel_tuner): decode-step
+        # latencies by live batch, and the last paged signature served
+        self._step_lat_by_batch: dict[int, deque[float]] = {}
+        self._paged_sig = None
+        self._paged_dtype = None
         self.last_pool_stats: dict[str, Any] | None = None  # serve_stream
         self.last_spec_stats: dict[str, Any] | None = None  # speculative serve
         self.last_fault_stats: dict[str, Any] | None = None  # resilience layer
@@ -651,8 +656,12 @@ class Server:
             hit, out = self.memo.lookup(key)
             if hit:
                 # a hit serves no step and builds no pool: clear what a
-                # stats reader would otherwise take for this serve's
+                # stats reader (or refine_kernel_tuner) would otherwise take
+                # for this serve's
                 self.decode_step_latencies = deque(maxlen=self.history_window)
+                self._step_lat_by_batch = {}
+                self._paged_sig = None
+                self._paged_dtype = None
                 self.last_pool_stats = None
                 self.last_spec_stats = None
                 self.last_fault_stats = None
@@ -841,7 +850,12 @@ class Server:
             pool_pages, ps, max_len=self.cfg.max_cache_len,
             window=getattr(self.woven.program.cfg, "attn_window", None),
             prefix_sharing=share, cache_dtype=cache_dtype)
+        # feedback observations are per knob setting: a fresh window,
+        # bucketed by live batch (a step's cost scales with it, and the
+        # tuner's signature is keyed to one batch)
         self.decode_step_latencies = deque(maxlen=self.history_window)
+        self._step_lat_by_batch = {}
+        seen_batches: set[int] = set()
         self._steps = _step_counts()
 
         if k_max and moe:
@@ -1488,7 +1502,15 @@ class Server:
                     last.argmax(dim=-1),
                     torch.isfinite(last.to(torch.float32).amax(dim=-1)).to(torch.long),
                 ]).tolist()
-                self.decode_step_latencies.append(time.perf_counter() - ts)
+                dt_step = time.perf_counter() - ts
+                self.decode_step_latencies.append(dt_step)
+                # the first step at each batch size is left out of the
+                # tuner's observations, as the reference leaves out its
+                # compiling step
+                if len(rids) in seen_batches:
+                    self._step_lat_by_batch.setdefault(
+                        len(rids), deque(maxlen=self.history_window)).append(dt_step)
+                seen_batches.add(len(rids))
                 manager.absorb(rids, new_cache)
                 stats["decode_steps"] += 1
                 hit_nan = False
@@ -1565,6 +1587,15 @@ class Server:
             self.last_spec_stats = stats
         else:
             self.last_spec_stats = None
+        if manager._groups:
+            self._paged_dtype = next(iter(manager._groups.values()))["dtype"]
+            self._paged_sig = self._paged_signature(
+                batch=min(max_batch, len(prompts)), dtype=self._paged_dtype)
+        else:
+            # every request was rejected before the pool learned its
+            # structure: no kernel signature to refine against
+            self._paged_dtype = None
+            self._paged_sig = None
         injected = list(inj.events[inj_seen:]) if inj is not None else []
         for ev in injected:
             self.broker.publish(f"serve/fault/{ev['point']}/{ev['kind']}@host0", 1.0)
@@ -1600,3 +1631,73 @@ class Server:
         while evq:
             yield evq.pop(0)
         return result
+
+    # -- the kernel tuner's feedback ----------------------------------------------
+
+    def _paged_signature(self, *, batch: int, dtype):
+        """The signature the paged decode steps of this server key on: the
+        served KV dtype and the logical cache length the kernel sees (the
+        window for ring layouts)."""
+        from repro_torch.autotune.kernel_tuner import paged_decode_signature
+
+        cfg = self.woven.program.cfg
+        cache_len = self.cfg.max_cache_len
+        window = getattr(cfg, "attn_window", None)
+        if window is not None and window < cache_len:
+            cache_len, window = window, None  # ring layout
+        return paged_decode_signature(batch, cache_len, cfg.n_heads, cfg.kv_heads,
+                                      cfg.resolved_head_dim, dtype, window=window)
+
+    def refine_kernel_tuner(self, *, latency_budget: float,
+                            tuner=None) -> dict | None:
+        """Feed observed decode-step latencies back into the persistent
+        kernel-tuner cache (`kernel_tuner.refine_from_runtime`, among the
+        rows of this server's device): serving traffic refines the DSE
+        priors, so the next server picks its page size under observed
+        latency.  Returns the re-selected knobs (None if never tuned)."""
+        from repro_torch.autotune.kernel_tuner import refine_from_runtime
+
+        if self._paged_sig is None or not self._step_lat_by_batch:
+            return None
+        # continuous batching shrinks the batch as requests retire: observe
+        # the best-sampled batch size and refine the signature keyed to it
+        batch = max(self._step_lat_by_batch,
+                    key=lambda b: len(self._step_lat_by_batch[b]))
+        observed = float(np.mean(self._step_lat_by_batch[batch]))
+        sig = self._paged_signature(batch=batch, dtype=self._paged_dtype)
+        return refine_from_runtime(
+            sig, {"latency_s": observed}, tuner=tuner, latency_budget=latency_budget,
+            objective_knob="page_size", device=self.device.type)
+
+    def refine_speculative(self, *, latency_budget: float,
+                           tuner=None) -> dict | None:
+        """Feed the observed draft acceptance back into the persistent
+        speculative-space entry: the served `mean_tokens_per_verify`
+        rescales the cached acceptance-1 `tokens_per_step` priors and the
+        verify-step latency the latency expectations, then `draft_len` is
+        re-selected under the adjusted budget.  Returns the re-selected
+        knobs (None when the last serve was not speculative or never
+        tuned)."""
+        from repro_torch.autotune.kernel_tuner import (
+            refine_from_runtime,
+            speculative_signature,
+        )
+
+        stats = self.last_spec_stats
+        if not stats or not stats.get("verify_steps"):
+            return None
+        cfg = self.woven.program.cfg
+        cache_len = self.cfg.max_cache_len
+        window = getattr(cfg, "attn_window", None)
+        if window is not None and window < cache_len:
+            cache_len, window = window, None  # ring layout
+        batch = max(1, round(stats["request_rounds"] / max(stats["rounds"], 1)))
+        sig = speculative_signature(batch, cache_len, cfg.n_heads, cfg.kv_heads,
+                                    cfg.resolved_head_dim,
+                                    self._paged_dtype or "bfloat16", window=window)
+        observed = {"tokens_per_step": float(stats["mean_tokens_per_verify"])}
+        if stats.get("verify_latency_s"):
+            observed["latency_s"] = float(stats["verify_latency_s"])
+        return refine_from_runtime(
+            sig, observed, tuner=tuner, latency_budget=latency_budget,
+            objective_knob="draft_len", device=self.device.type)

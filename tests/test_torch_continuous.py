@@ -524,3 +524,67 @@ def test_cache_policies_weave_the_pool_dtype_as_the_reference():
     srv = Server(woven, ServerConfig(max_cache_len=24, decode_tokens=4))
     srv.serve_continuous(SMALL, page_size=8)
     assert srv.last_pool_stats["cache_dtype"] == "int8"
+
+
+# ---------------------------------------------------------------------------
+# The kernel tuner's feedback (twins of tests/test_paged_serving.py's)
+# ---------------------------------------------------------------------------
+
+
+def _seed_paged_rows(tuner, sig, constraint, page_sizes=(8, 16, 32)):
+    """One row a page size, all under both packages' budgets."""
+    ops = [{"knobs": {"page_size": ps}, "metrics": {"latency_s": [1e-3, 0.0],
+                                                    constraint: [1.0, 0.0]}}
+           for ps in page_sizes]
+    tuner.cache.put(tuner._key(sig), {"knobs": dict(ops[0]["knobs"]),
+                                      "metrics": dict(ops[0]["metrics"]), "ops": ops})
+
+
+def test_refine_kernel_tuner_equals_reference(pair, tmp_path, monkeypatch):
+    """Serving records decode-step latencies by live batch (the first step
+    at a batch size left out), keyed to the reference's paged signature;
+    refinement declines while the signature is untuned and re-selects the
+    reference's page size from the same rows."""
+    from repro.autotune import kernel_tuner as jkt
+    from repro_torch.autotune import kernel_tuner as tkt
+
+    monkeypatch.setenv("REPRO_TUNER_CACHE", str(tmp_path / "ref_default.json"))
+    monkeypatch.setenv("REPRO_TORCH_TUNER_CACHE", str(tmp_path / "port_default.json"))
+    jsrv, tsrv = pair
+    jsrv.serve_continuous(PROMPTS, page_size=8)
+    tsrv.serve_continuous(PROMPTS, page_size=8)
+    assert tsrv.decode_step_latencies and tsrv._paged_sig is not None
+    assert tsrv._paged_sig.key() == jsrv._paged_sig.key()
+    assert {b: len(d) for b, d in tsrv._step_lat_by_batch.items()} == \
+        {b: len(d) for b, d in jsrv._step_lat_by_batch.items()}
+    assert tsrv.refine_kernel_tuner(latency_budget=1.0) is None  # untuned
+    assert jsrv.refine_kernel_tuner(latency_budget=1.0) is None
+
+    batch = max(tsrv._step_lat_by_batch, key=lambda b: len(tsrv._step_lat_by_batch[b]))
+    jt = jkt.KernelTuner(str(tmp_path / "j.json"))
+    tt = tkt.KernelTuner(str(tmp_path / "t.json"), device="cpu")
+    _seed_paged_rows(jt, jsrv._paged_signature(batch=batch, dtype=jsrv._paged_dtype),
+                     "vmem_bytes")
+    _seed_paged_rows(tt, tsrv._paged_signature(batch=batch, dtype=tsrv._paged_dtype),
+                     "smem_bytes")
+    want = jsrv.refine_kernel_tuner(latency_budget=10.0, tuner=jt)
+    got = tsrv.refine_kernel_tuner(latency_budget=10.0, tuner=tt)
+    assert got == want == {"page_size": 32}
+    entry = tt.cache.get(tt._key(tsrv._paged_signature(batch=batch,
+                                                         dtype=tsrv._paged_dtype)))
+    assert entry["runtime"]["observed"]["latency_s"] > 0
+    assert set(entry["runtime"]["error_coef"]) == {"latency_s"}
+
+
+def test_memo_hit_clears_refine_state():
+    """A memo hit serves no step: the paged signature and the latency
+    windows are cleared, so a following refine declines."""
+    srv = _server()
+    srv.memo = MemoTable(size=8)
+    srv.serve_continuous(SMALL[:2], page_size=8)
+    assert srv._paged_sig is not None and srv._step_lat_by_batch
+    srv.serve_continuous(SMALL[:2], page_size=8)  # memo hit
+    assert srv.memo.hits >= 1
+    assert srv._paged_sig is None and srv._paged_dtype is None
+    assert not srv.decode_step_latencies and not srv._step_lat_by_batch
+    assert srv.refine_kernel_tuner(latency_budget=1.0) is None

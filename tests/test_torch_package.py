@@ -20,6 +20,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro", "flax", "optax")
 def _port_files():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    # the kernel tuner and the aspect that reads it are checked with the rest
+    assert PKG / "autotune" / "kernel_tuner.py" in files
     return files
 
 
@@ -304,3 +306,36 @@ def test_frontends_launch_their_kernels_on_the_card(arch):
     for got, want in ((logits, elogits), (logits2, elogits2)):
         scale = want.float().abs().max()
         assert float((got.float() - want.float()).abs().max()) <= 2e-2 * float(scale)
+
+
+def test_kernel_tuner_keeps_its_own_cache(monkeypatch, tmp_path):
+    """The port's tuner cache is its own file and variable: the reference's
+    `REPRO_TUNER_CACHE` is never read."""
+    from repro_torch.autotune import kernel_tuner
+
+    monkeypatch.setenv("REPRO_TUNER_CACHE", str(tmp_path / "reference.json"))
+    monkeypatch.delenv("REPRO_TORCH_TUNER_CACHE", raising=False)
+    assert kernel_tuner.default_cache_path().endswith("repro_torch/kernel_tuner.json")
+    monkeypatch.setenv("REPRO_TORCH_TUNER_CACHE", str(tmp_path / "port.json"))
+    assert kernel_tuner.default_tuner().cache.path == str(tmp_path / "port.json")
+
+
+@pytest.mark.gpu
+def test_tuner_tunes_paged_decode_on_the_card(tmp_path):
+    """The default measure times the split route over shuffled page pools
+    at every page size; the row is keyed `@cuda` and only CUDA lookups
+    read it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the tuner measures the CUDA kernels")
+    from repro_torch.autotune.kernel_tuner import KernelTuner, paged_decode_signature
+
+    path = str(tmp_path / "card.json")
+    sig = paged_decode_signature(2, 512, 8, 2, 64, "bfloat16")
+    knobs = KernelTuner(path).tune(sig, num_tests=2)
+    assert knobs["page_size"] in (64, 128, 256, 512)
+    fresh = KernelTuner(path)
+    assert fresh.lookup(sig) == knobs
+    entry = fresh.cache.get(f"{sig.key()}@cuda")
+    assert entry["device"] == "cuda" and len(entry["ops"]) == 4
+    assert all(r["metrics"]["latency_s"][0] > 0 for r in entry["ops"])
+    assert KernelTuner(path, device="cpu").lookup(sig) is None

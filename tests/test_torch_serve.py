@@ -140,8 +140,8 @@ def test_broker_and_margot_see_latency(yi64):
 
 def test_weave_reports_agree(yi64):
     """selects / attributes / actions / inserts per aspect the two default
-    weaves share (the reference also weaves its tuner-cache aspect, which the
-    port does not have yet)."""
+    weaves share — the tuner-cache aspect (`TunedKernelBlocks`) among them,
+    over empty caches."""
     jsrv, tsrv = yi64
     treport = [dataclasses.astuple(m) for m in tsrv.woven.report.per_aspect]
     names = {m[0] for m in treport}
@@ -149,6 +149,7 @@ def test_weave_reports_agree(yi64):
                if m.name in names]
     assert treport == jreport
     assert [m[0] for m in treport].count("KernelSubstitution") == 4
+    assert [m[0] for m in treport].count("TunedKernelBlocks") == 1
     for kind in ("attention", "norm", "rglru", "wkv"):
         assert ("*", kind, "cuda") in tsrv.woven.state.impls
     assert tsrv.woven.state.extra["layout"] == jsrv.woven.state.extra["layout"]

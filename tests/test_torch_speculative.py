@@ -539,3 +539,86 @@ def test_out_of_vocabulary_draft_gives_the_reference_outcomes(monkeypatch):
         {key: jy.last_spec_stats[key] for key in SPEC_INTS}
     assert ranges and all(0 <= lo and hi < rows for lo, hi, rows in ranges)
     assert any(rows == 512 for _, _, rows in ranges)
+
+
+# ---------------------------------------------------------------------------
+# The speculative tuner space (twins of tests/test_speculative.py's
+# TestSpeculativeTuning)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_speculative_space_and_smem_model(dtype):
+    """The reference's draft lengths; the FMA route (fp32) adds its decode
+    block, the tensor-core route's verify tile is compiled in."""
+    from repro.autotune import kernel_tuner as jkt
+    from repro_torch.autotune import kernel_tuner as tkt
+
+    sig = tkt.speculative_signature(2, 128, 4, 2, 16, dtype)
+    space = tkt.design_space(sig)
+    assert space["draft_len"] == [1, 2, 4, 8] == \
+        jkt.design_space(jkt.speculative_signature(2, 128, 4, 2, 16, dtype))["draft_len"]
+    assert set(space) == ({"draft_len"} if dtype == "bfloat16"
+                          else {"draft_len", "block_kv_dec"})
+    assert 0 < tkt.config_smem_bytes(sig, {"draft_len": 8, "block_kv_dec": 16}) \
+        <= tkt.DEFAULT_SMEM_BUDGET
+    assert tkt.design_space(tkt.speculative_signature(2, 4, 4, 2, 16, dtype))[
+        "draft_len"] == [1, 2]  # the draft block fits under the cache
+
+
+def test_tune_records_acceptance_prior_and_lookup(tmp_path, monkeypatch):
+    from repro_torch.autotune import kernel_tuner as tkt
+
+    path = str(tmp_path / "kt.json")
+    monkeypatch.setenv("REPRO_TORCH_TUNER_CACHE", path)
+    tuner = tkt.KernelTuner(path, device="cpu")
+    sig = tkt.speculative_signature(1, 64, 4, 2, 16, "float32")
+    knobs = tuner.tune(sig, lambda **kn: kn["draft_len"] + kn["block_kv_dec"] / 64)
+    assert knobs == {"draft_len": 1, "block_kv_dec": 16}
+    for row in tuner.cache.get(sig.key())["ops"]:
+        assert row["metrics"]["tokens_per_step"][0] == row["knobs"]["draft_len"] + 1
+    assert tkt.tuned_speculative_knobs(1, 64, 4, 2, 16, "float32", device="cpu") == knobs
+    assert tkt.tuned_speculative_knobs(1, 64, 4, 2, 16, "float32", device="cuda") == {}
+
+
+def test_refine_speculative_equals_reference(pair, tmp_path, monkeypatch):
+    """The served acceptance rescales the cached tokens_per_step priors by
+    the reference's coefficient, and draft_len is re-selected as there."""
+    from repro.autotune import kernel_tuner as jkt
+    from repro_torch.autotune import kernel_tuner as tkt
+
+    monkeypatch.setenv("REPRO_TUNER_CACHE", str(tmp_path / "ref_default.json"))
+    monkeypatch.setenv("REPRO_TORCH_TUNER_CACHE", str(tmp_path / "port_default.json"))
+    jsrv, tsrv = pair
+    assert tsrv.refine_speculative(latency_budget=1.0) is None  # no spec yet
+    jsrv.serve_continuous(PROMPTS, page_size=8, draft_len=2, decode_tokens=8)
+    tsrv.serve_continuous(PROMPTS, page_size=8, draft_len=2, decode_tokens=8)
+    stats = tsrv.last_spec_stats
+    assert stats["verify_steps"] >= 2
+    assert stats["mean_tokens_per_verify"] == jsrv.last_spec_stats["mean_tokens_per_verify"]
+
+    batch = max(1, round(stats["request_rounds"] / max(stats["rounds"], 1)))
+    sigs, tuners = [], []
+    for kt, srv, constraint in ((jkt, jsrv, "vmem_bytes"), (tkt, tsrv, "smem_bytes")):
+        cfg = srv.woven.program.cfg
+        sig = kt.speculative_signature(batch, srv.cfg.max_cache_len, cfg.n_heads,
+                                       cfg.kv_heads, cfg.resolved_head_dim,
+                                       srv._paged_dtype, window=cfg.attn_window)
+        path = str(tmp_path / f"{constraint}.json")
+        tuner = kt.KernelTuner(path) if kt is jkt else kt.KernelTuner(path, device="cpu")
+        ops = [{"knobs": {"draft_len": dl}, "metrics": {
+            "latency_s": [1e-3, 0.0], "tokens_per_step": [float(dl + 1), 0.0],
+            constraint: [1.0, 0.0]}} for dl in (1, 2, 4)]
+        tuner.cache.put(sig.key(), {"knobs": {"draft_len": 2},
+                                    "metrics": {"latency_s": [1e-3, 0.0],
+                                                "tokens_per_step": [3.0, 0.0]},
+                                    "ops": ops})
+        sigs.append(sig)
+        tuners.append(tuner)
+    assert sigs[0].key() == sigs[1].key()
+    want = jsrv.refine_speculative(latency_budget=10.0, tuner=tuners[0])
+    got = tsrv.refine_speculative(latency_budget=10.0, tuner=tuners[1])
+    assert got == want == {"draft_len": 4}  # maximized
+    coefs = [t.cache.get(s.key())["runtime"]["error_coef"]["tokens_per_step"]
+             for t, s in zip(tuners, sigs)]
+    assert coefs[1] == coefs[0] == pytest.approx(stats["mean_tokens_per_verify"] / 3.0)
