@@ -113,8 +113,23 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    with the other kernels in step 3 — with exact launch counts per step, a
    falling loss, one gradient against the same model woven to the plain
    attention, step time, tokens/s, MFU, peak memory and the device's busy
-   share of a step; then a checkpoint resume at the reduced configuration
-   (`train_phase`).
+   share of a step; one microbatch's gradient under the remat policies
+   `full`, `dots` and `dots_no_batch`, bit for bit alike, with the launches
+   each implies (`remat_policy_runs`); then a checkpoint resume at the
+   reduced configuration (`train_phase`);
+9. trains the hybrid, ssm, MoE and encoder-decoder families at published
+   width (`train_families_phase`, `TRAIN_FAMILY_RUNS`): recurrentgemma-2b
+   and rwkv6-3b at full depth through the launcher's trainer,
+   mixtral-8x22b cut to one layer, whisper-small through
+   `build_train_step` with frames from a seed — three counted steps each
+   (rwkv6-3b two) with exact launches (every bf16 K1 / K3 launch on the
+   tensor cores), finite losses, the first batch's loss falling, step
+   time, tokens/s, MFU, peak memory and the busy share of a profiled step,
+   and the kernel-vs-eager gradient in fp32 on the same weights; in bf16
+   the recurrentgemma and whisper kernels' gradient against K1's and K3's
+   plain formula, with the witness of delta's rounding beside (rwkv6-3b,
+   which runs no kernel, must move every parameter).  K1 with lse and K3 are
+   held at the families' shapes with the other kernel cases (step 3).
 
 Any failed phase ends the run with a non-zero exit code.  The last line of
 the output is `{"ok": true, "device": {...}}`; the line before the card's
@@ -123,6 +138,7 @@ line is one JSON object describing every kernel.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -1373,10 +1389,37 @@ def wkv_cases(torch, gen):
     return cases
 
 
+def by_kv_head_grads(fn, axes):
+    """`fn` (K1's plain forward with lse, or K3's plain backward) taken one
+    KV head and its q group at a time, its outputs joined on `axes` (the
+    head axis of each: 2 for (B, S, H, D) and (B, T, K, D), 1 for lse (B,
+    H, S)): mixtral's 6144-token backward holds 7.2 GB of fp32 scores a
+    tensor over all 48 heads, five such tensors at once."""
+    import torch
+
+    def run(q, k, v, *rest, **kw):
+        K = k.shape[2]
+        G = q.shape[2] // K
+        parts = []
+        for g in range(K):
+            heads = slice(g * G, (g + 1) * G)
+            cut = [t[:, heads] if t.dim() == 3 else t[:, :, heads] for t in rest]
+            parts.append(fn(q[:, :, heads], k[:, :, g:g + 1], v[:, :, g:g + 1], *cut, **kw))
+        return tuple(torch.cat(outs, dim=axis) for axis, outs in zip(axes, zip(*parts)))
+
+    return run
+
+
 def flash_bwd_cases(torch, gen):
     """K1's lse mode and the two passes of K3, at the training path's shapes
     (gemma-2b's microbatch is the main case) and at yi-6b's, a window, a
-    softcap, a ragged length and fp32.  Each case runs K1 with lse on
+    softcap, a ragged length and fp32, and at the shapes the families train
+    at (`train_families_phase`): whisper-small's encoder, non-causal over a
+    ragged 1500 (G 1, D 64), and its causal decoder; recurrentgemma-2b's
+    local attention (G 10, D 256, window 2048 at S 4096, which prunes);
+    mixtral-8x22b's (G 6, window 4096 at S 6144, held by KV head in
+    float64, `by_kv_head_grads`) and grok-1-314b's soft-cap 30.  Each case
+    runs K1 with lse on
     random q / k / v, holds out and lse to the plain forward, then runs K3
     on those residuals and a random dO and holds dq, dk, dv to the plain
     backward on the same residuals — both plain versions evaluated exactly
@@ -1385,9 +1428,10 @@ def flash_bwd_cases(torch, gen):
     with lse; each pass alone (pass 1 also writes delta; pass 2 reads it,
     and its reduce of the split partials is read apart under the profiler)
     and both together, as training launches them; the
-    plain forward and backward; and, in the causal cases without a window
-    or softcap, the one-call library backward (SDPA's, through
-    `torch.autograd.grad`).  Bounds: K1 four flops per D per live pair and
+    plain forward and backward; and the one-call library backward (SDPA's,
+    through `torch.autograd.grad`): over the mask given by `is_causal`
+    without a window, over a prebuilt boolean mask and K / V repeated to
+    the q heads with one, none with a softcap (SDPA has none).  Bounds: K1 four flops per D per live pair and
     head; pass 1 three products of 2 D (QK^T, dO V^T, dS K), pass 2 four
     (QK^T, dO V^T, P^T dO, dS^T Q), the pair five, each against the bytes
     it must read and write."""
@@ -1410,15 +1454,31 @@ def flash_bwd_cases(torch, gen):
          BF16_TOL, False),
         ("ragged_S1000_bf16", 1, 1000, 32, 4, 128, torch.bfloat16, {}, BF16_TOL, False),
         ("S512_H8_K2_D64_fp32", 1, 512, 8, 2, 64, torch.float32, {}, FP32_TOL, False),
+        # the families' training shapes (`train_families_phase`)
+        ("whisper_enc_B8_S1500_H12_K12_D64_noncausal_bf16", 8, 1500, 12, 12, 64,
+         torch.bfloat16, dict(causal=False), BF16_TOL, False),
+        ("whisper_dec_B8_S448_H12_K12_D64_bf16", 8, 448, 12, 12, 64, torch.bfloat16, {},
+         BF16_TOL, False),
+        ("rgemma_B1_S4096_H10_K1_D256_w2048_bf16", 1, 4096, 10, 1, 256, torch.bfloat16,
+         dict(window=2048), BF16_TOL, False),
+        ("mixtral_B1_S6144_H48_K8_D128_w4096_bf16", 1, 6144, 48, 8, 128, torch.bfloat16,
+         dict(window=4096), BF16_TOL, False),
+        ("grok_B1_S2048_H48_K8_D128_softcap30_bf16", 1, 2048, 48, 8, 128, torch.bfloat16,
+         dict(softcap=30.0), BF16_TOL, False),
     ]:
+        kw = {"causal": True, **kw}
+        causal = kw["causal"]
+        large = B * S * S * H > 1e9  # float64 scores past ~8 GB a tensor: by KV head
+        fwd_ref = by_kv_head_grads(attention_ref, (2, 1)) if large else attention_ref
+        bwd_ref = (by_kv_head_grads(flash_attention_bwd_ref, (2, 2, 2)) if large
+                   else flash_attention_bwd_ref)
         q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
         k = torch.randn((B, S, K, D), generator=gen, device="cuda").to(dtype)
         v = torch.randn((B, S, K, D), generator=gen, device="cuda").to(dtype)
         do = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
-        out, lse = fa_kernel.flash_attention_fwd(q, k, v, causal=True, return_lse=True, **kw)
-        want_out, want_lse = exact(attention_ref, (q, k, v), causal=True, return_lse=True,
-                                   **kw)
-        plain = attention_ref(q, k, v, causal=True, return_lse=True, **kw)
+        out, lse = fa_kernel.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        want_out, want_lse = exact(fwd_ref, (q, k, v), return_lse=True, **kw)
+        plain = fwd_ref(q, k, v, return_lse=True, **kw)
         torch.cuda.synchronize()
         err, rms = check_exact(torch, name + " out", out, want_out, tol)
         err_lse, rms_lse = check_exact(torch, name + " lse", lse, want_lse, tol)
@@ -1429,9 +1489,9 @@ def flash_bwd_cases(torch, gen):
         plain_err = {g: exact_error(torch, p, w)[0]
                      for g, p, w in zip(("out", "lse"), plain, (want_out, want_lse))}
         del want_out, want_lse, plain
-        got = flash_attention_bwd(q, k, v, out, lse, do, causal=True, **kw)
-        want = exact(flash_attention_bwd_ref, (q, k, v, out, lse, do), causal=True, **kw)
-        plain = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True, **kw)
+        got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        want = exact(bwd_ref, (q, k, v, out, lse, do), **kw)
+        plain = bwd_ref(q, k, v, out, lse, do, **kw)
         torch.cuda.synchronize()
         errs = {g: check_exact(torch, f"{name} {g}", a, b, tol)
                 for g, a, b in zip(("dq", "dk", "dv"), got, want)}
@@ -1440,25 +1500,24 @@ def flash_bwd_cases(torch, gen):
             plain_err[g] = exact_error(torch, p, w)[0]
         del want, plain
         # K3 is deterministic: a second call on the same inputs, bit for bit
-        again = flash_attention_bwd(q, k, v, out, lse, do, causal=True, **kw)
+        again = flash_attention_bwd(q, k, v, out, lse, do, **kw)
         bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
         if not bitwise:
             raise AssertionError(f"{name}: two K3 calls on the same inputs differ")
         del again
 
         peak = "bf16" if dtype == torch.bfloat16 else "fp32"
-        pairs = live_pairs(S, S, True, kw.get("window")) * B
+        pairs = live_pairs(S, S, causal, kw.get("window")) * B
         el = q.element_size()
         qbytes, kvbytes, stat = q.numel() * el, k.numel() * el, B * H * S * 4
         ms_fwd = time_ms(torch, [lambda: fa_kernel.flash_attention_fwd(
-            q, k, v, causal=True, return_lse=True, **kw)], 5)
+            q, k, v, return_lse=True, **kw)], 5)
         ms_no_lse = time_ms(torch, [lambda: fa_kernel.flash_attention_fwd(
-            q, k, v, causal=True, **kw)], 5)
-        plain_fwd = time_ms(torch, [lambda: attention_ref(
-            q, k, v, causal=True, return_lse=True, **kw)], 3)
+            q, k, v, **kw)], 5)
+        plain_fwd = time_ms(torch, [lambda: fwd_ref(q, k, v, return_lse=True, **kw)], 3)
         delta = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
         run_pass = lambda p: fa_kernel.flash_attention_bwd(
-            q, k, v, out, lse, do, causal=True, passes=p, delta=delta, **kw)
+            q, k, v, out, lse, do, passes=p, delta=delta, **kw)
         ms_dq = time_ms(torch, [lambda: run_pass(1)], 5)
         ms_dkv = time_ms(torch, [lambda: run_pass(2)], 5)  # delta from pass 1
         ms_pair = time_ms(torch, [lambda: run_pass(3)], 5)
@@ -1473,21 +1532,31 @@ def flash_bwd_cases(torch, gen):
                 torch.cuda.synchronize()
             ms_reduce = sum(_device_us(e) for e in prof.key_averages()
                             if "reduce" in e.key) / 5 / 1e3
-        plain_bwd = time_ms(torch, [lambda: flash_attention_bwd_ref(
-            q, k, v, out, lse, do, causal=True, **kw)], 3)
+        plain_bwd = time_ms(torch, [lambda: bwd_ref(q, k, v, out, lse, do, **kw)], 3)
         lib_fwd = lib_bwd = None
-        if not kw:  # one library call: causal, no window, no softcap
-            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+        if "softcap" not in kw:  # one library call: SDPA has no softcap
+            qt = q.transpose(1, 2).detach().requires_grad_(True)
+            if "window" in kw:  # a boolean mask built outside the timed region
+                kt, vt = (x.transpose(1, 2).repeat_interleave(H // K, dim=1).detach()
+                          .requires_grad_(True) for x in (k, v))
+                pos = torch.arange(S, device="cuda")
+                gap = pos[:, None] - pos[None]
+                lib_kw = dict(attn_mask=(gap >= 0) & (gap < kw["window"]))
+            else:
+                kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (k, v))
+                lib_kw = dict(is_causal=causal, enable_gqa=True)
             lib_fwd = time_ms(torch, [lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)], 5)
-            ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+                qt, kt, vt, **lib_kw)], 5)
+            ot = F.scaled_dot_product_attention(qt, kt, vt, **lib_kw)
             dot = do.transpose(1, 2)
             lib_bwd = time_ms(torch, [lambda: torch.autograd.grad(
                 ot, (qt, kt, vt), dot, retain_graph=True)], 5)
-            del qt, kt, vt, ot
-        no_lib = None if not kw else "SDPA takes no sliding window or softcap in one call"
+            del qt, kt, vt, ot, lib_kw
+        no_lib = ("SDPA takes no softcap" if "softcap" in kw else
+                  "SDPA over a prebuilt mask, K / V repeated to the q heads" if "window" in kw
+                  else None)
         b_ms, b_by = bound(2 * qbytes + 2 * kvbytes + stat, 4.0 * D * pairs * H, peak)
-        lse_cases.append(dict(case=name, main=main, max_abs_err=max(err, err_lse),
+        lse_cases.append(dict(case=name, main=main, causal=causal, max_abs_err=max(err, err_lse),
                               ref_rms=rms, max_abs_err_lse=err_lse, ref_rms_lse=rms_lse,
                               max_abs_err_vs_fp32_plain=vs_fp32["out"],
                               max_abs_err_lse_vs_fp32_plain=vs_fp32["lse"],
@@ -4261,47 +4330,119 @@ def _paths(tree, prefix=""):
         yield prefix, tree
 
 
-def kernel_vs_eager_gradient(torch, trainer, overrides) -> dict:
-    """One microbatch (B 2 x 1024) of the next batch, on the trainer's
-    current state: the gradient through the kernels against the gradient
-    of the same model woven to the plain attention (`eager`)."""
-    from repro_torch.configs.base import SHAPES
-    from repro_torch.launch.weave import default_weave
+def gradient_digest(torch, woven, params, mb, stacks) -> tuple:
+    """One gradient of `woven` at `params` on the microbatch `mb`, kept as
+    the loss, the global gradient norm and the attention weights' gradients
+    in fp32 — each leaf of a layer stack (its first path component in
+    `stacks`) as its layers' (L, n) rows, an unrolled block's as one row —
+    so that the rest of the tree is freed before the next gradient."""
     from repro_torch.runtime.steps import build_grad_fn
 
-    eager = default_weave(trainer.woven.program, SHAPES["train_4k"], {},
+    (loss, _), grads = build_grad_fn(woven)(params, mb)
+    norm = sum(g.float().pow(2).sum() for _, g in _paths(grads)).sqrt().item()
+    attn = {path: g.float().reshape(g.shape[0] if path.split("/")[0] in stacks else 1, -1)
+            for path, g in _paths(grads) if "attn/" in path}
+    return loss.item(), norm, attn
+
+
+def stack_names(woven) -> set:
+    """The top-level layer stacks of `woven`'s model (`gradient_digest`)."""
+    return {path for path, m in woven.program.model.walk()
+            if m.kind == "stack" and "/" not in path}
+
+
+def eager_weave(woven, overrides):
+    """`woven`'s program woven to the plain attention at `woven`'s policies."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.weave import default_weave
+
+    eager = default_weave(woven.program, SHAPES["train_4k"], {},
                           overrides=dict(overrides))
+    eager.state.policies = woven.state.policies
     if any(impl == "cuda" for _, _, impl in eager.state.impls):
         raise AssertionError("the comparison weave must run the plain attention")
-    nxt = trainer.pipeline.batch_at(trainer.pipeline.step)
-    mb = {k: torch.as_tensor(v[:2]).to("cuda") for k, v in nxt.items()}
-    (loss_k, _), g_k = build_grad_fn(trainer.woven)(trainer.params, mb)
-    (loss_e, _), g_e = build_grad_fn(eager)(trainer.params, mb)
-    loss_k, loss_e = loss_k.item(), loss_e.item()
-    norm = lambda tree: sum(g.float().pow(2).sum() for _, g in _paths(tree)).sqrt().item()
-    gn_k, gn_e = norm(g_k), norm(g_e)
-    worst = {}
-    e_paths = dict(_paths(g_e))
-    for path, gk in _paths(g_k):
-        if "/attn/" not in path:
-            continue
-        ge = e_paths[path].float()
-        gk = gk.float()
-        per_layer = ((gk - ge).flatten(1).norm(dim=1) / ge.flatten(1).norm(dim=1))
-        worst[path] = per_layer.max().item()
-    out = {"loss_kernels": loss_k, "loss_eager": loss_e,
-           "loss_rel_err": abs(loss_k - loss_e) / abs(loss_e),
-           "grad_norm_kernels": gn_k, "grad_norm_eager": gn_e,
-           "grad_norm_rel_err": abs(gn_k - gn_e) / gn_e,
+    return eager
+
+
+def compare_gradients(tag, got, want, n_attn: int, gated: bool = True,
+                      labels=("kernels", "eager")) -> dict:
+    """Two `gradient_digest`s of one microbatch on the same weights: the
+    loss, the global gradient norm, and each attention weight's gradient
+    (relative L2 per layer of a stack; an unrolled block's weight is its
+    own layer; the worst layer a weight).  The model holds `n_attn`
+    attention weights (whisper's cross-attention among them: plain on every
+    path, its gradients carry the self-attention's backward through the
+    layers above).  Gated within `TRAIN_*_REL_TOL` unless `gated` is False
+    (a reading printed beside a gate); `labels` name the two sides."""
+    (loss_a, gn_a, attn_a), (loss_b, gn_b, attn_b) = got, want
+    a, b = labels
+    worst = rel_l2_by_layer(attn_a, attn_b)
+    out = {f"loss_{a}": loss_a, f"loss_{b}": loss_b,
+           "loss_rel_err": abs(loss_a - loss_b) / abs(loss_b),
+           f"grad_norm_{a}": gn_a, f"grad_norm_{b}": gn_b,
+           "grad_norm_rel_err": abs(gn_a - gn_b) / gn_b,
+           "attn_weights": len(worst),
+           "attn_grad_rel_l2_worst": max(worst.values()),
            "attn_grad_rel_l2_worst_layer": worst}
-    log("train-vs-eager " + json.dumps(out))
-    if not (out["loss_rel_err"] <= TRAIN_LOSS_REL_TOL
-            and out["grad_norm_rel_err"] <= TRAIN_GNORM_REL_TOL
-            and all(v <= TRAIN_WGRAD_REL_TOL for v in worst.values())):
-        raise AssertionError(f"kernel-path gradient differs from the plain path: {out}")
-    if len(worst) != 4:
-        raise AssertionError(f"expected the four attention weights, got {sorted(worst)}")
+    log(f"{tag} " + json.dumps(out))
+    if len(worst) != n_attn:
+        raise AssertionError(f"{tag}: expected {n_attn} attention weights, got {sorted(worst)}")
+    if gated and not (out["loss_rel_err"] <= TRAIN_LOSS_REL_TOL
+                      and out["grad_norm_rel_err"] <= TRAIN_GNORM_REL_TOL
+                      and all(v <= TRAIN_WGRAD_REL_TOL for v in worst.values())):
+        raise AssertionError(f"{tag}: the {a} path's gradient differs from the {b} "
+                             f"path's: {out}")
     return out
+
+
+def kernel_vs_eager_gradient(torch, woven, params, mb, overrides, n_attn: int,
+                             tag: str) -> dict:
+    """The gradient through the kernels (`woven`) at `params` on one
+    microbatch `mb` against the gradient of the same program woven to the
+    plain attention (`eager_weave`), gated (`compare_gradients`)."""
+    stacks = stack_names(woven)
+    got = gradient_digest(torch, woven, params, mb, stacks)
+    want = gradient_digest(torch, eager_weave(woven, overrides), params, mb, stacks)
+    return compare_gradients(f"{tag}-vs-eager", got, want, n_attn)
+
+
+@contextlib.contextmanager
+def plain_backward(torch, consistent_delta: bool):
+    """K3 stood in for by its plain version, `flash_attention_bwd_ref` (the
+    reference kernel's formula, in fp32), on the residuals K1 saved — the
+    forward stays K1, so both paths see the same output, lse and upstream
+    gradients until the first backward, and only K3 differs.  delta =
+    rowsum(dO O) takes the bf16 output as K3 does, or, with
+    `consistent_delta`, the fp32 output recomputed by `attention_ref`, so
+    that delta is rowsum(P dP) up to fp32 rounding.  K3 does not launch
+    inside (checked)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_ref,
+        flash_attention_bwd_ref,
+    )
+
+    def bwd(q, k, v, out, lse, do, *, causal, window, softcap, **_knobs):
+        if consistent_delta:
+            out = attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                                window=window, softcap=softcap)
+        return flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                                       window=window, softcap=softcap)
+
+    kernel, launches = ops.flash_attention_bwd, ops.flash_attention_bwd.launches
+    ops.flash_attention_bwd = bwd
+    try:
+        yield
+    finally:
+        ops.flash_attention_bwd = kernel
+    if kernel.launches != launches:
+        raise AssertionError("K3 launched on the plain backward's path")
+
+
+def rel_l2_by_layer(got: dict, want: dict) -> dict:
+    """Each weight's worst relative L2 error over its layers (rows)."""
+    return {path: ((g - want[path]).norm(dim=1) / want[path].norm(dim=1)).max().item()
+            for path, g in got.items()}
 
 
 def resume_phase(torch) -> dict:
@@ -4432,7 +4573,11 @@ def train_phase(torch) -> dict:
     }
     log("profile-train " + json.dumps(profile_out))
 
-    compare = kernel_vs_eager_gradient(torch, trainer, overrides)
+    nxt = trainer.pipeline.batch_at(trainer.pipeline.step)
+    mb = {k: torch.as_tensor(v[:batch // accum]).to("cuda") for k, v in nxt.items()}
+    compare = kernel_vs_eager_gradient(torch, woven, trainer.params, mb, overrides, 4,
+                                       "train")
+    policies = remat_policy_runs(torch, trainer, mb, overrides)
     summary = {
         "model": "gemma-2b", "layers": layers, "params_b": n_params / 1e9,
         "global_batch": batch, "seq": seq, "accum_steps": accum, "steps": steps,
@@ -4445,13 +4590,416 @@ def train_phase(torch) -> dict:
         "model_flops_per_step": trainer.info["flops_per_step"],
         "peak_memory_gb_6_steps": peak_gb,
         "launches_per_step": want, "launches_6_steps": {**totals, **route_totals},
-        "profile": profile_out, "vs_eager": compare,
+        "profile": profile_out, "vs_eager": compare, "remat_policies": policies,
     }
     log("train " + json.dumps(summary))
     del trainer
     torch.cuda.empty_cache()
     summary["resume"] = resume_phase(torch)
     return summary
+
+
+def remat_policy_runs(torch, trainer, mb, overrides) -> dict:
+    """gemma-2b's microbatch `mb` on the trainer's current weights, one
+    gradient under each remat policy `full`, `dots` and `dots_no_batch`, each
+    a counted run: the loss and every gradient bit for bit `full`'s (the
+    kernels and cuBLAS are deterministic at fixed shapes), and the launches
+    each policy implies — K1 (with lse) twice a layer under all three, since
+    its autograd function is opaque to a selective policy and reruns whole
+    in the recompute, K3 once a layer, nothing else.  Printed: each
+    gradient's wall time and its peak memory above what was resident
+    before it (its gradient tree included)."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.weave import default_weave, train_kernel_aspects
+    from repro_torch.runtime.steps import build_grad_fn
+
+    layers = trainer.woven.program.cfg.num_layers
+    want = {"flash_attention": 2 * layers, "flash_attention_lse": 2 * layers,
+            "flash_attention_bwd": layers, "flash_decode": 0, "rmsnorm": 0, "rglru": 0,
+            "wkv": 0}
+    full, out = None, {}
+    for policy in ("full", "dots", "dots_no_batch"):
+        woven = default_weave(trainer.woven.program, SHAPES["train_4k"], {},
+                              overrides={**overrides, "remat": policy},
+                              extra_aspects=train_kernel_aspects())
+        if woven.state.extra.get("remat") != policy:
+            raise AssertionError(f"remat {policy}: the weave holds {woven.state.extra}")
+        grad_fn = build_grad_fn(woven)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        ((loss, _), grads), counts, routes = counted_run(
+            torch, lambda: grad_fn(trainer.params, mb), f"remat {policy}")
+        wall = time.perf_counter() - t
+        peak = (torch.cuda.max_memory_allocated() - resident) / 1e9
+        if counts != want:
+            raise AssertionError(f"remat {policy}: launch counters {counts} != {want}")
+        flat = [g for _, g in _paths(grads)]
+        if full is None:
+            full = (loss, flat)
+        elif not (torch.equal(loss, full[0])
+                  and all(torch.equal(a, b) for a, b in zip(flat, full[1]))):
+            raise AssertionError(f"remat {policy}: the gradient differs from remat full's")
+        out[policy] = {"loss": loss.item(), "bitwise_equal_full": True,
+                       "launches": {**counts, **routes}, "grad_s": wall,
+                       "peak_gb_over_resident": peak}
+        log(f"train-remat {policy}: " + json.dumps(out[policy]))
+        del grads, flat
+    del full
+    return out
+
+
+# The families' training runs (`train_families_phase`): the model, its depth
+# (None: the published one), the global batch x sequence, the microbatches,
+# the counted steps (the first pays one-time set-up, so the steady step
+# time is the median of the later ones: rwkv6-3b takes two, ~15 s each on
+# an H100, and its steady time is step 2's alone), the attention layers and
+# weights the model holds, and the gradient gates at one microbatch on the
+# weights the steps left (none: no kernel runs, nothing differs):
+# - "fp32": the kernel path against the plain attention in fp32 on the same
+#   weights (the FMA route), the bf16 kernel-vs-eager reading printed
+#   beside; mixtral-8x22b's bf16 paths may route tokens to other experts.
+# - "formula": in bf16, the kernel path against the same program with K3
+#   stood in for by its plain version on K1's residuals (`plain_backward`).
+#   K3 takes delta = rowsum(dO O) from the bf16 output, as the reference's
+#   kernel does (`src/repro/kernels/flash_attention/kernel.py:734`), while
+#   the plain attention's autograd sums P dP over fp32 probabilities; where
+#   the keys share a large common part, dS's rows then miss summing to 0 by
+#   O's rounding and dq / dk carry that part.  So the kernel is held to the
+#   formula it implements, and the same plain backward with delta from the
+#   fp32 output is held to the plain attention (the witness that O's
+#   rounding is the whole gap); each bf16 path's distance from the fp32
+#   plain gradient is printed (`delta_witness`).
+TRAIN_FAMILY_RUNS = {
+    "h": dict(arch="recurrentgemma-2b", layers=None, batch=2, seq=4096, accum=2, steps=3,
+              attn_layers=8, attn_weights=32, gates=("formula", "fp32")),
+    "s": dict(arch="rwkv6-3b", layers=None, batch=4, seq=1024, accum=2, steps=2,
+              attn_layers=0, attn_weights=0, gates=()),
+    "m": dict(arch="mixtral-8x22b", layers=1, batch=1, seq=6144, accum=1, steps=3,
+              attn_layers=1, attn_weights=4, gates=("fp32",)),
+    "w": dict(arch="whisper-small", layers=None, batch=8, seq=448, accum=1, steps=3,
+              frames=1500, attn_layers=24, attn_weights=12, gates=("formula", "fp32")),
+}
+
+
+def family_stepper(torch, run):
+    """The run's model at published width on the card (random weights from
+    seed 0, policy `half`, remat `full`, `train_kernel_aspects`) and a
+    function that takes one training step: through the launcher's
+    `program_trainer` (a published config or one cut in depth), or, for the
+    encoder-decoder, through `runtime/steps.build_train_step` with frames
+    from a seed beside the token pipeline's batches (the launcher's
+    pipeline makes none).  Returns (woven, step(i) -> metrics, params(),
+    next_microbatch(), first_loss(), info); `first_loss` is the loss on
+    the first global batch at the current weights (the mean over its
+    microbatches, as a step reports it), without a gradient."""
+    from functools import partial
+
+    import numpy as np
+
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core.program import Program
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.launch.train import program_trainer
+    from repro_torch.launch.weave import default_weave, train_kernel_aspects
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.nn.module import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import constant
+    from repro_torch.runtime.steps import (
+        build_loss_fn,
+        build_train_step,
+        model_flops_per_token,
+    )
+    from repro_torch.runtime.trainer import TrainerConfig
+
+    published = get_config(run["arch"])
+    cfg = (published if run["layers"] is None
+           else published.replace(num_layers=run["layers"], layer_groups=()))
+    overrides = {"accum_steps": run["accum"], "remat": "full", "precision": "half"}
+    lr = partial(constant, peak=3e-4)
+    B, S, mbs = run["batch"], run["seq"], run["batch"] // run["accum"]
+    program = Program(model=build_model(cfg), cfg=cfg, kind="train",
+                      device=torch.device("cuda"))
+
+    def first_loss_of(woven, params, batch):
+        loss_fn = build_loss_fn(woven)
+        with torch.no_grad():
+            return float(np.mean([
+                loss_fn(params(), {k: v[i * mbs:(i + 1) * mbs] for k, v in batch.items()})[0]
+                .item() for i in range(run["accum"])]))
+
+    if cfg.family != "encdec":
+        trainer = program_trainer(program, batch=B, seq=S, overrides=overrides,
+                                  tcfg=TrainerConfig(steps=99, log_every=0, seed=0),
+                                  lr_fn=lr)
+        trainer.init_state()
+
+        def on_card(i):
+            return {k: torch.as_tensor(v).to("cuda")
+                    for k, v in trainer.pipeline.batch_at(i).items()}
+
+        def step(i):
+            h = trainer.run(1)[-1]
+            return {"loss": h["loss"], "grad_norm": h["grad_norm"]}
+
+        def next_mb():
+            return {k: v[:mbs] for k, v in on_card(trainer.pipeline.step).items()}
+
+        def params():
+            return trainer.params
+
+        info = {"flops_per_step": trainer.info["flops_per_step"], "tokens_per_step": B * S}
+        return (trainer.woven, step, params, next_mb,
+                lambda: first_loss_of(trainer.woven, params, on_card(0)), info)
+
+    woven = default_weave(program, SHAPES["train_4k"], {}, overrides=dict(overrides),
+                          extra_aspects=train_kernel_aspects())
+    state = {"params": init_params(program.model, 0, woven.state.policies, "cuda")}
+    state["opt"] = adamw.init_state(state["params"], adamw.AdamWConfig())
+    train_step = build_train_step(woven, lr_fn=lr)
+    pipe = TokenPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=S, global_batch=B))
+    T = run["frames"]
+
+    def batch_at(i):
+        batch = {k: torch.as_tensor(v).to("cuda") for k, v in pipe.batch_at(i).items()}
+        frames = np.random.default_rng([24, i]).standard_normal((B, T, cfg.d_model),
+                                                                dtype=np.float32)
+        batch["frames"] = torch.as_tensor(frames, device="cuda").to(torch.bfloat16)
+        return batch
+
+    counter = [0]
+
+    def step(i):
+        state["params"], state["opt"], m = train_step(state["params"], state["opt"],
+                                                      batch_at(counter[0]), counter[0])
+        counter[0] += 1
+        return {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item()}
+
+    def next_mb():
+        return {k: v[:mbs] for k, v in batch_at(counter[0]).items()}
+
+    def params():
+        return state["params"]
+
+    # 6 x (encoder parameters x frames + the rest x tokens) a sample
+    enc = sum(p.numel() for path, p in _paths(state["params"])
+              if path.split("/")[0] in ("encoder", "enc_norm"))
+    rest = sum(p.numel() for _, p in _paths(state["params"])) - enc
+    flops = 6.0 * B * (enc * T + rest * S)
+    info = {"flops_per_step": flops, "tokens_per_step": B * S, "frames_per_step": B * T,
+            "flops_note": f"6 x ({enc} encoder parameters x {T} frames + {rest} others x "
+                          f"{S} tokens) x {B}; cfg 6 N: {model_flops_per_token(cfg)}"}
+    return (woven, step, params, next_mb,
+            lambda: first_loss_of(woven, params, batch_at(0)), info)
+
+
+def delta_witness(tag, bf16: dict, fp32_eager) -> dict:
+    """How far each bf16 path's attention gradients (`bf16`: name ->
+    `gradient_digest`) lie from the fp32 plain path's on the same weights
+    and microbatch, and from the bf16 plain attention's (`eager`): the worst
+    layer a weight, and its worst weight.  With the kernels, `formula` (K3's
+    delta from the bf16 output) and `formula_consistent_delta` (delta from
+    the fp32 output) side by side, it shows whether the rounding of O in
+    delta explains the kernel path's distance from the plain attention."""
+    out = {}
+    for name, (_, _, attn) in bf16.items():
+        by_weight = rel_l2_by_layer(attn, fp32_eager[2])
+        out[name] = {"vs_fp32_eager_worst": max(by_weight.values()),
+                     "vs_fp32_eager_by_weight": by_weight}
+        if name != "eager":
+            out[name]["vs_bf16_eager_worst"] = max(
+                rel_l2_by_layer(attn, bf16["eager"][2]).values())
+    log(f"train-{tag}-delta-witness " + json.dumps(out))
+    return out
+
+
+def train_family_run(torch, tag, run) -> dict:
+    """One run of `train_families_phase`: `run["steps"]` counted steps with
+    exact launches (K1 with lse twice an attention layer and microbatch —
+    the forward and the remat recompute — and K3 once; every bf16 launch on
+    the tensor-core route, `counted_run`; nothing else), finite losses, one
+    profiled step, the first batch's loss after the steps below the first
+    step's, and the run's gradient gates at one microbatch
+    (`TRAIN_FAMILY_RUNS`), or, with no attention, every parameter leaf
+    changed."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.weave import default_weave, train_kernel_aspects
+    from repro_torch.nn.dtypes import PolicyResolver
+    from repro_torch.optim.tree import tree_map
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    woven, step, params, next_mb, first_loss, info = family_stepper(torch, run)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    cfg = woven.program.cfg
+    n_params = sum(p.numel() for _, p in _paths(params()))
+    kernels_woven = [i for i in woven.state.impls if i[2] == "cuda"]
+    log(f"train-families ({tag}): {run['arch']} at full width ({cfg.num_layers} layers"
+        f"{f' + {cfg.enc_layers} encoder layers' if cfg.enc_layers else ''}, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} q / {cfg.kv_heads} KV heads of "
+        f"{cfg.resolved_head_dim}, vocab {cfg.vocab}): {n_params / 1e9:.3f} B parameters "
+        f"and AdamW state on the card in {time.perf_counter() - t0:.1f} s; kernels woven "
+        f"{kernels_woven}, remat {woven.state.extra.get('remat')}, accum "
+        f"{woven.state.extra.get('accum_steps')}, global batch {run['batch']} x {run['seq']}")
+    if kernels_woven != [("*", "attention", "cuda")]:
+        raise AssertionError(f"training must weave the attention kernels alone: {kernels_woven}")
+    k1 = 2 * run["accum"] * run["attn_layers"]
+    want = {"flash_attention": k1, "flash_attention_lse": k1,
+            "flash_attention_bwd": run["accum"] * run["attn_layers"], "flash_decode": 0,
+            "rmsnorm": 0, "rglru": 0, "wkv": 0}
+    before = (torch.stack([torch.linalg.vector_norm(p.detach(), dtype=torch.float64)
+                           for _, p in _paths(params())]) if not run["attn_layers"] else None)
+    step_s, metrics, totals = [], [], {}
+    for i in range(run["steps"]):
+        t = time.perf_counter()
+        m, counts, routes = counted_run(torch, lambda: step(i), f"train ({tag}) step {i + 1}")
+        step_s.append(time.perf_counter() - t)
+        metrics.append(m)
+        log(f"train-families ({tag}): step {i + 1}: loss {m['loss']:.6f}, grad norm "
+            f"{m['grad_norm']:.4f}, {step_s[-1] * 1e3:.1f} ms, launches {counts}")
+        if counts != want:
+            raise AssertionError(f"train ({tag}) step {i + 1}: launch counters {counts} != "
+                                 f"expected {want}")
+        for key, n in {**counts, **routes}.items():
+            totals[key] = totals.get(key, 0) + n
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [m["loss"] for m in metrics]
+    if not all(np.isfinite(losses + [m["grad_norm"] for m in metrics])):
+        raise AssertionError(f"train ({tag}): non-finite loss or gradient norm: {metrics}")
+    steady = step_s[1:]  # the first step pays one-time set-up
+    step_median = float(np.median(steady))
+    t = time.perf_counter()
+    # the device's activity alone: rwkv6-3b's step dispatches ~300 k kernels
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(run["steps"])
+        torch.cuda.synchronize()
+    rows = sorted(((_device_us(e), e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    profile_out = {
+        "device_busy_ms_per_step": busy_ms if busy_ms > 0 else None,
+        "device_idle_share": 1.0 - busy_ms / (step_median * 1e3) if busy_ms > 0 else None,
+        "device_launches_per_step": sum(r[1] for r in rows),
+        "top_kernels_ms_per_step": [{"kernel": key[:80], "ms": us / 1e3, "calls": count}
+                                    for us, count, key in rows[:8]],
+    }
+    del prof, rows
+    seconds = {"set_up": t_setup, "steps": sum(step_s), "profiled_step": time.perf_counter() - t}
+    # the weights after every step (the profiled one too) on the first batch
+    first_after = first_loss()
+    if not first_after < losses[0]:
+        raise AssertionError(f"train ({tag}): the first batch's loss did not fall: "
+                             f"{losses[0]} at step 1, {first_after} after "
+                             f"{run['steps'] + 1} steps")
+    changed = None
+    if before is not None:
+        after = torch.stack([torch.linalg.vector_norm(p.detach(), dtype=torch.float64)
+                             for _, p in _paths(params())])
+        changed = int((after != before).sum().item())
+        if changed != len(before):
+            raise AssertionError(f"train ({tag}): {len(before) - changed} of {len(before)} "
+                                 "parameter leaves did not change")
+    summary = {
+        "model": run["arch"], "layers": cfg.num_layers, "params_b": n_params / 1e9,
+        "global_batch": run["batch"], "seq": run["seq"], "accum_steps": run["accum"],
+        "steps": run["steps"], "losses": losses,
+        "first_batch_loss_after_steps": first_after,
+        "grad_norms": [m["grad_norm"] for m in metrics], "step_s": step_s,
+        # the median of steps 2.. (one step's time where there are two steps)
+        "steady_step_s": step_median, "steady_steps": list(range(2, run["steps"] + 1)),
+        "tokens_per_s": info["tokens_per_step"] / step_median,
+        "mfu": info["flops_per_step"] / step_median / PEAK_FLOPS["bf16"],
+        "model_flops_per_step": info["flops_per_step"], "peak_memory_gb": peak_gb,
+        "launches_per_step": want, "launches": totals, "profile": profile_out,
+        "parameter_leaves_changed": changed, "seconds": seconds,
+    }
+    if "frames_per_step" in info:
+        summary["frames_per_s"] = info["frames_per_step"] / step_median
+        summary["model_flops_note"] = info["flops_note"]
+    overrides = {"accum_steps": run["accum"], "remat": "full", "precision": "half"}
+    if run["gates"]:
+        t = time.perf_counter()
+        mb, n_attn, stacks = next_mb(), run["attn_weights"], stack_names(woven)
+        bf16 = {"kernels": gradient_digest(torch, woven, params(), mb, stacks),
+                "eager": gradient_digest(torch, eager_weave(woven, overrides), params(), mb,
+                                         stacks)}
+        summary["vs_eager"] = compare_gradients(f"train-{tag}-vs-eager", bf16["kernels"],
+                                                bf16["eager"], n_attn, gated=False)
+        if "formula" in run["gates"]:
+            for name, consistent in (("formula", False), ("formula_consistent_delta", True)):
+                with plain_backward(torch, consistent):
+                    bf16[name] = gradient_digest(torch, woven, params(), mb, stacks)
+            summary["vs_plain_formula"] = compare_gradients(
+                f"train-{tag}-vs-plain-formula", bf16["kernels"], bf16["formula"], n_attn,
+                labels=("kernels", "formula"))
+            # the witness's gate: with delta consistent with P, K3's formula
+            # meets the kernel-vs-eager gate the bf16 output's rounding fails
+            summary["consistent_delta_vs_eager"] = compare_gradients(
+                f"train-{tag}-consistent-delta-vs-eager", bf16["formula_consistent_delta"],
+                bf16["eager"], n_attn, labels=("consistent_delta", "eager"))
+        # the same microbatch on the same weights widened to fp32 (the FMA
+        # route), once the optimizer state is dropped
+        weights = tree_map(lambda p: p.detach().float(), params())
+        del step, params, next_mb, first_loss, info
+        gc.collect()
+        torch.cuda.empty_cache()
+        woven32 = default_weave(woven.program, SHAPES["train_4k"], {},
+                                overrides=dict(overrides), extra_aspects=train_kernel_aspects())
+        woven32.state.policies = PolicyResolver.default("f32")
+        route_counts(reset=True)
+        fp32_k = gradient_digest(torch, woven32, weights, mb, stacks)
+        fp32_routes = route_counts()
+        fp32_e = gradient_digest(torch, eager_weave(woven32, overrides), weights, mb, stacks)
+        summary["vs_eager_fp32"] = compare_gradients(f"train-{tag}-f32-vs-eager", fp32_k,
+                                                     fp32_e, n_attn)
+        summary["vs_eager_fp32"]["routes"] = fp32_routes
+        # one microbatch: K1 twice an attention layer, K3 once, all fp32
+        if (fp32_routes["flash_attention_fma"] != 2 * run["attn_layers"]
+                or fp32_routes["flash_attention_bwd_fma"] != run["attn_layers"]):
+            raise AssertionError(f"train ({tag}): the fp32 gate left the FMA route: "
+                                 f"{fp32_routes}")
+        summary["delta_witness"] = delta_witness(tag, bf16, fp32_e)
+        del weights, bf16, fp32_k, fp32_e
+        seconds["gradient_gates"] = time.perf_counter() - t
+    log(f"train-families ({tag}) " + json.dumps(summary))
+    return summary
+
+
+def train_families_phase(torch) -> dict:
+    """Training the hybrid, ssm, MoE and encoder-decoder families on the card
+    at published width (`TRAIN_FAMILY_RUNS`): (h) recurrentgemma-2b, 26
+    layers (per-block remat; K1 with lse and K3 at H10 K1 D256, window 2048
+    at S 4096, which prunes), B2 x 4096 in 2 microbatches; (s) rwkv6-3b, 32
+    layers, B4 x 1024 in 2 — no hand-written kernel on its training path
+    (every counter 0): its parameters change, its losses are finite and
+    its first batch's loss falls; (m) mixtral-8x22b cut to one layer (2.90 B parameters with the
+    embeddings, the depth one card trains), B1 x 6144 (K1 / K3 at G 6, window
+    4096, which prunes); (w) whisper-small, 12 + 12 layers, B8 x (1500
+    frames from a seed, 448 tokens) through `build_train_step` (K1
+    non-causal over a ragged 1500 at G 1 in the encoder, causal in the
+    decoder; the cross-attention plain on both paths).  The gradient gates
+    of (h), (m) and (w) run in fp32 on the same weights (the FMA route);
+    those of (h) and (w) also in bf16, against K1's and K3's plain
+    formula, with the witness of what delta's rounding explains beside
+    (`TRAIN_FAMILY_RUNS` says why).  Each: `train_family_run`.  Peak
+    memory is read from the start of each run."""
+    out, t0 = {}, time.perf_counter()
+    for tag, run in TRAIN_FAMILY_RUNS.items():
+        out[tag] = train_family_run(torch, tag, run)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"train-families: the phase in {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -4534,6 +5082,9 @@ def run(torch, build, t_start) -> int:
     gc.collect()  # the serving phases' models may sit in reference cycles
     torch.cuda.empty_cache()
     train = train_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tfam = train_families_phase(torch)
 
     # `launches`: the continuous main path, bf16 pool (run a); the quantized
     # mode over the int8 pool (run c): its single tokens on the split route,
@@ -4553,7 +5104,11 @@ def run(torch, build, t_start) -> int:
                 **{f"frontends_{run}": fro[run].get(key, 0) for run in fro},
                 "recurrentgemma_serve": rec["recurrentgemma-2b"].get(key, 0),
                 "rwkv6_serve": rec["rwkv6-3b"].get(key, 0),
-                "train_gemma_6_steps": train["launches_6_steps"].get(key, 0)}
+                "train_gemma_6_steps": train["launches_6_steps"].get(key, 0),
+                **{f"train_gemma_remat_{p}": r["launches"].get(key, 0)
+                   for p, r in train["remat_policies"].items()},
+                **{f"train_families_{run}": tfam[run]["launches"].get(key, 0)
+                   for run in tfam}}
 
     # K2's single-token launches (all but widened q) and, of those, the split
     # route's (the rest run the FMA body)

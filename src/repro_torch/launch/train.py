@@ -9,13 +9,18 @@ The reference's flags, plus `--device` (default `cuda`; without a card it
 raises — pass `--device cpu` to run on the host).  On the card the attention
 joinpoints are woven to the CUDA kernels (K1 forward with `lse`, the fused
 backward K3); every other op runs its plain PyTorch implementation, since
-the RMSNorm, RG-LRU and WKV kernels are forward-only.  Training the hybrid
-(recurrentgemma-2b), ssm (rwkv6-3b), MoE (mixtral-8x22b, grok-1-314b) and
-encoder-decoder (whisper-small) families on the card waits for a later slice
-(ROADMAP Queue 1 item 14): the per-block remat and the recurrent kernels'
-backward are not ported, MoE training has not been held on the card, and
-the token pipeline makes no frames for an encoder.  A step failure restores the latest checkpoint and resumes (bounded
-retries).
+the RMSNorm, RG-LRU and WKV kernels are forward-only, as in the reference.
+The dense, MoE, VLM, hybrid (recurrentgemma-2b: each unrolled block
+checkpointed whole) and ssm (rwkv6-3b) families train here, on either
+device, under every woven remat policy (`none`, `full`, `dots`,
+`dots_no_batch`).  Two limits: grok-1-314b's training state does not fit
+one 80 GB card at full width even cut to one layer (4.83 B expert, 0.09 B
+attention and 0.81 B embedding parameters at 16-18 bytes each: 92-103 GB),
+so it trains reduced or on the host; and the encoder-decoder
+(whisper-small) does not train through this launcher, because the token
+pipeline makes no `frames` for its encoder — drive `runtime/steps.
+build_train_step` with frames in the batch instead.  A step failure
+restores the latest checkpoint and resumes (bounded retries).
 """
 
 from __future__ import annotations
@@ -23,25 +28,12 @@ from __future__ import annotations
 import argparse
 import json
 
-import torch
-
 from repro_torch.configs.base import SHAPES
 from repro_torch.core.program import Program
 from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
 from repro_torch.launch.weave import default_weave, train_kernel_aspects
 from repro_torch.models.registry import ARCHS, get_config
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
-
-# families whose training on the card is not ported yet, and why
-_LATER_FAMILIES = {
-    "hybrid": "its recurrent kernels are forward-only and its per-block "
-              "remat is not ported",
-    "ssm": "its recurrent kernels are forward-only",
-    "moe": "the capacity-routed MoE's training has not been measured or "
-           "held on the card",
-    "encdec": "the token pipeline makes no frames, and the non-causal K1 "
-              "with lse and K3 have not been held on the card",
-}
 
 
 def parse_overrides(sets: list[str]) -> dict:
@@ -60,14 +52,24 @@ def build_trainer(arch: str, *, reduced: bool, device: str, batch: int, seq: int
                   mode: str = "lcg", overrides: dict | None = None,
                   tcfg: TrainerConfig | None = None, extra_aspects=None,
                   lr_fn=None, broker=None) -> Trainer:
-    """The launcher's trainer: `default_weave` for the train shape, the
-    attention kernels woven on the card, the token pipeline at (batch, seq)."""
-    family = get_config(arch).family
-    if torch.device(device).type == "cuda" and family in _LATER_FAMILIES:
+    """The launcher's trainer for `arch` (`program_trainer`)."""
+    if get_config(arch).family == "encdec":
         raise NotImplementedError(
-            f"training {arch} ({family}) on the card arrives with a later "
-            f"slice (ROADMAP Queue 1 item 14): {_LATER_FAMILIES[family]}")
+            f"{arch} does not train through the launcher: the token pipeline "
+            "makes no `frames` for its encoder (drive runtime/steps."
+            "build_train_step with frames in the batch)")
     program = Program.from_arch(arch, kind="train", reduced=reduced, device=device)
+    return program_trainer(program, batch=batch, seq=seq, mode=mode,
+                           overrides=overrides, tcfg=tcfg,
+                           extra_aspects=extra_aspects, lr_fn=lr_fn, broker=broker)
+
+
+def program_trainer(program: Program, *, batch: int, seq: int, mode: str = "lcg",
+                    overrides: dict | None = None, tcfg: TrainerConfig | None = None,
+                    extra_aspects=None, lr_fn=None, broker=None) -> Trainer:
+    """A trainer over a built `program` (a published config, or one cut in
+    depth): `default_weave` for the train shape, the attention kernels
+    woven on the card, the token pipeline at (batch, seq)."""
     aspects = list(extra_aspects or [])
     if program.device.type == "cuda":
         aspects = train_kernel_aspects() + aspects

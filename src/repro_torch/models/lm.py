@@ -4,7 +4,10 @@ the reference's `TransformerLM`.
   dense / moe / vlm : [norm -> attention -> +res ; norm -> MLP|MoE -> +res] x L
                       (a layer stack in weavable groups)
   hybrid            : recurrentgemma 1:2 pattern (rec, rec, local-attn),
-                      unrolled (heterogeneous blocks)
+                      unrolled (heterogeneous blocks); under a woven remat
+                      other than "none" each block is checkpointed whole,
+                      saving nothing, whatever policy is woven (the
+                      reference's `nothing_saveable` per unrolled block)
   ssm               : RWKV6 time-mix + channel-mix blocks (a layer stack)
 
 A VLM's image prefix is a stub: `inputs["embeds"]` (B, P, d_model), cast to
@@ -34,7 +37,7 @@ from repro_torch.nn.module import Ctx, Module
 from repro_torch.nn.moe import MoEMLP
 from repro_torch.nn.rglru import RecurrentBlock
 from repro_torch.nn.rwkv import ChannelMix, TimeMix, rwkv_state_spec
-from repro_torch.nn.stack import ScannedStack
+from repro_torch.nn.stack import ScannedStack, remat_call, remat_policy
 
 _PORTED_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
 
@@ -292,6 +295,8 @@ class TransformerLM(Module):
             # (dense) cache must reach Attention's contract guard, not
             # silently write the cache
             shared["skip_cache_write"] = True
+        remat_unrolled = (self.cfg.family == "hybrid"
+                          and remat_policy(ctx, mode) != "none")
         if not ctx.extra.get("skip_trunk"):
             for part in self.trunk:
                 part_cache = None if cache is None else cache.get(part.name)
@@ -301,8 +306,15 @@ class TransformerLM(Module):
                     attn_kw = {"block_kwargs": shared}
                 elif shared and isinstance(part, DecoderBlock):
                     attn_kw = shared
-                x, c = part(params[part.name], x, ctx=ctx, mode=mode,
-                            cache=part_cache, positions=positions, **attn_kw)
+                if remat_unrolled:
+                    def call(p, h, _part=part):
+                        return _part(p, h, ctx=ctx, mode=mode, positions=positions)[0]
+
+                    x = remat_call(call, params[part.name], x, policy="full", ctx=ctx)
+                    c = None
+                else:
+                    x, c = part(params[part.name], x, ctx=ctx, mode=mode,
+                                cache=part_cache, positions=positions, **attn_kw)
                 new_caches[part.name] = c
         if mode == "prefill":
             kvp = self._prefill_kv_pos(new_caches, positions)

@@ -11,10 +11,20 @@ caches ride along as per-layer slices of tensors with a leading `L` dim.
 
 Remat (the woven `remat` extra, as in the reference): in `mode="dense"`,
 when autograd records the forward, each layer runs under
-`torch.utils.checkpoint` — `"full"` (the default in dense mode) keeps only
-the layer boundary and recomputes the layer in the backward; `"none"` keeps
-every activation.  The reference's `"dots"` / `"dots_no_batch"` policies
-(keep the matmul outputs) have no counterpart here yet and raise.
+`torch.utils.checkpoint` (`remat_call`) — `"full"` (the default in dense
+mode) keeps only the layer boundary and recomputes the layer in the
+backward; `"dots"` keeps the outputs of every matrix product and
+recomputes the rest; `"dots_no_batch"` keeps those of the products without
+a batch dimension only; `"none"` keeps every activation.  The two selective
+policies are the reference's `dots_saveable` and
+`dots_with_no_batch_dims_saveable`, as a selective-checkpoint rule over
+the aten products: `mm` / `addmm` (a product with no batch dimension: a
+projection, `x @ W` folds its leading dims into rows) and `bmm` /
+`baddbmm` (batched: an attention einsum, the MoE experts).  A custom
+autograd function is opaque to the rule: the attention kernel's
+`_FlashCore` forward reruns whole in the recompute under every policy
+but `"none"`, so K1 launches twice a layer under `"full"`, `"dots"` and
+`"dots_no_batch"` alike.
 
 Joinpoint view: the stack exposes its *template* block (one joinpoint stands
 for all layers in the group).  Models that need per-layer-group weaving
@@ -23,31 +33,61 @@ split the trunk into several ScannedStack groups (see configs.layer_groups).
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Iterator, Mapping
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.nn.module import Ctx, Module, ParamSpec, _walk_spec
 
-REMAT_POLICIES = ("none", "full")
-_LATER_REMAT = ("dots", "dots_no_batch")
+_aten = torch.ops.aten
+# the products each selective policy keeps; everything else is recomputed
+SAVED_PRODUCTS = {
+    "dots": (_aten.mm, _aten.addmm, _aten.bmm, _aten.baddbmm),
+    "dots_no_batch": (_aten.mm, _aten.addmm),
+}
+REMAT_POLICIES = ("none", "full", *SAVED_PRODUCTS)
 
 
-def _remat_policy(ctx: Ctx, mode: str) -> str:
+def remat_policy(ctx: Ctx, mode: str) -> str:
     """The woven remat policy that applies to this forward: "none" unless
     autograd records a dense forward."""
     name = str(ctx.extra.get("remat", "full" if mode == "dense" else "none"))
     if mode != "dense" or not torch.is_grad_enabled():
         return "none"
-    if name in _LATER_REMAT:
-        raise NotImplementedError(
-            f"remat policy {name!r} (keep the matmul outputs) is not ported "
-            "yet: it arrives with a later training slice; weave 'full' or "
-            "'none'")
     if name not in REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {name!r}")
     return name
+
+
+def remat_call(fn, *args, policy: str, ctx: Ctx):
+    """`fn(*args)` under the remat `policy` ("full", "dots" or
+    "dots_no_batch"): the forward keeps what the policy saves and the
+    backward reruns `fn` for the rest.  The rerun happens outside the
+    forward's scopes, so it runs at the scope path `ctx` has now, where
+    policies and impls resolve as they did."""
+    path = list(ctx._path)
+
+    def run(*a):
+        saved_path = ctx._path
+        ctx._path = list(path)
+        try:
+            return fn(*a)
+        finally:
+            ctx._path = saved_path
+
+    kw = {}
+    if policy != "full":
+        keep = SAVED_PRODUCTS[policy]
+
+        def rule(_, op, *__, **___):
+            return (CheckpointPolicy.MUST_SAVE if op.overloadpacket in keep
+                    else CheckpointPolicy.PREFER_RECOMPUTE)
+
+        kw["context_fn"] = partial(create_selective_checkpoint_contexts, rule)
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False, **kw)
 
 
 def _stack_specs(tree: Any, n: int) -> Any:
@@ -139,31 +179,22 @@ class ScannedStack(Module):
             # the reference
             saved_taps = ctx.taps_enabled
             ctx.taps_enabled = []
-            remat = _remat_policy(ctx, mode)
-            path = list(ctx._path)
+            remat = remat_policy(ctx, mode)
 
             def run_layer(layer_params, h):
-                # a recompute in the backward runs outside the forward's
-                # scopes: put the path back so policies and impls resolve
-                # as they did
-                saved_path = ctx._path
-                ctx._path = list(path)
-                try:
-                    out, _ = block(layer_params, h, ctx=ctx, mode=mode,
-                                   positions=positions, **block_kwargs)
-                finally:
-                    ctx._path = saved_path
+                out, _ = block(layer_params, h, ctx=ctx, mode=mode,
+                               positions=positions, **block_kwargs)
                 return out.to(h.dtype)
 
             new_caches = []
             try:
                 for i, layer_params in enumerate(_unstack(stacked, self.n_layers)):
-                    if remat == "full":
-                        # only the boundary `x` (and the layer's parameter
-                        # views) are kept; the layer reruns in the backward
-                        x = checkpoint(run_layer, layer_params, x,
-                                       use_reentrant=False,
-                                       preserve_rng_state=False)
+                    if remat != "none":
+                        # the boundary `x` (and the layer's parameter views)
+                        # and what the policy saves are kept; the layer
+                        # reruns in the backward
+                        x = remat_call(run_layer, layer_params, x,
+                                       policy=remat, ctx=ctx)
                         new_caches.append(None)
                         continue
                     out, layer_cache = block(

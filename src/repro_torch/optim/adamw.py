@@ -64,13 +64,39 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
+# elements of a leaf updated at once: the update's fp32 temporaries stay
+# within 128 MB each however large a stacked leaf is (rwkv6-3b's stacked
+# channel-mix weights hold 734 M elements, 2.9 GB a temporary; a whole-leaf
+# update ran its full-width training out of memory on an 80 GB card)
+UPDATE_SLICE = 1 << 25
+
+
+def _update_slice(p, g, master, m, v, cfg, c1, c2, lr):
+    """The elementwise AdamW update of one slice, in place."""
+    m_new = cfg.b1 * m.to(torch.float32) + (1 - cfg.b1) * g
+    m.copy_(m_new)
+    del m_new
+    v_new = cfg.b2 * v.to(torch.float32) + (1 - cfg.b2) * torch.square(g)
+    v.copy_(v_new)
+    del v_new
+    mh = m.to(torch.float32) / c1
+    vh = v.to(torch.float32) / c2
+    step = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * master
+    del mh, vh
+    master.sub_(lr * step)
+    del step
+    p.copy_(master)
+
+
 @torch.no_grad()
 def apply_updates(params, grads, state, cfg: AdamWConfig, lr):
     """Returns (params, state, metrics) — the same param tensors, updated in
     place, and the state with master / m / v updated in place (a new
     `count`; under compression new fp32 `ef` leaves, as the reference's
     residuals are fp32 whatever `state_dtype` says).  `grads` may be bf16
-    (converted one leaf at a time) or fp32 (donated: scaled in place)."""
+    (converted one leaf at a time) or fp32 (donated: scaled in place).  A
+    leaf is updated `UPDATE_SLICE` elements at a time: the update is
+    elementwise, so the slices give the whole leaf's bits."""
     flat_g = leaves(grads)
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
@@ -94,19 +120,13 @@ def apply_updates(params, grads, state, cfg: AdamWConfig, lr):
         if cfg.compression:
             g, ef = ef_compress(g, ef)
             new_ef.append(ef)
-        m_new = cfg.b1 * m.to(torch.float32) + (1 - cfg.b1) * g
-        m.copy_(m_new)
-        del m_new
-        v_new = cfg.b2 * v.to(torch.float32) + (1 - cfg.b2) * torch.square(g)
-        v.copy_(v_new)
-        del v_new, g
-        mh = m.to(torch.float32) / c1
-        vh = v.to(torch.float32) / c2
-        step = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * master
-        del mh, vh
-        master.sub_(lr.to(master.device) * step)
-        del step
-        p.copy_(master)
+        flat = [t.view(-1) for t in (p, master, m, v)] + [g.reshape(-1)]
+        del g
+        lr_d = lr.to(master.device)
+        for lo in range(0, p.numel(), UPDATE_SLICE):
+            pp, mp, mm, vv, gg = (t[lo:lo + UPDATE_SLICE] for t in flat)
+            _update_slice(pp, gg, mp, mm, vv, cfg, c1, c2, lr_d)
+        del flat
 
     new_state = {"master": state["master"], "m": state["m"], "v": state["v"],
                  "count": count}

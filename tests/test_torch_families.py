@@ -198,17 +198,21 @@ def test_stacked_experts_carry_across_layer_by_layer():
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "grok-1-314b"])
-def test_moe_trains_on_the_cpu_and_refuses_the_card(arch, capsys):
+def test_moe_trains_on_the_cpu_and_refuses_the_card(arch, capsys, monkeypatch):
     """A MoE model trains on the host through autograd over the one-hot
-    products (the reference's `test_train_step_no_nans` case); on the card
-    the launcher refuses it, naming ROADMAP item 14."""
+    products (the reference's `test_train_step_no_nans` case); asked for
+    the card, the launcher no longer refuses the family: with the device
+    check stood in for, it builds the trainer with the attention kernels
+    woven."""
+    from repro_torch.core import program as program_mod
     from repro_torch.launch import train as launch_train
 
     assert launch_train.main(["--device", "cpu", "--reduced", "--arch", arch, "--steps", "2",
                               "--batch", "2", "--seq", "16"]) == 0
     assert "over 2 steps on cpu" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 14"):
-        launch_train.build_trainer(arch, reduced=True, device="cuda", batch=2, seq=8)
+    monkeypatch.setattr(program_mod, "resolve_device", lambda device: torch.device("cpu"))
+    trainer = launch_train.build_trainer(arch, reduced=True, device="cuda", batch=2, seq=8)
+    assert trainer.woven.program.cfg.family == "moe"
 
 
 # ---------------------------------------------------------------------------

@@ -113,6 +113,44 @@ def test_adamw_matches_the_reference_over_three_steps(state_dtype, compress):
             assert all(x.dtype == adamw._state_dtype(tcfg) for x in leaves(tstate[key]))
 
 
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+def test_adamw_in_slices_gives_the_whole_leaf_bits(state_dtype, monkeypatch):
+    """A leaf updated `UPDATE_SLICE` elements at a time (7 here: every leaf
+    of the tree in several slices, the last one ragged) gives the bits of
+    the whole-leaf update over three steps, and the reference's values."""
+    rng = np.random.default_rng(1)
+    params = _opt_tree(rng)
+    grads = [jax.tree.map(lambda x: (10.0 ** (step - 1) * rng.standard_normal(x.shape))
+                          .astype(np.float32), params) for step in range(3)]
+    jcfg = jadamw.AdamWConfig(state_dtype=state_dtype)
+    tcfg = adamw.AdamWConfig(state_dtype=state_dtype)
+    jp = jax.tree.map(jnp.asarray, params)
+    jstate = jadamw.init_state(jp, jcfg)
+    for step in range(3):
+        jp, jstate, _ = jadamw.apply_updates(jp, jax.tree.map(jnp.asarray, grads[step]),
+                                             jstate, jcfg, 1e-2)
+
+    def run(slice_elems):
+        monkeypatch.setattr(adamw, "UPDATE_SLICE", slice_elems)
+        tp = jax.tree.map(lambda x: t(x), params)
+        state = adamw.init_state(tp, tcfg)
+        for step in range(3):
+            tp, state, _ = adamw.apply_updates(tp, jax.tree.map(lambda x: t(x), grads[step]),
+                                               state, tcfg, 1e-2)
+        return tp, state
+
+    whole, whole_state = run(1 << 30)
+    sliced, sliced_state = run(7)
+    for a, b in zip(leaves(sliced), leaves(whole)):
+        assert torch.equal(a, b)
+    for key in ("master", "m", "v"):
+        for a, b in zip(leaves(sliced_state[key]), leaves(whole_state[key])):
+            assert torch.equal(a, b), key
+    tol = dict(rtol=1e-6, atol=1e-6) if state_dtype == "float32" else \
+        dict(rtol=3e-3, atol=1e-6)
+    _assert_close_tree(sliced, np_tree(jp), **tol)
+
+
 @pytest.mark.parametrize("fn", ["warmup_cosine", "constant"])
 def test_schedules_match_the_reference(fn):
     steps = [0, 1, 50, 99, 100, 101, 5000, 9999, 10000, 20000]
@@ -275,8 +313,14 @@ def test_remat_full_gives_the_gradients_of_remat_none(monkeypatch):
     assert torch.equal(loss_full, loss_none)
     for a, b in zip(g_full, g_none):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="later training slice"):
-        grads("dots")
+    # the selective policy keeps the products and reruns the rest: the same bits
+    loss_dots, g_dots = grads("dots")
+    assert len(checkpointed) == 2 * cfg.num_layers
+    assert torch.equal(loss_dots, loss_none)
+    for a, b in zip(g_dots, g_none):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        grads("dots_saveable")
 
 
 def test_launcher_trains_the_reduced_config_on_the_cpu(capsys):
@@ -285,10 +329,19 @@ def test_launcher_trains_the_reduced_config_on_the_cpu(capsys):
     assert "over 3 steps on cpu" in out
 
 
-def test_launcher_refuses_recurrent_training_on_the_card():
+def test_launcher_refuses_recurrent_training_on_the_card(monkeypatch):
+    """The hybrid and ssm families are no longer refused on the card: with
+    the device check stood in for (the card's program built on the host),
+    the launcher builds their trainers, with the attention kernels woven
+    for a card's program and nothing else."""
+    from repro_torch.core import program as program_mod
+
+    monkeypatch.setattr(program_mod, "resolve_device", lambda device: torch.device("cpu"))
     for arch in ("recurrentgemma-2b", "rwkv6-3b"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            launch_train.build_trainer(arch, reduced=True, device="cuda", batch=2, seq=8)
+        trainer = launch_train.build_trainer(arch, reduced=True, device="cuda", batch=2,
+                                             seq=8)
+        assert trainer.woven.program.cfg.family in ("hybrid", "ssm")
+        assert trainer.woven.state.extra["remat"] == "full"
 
 
 def test_forward_only_kernels_refuse_autograd():
