@@ -129,7 +129,19 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    the recurrentgemma and whisper kernels' gradient against K1's and K3's
    plain formula, with the witness of delta's rounding beside (rwkv6-3b,
    which runs no kernel, must move every parameter).  K1 with lse and K3 are
-   held at the families' shapes with the other kernel cases (step 3).
+   held at the families' shapes with the other kernel cases (step 3);
+10. holds the port's roofline (`roofline/`, composed on the meta device on
+   the card mesh) against measured device-busy time: right after step 5,
+   (r1) a yi-6b decode step at B8 against 4096-slot caches (K2's split
+   route, K4) and (r2) a B1 x 2048 prefill (K1, K4), counted runs with
+   exact launches, and (r2)'s attention core over the peak equal to K1's
+   `bound_ms`; the serve phase's dense requests again through a `Server`
+   on the card mesh over the same weights (tokens bit for bit, launches by
+   route the same); after step 9, (r3) step 8's training step.  Each cell
+   prints its terms, MFU and roofline_share = step_s / busy, gated at
+   1.05.  Step 8's checkpoint resume also restores the checkpoint onto the
+   card mesh (`reshard_params`, bit for bit), and one dry-run record
+   (yi-6b decode_32k on the card mesh) must say its state does not fit.
 
 Any failed phase ends the run with a non-zero exit code.  The last line of
 the output is `{"ok": true, "device": {...}}`; the line before the card's
@@ -151,9 +163,12 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-# published peaks of one H100 SXM (dense): what `bound_ms` is computed against
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+# published peaks of one H100 SXM (dense), from the port's roofline: what
+# `bound_ms`, the MFU and the roofline phase are computed against
+from repro_torch.roofline import hw  # noqa: E402
+
+PEAK_BYTES_PER_S = hw.HBM_BW
+PEAK_FLOPS = {"bf16": hw.PEAK_FLOPS_BF16, "fp32": hw.PEAK_FLOPS_FP32}
 L2_BYTES = 50_000_000  # one H100's L2 cache
 
 # worst error of a kernel case, as a share of the RMS of the plain output
@@ -3463,7 +3478,8 @@ def serve_phase(torch):
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     log("serve " + json.dumps(summary))
-    return {**counts, **routes}, server
+    requests = {"solo": solo, "batch": batch, "solo_out": solo_out, "batch_out": batch_out}
+    return {**counts, **routes}, server, requests
 
 
 # ---------------------------------------------------------------------------
@@ -4467,6 +4483,7 @@ def resume_phase(torch) -> dict:
         first = make(ckpt, 4)
         first.run()
         first.save(blocking=True)
+        elastic = elastic_restore(torch, first, ckpt)
         resumed = make(ckpt, 2)
         if not (resumed.maybe_restore() and resumed.step == 4
                 and resumed.pipeline.step == 4):
@@ -4474,11 +4491,37 @@ def resume_phase(torch) -> dict:
         tail = [h["loss"] for h in resumed.run(2)]
     straight = [h["loss"] for h in make(None, 6).run()][4:]
     rel = max(abs(a - b) / abs(b) for a, b in zip(tail, straight))
-    out = {"resumed_losses": tail, "straight_losses": straight, "max_rel_err": rel}
+    out = {"resumed_losses": tail, "straight_losses": straight, "max_rel_err": rel,
+           "elastic": elastic}
     log("train-resume " + json.dumps(out))
     if not rel <= RESUME_LOSS_REL_TOL:
         raise AssertionError(f"resumed losses {tail} differ from the straight run's "
                              f"{straight}")
+    return out
+
+
+def elastic_restore(torch, trainer, ckpt_dir) -> dict:
+    """Elastic restore onto the card mesh (`distributed/elastic.reshard_params`)
+    from the checkpoint `trainer` just wrote: every parameter leaf placed on
+    the card, bit for bit the trainer's."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.distributed.elastic import plan_rescale, reshard_params
+    from repro_torch.launch.mesh import make_card_mesh
+    from repro_torch.optim.tree import leaves
+
+    mesh, rules = make_card_mesh(), trainer.woven.state.rules
+    plan = plan_rescale(trainer.pipeline.cfg.global_batch, mesh, rules)
+    placed, manifest = reshard_params(trainer.woven.program.model, Checkpointer(ckpt_dir),
+                                      mesh, rules, trainer.params, trainer.step)
+    got, want = leaves(placed), leaves(trainer.params)
+    same = len(got) == len(want) and all(
+        g.is_cuda and g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+    out = {"mesh": dict(mesh.shape), "plan": plan, "step": manifest["step"],
+           "leaves": len(got), "bit_for_bit": same}
+    log("elastic-restore " + json.dumps(out))
+    if not same:
+        raise AssertionError("the parameters restored onto the card mesh differ from "
+                             "the trainer's")
     return out
 
 
@@ -5002,6 +5045,203 @@ def train_families_phase(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the roofline against measured steps
+# ---------------------------------------------------------------------------
+
+# a step can not beat its own bound: roofline_share = step_s / busy time
+ROOFLINE_SHARE_MAX = 1.05
+
+
+def busy_ms(torch, run, steps: int, tag: str) -> dict:
+    """Device-busy time of one step: the profiler's sum of kernel time over
+    `steps` steps (`profile_steps`). A profile with no device time fails
+    the cell: a wall time would hold the gaps between kernels too."""
+    out = profile_steps(torch, run, steps, f"{tag}_wall_ms")
+    if out["device_busy_ms_per_step"] is None:
+        raise AssertionError(f"roofline {tag}: the profile recorded no device time")
+    return out
+
+
+def roofline_cell(tag, arch, shape, busy, overrides=None) -> dict:
+    """The composed roofline (`roofline/components.compose_cell`, on the
+    meta device, on the card mesh) of one step the card ran, beside that
+    step's measured device-busy time: MFU = model_flops / (989 TFLOP/s x
+    busy) and roofline_share = step_s / busy, gated at ROOFLINE_SHARE_MAX."""
+    from repro_torch.launch.mesh import make_card_mesh
+    from repro_torch.roofline.components import compose_cell
+
+    t0 = time.perf_counter()
+    r = compose_cell(arch, shape, mesh=make_card_mesh(), overrides=overrides,
+                     verbose=False)
+    busy_s = busy["device_busy_ms_per_step"] / 1e3
+    out = {"cell": tag, "arch": arch, "batch": shape.global_batch, "seq": shape.seq_len,
+           "kind": shape.kind, "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+           "step_s": r["step_s"], "bottleneck": r["bottleneck"],
+           "model_flops": r["model_flops"], "flops": r["flops_per_device"],
+           "bytes": r["bytes_per_device"], "busy_ms": busy["device_busy_ms_per_step"],
+           "mfu": r["model_flops"] / (PEAK_FLOPS["bf16"] * busy_s),
+           "roofline_share": r["step_s"] / busy_s,
+           "components": [[c["name"], c["count"], c["flops"], c["bytes"]]
+                          for c in r["components"]],
+           "top_kernels_ms_per_step": busy.get("top_kernels_ms_per_step"),
+           "compose_host_s": time.perf_counter() - t0}
+    log("roofline " + json.dumps(out))
+    if not out["roofline_share"] <= ROOFLINE_SHARE_MAX:
+        raise AssertionError(f"roofline {tag}: the step ran in {out['busy_ms']} ms, under "
+                             f"its own bound {r['step_s'] * 1e3} ms (share "
+                             f"{out['roofline_share']})")
+    return out
+
+
+def roofline_serve_cells(torch, server, requests, serve_counts, k1_main) -> dict:
+    """The serving half of the roofline phase, on the serve phase's yi-6b
+    server: (r1) a decode step at B8 against 4096-slot caches filled to
+    4064 tokens (K2's split route and K4), (r2) a B1 x 2048 prefill (K1 and
+    K4) — each a counted run with exact launches, its busy time measured —
+    and the same dense requests the serve phase made, again, through a
+    `Server` on the card mesh over the same weights: tokens bit for bit,
+    launches by route the same."""
+    import numpy as np
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_card_mesh
+    from repro_torch.runtime.server import Server
+
+    t0 = time.perf_counter()
+    mcfg = server.woven.program.cfg
+    L, T = mcfg.num_layers, server.cfg.max_cache_len
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(25)
+    cells = {}
+
+    # (r1): 8 requests, one token each, against caches of T slots filled
+    # to T - 32 (every step reads nearly the whole cache, as the bound does)
+    B, steps = 8, 6
+    toks = torch.randint(0, mcfg.vocab, (B, T - 32), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    state = {}
+
+    def decode(k):
+        for _ in range(k):
+            positions = torch.full((B, 1), state["pos"], dtype=torch.int32, device="cuda")
+            _, state["cache"] = server.decode_vc(
+                None, server.params, {"tokens": state["tok"], "positions": positions},
+                state["cache"])
+            state["pos"] += 1
+        torch.cuda.synchronize()
+
+    def r1():
+        logits, state["cache"] = server.prefill_vc(None, server.params, {"tokens": toks})
+        if state["cache"]["blocks0"]["k"].shape[2] != T:
+            raise AssertionError("roofline r1: the prefill cache is not T slots long")
+        state["tok"] = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        state["pos"] = toks.shape[1]
+        return busy_ms(torch, decode, steps, "decode_B8_T4096")
+
+    prof, counts, _ = counted_run(torch, r1, "roofline r1")
+    state.clear()
+    # profile_steps' warm-up, timed and profiled steps
+    n = 2 + 2 * steps
+    want = {"flash_attention": L, "flash_decode": L * n, "rmsnorm": (2 * L + 1) * (n + 1)}
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"roofline r1: launches {counts} != {want}")
+    cells["r1"] = roofline_cell("r1_yi6b_decode_B8_T4096", "yi-6b",
+                                ShapeConfig("r1_decode_B8_T4096", T, B, "decode"), prof)
+
+    # (r2): one prompt of 2048 tokens
+    prompt = torch.randint(0, mcfg.vocab, (1, 2048), generator=gen, device="cuda",
+                           dtype=torch.int32)
+
+    def prefill(k):
+        for _ in range(k):
+            server.prefill_vc(None, server.params, {"tokens": prompt})
+        torch.cuda.synchronize()
+
+    steps = 4
+    prof, counts, _ = counted_run(torch, lambda: busy_ms(torch, prefill, steps,
+                                                         "prefill_B1_S2048"), "roofline r2")
+    n = 2 + 2 * steps
+    want = {"flash_attention": L * n, "flash_decode": 0, "rmsnorm": (2 * L + 1) * n}
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"roofline r2: launches {counts} != {want}")
+    cells["r2"] = roofline_cell("r2_yi6b_prefill_B1_S2048", "yi-6b",
+                                ShapeConfig("r2_prefill_B1_S2048", 2048, 1, "prefill"), prof)
+    core = next(c for c in cells["r2"]["components"] if c[0] == "attn_core")
+    core_ms = core[2] / PEAK_FLOPS["bf16"] * 1e3
+    cells["r2"]["attn_core_ms"] = core_ms
+    cells["r2"]["k1_bound_ms"] = k1_main["bound_ms"]
+    log(f"roofline: r2's attention core over the peak {core_ms} ms, K1's bound_ms "
+        f"{k1_main['bound_ms']} ms ({k1_main['case']})")
+    if k1_main["case"] != "yi6b_S2048_H32_K4_D128_bf16" or \
+            abs(core_ms - k1_main["bound_ms"]) > 1e-12 * core_ms:
+        raise AssertionError("roofline: r2's attention core is not K1's bound")
+
+    # the serve phase's dense requests through a server on the card mesh
+    meshed = Server(server.woven, server.cfg, mesh=make_card_mesh(), params=server.params)
+
+    def serve_again():
+        solo = [meshed.serve(p) for p in requests["solo"]]
+        return solo, meshed.serve_batch(requests["batch"])
+
+    (solo, batch), counts, routes = counted_run(torch, serve_again, "mesh-of-one serve")
+    same_tokens = all(np.array_equal(a, b) for a, b in zip(solo, requests["solo_out"])) \
+        and all(np.array_equal(a, b) for a, b in zip(batch, requests["batch_out"]))
+    got = {**counts, **routes}
+    same_launches = all(got[k] == v for k, v in serve_counts.items()) and all(
+        v == 0 for k, v in got.items() if k not in serve_counts)
+    del meshed
+    mesh_of_one = {"tokens_bit_for_bit": same_tokens, "launches": got,
+                   "launches_as_mesh_none": same_launches}
+    log("roofline-mesh-of-one " + json.dumps(mesh_of_one))
+    if not same_tokens:
+        raise AssertionError("the card-mesh server's tokens differ from mesh=None's")
+    if not same_launches:
+        raise AssertionError(f"the card-mesh server's launches {got} differ from "
+                             f"mesh=None's {serve_counts}")
+    return {"cells": cells, "mesh_of_one": mesh_of_one, "seconds": time.perf_counter() - t0}
+
+
+def roofline_phase(torch, serve_cells: dict, train: dict) -> dict:
+    """The roofline phase's training cell and its report: (r3) the
+    training step `train_phase` ran (gemma-2b, 4 x 1024 in 2 microbatches,
+    remat `full`: K1-lse, K3), its profiled busy time against the composed
+    roofline; one dry-run record (`launch/dryrun.lower_cell`, yi-6b
+    decode_32k on the card mesh, on the meta device: its 275 GB cache does
+    not fit 80 GB); the card's own memory beside the roofline's 80 GB."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    busy = train["profile"]
+    if busy["device_busy_ms_per_step"] is None:
+        raise AssertionError("roofline r3: the training profile recorded no device time")
+    r3 = roofline_cell("r3_gemma2b_train_B4_S1024_accum2", "gemma-2b",
+                       ShapeConfig("r3_train_B4_S1024", 1024, 4, "train"), busy,
+                       overrides={"accum_steps": 2, "remat": "full", "precision": "half"})
+    with tempfile.TemporaryDirectory() as out:
+        saved, dryrun.ARTIFACT_DIR = dryrun.ARTIFACT_DIR, out
+        try:
+            rec = dryrun.lower_cell("yi-6b", "decode_32k", mesh="card", verbose=False)
+        finally:
+            dryrun.ARTIFACT_DIR = saved
+    line = {k: rec[k] for k in ("arch", "shape", "mesh", "hbm_fits", "hbm_capacity",
+                                "analytic_hbm_per_device", "step_s", "bottleneck")}
+    line["argument_bytes"] = rec["memory_per_device"]["argument"]
+    line["card_total_memory"] = torch.cuda.get_device_properties(0).total_memory
+    log("roofline-dryrun " + json.dumps(line))
+    if rec["hbm_fits"] is not False:
+        raise AssertionError("dry run: yi-6b decode_32k's cache cannot fit one card")
+    summary = {"cells": {**serve_cells["cells"], "r3": r3},
+               "mesh_of_one": serve_cells["mesh_of_one"], "dryrun": line,
+               "seconds": serve_cells["seconds"] + time.perf_counter() - t0}
+    log("roofline-phase " + json.dumps({
+        "shares": {k: c["roofline_share"] for k, c in summary["cells"].items()},
+        "mfu": {k: c["mfu"] for k, c in summary["cells"].items()},
+        "seconds": summary["seconds"]}))
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -5060,7 +5300,9 @@ def run(torch, build, t_start) -> int:
     log("shared-prefill-identity " + json.dumps(shared_prefill_identity(torch, gen)))
 
     reduced_phase(torch)
-    serve_counts, server = serve_phase(torch)
+    serve_counts, server, requests = serve_phase(torch)
+    roof_serve = roofline_serve_cells(torch, server, requests, serve_counts,
+                                      next(c for c in pre if c["main"]))
     cont = continuous_phase(torch, server)
     spec = speculative_phase(torch, server)
     shapes = DecodeShapes()
@@ -5085,6 +5327,7 @@ def run(torch, build, t_start) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tfam = train_families_phase(torch)
+    roofline_phase(torch, roof_serve, train)
 
     # `launches`: the continuous main path, bf16 pool (run a); the quantized
     # mode over the int8 pool (run c): its single tokens on the split route,

@@ -14,7 +14,8 @@ happens on a daemon thread (training continues); `save` and `wait` join the
 previous write first, so one writer runs at a time.
 Restore: `restore(template)` returns a tree shaped like the template —
 CPU tensors where the template holds tensors, numpy arrays elsewhere — and
-the caller copies them onto its device.
+the caller copies them onto its device, or `place` puts them on a mesh
+(elastic restore, `distributed/elastic.py`).
 """
 
 from __future__ import annotations
@@ -195,3 +196,17 @@ class Checkpointer:
             flat[key] = _from_savable(np.load(path), dtypes.get(key, ""),
                                       isinstance(leaf, torch.Tensor))
         return _unflatten(template, flat), manifest
+
+    @staticmethod
+    def place(tree: Any, shardings: Any):
+        """Elastic placement: every leaf (a tensor or a numpy array) onto
+        its sharding's mesh — bit for bit, on the one device of a mesh of
+        one.  An abstract mesh has no device to place on, and more than one
+        card is outside this one-card port: both raise."""
+        from repro_torch.launch.mesh import mesh_device
+
+        if isinstance(tree, Mapping):
+            return {k: Checkpointer.place(v, shardings[k]) for k, v in tree.items()}
+        device = mesh_device(shardings.mesh)
+        value = tree if isinstance(tree, torch.Tensor) else torch.from_numpy(np.array(tree))
+        return value.to(device)

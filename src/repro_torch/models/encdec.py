@@ -179,9 +179,26 @@ class EncDecLM(Module):
         return logits, {"decoder": new_dec_cache, "enc": enc}
 
     def component_blocks(self, batch: int, cache_len: int):
-        raise NotImplementedError(
-            "the roofline's per-component blocks arrive with the roofline "
-            "(ROADMAP Queue 1 item 13a)")
+        """The encoder's and the decoder's block for compositional roofline
+        costing: [(name, block_module, count, per_layer_cache_spec,
+        kwargs)].  The encoder block has no cache: it does not run at
+        decode."""
+        cfg = self.cfg
+        K, hd = cfg.kv_heads, cfg.resolved_head_dim
+        dec_cache = {
+            "self": cache_spec(batch, cache_len, K, hd),
+            "cross": {
+                "ck": ((batch, cache_len, K, hd), torch.bfloat16),
+                "cv": ((batch, cache_len, K, hd), torch.bfloat16),
+            },
+        }
+        kv_src = ((batch, cache_len, cfg.d_model), torch.bfloat16)
+        return [
+            ("enc_block", self.encoder.template, cfg.enc_layers or cfg.num_layers,
+             None, {}),
+            ("dec_block", self.decoder.template, cfg.num_layers, dec_cache,
+             {"kv_src": kv_src}),
+        ]
 
     # -- caches -------------------------------------------------------------------
 

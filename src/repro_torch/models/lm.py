@@ -333,6 +333,32 @@ class TransformerLM(Module):
             return logits, None
         return logits, new_caches
 
+    # -- roofline components ---------------------------------------------------
+
+    def component_blocks(self, batch: int, cache_len: int):
+        """Distinct trunk block types for compositional roofline costing:
+        [(name, block_module, count, per_layer_cache_spec, kwargs)].  The
+        hybrid's unrolled blocks are one component each kind (its per-block
+        remat is applied once, by the costing, to the block)."""
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            rec = [p for p in self.trunk if isinstance(p, RecBlock)]
+            att = [p for p in self.trunk if isinstance(p, DecoderBlock)]
+            out = []
+            if rec:
+                out.append(("rec_block", rec[0], len(rec),
+                            RecurrentBlock.state_spec(batch, cfg.lru_width or cfg.d_model),
+                            {}))
+            if att:
+                W = min(cfg.local_window, cache_len)
+                out.append(("attn_block", att[0], len(att),
+                            cache_spec(batch, W, cfg.kv_heads, cfg.resolved_head_dim,
+                                       ring=cfg.local_window < cache_len), {}))
+            return out
+        layer_spec = self._layer_cache_spec(batch, cache_len)
+        return [(part.name, part.template, part.n_layers, layer_spec, {})
+                for part in self.trunk if isinstance(part, ScannedStack)]
+
     # -- caches -------------------------------------------------------------------
 
     @staticmethod

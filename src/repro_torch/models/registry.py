@@ -4,16 +4,19 @@ All ten of the reference's architectures are registered: the dense yi-6b,
 gemma-2b, qwen2-72b and nemotron-4-340b, the mixture-of-experts
 mixtral-8x22b (with a sliding window) and grok-1-314b (with a logit
 soft-cap), the hybrid recurrentgemma-2b, the ssm rwkv6-3b, the
-encoder-decoder whisper-small and the vision-language internvl2-1b.  The
-reference's per-cell `input_specs` wait for the dry-run's slice (ROADMAP
-Queue 1 item 13b)."""
+encoder-decoder whisper-small and the vision-language internvl2-1b.  Each
+(arch x shape) cell's step inputs are described by `input_specs`, as
+`(shape, dtype)` leaves that allocate nothing (the dry run and the roofline
+make meta tensors of them)."""
 
 from __future__ import annotations
 
 import importlib
 from typing import Any
 
-from repro_torch.configs.base import ModelConfig
+import torch
+
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 
 ARCHS = {
     "yi-6b": "repro_torch.configs.yi_6b",
@@ -83,3 +86,69 @@ def build_model(cfg: ModelConfig):
     from repro_torch.models.lm import TransformerLM
 
     return TransformerLM(cfg)
+
+
+# ---------------------------------------------------------------------------
+# Input specs ((shape, dtype) stand-ins; never allocate)
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig | str) -> dict[str, Any]:
+    """Returns {"inputs": ..., "cache": ... (decode only)}, trees of
+    `(shape, dtype)` leaves.
+
+    train : tokens/labels (B, S)  [+frames/embeds for stub frontends]
+    prefill: tokens (B, S)        [+frames/embeds]
+    decode : tokens (B, 1), positions (B, 1), cache with seq_len entries
+    """
+    if isinstance(shape, str):
+        shape = SHAPES[shape]
+    B, S = shape.global_batch, shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+    model = build_model(cfg)
+
+    def text_inputs(seq, with_labels):
+        d: dict[str, Any] = {"tokens": ((B, seq), i32)}
+        if with_labels:
+            d["labels"] = ((B, seq), i32)
+        return d
+
+    decode_inputs = {"tokens": ((B, 1), i32), "positions": ((B, 1), i32)}
+    if cfg.family == "encdec":
+        if shape.kind == "decode":
+            return {"inputs": decode_inputs, "cache": model.cache_specs(B, S, enc_len=S)}
+        inp = text_inputs(S, shape.kind == "train")
+        inp["frames"] = ((B, S, cfg.d_model), bf16)
+        return {"inputs": inp, "cache": None}
+
+    if cfg.family == "vlm":
+        if shape.kind == "decode":
+            return {"inputs": decode_inputs, "cache": model.cache_specs(B, S)}
+        P = cfg.num_image_tokens
+        inp = text_inputs(S - P, shape.kind == "train")
+        inp["embeds"] = ((B, P, cfg.d_model), bf16)
+        return {"inputs": inp, "cache": None}
+
+    if shape.kind == "decode":
+        return {"inputs": decode_inputs, "cache": model.cache_specs(B, S)}
+    return {"inputs": text_inputs(S, shape.kind == "train"), "cache": None}
+
+
+def cells(arch: str) -> list[str]:
+    """Supported (arch x shape) cells; long_500k only for sub-quadratic."""
+    return get_config(arch).supported_shapes()
+
+
+def all_cells() -> list[tuple[str, str]]:
+    return [(arch, shape) for arch in ARCHS for shape in cells(arch)]
+
+
+def skipped_cells() -> list[tuple[str, str, str]]:
+    out = []
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        for shape in SHAPES:
+            if shape not in cfg.supported_shapes():
+                out.append((arch, shape, "full-attention arch: long_500k needs "
+                            "sub-quadratic attention (DESIGN.md §5)"))
+    return out

@@ -10,7 +10,9 @@ Supports what the dense decoder family needs:
 The *implementation* (plain PyTorch vs the hand-written CUDA kernels) is
 chosen by the woven Ctx — the ANTAREX code-versioning / kernel-substitution
 aspect acting on the attention joinpoint: `ctx.impl("attention", "eager")`
-is `"eager"` by default and `"cuda"` once a `KernelAspect` is woven.
+is `"eager"` by default and `"cuda"` once a `KernelAspect` is woven;
+the roofline's components weave `"proj_only"`, which keeps the projections
+and skips the S x T core of a self-aligned (dense / prefill) attention.
 
 Caches are plain dicts of tensors and are **updated in place**: a decode
 step writes the new tokens into the `k` / `v` / `pos` tensors it was given
@@ -26,8 +28,9 @@ table, with a per-request `pos` row saying which position each slot holds.
 
 Cross-attention (`cross=True`, whisper's decoder) attends over K/V projected
 from an encoder's states (`kv_src`); its `{"ck", "cv"}` cache is computed
-once and never written.  The meshed KV expansion arrives with the slice
-that needs it.
+once and never written.  The meshed KV expansion (`expand_kv`, the
+reference's answer to KV heads that do not divide a tensor-parallel axis)
+has no use on a mesh of one card.
 """
 
 from __future__ import annotations
@@ -298,6 +301,12 @@ class Attention(Module):
         """Self-aligned (q_pos == kv_pos) attention through the woven impl
         dispatch."""
         S = q.shape[1]
+        if ctx.impl("attention", "eager") == "proj_only":
+            # roofline component mode (`roofline/components.py`): keep the
+            # projections, tie k and v into the output so they stay live,
+            # and skip the S x T core, which is costed analytically
+            return q + (torch.mean(k, dim=2, keepdim=True)
+                        + torch.mean(v, dim=2, keepdim=True)).to(q.dtype)
         if self._use_kernel(ctx, q):
             # woven extras win; unset knobs take the tuner's or the kernel's
             blocks = {
@@ -471,9 +480,13 @@ class Attention(Module):
                 pos[bidx, slot] = idx  # (B, W)
                 kv_pos = pos
             else:
-                k_all[:, slot] = k_new[:, 0]
-                v_all[:, slot] = v_new[:, 0]
-                pos[slot] = idx
+                # a one-element index, not a 0-dim one: indexing by a 0-dim
+                # tensor reads it on the host (a sync on the card, and
+                # impossible on the meta device the roofline costs on)
+                one = slot.reshape(1)
+                k_all[:, one] = k_new
+                v_all[:, one] = v_new
+                pos[one] = idx.reshape(1)
                 kv_pos = pos.expand(B, W)
             new_cache = {"k": k_all, "v": v_all, "pos": pos, "index": idx + 1}
             kernel_window = None  # the ring layout *is* the window

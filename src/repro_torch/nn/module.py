@@ -24,6 +24,7 @@ from typing import Any, Iterator, Mapping, Sequence
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import mesh_of_one
 from repro_torch.nn.dtypes import DTypePolicy, PolicyResolver
 
 # ---------------------------------------------------------------------------
@@ -48,9 +49,10 @@ def resolve_device(device: "str | torch.device") -> torch.device:
 class ParamSpec:
     """Declarative description of one parameter tensor.
 
-    ``axes`` holds one *logical* axis name (or None) per dimension (kept for
-    the sharding aspects; mesh support is a later slice).  ``dtype`` of None
-    means "the woven dtype policy decides" (the common case); norms pin fp32.
+    ``axes`` holds one *logical* axis name (or None) per dimension: the
+    sharding rules map it to mesh axes (`distributed/sharding.py`).
+    ``dtype`` of None means "the woven dtype policy decides" (the common
+    case); norms pin fp32.
     """
 
     shape: tuple[int, ...]
@@ -98,8 +100,10 @@ class Ctx:
     """Carries every woven extra-functional decision through `apply`.
 
     The weaver (repro_torch/core) builds one of these; model code only
-    *reads* it.  `mesh` and `rules` are carried so the sharding aspects weave
-    as in the reference, but `constrain` is inert: one card, no mesh yet.
+    *reads* it.  `mesh` is None or a mesh of one device
+    (`launch/mesh.make_card_mesh`), where `constrain` is the identity: one
+    device has nothing to constrain.  A mesh of more than one device raises:
+    more than one card is outside this one-card port.
     """
 
     def __init__(
@@ -113,13 +117,9 @@ class Ctx:
         deterministic: bool = True,
         extra: Mapping[str, Any] | None = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "device meshes are not ported yet (a later slice): run on "
-                "one card with mesh=None")
         self.policies = policies or PolicyResolver.default()
         self.impls = list(impls)
-        self.mesh = mesh
+        self.mesh = mesh_of_one(mesh)
         self.rules = dict(rules or {})
         self.taps_enabled = list(taps_enabled)
         self.deterministic = deterministic
@@ -167,7 +167,7 @@ class Ctx:
     # -- sharding constraints --------------------------------------------------
 
     def constrain(self, x: torch.Tensor, logical_axes: tuple[str | None, ...]) -> torch.Tensor:
-        return x
+        return x  # a mesh of one: every tensor already lies whole on its device
 
 
 class _Scope:
@@ -301,6 +301,24 @@ def param_tree(module: Module) -> dict[str, Any]:
         return owner._parameters[name]
 
     return _walk_spec(module, "", leaf)
+
+
+def abstract_params(module: Module, policies: PolicyResolver | None = None,
+                    device: "str | torch.device" = "meta") -> dict[str, Any]:
+    """The param tree as empty tensors, meta by default (no allocation):
+    the dry run's and the roofline's stand-in for `init_params`."""
+    policies = policies or PolicyResolver.default()
+
+    def leaf(spec: ParamSpec, path: str, owner, name):
+        dtype = spec.dtype if spec.dtype is not None else policies.resolve(path).param_dtype
+        return torch.empty(spec.shape, dtype=dtype, device=device)
+
+    return _walk_spec(module, "", leaf)
+
+
+def param_axes(module: Module) -> dict[str, Any]:
+    """Tree of logical-axes tuples matching the param tree's structure."""
+    return _walk_spec(module, "", lambda spec, path, owner, name: spec.axes)
 
 
 def param_count(module: Module) -> int:

@@ -44,6 +44,7 @@ from repro_torch.core.strategies.resilience import (
 from repro_torch.core.weaver import WovenProgram
 from repro_torch.distributed.fault import Watchdog
 from repro_torch.kernels.flash_attention.ops import CACHE_QMAX, DEFAULT_PAGE_SIZE
+from repro_torch.launch.mesh import require_mesh_on
 from repro_torch.memo.table import MemoTable
 from repro_torch.monitor.examon import ExamonBroker, get_default_broker
 from repro_torch.nn.module import init_params, resolve_device
@@ -125,15 +126,16 @@ class Server:
         None self-drafts when a draft length is asked for.  `params` is the
         param tree of another server of the same woven program, on the same
         device, to share (a fleet's replicas hold one copy of the weights);
-        None draws them from `cfg.seed`."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "device meshes are not ported yet (a later slice)")
+        None draws them from `cfg.seed`.  `mesh` is None or a mesh of one
+        device (`launch/mesh.make_card_mesh`) on the server's device: the
+        same steps, kernels and bits as None.  A mesh of more than one
+        device raises: more than one card is outside this one-card port."""
         self.woven = woven
         self.cfg = cfg
         self.draft = draft
         self.device = resolve_device(
             device if device is not None else woven.program.device)
+        require_mesh_on(mesh, self.device)
         self.mesh = mesh
         self.margot = margot
         self.broker = broker or get_default_broker()

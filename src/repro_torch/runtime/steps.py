@@ -6,6 +6,11 @@ ANTAREX aspects set lands here, and libVC keeps one closure per variant.
 PyTorch runs eagerly, so there is nothing to compile: a step is a plain
 closure.  The serving steps run under `torch.no_grad()`; the train step
 records the forward and differentiates it.
+
+`mesh` is None or a mesh of one device (`launch/mesh.make_card_mesh`): the
+same kernels, launches and bits either way.  A mesh of more than one device
+raises when the step is built: more than one card is outside this one-card
+port.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.weaver import WovenProgram
+from repro_torch.launch.mesh import mesh_of_one
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.tree import leaves as tree_leaves
@@ -34,6 +40,7 @@ def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
 
 
 def build_loss_fn(woven: WovenProgram, mesh=None, variant: str | None = None):
+    mesh_of_one(mesh)
     program = woven.program
     state = woven.variant_state(variant)
     model = program.model
@@ -132,6 +139,7 @@ def build_prefill_step(woven: WovenProgram, *, mesh=None, variant: str | None = 
                        cache_max_len: int | None = None):
     """`cache_max_len` pins the prefill cache padding on a *copied* weave
     state, without disturbing the shared state the ordinary prefill reads."""
+    mesh_of_one(mesh)
     program = woven.program
     state = woven.variant_state(variant)
     if cache_max_len is not None:
@@ -156,6 +164,7 @@ def build_paged_prefill_step(woven: WovenProgram, *, mesh=None,
     prefix sharing — the model computes and writes only the non-shared
     suffix, in place, so admission's transient memory is O(live tokens),
     never O(max_len)."""
+    mesh_of_one(mesh)
     program = woven.program
     state = woven.variant_state(variant)
     model = program.model
@@ -181,6 +190,7 @@ def build_decode_step(woven: WovenProgram, *, mesh=None, variant: str | None = N
     full-prompt prefix hit re-scores its last prompt token — whose K/V
     already sit on shared pool pages — for the first output logits, without
     touching pages other requests still map."""
+    mesh_of_one(mesh)
     program = woven.program
     state = woven.variant_state(variant)
     model = program.model
@@ -211,6 +221,7 @@ def build_verify_step(woven: WovenProgram, *, mesh=None,
     can pin the draft span on a *copied* weave state (the
     "speculative_draft_len" extra) without disturbing the plain decode
     variant's state."""
+    mesh_of_one(mesh)
     program = woven.program
     state = woven.variant_state(variant)
     if draft_len is not None:

@@ -27,6 +27,7 @@ from repro_torch.checkpoint.checkpointer import Checkpointer, process_index_and_
 from repro_torch.core.weaver import WovenProgram
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.distributed.fault import PreemptionHandler, Watchdog
+from repro_torch.launch.mesh import require_mesh_on
 from repro_torch.monitor.examon import ExamonBroker, get_default_broker
 from repro_torch.monitor.sensors import apply_wrappers
 from repro_torch.nn.module import init_params
@@ -68,6 +69,7 @@ class Trainer:
         self.margot = margot
         self.broker = broker or get_default_broker()
         self.device = woven.program.device
+        require_mesh_on(mesh, torch.device(self.device))
         self.opt_cfg = opt_cfg or AdamWConfig(
             compression=bool(woven.state.extra.get("grad_compression", False)),
             state_dtype=str(woven.state.extra.get("opt_state_dtype", "float32")),

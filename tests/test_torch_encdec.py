@@ -450,11 +450,6 @@ def test_cache_specs_and_init_cache_match_reference():
     assert_tree_close(tc, np_tree(jc), atol=0, rtol=0)
 
 
-def test_component_blocks_names_the_roofline_item():
-    with pytest.raises(NotImplementedError, match="item 13a"):
-        build_model(reduced_config("whisper-small")).component_blocks(1, 8)
-
-
 # ---------------------------------------------------------------------------
 # training and serving
 # ---------------------------------------------------------------------------
