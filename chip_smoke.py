@@ -141,7 +141,22 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    prints its terms, MFU and roofline_share = step_s / busy, gated at
    1.05.  Step 8's checkpoint resume also restores the checkpoint onto the
    card mesh (`reshard_params`, bit for bit), and one dry-run record
-   (yi-6b decode_32k on the card mesh) must say its state does not fit.
+   (yi-6b decode_32k on the card mesh) must say its state does not fit;
+11. runs the four examples of `examples_torch/` through their own functions
+   at the reference's sizes, between step 9 and (r3) (`examples_phase`):
+   quickstart (reduced yi-6b, 30 steps of 8 x 32) and train_100m at its
+   documented full run (`CFG_100M` at full width, 300 steps of 16 x 256,
+   checkpoints every 100 steps) as counted runs — K1 with lse and K3 once an
+   attention layer and step, every launch on the tensor cores — with a
+   falling loss, and train_100m's newest checkpoint restored into a fresh
+   trainer bit for bit; navigation_serve (reduced gemma-2b, 12 serves over 6
+   routes under mARGOt and the memo) as a counted run of K1, K2 on its split
+   route and K4, 6 of the 12 answered by the memo; drug_discovery's LAT
+   exploration (5 chunkings x 3 tests), mARGOt over its knowledge base and
+   64 ligands docked, every score against float64 numpy and the settled
+   point within its budget.  One `examples` line each: step time (the
+   trainer's synchronised sensor, and host wall and profiler busy over five
+   more steps), tokens/s, MFU, peak memory; serve latencies; the DSE table.
 
 Any failed phase ends the run with a non-zero exit code.  The last line of
 the output is `{"ok": true, "device": {...}}`; the line before the card's
@@ -5046,6 +5061,274 @@ def train_families_phase(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the four examples on the card
+# ---------------------------------------------------------------------------
+
+# train_100m's documented full run (`examples_torch/train_100m.py`'s docstring)
+EXAMPLE_100M_RUN = {"steps": 300, "batch": 16, "seq": 256}
+# a docking score against the same score in float64 numpy, relative
+DOCKING_REL_TOL = 1e-4
+
+
+def example(name: str):
+    """`examples_torch/<name>.py`, loaded by path (the folder is no package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", os.path.join(HERE, "examples_torch", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def example_trainer_run(torch, tag, trainer) -> dict:
+    """An example's trainer through its own `run()` as one counted run: one
+    microbatch and remat `none`, so K1 with lse once an attention layer and
+    step and K3 once, nothing else (every bf16 launch on the tensor-core
+    route, `counted_run`); finite losses, the last below the first.  Step
+    time is the median of the trainer's own synchronised sensor (steps 2
+    on); MFU = 6·N·tokens / step / 989 TFLOP/s; peak memory over the run."""
+    import numpy as np
+
+    woven, steps = trainer.woven, trainer.cfg.steps
+    cfg = woven.program.cfg
+    kernels_woven = [i for i in woven.state.impls if i[2] == "cuda"]
+    if kernels_woven != [("*", "attention", "cuda")]:
+        raise AssertionError(f"examples {tag}: training must weave the attention kernels "
+                             f"alone: {kernels_woven}")
+    if (woven.state.extra.get("remat"), woven.state.extra.get("accum_steps")) != ("none", 1):
+        raise AssertionError(f"examples {tag}: remat / accum {woven.state.extra}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    history, counts, routes = counted_run(torch, trainer.run, f"examples {tag}")
+    wall = time.perf_counter() - t0
+    n = steps * cfg.num_layers
+    want = {"flash_attention": n, "flash_attention_lse": n, "flash_attention_bwd": n,
+            "flash_decode": 0, "rmsnorm": 0, "rglru": 0, "wkv": 0}
+    log(f"examples ({tag}): {steps} steps, launches {counts}, expected {want}; "
+        f"routes {routes}")
+    if counts != want:
+        raise AssertionError(f"examples {tag}: launch counters {counts} != expected {want}")
+    losses = [h["loss"] for h in history]
+    if len(losses) != steps or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"examples {tag}: losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"examples {tag}: the loss did not fall: {losses}")
+    step_s = float(np.median([h["step_time"] for h in history[1:]]))
+    flops = trainer.info["flops_per_step"]
+    return {
+        "model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "params_m": sum(p.numel() for p in woven.program.model.parameters()) / 1e6,
+        "global_batch": trainer.pipeline.cfg.global_batch,
+        "seq": trainer.pipeline.cfg.seq_len, "steps": steps,
+        "loss_first": losses[0], "loss_last": losses[-1], "run_wall_s": wall,
+        "step_s_median": step_s,
+        "tokens_per_s": trainer.info["tokens_per_step"] / step_s,
+        "mfu": flops / step_s / PEAK_FLOPS["bf16"],
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": {**counts, **routes},
+    }
+
+
+def example_trainer_profile(torch, trainer, summary: dict) -> None:
+    """Five more steps timed on the host's clock, then under the profiler
+    (`profile_steps`): the device's busy time a step and MFU over it."""
+
+    def run(n):
+        trainer.run(n)
+        torch.cuda.synchronize()
+
+    prof = profile_steps(torch, run, 5, "step_wall_ms")
+    busy = prof["device_busy_ms_per_step"]
+    summary["profile"] = prof
+    summary["mfu_busy"] = (trainer.info["flops_per_step"] / (busy / 1e3) / PEAK_FLOPS["bf16"]
+                           if busy else None)
+
+
+def example_quickstart(torch) -> dict:
+    """`examples_torch/quickstart.py` as it runs: reduced yi-6b woven with
+    `half`, remat `none`, accum 1, ExaMon and the training kernels, 30 steps
+    of 8 x 32 tokens."""
+    mod = example("quickstart")
+    woven = mod.build("cuda")
+    log("examples (quickstart): weave report\n" + woven.report.table())
+    trainer = mod.build_trainer(woven)
+    summary = example_trainer_run(torch, "quickstart", trainer)
+    example_trainer_profile(torch, trainer, summary)
+    return summary
+
+
+def example_train_100m(torch) -> dict:
+    """`examples_torch/train_100m.py` at its documented full run
+    (`EXAMPLE_100M_RUN`): `CFG_100M` at full width and depth, checkpoints
+    every 100 steps into a temporary directory.  Gates besides
+    `example_trainer_run`'s: checkpoints at steps 100, 200 and 300 on disk,
+    and the newest restored into a fresh trainer bit for bit (parameters,
+    optimizer state, the pipeline's step)."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.optim.tree import leaves
+
+    mod = example("train_100m")
+    run = EXAMPLE_100M_RUN
+    with tempfile.TemporaryDirectory(prefix="antarex_100m_torch_") as ckpt:
+        def build():
+            return mod.build_trainer(mod.CFG_100M, "cuda", ckpt_dir=ckpt, **run)
+
+        trainer = build()
+        cfg = trainer.woven.program.cfg
+        if (cfg.num_layers, cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.resolved_head_dim,
+                cfg.d_ff, cfg.vocab, cfg.tie_embeddings) != (12, 768, 12, 4, 64, 2048, 32768,
+                                                             True):
+            raise AssertionError(f"not the example's CFG_100M: {cfg}")
+        summary = example_trainer_run(torch, "train_100m", trainer)
+        saved = Checkpointer(ckpt).all_steps()
+        want = list(range(100, run["steps"] + 1, 100))
+        t0 = time.perf_counter()
+        fresh = build()
+        restored = fresh.maybe_restore()
+        restore_s = time.perf_counter() - t0
+        pairs = (list(zip(leaves(fresh.params), leaves(trainer.params)))
+                 + list(zip(leaves(fresh.opt_state), leaves(trainer.opt_state))))
+        same = restored and len(pairs) == (len(leaves(trainer.params))
+                                           + len(leaves(trainer.opt_state))) and all(
+            a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+            for a, b in pairs)
+        summary["checkpoint"] = {
+            "steps_on_disk": saved, "restored_step": fresh.step,
+            "pipeline_step": fresh.pipeline.step, "leaves": len(pairs),
+            "restore_s": restore_s, "bit_for_bit": same}
+        log("examples (train_100m): checkpoint " + json.dumps(summary["checkpoint"]))
+        if saved != want:
+            raise AssertionError(f"examples train_100m: checkpoints at {saved}, not {want}")
+        if not (same and fresh.step == trainer.step == run["steps"]
+                and fresh.pipeline.step == trainer.pipeline.step):
+            raise AssertionError("examples train_100m: the newest checkpoint did not restore "
+                                 "bit for bit into a fresh trainer")
+        del fresh, pairs
+        example_trainer_profile(torch, trainer, summary)
+    return summary
+
+
+def example_navigation(torch) -> dict:
+    """`examples_torch/navigation_serve.py` as it runs: reduced gemma-2b woven
+    with `MemoizeStep` and the serving kernels, 12 serves over 6 routes at
+    the decode budget mARGOt picks.  The first serve on the card pays one-time
+    set-up (cuBLAS handles, the allocator) that mARGOt would read as load,
+    so one serve on a server of its own (its own memo table) warms the card
+    first.  One counted run: K1 once a layer for each serve the memo did not
+    answer, K2 once a layer and decode step (split route), K4 2L + 1 times a
+    forward; the memo answers every repeated (route, budget), 6 of the 12;
+    `served` counts the 6 it did not (a hit returns before it is recorded)."""
+    import numpy as np
+
+    mod = example("navigation_serve")
+    mod.build_server("cuda").serve(np.zeros((1, 12), np.int32), decode_tokens=6)
+    margot = mod.make_margot()
+    server = mod.build_server("cuda", margot)
+    cfg = server.woven.program.cfg
+    routes = mod.make_routes(cfg.vocab)
+    t0 = time.perf_counter()
+    served, counts, rc = counted_run(torch, lambda: mod.navigate(server, margot, routes),
+                                     "examples navigation")
+    wall = time.perf_counter() - t0
+    seen, misses = set(), []
+    for i, (n, toks) in enumerate(served):
+        if toks.shape != (1, n) or toks.min() < 0 or toks.max() >= cfg.vocab:
+            raise AssertionError(f"examples navigation: serve {i} gave {toks}")
+        if (i % len(routes), n) not in seen:
+            seen.add((i % len(routes), n))
+            misses.append(n)
+    layers = cfg.num_layers
+    want = {"flash_attention": layers * len(misses), "flash_attention_lse": 0,
+            "flash_attention_bwd": 0, "flash_decode": layers * sum(misses),
+            "rmsnorm": (2 * layers + 1) * sum(1 + n for n in misses), "rglru": 0, "wkv": 0}
+    memo = server.memo
+    summary = {
+        "model": cfg.name, "layers": layers, "serves": len(served),
+        "decode_tokens": [n for n, _ in served], "memo_hits": memo.hits,
+        "memo_misses": memo.misses, "memo_hit_rate": memo.hit_rate,
+        "served": server.served, "knob": margot.current.knobs,
+        "serve_latencies_ms": [s * 1e3 for s in server.latencies],
+        "serve_latency_ms_median": float(np.median(server.latencies)) * 1e3,
+        "run_wall_s": wall, "launches": {**counts, **rc}}
+    log(f"examples (navigation): launches {counts}, expected {want}; routes {rc}")
+    if counts != want:
+        raise AssertionError(f"examples navigation: launch counters {counts} != {want}")
+    if not (len(served) == 12 and memo.hits == 6 and memo.misses == len(misses) == 6
+            and server.served == 6):
+        raise AssertionError(f"examples navigation: memo hits {memo.hits} / misses "
+                             f"{memo.misses}, served {server.served}, budgets "
+                             f"{summary['decode_tokens']}")
+    return summary
+
+
+def example_docking(torch) -> dict:
+    """`examples_torch/drug_discovery.py` as it runs on the card: the LAT
+    exploration over 5 chunkings x 3 tests (times by `torch.cuda.synchronize`
+    and the host clock, over chunks: the example's ideal-parallel model),
+    mARGOt on the knowledge base with a budget of twice the best time, 64
+    ligands docked.  Gates: 15 measurements, every docking score within
+    `DOCKING_REL_TOL` of float64 numpy, and the point mARGOt settles on meets
+    the budget in the knowledge base (the observed time a ligand, which runs
+    the chunks one after another on one card, is printed beside)."""
+    import numpy as np
+
+    mod = example("drug_discovery")
+    ligands, pocket = mod.make_inputs(torch.device("cuda"))
+    measured = []
+
+    def time_of(chunks):
+        measured.append(chunks)
+        return mod.time_for(ligands[0], pocket, chunks)
+
+    t0 = time.perf_counter()
+    lat = mod.explore(time_of)
+    margot, budget_s = mod.plan(lat)
+    t1 = time.perf_counter()
+    docked = mod.dock(ligands, pocket, margot)
+    dock_s = time.perf_counter() - t1
+    table = [{"chunks": r["knobs"]["chunks"], "time_ms": r["metrics"]["time"][0] * 1e3,
+              "std_ms": r["metrics"]["time"][1] * 1e3} for r in lat.results]
+    lig, poc = ligands.double().cpu().numpy(), pocket.double().cpu().numpy()
+    worst = 0.0
+    for ligand, (_, score) in zip(lig, docked):
+        want = np.sqrt(((ligand[:, None] - poc[None]) ** 2).sum(-1).min(1)).sum()
+        worst = max(worst, abs(float(score) - want) / abs(want))
+    settled = margot.current.knobs["chunks"]
+    settled_ms = next(r["time_ms"] for r in table if r["chunks"] == settled)
+    summary = {"dse": table, "measurements": len(measured), "budget_ms": budget_s * 1e3,
+               "chunks_chosen": [c for c, _ in docked], "settled_chunks": settled,
+               "settled_time_ms": settled_ms, "observed_ms_per_ligand": dock_s / 64 * 1e3,
+               "score_max_rel_err_vs_float64": worst, "dse_and_plan_s": t1 - t0}
+    if sorted(measured) != sorted(mod.CHUNKS * 3) or len(table) != len(mod.CHUNKS):
+        raise AssertionError(f"examples docking: the DSE measured {measured}")
+    if len(docked) != 64 or not worst <= DOCKING_REL_TOL:
+        raise AssertionError(f"examples docking: {len(docked)} ligands, worst score error "
+                             f"{worst}")
+    if not settled_ms <= budget_s * 1e3:
+        raise AssertionError(f"examples docking: chunks={settled} ({settled_ms} ms) over the "
+                             f"budget {budget_s * 1e3} ms")
+    return summary
+
+
+def examples_phase(torch) -> dict:
+    """The four examples of `examples_torch/` on the card through their own
+    functions, at the reference's sizes (train_100m at its documented full
+    run); one `examples` line each."""
+    out, t0 = {}, time.perf_counter()
+    for tag, fn in (("quickstart", example_quickstart), ("train_100m", example_train_100m),
+                    ("navigation", example_navigation), ("drug_discovery", example_docking)):
+        t = time.perf_counter()
+        out[tag] = fn(torch)
+        out[tag]["phase_s"] = time.perf_counter() - t
+        log(f"examples {tag} " + json.dumps(out[tag]))
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"examples: the phase in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the roofline against measured steps
 # ---------------------------------------------------------------------------
 
@@ -5327,6 +5610,9 @@ def run(torch, build, t_start) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tfam = train_families_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ex = examples_phase(torch)
     roofline_phase(torch, roof_serve, train)
 
     # `launches`: the continuous main path, bf16 pool (run a); the quantized
@@ -5351,7 +5637,9 @@ def run(torch, build, t_start) -> int:
                 **{f"train_gemma_remat_{p}": r["launches"].get(key, 0)
                    for p, r in train["remat_policies"].items()},
                 **{f"train_families_{run}": tfam[run]["launches"].get(key, 0)
-                   for run in tfam}}
+                   for run in tfam},
+                **{f"examples_{run}": ex[run]["launches"].get(key, 0)
+                   for run in ("quickstart", "train_100m", "navigation")}}
 
     # K2's single-token launches (all but widened q) and, of those, the split
     # route's (the rest run the FMA body)

@@ -62,16 +62,19 @@ class Program:
     model: Module
     cfg: ModelConfig
     kind: str = "train"  # train | serve
-    device: torch.device = torch.device("cpu")
+    # where its parameters and activations live: the card unless the caller
+    # asks for the host ("cpu") or for shapes alone ("meta"); asking for the
+    # card where there is none raises
+    device: "str | torch.device" = "cuda"
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
 
     @staticmethod
     def from_arch(arch: str, *, kind: str = "train", reduced: bool = False,
                   device: "str | torch.device" = "cuda") -> "Program":
-        """Build the functional program for `arch`.  `device` is where its
-        parameters and activations will live; asking for the card where there
-        is none raises."""
+        """Build the functional program for `arch` on `device`."""
         from repro_torch.models.registry import build_model, get_config, reduced_config
 
-        device = resolve_device(device)
         cfg = reduced_config(arch) if reduced else get_config(arch)
         return Program(model=build_model(cfg), cfg=cfg, kind=kind, device=device)

@@ -401,7 +401,8 @@ def test_woven_steps_decode_greedily_like_the_reference():
     jw = jweave(JProgram(model=jbuild(jcfg), cfg=jcfg, kind="serve"), JSHAPES["prefill_32k"],
                 {}, overrides=dict(over),
                 extra_aspects=[JKernelAspect("*", "attention", "pallas")])
-    tw = default_weave(Program(model=build_model(tcfg), cfg=tcfg, kind="serve"),
+    tw = default_weave(Program(model=build_model(tcfg), cfg=tcfg, kind="serve",
+                               device="cpu"),
                        SHAPES["prefill_32k"], {}, overrides=dict(over),
                        extra_aspects=[KernelAspect("*", "attention", "cuda")])
     jw.state.policies = JPolicies.default("double")
@@ -466,7 +467,8 @@ def test_train_step_matches_the_reference():
     jw = jweave(JProgram(model=jbuild(jcfg), cfg=jcfg, kind="train"), JSHAPES["train_4k"],
                 {}, overrides=dict(over),
                 extra_aspects=[JKernelAspect("*", "attention", "pallas")])
-    tw = default_weave(Program(model=build_model(tcfg), cfg=tcfg, kind="train"),
+    tw = default_weave(Program(model=build_model(tcfg), cfg=tcfg, kind="train",
+                               device="cpu"),
                        SHAPES["train_4k"], {}, overrides=dict(over),
                        extra_aspects=[KernelAspect("*", "attention", "cuda")])
     jw.state.policies = JPolicies.default("f32")

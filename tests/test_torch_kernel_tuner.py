@@ -509,9 +509,11 @@ def test_tuned_aspect_weaves_the_card_only_knobs(tmp_path):
         n for n in range(1, G + 1) if G % n == 0)
 
 
-def test_tuned_aspect_reads_the_rows_of_the_programs_device(tmp_path):
-    """A card program reads `@cuda` rows only (built here without a card:
-    the weave itself touches no tensor)."""
+def test_tuned_aspect_reads_the_rows_of_the_programs_device(tmp_path, monkeypatch):
+    """A card program reads `@cuda` rows only (built here without a card,
+    the device check stood in for: the weave itself touches no tensor)."""
+    from repro_torch.core import program as program_mod
+
     prog = TProgram.from_arch("gemma-2b", reduced=True, device="cpu")
     tuner = tkt.KernelTuner(str(tmp_path / "t.json"), device="cpu")
     aspect = TAspect(2, 256, dtype="float32", cache_len=512, tuner=tuner)
@@ -519,6 +521,7 @@ def test_tuned_aspect_reads_the_rows_of_the_programs_device(tmp_path):
     tuner.cache.put(f"{sig.key()}@cuda", {"knobs": {"page_size": 512}, "metrics": {},
                                           "ops": []})
     assert "flash_page_size" not in TWeaver(prog).weave([aspect]).state.extra
+    monkeypatch.setattr(program_mod, "resolve_device", torch.device)
     card = dataclasses.replace(prog, device=torch.device("cuda"))
     assert TWeaver(card).weave([aspect]).state.extra["flash_page_size"] == 512
 

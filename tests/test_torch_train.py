@@ -222,7 +222,8 @@ def _woven_pair(arch, accum):
     jw = jweave(JProgram(model=jbuild(jcfg), cfg=jcfg, kind="train"), JSHAPES["train_4k"],
                 {}, overrides=dict(overrides),
                 extra_aspects=[JKernelAspect("*", "attention", "pallas")])
-    tw = default_weave(Program(model=build_model(tcfg), cfg=tcfg, kind="train"),
+    tw = default_weave(Program(model=build_model(tcfg), cfg=tcfg, kind="train",
+                               device="cpu"),
                        SHAPES["train_4k"], {}, overrides=dict(overrides),
                        extra_aspects=[KernelAspect("*", "attention", "cuda")])
     # fp32 everywhere (`ChangePrecision` retypes the modules it selects and
@@ -300,7 +301,8 @@ def test_remat_full_gives_the_gradients_of_remat_none(monkeypatch):
                         lambda *a, **k: checkpointed.append(1) or real(*a, **k))
 
     def grads(remat):
-        w = default_weave(Program(model=model, cfg=cfg, kind="train"), SHAPES["train_4k"],
+        w = default_weave(Program(model=model, cfg=cfg, kind="train", device="cpu"),
+                          SHAPES["train_4k"],
                           {}, overrides={"remat": remat, "accum_steps": 1},
                           extra_aspects=[KernelAspect("*", "attention", "cuda")])
         (loss, _), g = build_grad_fn(w)(params, batch)

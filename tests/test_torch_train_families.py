@@ -82,7 +82,8 @@ def _woven_pair(arch):
     jw = jweave(JProgram(model=jbuild(jcfg), cfg=jcfg, kind="train"), JSHAPES["train_4k"],
                 {}, overrides=dict(over),
                 extra_aspects=[JKernelAspect("*", "attention", "pallas")])
-    tw = default_weave(Program(model=build_model(tcfg), cfg=tcfg, kind="train"),
+    tw = default_weave(Program(model=build_model(tcfg), cfg=tcfg, kind="train",
+                               device="cpu"),
                        SHAPES["train_4k"], {}, overrides=dict(over),
                        extra_aspects=[KernelAspect("*", "attention", "cuda")])
     jw.state.policies = JPolicies.default("f32")
@@ -173,7 +174,8 @@ def _grads(arch, remat, skip_trunk=False):
     """Loss and gradients under `remat`, with the products dispatched by
     the forward and by the backward counted apart."""
     cfg, model, params = _remat_model(arch)
-    woven = default_weave(Program(model=model, cfg=cfg, kind="train"), SHAPES["train_4k"],
+    woven = default_weave(Program(model=model, cfg=cfg, kind="train", device="cpu"),
+                          SHAPES["train_4k"],
                           {}, overrides={"remat": remat, "accum_steps": 1, **EXTRA},
                           extra_aspects=[KernelAspect("*", "attention", "cuda")])
     if skip_trunk:

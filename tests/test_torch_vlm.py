@@ -196,7 +196,8 @@ def test_train_step_with_image_prefix_matches_the_reference():
     jw = jweave(JProgram(model=jbuild(jcfg), cfg=jcfg, kind="train"), JSHAPES["train_4k"],
                 {}, overrides=dict(over),
                 extra_aspects=[JKernelAspect("*", "attention", "pallas")])
-    tw = default_weave(Program(model=build_model(tcfg), cfg=tcfg, kind="train"),
+    tw = default_weave(Program(model=build_model(tcfg), cfg=tcfg, kind="train",
+                               device="cpu"),
                        SHAPES["train_4k"], {}, overrides=dict(over),
                        extra_aspects=[KernelAspect("*", "attention", "cuda")])
     jw.state.policies = JPolicies.default("f32")
