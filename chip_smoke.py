@@ -156,7 +156,20 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    64 ligands docked, every score against float64 numpy and the settled
    point within its budget.  One `examples` line each: step time (the
    trainer's synchronised sensor, and host wall and profiler busy over five
-   more steps), tokens/s, MFU, peak memory; serve latencies; the DSE table.
+   more steps), tokens/s, MFU, peak memory; serve latencies; the DSE table;
+12. runs two ranks on the one card over gloo (`run_on_mesh`, `mesh_phase`):
+   full-width, full-depth yi-6b served tensor-parallel on a (1, 2) mesh
+   through `serve` / `serve_batch` (step 5's requests) and a short
+   `serve_continuous` over the paged pool — each rank's launches by route
+   equal to step 5's one-card counts, its collectives counted, its decode
+   step profiled — with the prefill logits held at the full-depth logit
+   gate against a one-card server over the same weights; then gemma-2b at
+   full width, cut to `MESH_TRAIN_DEPTH` layers so both ranks' state fits,
+   trained three steps on a (2, 1) and a (1, 2) mesh: K1 with lse and K3
+   counted per step, the first batch's loss falling, and the meshed
+   gradient at the training gradient gates against one card's.  Two ranks
+   on one card time-slice its SMs: their times are no tensor-parallel
+   speed-up.
 
 Any failed phase ends the run with a non-zero exit code.  The last line of
 the output is `{"ok": true, "device": {...}}`; the line before the card's
@@ -5525,6 +5538,307 @@ def roofline_phase(torch, serve_cells: dict, train: dict) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 12: a live mesh of two ranks on the one card
+# ---------------------------------------------------------------------------
+
+# gemma-2b layers a full-width copy per rank (the (2, 1) mesh holds two)
+# leaves room for, with AdamW state and a 2 x 512 microbatch per rank
+MESH_TRAIN_DEPTH = 4
+MESH_TRAIN = {"batch": 4, "seq": 512, "steps": 3, "lr": 1e-3}
+MESH_TRAIN_SHAPES = {"data2": (2, 1), "model2": (1, 2)}
+MESH_CONTINUOUS = 4  # prompts of the continuous traffic served on the mesh
+
+
+def every_rank(obj, mesh) -> list:
+    """Each rank's `obj`, in rank order, on every rank."""
+    import torch.distributed as dist
+
+    out = [None] * mesh.size
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def mesh_serve_rank(torch, mesh, solo, batch) -> dict:
+    """yi-6b on this rank of the (1, 2) mesh: step 5's requests, counted;
+    the prefill logits of the first; a profiled decode step; a short
+    continuous serve, counted and checked against the server's own step
+    counts."""
+    import numpy as np
+
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.serve import build_server
+    from repro_torch.runtime.server import ServerConfig
+
+    t0 = time.perf_counter()
+    server = build_server("yi-6b", reduced=False, device="cuda", mesh=mesh,
+                          cfg=ServerConfig(max_cache_len=4096, decode_tokens=32, seed=0))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    mcfg = server.woven.program.cfg
+    layout = server.woven.state.extra.get("layout")
+    server.serve(np.random.default_rng(0).integers(0, mcfg.vocab, (1, 16), dtype=np.int32),
+                 decode_tokens=2)  # warm-up, as step 5's
+    collectives.reset_counts()
+    (solo_out, batch_out), wall, counts, routes = counted_serve(
+        torch, lambda: ([server.serve(p) for p in solo], server.serve_batch(batch)))
+    colls = collectives.counts()
+    toks = torch.as_tensor(solo[0], device="cuda")
+    logits, cache = server.prefill_vc(None, server.params, {"tokens": toks})
+    logits = logits.float().cpu()
+    del cache
+    prof = profile_decode(torch, server, toks)
+    prompts, opts = continuous_traffic(mcfg)
+    prompts = prompts[:MESH_CONTINUOUS]
+    collectives.reset_counts()
+    cont, cwall, ccounts, croutes = counted_serve(torch, lambda: server.serve_continuous(
+        prompts, max_batch=MESH_CONTINUOUS, page_size=opts["page_size"]))
+    check_paged_run(server, "mesh", f"rank{mesh.rank} continuous", prompts, cont, ccounts,
+                    croutes, False)
+    out = {"rank": mesh.rank, "layout": layout, "build_s": build_s,
+           "serve_wall_s": wall, "launches": counts, "routes": routes,
+           "collectives": colls, "continuous_wall_s": cwall,
+           "continuous_launches": ccounts, "continuous_routes": croutes,
+           "continuous_steps": server.last_step_counts,
+           "continuous_collectives": collectives.counts(),
+           "pool_bytes_per_rank": server.last_pool_stats["page_hbm_bytes"],
+           "profile": prof, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    tokens = {"solo": [o.tolist() for o in solo_out], "batch": [o.tolist() for o in batch_out],
+              "continuous": [o.tolist() for o in cont]}
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return {"ranks": every_rank(out, mesh), "logits": logits, "tokens": tokens}
+
+
+def mesh_gradient_digest(torch, trainer, mb) -> tuple:
+    """`gradient_digest` of a meshed trainer: this rank's rows of `mb`, the
+    gradients meshed over `data` as the train step means them, the norm
+    over every shard, the attention weights' gradients gathered whole."""
+    from repro_torch.distributed.collectives import all_reduce
+    from repro_torch.distributed.sharding import (gather_shards, input_shardings,
+                                                  local_shard, param_shardings)
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.runtime.steps import build_grad_fn
+
+    mesh, woven = trainer.mesh, trainer.woven
+    shard = input_shardings(mb, mesh, woven.state.rules)
+    local = {k: local_shard(v, shard[k]) for k, v in mb.items()}
+    (loss, _), grads = build_grad_fn(woven, mesh)(trainer.params, local)
+    n = mesh.shape["data"]
+    grads = dict(_paths(grads))
+    grads = {k: all_reduce(g, mesh, "data") / n for k, g in grads.items()}
+    shardings = dict(_paths(param_shardings(woven.program.model, mesh, woven.state.rules)))
+    split = [shardings[k].splits("model") for k in sorted(grads)]  # the leaves' order
+    norm = global_norm(grads, mesh, split).item()
+    stacks = stack_names(woven)
+    attn = {k: gather_shards(g, shardings[k]).float()
+            .reshape(g.shape[0] if k.split("/")[0] in stacks else 1, -1).cpu()
+            for k, g in grads.items() if "attn/" in k}
+    return (all_reduce(loss, mesh, "data") / n).item(), norm, attn
+
+
+def mesh_train_program(torch, device="cuda"):
+    from repro_torch.core.program import Program
+    from repro_torch.models.registry import build_model, get_config
+
+    cfg = get_config("gemma-2b").replace(num_layers=MESH_TRAIN_DEPTH)
+    return Program(model=build_model(cfg), cfg=cfg, kind="train", device=device)
+
+
+def mesh_trainer(torch, mesh):
+    from functools import partial
+
+    from repro_torch.launch.train import program_trainer
+    from repro_torch.optim.schedule import constant
+    from repro_torch.runtime.trainer import TrainerConfig
+
+    t = MESH_TRAIN
+    return program_trainer(
+        mesh_train_program(torch), batch=t["batch"], seq=t["seq"], mesh=mesh,
+        overrides={"accum_steps": 1, "remat": "full", "precision": "half"},
+        tcfg=TrainerConfig(steps=t["steps"], log_every=0, seed=0),
+        lr_fn=partial(constant, peak=t["lr"]))
+
+
+def first_batch(torch, trainer):
+    """The batch the trainer's pipeline gives first (a fresh pipeline of
+    its configuration), on the card."""
+    from repro_torch.data.pipeline import TokenPipeline
+
+    return {k: torch.as_tensor(v).cuda()
+            for k, v in next(TokenPipeline(trainer.pipeline.cfg)).items()}
+
+
+def mesh_train_rank(torch, mesh, tag) -> dict:
+    """gemma-2b at `MESH_TRAIN_DEPTH` layers trained on this rank of `mesh`:
+    the gradient digest at the initial weights on the first batch, three
+    counted steps, the first batch's loss again."""
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.collectives import all_reduce
+    from repro_torch.distributed.sharding import input_shardings, local_shard
+    from repro_torch.runtime.steps import build_loss_fn
+
+    trainer = mesh_trainer(torch, mesh)
+    trainer.init_state()
+    mb = first_batch(torch, trainer)
+    digest = mesh_gradient_digest(torch, trainer, mb)
+    layers = trainer.woven.program.cfg.num_layers
+    want = {"flash_attention": 2 * layers, "flash_attention_lse": 2 * layers,
+            "flash_attention_bwd": layers, "flash_decode": 0, "rmsnorm": 0,
+            "rglru": 0, "wkv": 0}
+    collectives.reset_counts()
+    steps, step_s = [], []
+    for i in range(MESH_TRAIN["steps"]):
+        t0 = time.perf_counter()
+        _, counts, routes = counted_run(torch, lambda: trainer.run(1),
+                                        f"mesh {tag} step {i + 1}")
+        step_s.append(time.perf_counter() - t0)
+        if counts != want:
+            raise AssertionError(f"mesh {tag} step {i + 1}: launches {counts} != {want}")
+        steps.append({"counts": counts, "routes": routes})
+    shard = input_shardings(mb, mesh, trainer.woven.state.rules)
+    with torch.no_grad():
+        after, _ = build_loss_fn(trainer.woven, mesh)(
+            trainer.params, {k: local_shard(v, shard[k]) for k, v in mb.items()})
+    after = (all_reduce(after, mesh, "data") / mesh.shape["data"]).item()
+    out = {"rank": mesh.rank, "mesh": dict(mesh.shape),
+           "layout": trainer.woven.state.extra.get("layout"),
+           "losses": [h["loss"] for h in trainer.history],
+           "grad_norms": [h["grad_norm"] for h in trainer.history],
+           "first_batch_loss": [digest[0], after], "step_s": step_s,
+           "launches_per_step": steps[-1]["counts"], "routes_per_step": steps[-1]["routes"],
+           "collectives_3_steps": collectives.counts(),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return {"ranks": every_rank(out, mesh), "digest": digest if mesh.rank == 0 else None}
+
+
+def mesh_rank(solo, batch, train_shapes, mesh) -> dict:
+    """Phase 12's body on each rank: serve on the mesh run_on_mesh gives,
+    then train on each of `train_shapes` ({tag: shape}) over the same
+    ranks."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_mesh
+
+    build.library()  # built by the parent: loaded here
+    out = {"serve": mesh_serve_rank(torch, mesh, solo, batch)}
+    for tag, shape in train_shapes.items():
+        sub = mesh if tuple(shape) == mesh.axis_sizes else make_mesh(
+            shape, backend=mesh.backend, device="cuda")
+        out[tag] = mesh_train_rank(torch, sub, tag)
+    return out
+
+
+def mesh_phase(torch, serve_counts: dict, requests: dict, *, backend: str = "gloo",
+               serve_shape=(1, 2), train_shapes=MESH_TRAIN_SHAPES) -> dict:
+    """Phase 12 (see the module docstring): the ranks' runs, then the
+    one-card references they are held against, built here after the ranks
+    have gone.  `backend`, `serve_shape` and `train_shapes` default to
+    phase 12's two gloo ranks on one card (`tools/mesh_nccl.py` runs the
+    same phase over NCCL, a card per rank)."""
+    from functools import partial
+
+    import numpy as np
+
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.launch.serve import build_server
+    from repro_torch.runtime.server import ServerConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = run_on_mesh(partial(mesh_rank, requests["solo"], requests["batch"],
+                              dict(train_shapes)), serve_shape,
+                      backend=backend, device="cuda", timeout_s=600)
+    ranks_s = time.perf_counter() - t0
+    summary = {"ranks_wall_s": ranks_s, "backend": backend,
+               "serve_mesh": list(serve_shape),
+               "train_meshes": {k: list(v) for k, v in dict(train_shapes).items()}}
+
+    serve = res["serve"]
+    for r in serve["ranks"]:
+        if r["layout"] != "megatron_tp":
+            raise AssertionError(f"mesh serve: layout {r['layout']}")
+        got = {**r["launches"], **r["routes"]}
+        diff = {k: (got.get(k), v) for k, v in serve_counts.items() if got.get(k) != v}
+        if diff:
+            raise AssertionError(f"mesh serve rank {r['rank']}: launches by route differ "
+                                 f"from the one-card run's (mesh, one card): {diff}")
+        if not r["collectives"].get("all_reduce", {}).get("model", {}).get("calls"):
+            raise AssertionError(f"mesh serve rank {r['rank']}: no all-reduce over model")
+    agree = {k: float(np.mean([np.mean(np.asarray(a) == np.asarray(b)) for a, b in
+                               zip(serve["tokens"][k], requests[f"{k}_out"])]))
+             for k in ("solo", "batch")}
+
+    one = build_server("yi-6b", reduced=False, device="cuda",
+                       cfg=ServerConfig(max_cache_len=4096, decode_tokens=32, seed=0))
+    toks = torch.as_tensor(requests["solo"][0], device="cuda")
+    want, cache = one.prefill_vc(None, one.params, {"tokens": toks})
+    want = want.float().cpu()
+    del cache, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = serve["logits"]
+    if not torch.isfinite(got).all() or got.shape != want.shape:
+        raise AssertionError(f"mesh serve: prefill logits {tuple(got.shape)}, finite "
+                             f"{bool(torch.isfinite(got).all())}")
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    rms = (got - want).pow(2).mean().sqrt().item()
+    logit_gate = {"max_abs_err": err, "rms_err": rms, "logit_scale": scale}
+    log(f"mesh serve: prefill logits, {tuple(serve_shape)} mesh vs one card: {logit_gate}")
+    if not (err <= LOGIT_MAX_TOL * scale and rms <= LOGIT_RMS_TOL * scale):
+        raise AssertionError(f"mesh serve: prefill logits against one card {logit_gate}")
+    summary["serve_yi6b"] = {"ranks": serve["ranks"], "prefill_logits_vs_one_card":
+                             logit_gate, "token_agreement_vs_one_card": agree}
+
+    for tag in train_shapes:
+        run = res[tag]
+        for r in run["ranks"]:
+            before, after = r["first_batch_loss"]
+            if not (np.isfinite(r["losses"]).all() and after < before):
+                raise AssertionError(f"mesh train {tag} rank {r['rank']}: the first batch's "
+                                     f"loss did not fall: {before} -> {after}")
+            log(f"mesh train {tag} rank {r['rank']}: losses {r['losses']}, first batch "
+                f"{before} -> {after}, {r['step_s']} s a step, peak {r['peak_memory_gb']} GB")
+        summary[f"train_gemma2b_{tag}"] = {"ranks": run["ranks"]}
+    one = mesh_trainer(torch, None)
+    one.init_state()
+    mb = first_batch(torch, one)
+    loss, norm, attn = gradient_digest(torch, one.woven, one.params, mb, stack_names(one.woven))
+    want = (loss, norm, {k: g.cpu() for k, g in attn.items()})  # the ranks' are on the host
+    del attn
+    step_s = []  # the same steps on one card, for the ranks' step times
+    for _ in range(MESH_TRAIN["steps"]):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        one.run(1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+    summary["train_gemma2b_one_card"] = {
+        "step_s": step_s, "losses": [h["loss"] for h in one.history],
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"mesh train one card: {step_s} s a step, losses "
+        f"{summary['train_gemma2b_one_card']['losses']}")
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    for tag in train_shapes:
+        summary[f"train_gemma2b_{tag}"]["gradient_vs_one_card"] = compare_gradients(
+            f"mesh-train-{tag}", res[tag]["digest"], want, 4, labels=("mesh", "one_card"))
+    summary["depth_gemma2b"] = MESH_TRAIN_DEPTH
+    summary["seconds"] = time.perf_counter() - t0
+    log("mesh " + json.dumps(summary, default=float))
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -5614,6 +5928,9 @@ def run(torch, build, t_start) -> int:
     torch.cuda.empty_cache()
     ex = examples_phase(torch)
     roofline_phase(torch, roof_serve, train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = mesh_phase(torch, serve_counts, requests)
 
     # `launches`: the continuous main path, bf16 pool (run a); the quantized
     # mode over the int8 pool (run c): its single tokens on the split route,
@@ -5639,7 +5956,17 @@ def run(torch, build, t_start) -> int:
                 **{f"train_families_{run}": tfam[run]["launches"].get(key, 0)
                    for run in tfam},
                 **{f"examples_{run}": ex[run]["launches"].get(key, 0)
-                   for run in ("quickstart", "train_100m", "navigation")}}
+                   for run in ("quickstart", "train_100m", "navigation")},
+                **{f"mesh_serve_yi6b_1x2_rank{r['rank']}":
+                   {**r["launches"], **r["routes"]}.get(key, 0)
+                   for r in mesh["serve_yi6b"]["ranks"]},
+                **{f"mesh_continuous_yi6b_1x2_rank{r['rank']}":
+                   {**r["continuous_launches"], **r["continuous_routes"]}.get(key, 0)
+                   for r in mesh["serve_yi6b"]["ranks"]},
+                **{f"mesh_train_gemma2b_{tag}_rank{r['rank']}_last_step":
+                   {**r["launches_per_step"], **r["routes_per_step"]}.get(key, 0)
+                   for tag in MESH_TRAIN_SHAPES
+                   for r in mesh[f"train_gemma2b_{tag}"]["ranks"]}}
 
     # K2's single-token launches (all but widened q) and, of those, the split
     # route's (the rest run the FMA body)

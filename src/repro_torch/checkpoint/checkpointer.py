@@ -97,13 +97,16 @@ class Checkpointer:
     # -- save -----------------------------------------------------------------
 
     def save(self, step: int, tree: Any, *, meta: dict | None = None,
-             blocking: bool = False) -> None:
-        """Snapshot now; write async unless blocking."""
+             blocking: bool = False, whole: bool = False) -> None:
+        """Snapshot now; write async unless blocking.  `whole`: the tree's
+        leaves are whole (a meshed trainer's gathered state, saved by rank
+        0 alone), written as one process writes them, so that every rank
+        of any mesh reads the same files back."""
         host = {}
         dtypes = {}
         for k, v in _flatten(tree).items():
             host[k], dtypes[k] = _to_savable(v)
-        rank, world = process_index_and_count()
+        rank, world = (0, 1) if whole else process_index_and_count()
         manifest = {
             "step": int(step),
             "time": time.time(),
@@ -199,14 +202,16 @@ class Checkpointer:
 
     @staticmethod
     def place(tree: Any, shardings: Any):
-        """Elastic placement: every leaf (a tensor or a numpy array) onto
-        its sharding's mesh — bit for bit, on the one device of a mesh of
-        one.  An abstract mesh has no device to place on, and more than one
-        card is outside this one-card port: both raise."""
+        """Elastic placement: every leaf (a tensor or a numpy array, whole)
+        onto its sharding's mesh — this rank's block of it on this rank's
+        device (`distributed/sharding.local_shard`), bit for bit; the whole
+        leaf on a mesh of one.  An abstract mesh has no device to place on
+        and raises."""
+        from repro_torch.distributed.sharding import local_shard
         from repro_torch.launch.mesh import mesh_device
 
         if isinstance(tree, Mapping):
             return {k: Checkpointer.place(v, shardings[k]) for k, v in tree.items()}
         device = mesh_device(shardings.mesh)
         value = tree if isinstance(tree, torch.Tensor) else torch.from_numpy(np.array(tree))
-        return value.to(device)
+        return local_shard(value, shardings).to(device)

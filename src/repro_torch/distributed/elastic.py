@@ -4,8 +4,9 @@ Checkpoints store host numpy (checkpoint/checkpointer.py); resharding is a
 placement against the new mesh's shardings, derived from the same logical
 rules — so changing the device count (or the DP/TP split) is a restart, not
 a migration.  `plan_rescale` validates divisibility before committing
-(batch % new DP size, etc.).  The port places onto a mesh of one card;
-`plan_rescale`'s arithmetic holds for any mesh.
+(batch % new DP size, etc.).  On a mesh of one card each leaf is placed
+whole; on a live mesh (`launch/mesh.make_mesh`) every rank restores the
+whole leaves and keeps its own block of each, bit for bit.
 """
 
 from __future__ import annotations

@@ -13,7 +13,10 @@ axis, or a tuple of mesh axes — entry for entry the reference's
 `shard_shape` is the block one device holds.  On a mesh of one card every
 spec places the whole tensor on the card (`checkpoint/checkpointer.place`);
 on the abstract production meshes the same rules give the per-device shapes
-the dry run's memory arithmetic reads.
+the dry run's memory arithmetic reads; on a live mesh (`launch/mesh.make_mesh`)
+`local_shard` takes each rank's block and `gather_shards` puts the blocks
+back together.  A live mesh runs the Megatron layout only (`megatron_tp`,
+`embed` unsharded): `check_layout` refuses the FSDP layouts.
 
 Everything here is shape-aware: a dim smaller than its mesh-axis extent is
 left unsharded rather than relying on padding for parameters.
@@ -24,7 +27,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Mapping
 
-from repro_torch.launch.mesh import Mesh
+import torch
+
+from repro_torch.launch.mesh import Mesh, is_live
 from repro_torch.nn.module import Module, flatten_specs, param_axes
 
 Spec = tuple  # per-dim entries: None | mesh axis | tuple of mesh axes
@@ -96,6 +101,10 @@ class NamedSharding:
 
     def shard_shape(self, global_shape: tuple[int, ...]) -> tuple[int, ...]:
         return shard_shape(global_shape, self.spec, self.mesh)
+
+    def splits(self, axis: str) -> bool:
+        """Whether a dim of the tensor is split over the mesh axis `axis`."""
+        return any(axis in _axes_tuple(entry) for entry in self.spec)
 
 
 def param_shardings(model: Module, mesh: Mesh, rules: Mapping[str, Any]):
@@ -187,3 +196,72 @@ def validate_mesh_rules(mesh: Mesh, rules: Mapping[str, Any]) -> None:
             if a not in mesh.shape:
                 raise ValueError(f"rule {key!r} -> {val!r}: axis {a!r} not in mesh "
                                  f"{dict(mesh.shape)}")
+
+
+# ---------------------------------------------------------------------------
+# Shards of a live mesh
+# ---------------------------------------------------------------------------
+
+
+def _block(mesh: Mesh, axes: tuple[str, ...]) -> int:
+    """This rank's block index along a dim sharded over `axes` (row-major
+    in the entry's own order, as the reference's PartitionSpec reads)."""
+    i = 0
+    for a in axes:
+        i = i * mesh.shape[a] + mesh.coord(a)
+    return i
+
+
+def local_shard(x: torch.Tensor, sharding: NamedSharding, mesh: Mesh | None = None) -> torch.Tensor:
+    """The block of `x` (the whole tensor) this rank of `mesh` (default: the
+    sharding's) holds: a contiguous copy whenever it is not all of `x`."""
+    mesh = mesh or sharding.mesh
+    out = x
+    for dim, entry in enumerate(sharding.spec):
+        axes = _axes_tuple(entry)
+        if not axes:
+            continue
+        n = out.shape[dim] // _mesh_extent(mesh, axes)
+        out = out.narrow(dim, _block(mesh, axes) * n, n)
+    return out.contiguous() if out is x else out.clone(memory_format=torch.contiguous_format)
+
+
+def gather_shards(x: torch.Tensor, sharding: NamedSharding, mesh: Mesh | None = None) -> torch.Tensor:
+    """The inverse of `local_shard`: the whole tensor on every rank, each
+    block as its rank held it."""
+    from repro_torch.distributed.collectives import all_gather
+
+    mesh = mesh or sharding.mesh
+    for dim, entry in enumerate(sharding.spec):
+        for a in reversed(_axes_tuple(entry)):  # the innermost axis first
+            x = all_gather(x, mesh, a, dim)
+    return x
+
+
+def tree_shards(tree, shardings, fn):
+    """`fn(leaf, sharding)` over a tree and its sharding tree."""
+    if isinstance(tree, Mapping):
+        return {k: tree_shards(v, shardings[k], fn) for k, v in tree.items()}
+    return fn(tree, shardings)
+
+
+MESH_LAYOUTS_ITEM = "ROADMAP Queue 1 item 15a"
+
+
+def check_layout(mesh: Mesh | None, rules: Mapping[str, Any], layout: str | None = None) -> None:
+    """A live mesh of more than one rank runs the Megatron layout
+    (`megatron_tp`: batch over data, heads / kv_heads / mlp / vocab over
+    model, `embed` whole).  The FSDP layouts — `fsdp_sp`, `dp_fsdp`, or any
+    rule that shards a weight's `embed` axis — raise."""
+    if not is_live(mesh):
+        return
+    if layout not in (None, "megatron_tp"):
+        raise NotImplementedError(
+            f"the {layout!r} layout on a live mesh: only megatron_tp runs there "
+            f"({MESH_LAYOUTS_ITEM}: the FSDP layouts)")
+    for key in ("embed", "layers", "experts", "kv_seq", "seq_act", "res_seq"):
+        if any(a in mesh.shape and mesh.shape[a] > 1 for a in _axes_tuple(rules.get(key))):
+            raise NotImplementedError(
+                f"rule {key!r} -> {rules.get(key)!r} shards over a live mesh axis: "
+                f"only the Megatron layout runs there ({MESH_LAYOUTS_ITEM}: the FSDP "
+                "and sequence-sharded layouts)")

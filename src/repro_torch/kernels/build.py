@@ -12,6 +12,7 @@ A failed build raises; nothing falls back to the plain PyTorch versions.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -84,6 +85,15 @@ def build() -> tuple[Path, float]:
         return lib_path, 0.0
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
+    # the ranks of a mesh may all ask at once: one builds, the rest wait
+    with open(out_dir / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib_path.exists():
+            return lib_path, 0.0
+        return _compile(nvcc, out_dir, lib_path)
+
+
+def _compile(nvcc: str, out_dir: Path, lib_path: Path) -> tuple[Path, float]:
     t0 = time.perf_counter()
     tag = f"{lib_path.stem}.{os.getpid()}"
     procs = []

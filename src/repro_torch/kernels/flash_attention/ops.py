@@ -57,6 +57,7 @@ from repro_torch.kernels.flash_attention.ref import (
     decode_ref,
     flash_attention_bwd_ref,
 )
+from repro_torch.launch.mesh import is_live
 
 DEFAULT_BLOCK_Q = MAX_BLOCK_Q
 DEFAULT_BLOCK_KV = MAX_BLOCK_KV
@@ -204,7 +205,20 @@ def flash_attention(
     block_kv_bwd: int | None = None,
     pruned: bool = True,
     dkv_n_split: int | None = None,
+    mesh=None,
+    rules=None,
 ) -> torch.Tensor:
+    """K1.  On a live mesh (`launch/mesh.make_mesh`) q / k / v are the whole
+    tensors on every rank, as the reference's meshed call takes them: each
+    rank attends its block — batch rows over the rules' batch axes, q heads
+    over `model` where they divide it, the KV heads its q heads read
+    (`local_kv_heads`) — and the blocks are gathered back, so every rank
+    returns the whole output (the reference's `shard_map`)."""
+    kw = dict(causal=causal, window=window, softcap=softcap, block_q=block_q,
+              block_kv=block_kv, block_q_bwd=block_q_bwd, block_kv_bwd=block_kv_bwd,
+              pruned=pruned, dkv_n_split=dkv_n_split)
+    if is_live(mesh):
+        return _flash_on_mesh(q, k, v, mesh, dict(rules or {}), kw)
     block_q, block_kv, block_q_bwd, block_kv_bwd, dkv_n_split = _resolve_blocks(
         q, k, causal=causal, window=window, block_q=block_q, block_kv=block_kv,
         block_q_bwd=block_q_bwd, block_kv_bwd=block_kv_bwd, dkv_n_split=dkv_n_split)
@@ -217,6 +231,46 @@ def flash_attention(
     return _forward(q, k, v, causal=causal, window=window, softcap=softcap,
                     block_q=block_q, block_kv=block_kv, pruned=pruned,
                     return_lse=False)
+
+
+def local_kv_heads(n_heads: int, kv_heads: int, h_off: int, h_loc: int) -> list[int]:
+    """The KV heads q heads [h_off, h_off + h_loc) read, in the order a GQA
+    call over them expects: one per group where the block holds whole
+    groups, the one group's head where the block lies inside a group, else
+    one per q head (the reference's meshed `take`, group 1)."""
+    G = n_heads // kv_heads
+    if h_off % G == 0 and h_loc % G == 0:
+        return list(range(h_off // G, (h_off + h_loc) // G))
+    if G % h_loc == 0:
+        return [h_off // G]
+    return [(h_off + j) // G for j in range(h_loc)]
+
+
+def _flash_on_mesh(q, k, v, mesh, rules, kw):
+    """The reference's meshed K1 (`ops.py:230-258` there): batch rows over
+    the rules' batch axes among (pod, data), q heads over `model` where
+    they divide it, KV heads taken per local q head; then the blocks
+    gathered back into the whole output."""
+    from repro_torch.distributed.collectives import all_gather
+    from repro_torch.distributed.sharding import NamedSharding, _axes_tuple, local_shard
+
+    H, K = q.shape[2], k.shape[2]
+    batch = tuple(a for a in ("pod", "data")
+                  if a in mesh.shape and a in _axes_tuple(rules.get("batch")))
+    rows = NamedSharding(mesh, (batch or None,))
+    tp = mesh.shape.get("model", 1)
+    h_loc = H // tp if H % tp == 0 else H
+    h_off = mesh.coord("model") * h_loc if h_loc != H else 0
+    sel = torch.tensor(local_kv_heads(H, K, h_off, h_loc), dtype=torch.long,
+                       device=k.device)
+    out = flash_attention(local_shard(q, rows)[:, :, h_off:h_off + h_loc].contiguous(),
+                          local_shard(k, rows).index_select(2, sel),
+                          local_shard(v, rows).index_select(2, sel), **kw)
+    if h_loc != H:
+        out = all_gather(out, mesh, "model", 2)
+    for a in reversed(batch):
+        out = all_gather(out, mesh, a, 0)
+    return out
 
 
 flash_attention.launches = 0  # K1 launches made through this wrapper

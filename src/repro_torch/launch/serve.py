@@ -95,18 +95,21 @@ def _stream(server: Server, prompts, args) -> None:
               f"objective={q['objective']}, energy={q['energy_j']:.1f}J (modeled)")
 
 
-def build_woven(arch: str, *, reduced: bool, device: str):
+def build_woven(arch: str, *, reduced: bool, device: str, mesh=None):
     """`Program.from_arch` -> `default_weave`, with the CUDA kernel aspects
-    on the card."""
+    on the card, laid out for `mesh` (a live one: this rank's)."""
     program = Program.from_arch(arch, kind="serve", reduced=reduced, device=device)
     extra = cuda_kernel_aspects() if program.device.type == "cuda" else None
-    return default_weave(program, SHAPES["prefill_32k"], {}, extra_aspects=extra)
+    return default_weave(program, SHAPES["prefill_32k"],
+                         dict(mesh.shape) if mesh is not None else {}, extra_aspects=extra)
 
 
-def build_server(arch: str, *, reduced: bool, device: str, cfg: ServerConfig) -> Server:
+def build_server(arch: str, *, reduced: bool, device: str, cfg: ServerConfig,
+                 mesh=None) -> Server:
     """`build_woven` -> `Server`: how every launcher of the port builds a
-    server."""
-    return Server(build_woven(arch, reduced=reduced, device=device), cfg)
+    server (on `mesh`, this rank's server of a live mesh)."""
+    return Server(build_woven(arch, reduced=reduced, device=device, mesh=mesh), cfg,
+                  mesh=mesh)
 
 
 def main(argv=None) -> int:

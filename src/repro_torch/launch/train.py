@@ -51,7 +51,7 @@ def parse_overrides(sets: list[str]) -> dict:
 def build_trainer(arch: str, *, reduced: bool, device: str, batch: int, seq: int,
                   mode: str = "lcg", overrides: dict | None = None,
                   tcfg: TrainerConfig | None = None, extra_aspects=None,
-                  lr_fn=None, broker=None) -> Trainer:
+                  lr_fn=None, broker=None, mesh=None) -> Trainer:
     """The launcher's trainer for `arch` (`program_trainer`)."""
     if get_config(arch).family == "encdec":
         raise NotImplementedError(
@@ -61,25 +61,28 @@ def build_trainer(arch: str, *, reduced: bool, device: str, batch: int, seq: int
     program = Program.from_arch(arch, kind="train", reduced=reduced, device=device)
     return program_trainer(program, batch=batch, seq=seq, mode=mode,
                            overrides=overrides, tcfg=tcfg,
-                           extra_aspects=extra_aspects, lr_fn=lr_fn, broker=broker)
+                           extra_aspects=extra_aspects, lr_fn=lr_fn, broker=broker,
+                           mesh=mesh)
 
 
 def program_trainer(program: Program, *, batch: int, seq: int, mode: str = "lcg",
                     overrides: dict | None = None, tcfg: TrainerConfig | None = None,
-                    extra_aspects=None, lr_fn=None, broker=None) -> Trainer:
+                    extra_aspects=None, lr_fn=None, broker=None, mesh=None) -> Trainer:
     """A trainer over a built `program` (a published config, or one cut in
     depth): `default_weave` for the train shape, the attention kernels
-    woven on the card, the token pipeline at (batch, seq)."""
+    woven on the card, the token pipeline at (batch, seq) — on `mesh`, this
+    rank's trainer of a live mesh."""
     aspects = list(extra_aspects or [])
     if program.device.type == "cuda":
         aspects = train_kernel_aspects() + aspects
-    woven = default_weave(program, SHAPES["train_4k"], {},
+    woven = default_weave(program, SHAPES["train_4k"],
+                          dict(mesh.shape) if mesh is not None else {},
                           overrides=dict(overrides or {"accum_steps": 1}),
                           extra_aspects=aspects)
     pipeline = TokenPipeline(PipelineConfig(
         vocab=program.cfg.vocab, seq_len=seq, global_batch=batch, mode=mode))
     return Trainer(woven, pipeline, tcfg or TrainerConfig(), lr_fn=lr_fn,
-                   broker=broker)
+                   broker=broker, mesh=mesh)
 
 
 def main(argv=None) -> int:

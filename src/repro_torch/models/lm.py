@@ -19,6 +19,11 @@ is `models/encdec.EncDecLM`.
 Modes: "dense" (full logits), "prefill" (returns last-token logits + cache:
 KV caches, recurrent states, or — handed a paged cache — the prompt written
 straight into its page pools), "decode" (S >= 1 tokens against the cache).
+On a live mesh the logits come back as the rank's block of the vocab
+(`whole_logits` gathers them); `vocab_cross_entropy` and `greedy_argmax`
+read them where they lie, with the max and the sums all-reduced over
+`model`.
+
 Caches are plain dicts of tensors, with a leading per-layer dim per stack;
 a decode step (and a paged prefill) updates the KV cache tensors it is given
 in place, while recurrent states come back as new tensors.
@@ -31,6 +36,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import all_gather, all_reduce, reduce_from
 from repro_torch.nn.attention import Attention, cache_spec
 from repro_torch.nn.blocks import MLP, Embedding, LayerNorm, Linear, RMSNorm
 from repro_torch.nn.module import Ctx, Module
@@ -46,6 +52,48 @@ def _make_norm(name: str, cfg: ModelConfig):
     if cfg.norm_type == "layernorm":
         return LayerNorm(name, cfg.d_model)
     return RMSNorm(name, cfg.d_model, plus_one=cfg.norm_plus_one)
+
+
+# ---------------------------------------------------------------------------
+# Vocab-sharded logits
+# ---------------------------------------------------------------------------
+
+
+def whole_logits(logits: torch.Tensor, mesh, vocab: int) -> torch.Tensor:
+    """The logits over the whole vocab from a rank's block of them (a
+    gather over `model`; the logits themselves where they are whole)."""
+    if logits.shape[-1] == vocab:
+        return logits
+    return all_gather(logits, mesh, "model", logits.dim() - 1)
+
+
+def greedy_argmax(logits: torch.Tensor, mesh, vocab: int) -> torch.Tensor:
+    """argmax over the last (vocab) dim of logits that may be a rank's
+    block: the global max all-reduced, then the lowest index holding it —
+    the tie the unsharded argmax breaks."""
+    if logits.shape[-1] == vocab:
+        return torch.argmax(logits, dim=-1)
+    n = logits.shape[-1]
+    top = all_reduce(torch.amax(logits, dim=-1), mesh, "model", "max")
+    hit = logits == top[..., None]
+    first = torch.argmax(hit.to(torch.uint8), dim=-1) + mesh.coord("model") * n
+    first = torch.where(hit.any(dim=-1), first, torch.full_like(first, vocab))
+    return all_reduce(first, mesh, "model", "min")
+
+
+def vocab_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mesh):
+    """Per-token NLL over fp32 logits (B, T, V / tp) split over `model`: the
+    log-sum-exp from the all-reduced max and sum, the label's logit from the
+    rank that holds it."""
+    n = logits.shape[-1]
+    top = all_reduce(torch.amax(logits.detach(), dim=-1), mesh, "model", "max")
+    total = reduce_from(torch.sum(torch.exp(logits - top[..., None]), dim=-1),
+                        mesh, "model")
+    local = labels.to(torch.long) - mesh.coord("model") * n
+    mine = (local >= 0) & (local < n)
+    picked = torch.gather(logits, -1, torch.where(mine, local, 0)[..., None])[..., 0]
+    picked = reduce_from(torch.where(mine, picked, torch.zeros_like(picked)), mesh, "model")
+    return top + torch.log(total) - picked
 
 
 # ---------------------------------------------------------------------------

@@ -28,9 +28,16 @@ table, with a per-request `pos` row saying which position each slot holds.
 
 Cross-attention (`cross=True`, whisper's decoder) attends over K/V projected
 from an encoder's states (`kv_src`); its `{"ck", "cv"}` cache is computed
-once and never written.  The meshed KV expansion (`expand_kv`, the
-reference's answer to KV heads that do not divide a tensor-parallel axis)
-has no use on a mesh of one card.
+once and never written.
+
+On a live mesh (`launch/mesh.make_mesh`) the module holds its rank's blocks
+of the projections: H / tp q heads, and the KV heads those q heads read.
+Where the KV heads divide the `model` axis these are the rank's own block;
+where they do not (gemma-2b's one KV head on two ranks, AutoShard's
+`expand_kv`) the K / V projections are gathered over `model` and each rank
+keeps the heads its q heads read (`_maybe_expand_kv`).  The kernels run on
+these local tensors, and the output projection's partial products add over
+`model`.
 """
 
 from __future__ import annotations
@@ -40,15 +47,18 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.distributed.collectives import copy_to, gather_from
 from repro_torch.kernels.flash_attention.ops import (
     dequantize_kv,
     flash_attention,
     flash_decode,
     kv_scale_from_absmax,
+    local_kv_heads,
     paged_gather_kv,
     quantize_kv_write,
 )
-from repro_torch.nn.blocks import apply_rope, rope_angles
+from repro_torch.launch.mesh import is_parallel
+from repro_torch.nn.blocks import apply_rope, row_parallel_matmul, rope_angles
 from repro_torch.nn.module import Ctx, Module, ParamSpec, cast
 
 NEG_INF = -1e30
@@ -216,13 +226,51 @@ class Attention(Module):
 
     # -- projections -----------------------------------------------------------
 
-    def _proj(self, params, x, which: str, heads: int, policy):
+    def _proj_flat(self, params, x, which: str, policy):
+        """x @ w{which} (+ b), flat: (..., the weight block's columns)."""
         w = cast(params[f"w{which}"], policy.compute_dtype)
         y = torch.matmul(cast(x, policy.compute_dtype), w)
         if self.bias and which in ("q", "k", "v"):
             y = cast(y, policy.accum_dtype) + cast(params[f"b{which}"], policy.accum_dtype)
-        y = cast(y, policy.compute_dtype)
-        return y.reshape(*x.shape[:-1], heads, self.head_dim)
+        return cast(y, policy.compute_dtype)
+
+    def _proj(self, params, x, which: str, heads: int, policy):
+        """The projection as (..., heads, head_dim): the layer's `heads`, or
+        on a live mesh the fewer that the rank's block of the weight holds."""
+        y = self._proj_flat(params, x, which, policy)
+        return y.reshape(*x.shape[:-1], -1, self.head_dim)
+
+    def _kv_proj(self, params, x, policy, ctx):
+        """The K / V heads this rank's q heads read (all of them off a mesh)."""
+        if not is_parallel(ctx.mesh, "model"):
+            return (self._proj(params, x, "k", self.kv_heads, policy),
+                    self._proj(params, x, "v", self.kv_heads, policy))
+        k = self._proj_flat(params, x, "k", policy)
+        v = self._proj_flat(params, x, "v", policy)
+        return self._maybe_expand_kv(k, v, params, ctx)
+
+    def _maybe_expand_kv(self, k, v, params, ctx):
+        """Megatron's layout on a live mesh: the KV heads each local q head
+        reads.  Where the KV heads divide `model` a rank's block of wk / wv
+        gives exactly those; where they do not (AutoShard's `expand_kv`),
+        the projections are gathered over `model` (a block of wk may split
+        a head) and each rank keeps the heads of its q heads — one per
+        group, or one per q head where the groups straddle ranks, as the
+        reference's meshed `take` does.  k, v: (B, S, cols) flat."""
+        K, D = self.kv_heads, self.head_dim
+        h_loc = params["wq"].shape[-1] // D
+        tp = self.n_heads // h_loc  # 1 where the q heads are whole
+        if K % tp == 0:  # all KV heads, or the rank's own block of them
+            return (k.reshape(*k.shape[:-1], K // tp, D),
+                    v.reshape(*v.shape[:-1], K // tp, D))
+        if k.shape[-1] != K * D:
+            k = gather_from(k, ctx.mesh, "model", -1)
+            v = gather_from(v, ctx.mesh, "model", -1)
+        idx = local_kv_heads(self.n_heads, K, ctx.mesh.coord("model") * h_loc, h_loc)
+        sel = torch.tensor(idx, dtype=torch.long, device=k.device)
+        k = k.reshape(*k.shape[:-1], K, D).index_select(-2, sel)
+        v = v.reshape(*v.shape[:-1], K, D).index_select(-2, sel)
+        return k, v
 
     # -- main entry -------------------------------------------------------------
 
@@ -247,6 +295,8 @@ class Attention(Module):
             if positions is None:
                 positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
 
+            if params["wq"].shape[-1] != self.n_heads * self.head_dim:
+                x = copy_to(x, ctx.mesh, "model")  # column-parallel q / k / v
             q = self._proj(params, x, "q", self.n_heads, policy)
             q = ctx.constrain(q, ("batch", "seq_act", "heads", None))
 
@@ -265,14 +315,17 @@ class Attention(Module):
                 out, new_cache = self._dense(params, q, x, positions, ctx, policy, mode)
 
             wo = cast(params["wo"], policy.compute_dtype)
-            out = out.reshape(B, S, self.n_heads * self.head_dim)
+            out = out.reshape(B, S, -1)
             if out.dtype != wo.dtype:
                 # the plain attention over a dequantized (fp32) pool returns
                 # fp32; the product is taken in the promoted type, as the
                 # reference's dot of mixed operands is
                 dt = torch.promote_types(out.dtype, wo.dtype)
                 out, wo = out.to(dt), wo.to(dt)
-            y = torch.matmul(out, wo)
+            if wo.shape[-2] != self.n_heads * self.head_dim:  # row-parallel
+                y = row_parallel_matmul(out, wo, ctx)
+            else:
+                y = torch.matmul(out, wo)
             y = cast(y, policy.compute_dtype)
             y = ctx.constrain(y, ("batch", "res_seq", "embed"))
             ctx.tap("out_absmax", lambda: torch.max(torch.abs(y)))
@@ -281,8 +334,7 @@ class Attention(Module):
     # -- dense (train / prefill) -------------------------------------------------
 
     def _dense(self, params, q, x, positions, ctx, policy, mode):
-        k = self._proj(params, x, "k", self.kv_heads, policy)
-        v = self._proj(params, x, "v", self.kv_heads, policy)
+        k, v = self._kv_proj(params, x, policy, ctx)
         k = ctx.constrain(k, ("batch", "seq_act", "kv_heads", None))
         v = ctx.constrain(v, ("batch", "seq_act", "kv_heads", None))
         if self.use_rope:
@@ -374,8 +426,8 @@ class Attention(Module):
             k_w, v_w = k[:, -W:], v[:, -W:]
             pos_w = positions[0, -W:].to(torch.int32)
             slots = (pos_w % W).to(torch.long)
-            kc = torch.zeros((B, W, self.kv_heads, self.head_dim), dtype=k.dtype, device=k.device)
-            vc = torch.zeros((B, W, self.kv_heads, self.head_dim), dtype=v.dtype, device=v.device)
+            kc = torch.zeros((B, W, *k.shape[2:]), dtype=k.dtype, device=k.device)
+            vc = torch.zeros((B, W, *v.shape[2:]), dtype=v.dtype, device=v.device)
             kc[:, slots] = k_w
             vc[:, slots] = v_w
             pos = torch.full((W,), -1, dtype=torch.int32, device=k.device)
@@ -384,8 +436,8 @@ class Attention(Module):
                     "index": torch.tensor(S, dtype=torch.int32, device=k.device)}
         max_len = int(ctx.extra.get("cache_max_len", S))
         if max_len > S:
-            kc = torch.zeros((B, max_len, self.kv_heads, self.head_dim), dtype=k.dtype, device=k.device)
-            vc = torch.zeros((B, max_len, self.kv_heads, self.head_dim), dtype=v.dtype, device=v.device)
+            kc = torch.zeros((B, max_len, *k.shape[2:]), dtype=k.dtype, device=k.device)
+            vc = torch.zeros((B, max_len, *v.shape[2:]), dtype=v.dtype, device=v.device)
             kc[:, :S] = k
             vc[:, :S] = v
             k, v = kc, vc
@@ -426,8 +478,7 @@ class Attention(Module):
         """
         if cache is None:
             raise ValueError("decode mode requires a cache")
-        k_new = self._proj(params, x, "k", self.kv_heads, policy)
-        v_new = self._proj(params, x, "v", self.kv_heads, policy)
+        k_new, v_new = self._kv_proj(params, x, policy, ctx)
         if self.use_rope:
             sin, cos = rope_angles(positions, self.head_dim, self.rope_theta)
             q = apply_rope(q, sin, cos)
@@ -578,8 +629,7 @@ class Attention(Module):
         B, S = q.shape[0], q.shape[1]
         if B != 1:
             raise ValueError("paged prefill packs one request at a time")
-        k_new = self._proj(params, x, "k", self.kv_heads, policy)
-        v_new = self._proj(params, x, "v", self.kv_heads, policy)
+        k_new, v_new = self._kv_proj(params, x, policy, ctx)
         if self.use_rope:
             sin, cos = rope_angles(positions, self.head_dim, self.rope_theta)
             q = apply_rope(q, sin, cos)
@@ -807,8 +857,7 @@ class Attention(Module):
             if kv_src is None:
                 raise ValueError("cross-attention needs kv_src or a cached "
                                  "{'ck', 'cv'}")
-            k = self._proj(params, kv_src, "k", self.kv_heads, policy)
-            v = self._proj(params, kv_src, "v", self.kv_heads, policy)
+            k, v = self._kv_proj(params, kv_src, policy, ctx)
             new_cache = {"ck": k, "cv": v}
         B, S = q.shape[0], q.shape[1]
         T = k.shape[1]

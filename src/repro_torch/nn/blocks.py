@@ -1,8 +1,16 @@
 """Core neural blocks: linear/embedding/norms/MLP variants/RoPE.
 
 Every block reads its dtype policy from the woven Ctx (ANTAREX precision
-aspects), passes activations through the (inert, single-card) sharding
-constraints, and can emit monitoring taps.
+aspects), passes activations through the (inert) sharding constraints, and
+can emit monitoring taps.
+
+On a live mesh a block is handed its rank's parameter blocks and reads its
+parallel form from their shapes, as Megatron's layout puts it: a `Linear`
+whose output dim is split is column-parallel (its replicated input enters
+through `collectives.copy_to`), one whose input dim is split is
+row-parallel (its partial products add over `model`); a vocab-split
+`Embedding` looks up the ids of its rows and adds over `model`, and its
+tied head gives the rank's vocab block of the logits.
 """
 
 from __future__ import annotations
@@ -13,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.collectives import copy_to, reduce_from
 from repro_torch.nn.module import Ctx, Module, ParamSpec, cast
 
 
@@ -58,13 +67,26 @@ class Linear(Module):
             s["b"] = ParamSpec((self.d_out,), (self.axes[1],), init="zeros")
         return s
 
-    def forward(self, params, x, *, ctx: Ctx):
+    def forward(self, params, x, *, ctx: Ctx, entered: bool = False):
+        """`entered`: x already went through `copy_to` (the MLP's two
+        column-parallel products share one)."""
         with ctx.scope(self.name):
             policy = ctx.policy()
             w = params["w"]
+            row = w.shape[-2] != self.d_in  # input dim split over model
+            if w.shape[-1] != self.d_out and not entered:
+                x = copy_to(x, ctx.mesh, "model")
+            if policy.quantized and row:
+                raise NotImplementedError(
+                    "int8 weights of a row-parallel product quantize per output "
+                    "channel over rows another rank holds (ROADMAP Queue 1 item "
+                    "15c: quantized weights and pools on a mesh)")
             if policy.quantized:
                 w, scale = _quantize_int8(w)
                 y = _int8_matmul(cast(x, policy.compute_dtype), w, scale, policy)
+            elif row:
+                y = row_parallel_matmul(cast(x, policy.compute_dtype),
+                                        cast(w, policy.compute_dtype), ctx)
             else:
                 # the product accumulates in fp32 inside the GEMM and comes
                 # back in the compute dtype
@@ -77,6 +99,24 @@ class Linear(Module):
                 y = ctx.constrain(y, self.out_axes)
             ctx.tap("out_absmax", lambda: torch.max(torch.abs(y)))
             return y
+
+
+def row_parallel_matmul(x, w, ctx: Ctx) -> torch.Tensor:
+    """x @ w for w's rows split over `model` (this rank's block), summed
+    over the ranks.  Served (no autograd), a 16-bit product keeps its fp32
+    partial sums for the all-reduce, so the result is rounded once, as the
+    one-device product rounds its whole sum; under autograd the 16-bit
+    partials are summed (in fp32 over gloo)."""
+    if x.dtype in (torch.bfloat16, torch.float16) and not (
+            torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
+        if x.is_cuda:
+            y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+            y = y.reshape(*x.shape[:-1], w.shape[-1])
+        else:
+            y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    else:
+        y = torch.matmul(x, w)
+    return reduce_from(y, ctx.mesh, "model")
 
 
 def _quantize_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -125,7 +165,15 @@ class Embedding(Module):
             table = cast(params["table"], policy.compute_dtype)
             # remainder lands every id in [0, vocab); the mask then blanks
             # the rows of ids that were outside [-vocab, vocab)
-            x = F.embedding(torch.remainder(tokens, self.vocab), table)
+            ids = torch.remainder(tokens, self.vocab)
+            rows = table.shape[0]
+            if rows != self.vocab:  # this rank's block of the vocab
+                ids = ids - ctx.mesh.coord("model") * rows
+                mine = (ids >= 0) & (ids < rows)
+                x = F.embedding(torch.where(mine, ids, torch.zeros_like(ids)), table)
+                x = reduce_from(x.masked_fill(~mine[..., None], 0), ctx.mesh, "model")
+            else:
+                x = F.embedding(ids, table)
             outside = (tokens < -self.vocab) | (tokens >= self.vocab)
             x = x.masked_fill(outside[..., None], float("nan"))
             if self.scale_by_dim:
@@ -134,10 +182,13 @@ class Embedding(Module):
             return ctx.constrain(x, ("batch", "res_seq", "embed"))
 
     def attend(self, params, x, *, ctx: Ctx):
-        """Logits = x @ table.T (tied output head), in the accumulation dtype."""
+        """Logits = x @ table.T (tied output head), in the accumulation
+        dtype; on a vocab-split table, this rank's block of them."""
         with ctx.scope(self.name):
             policy = ctx.policy()
             table = cast(params["table"], policy.compute_dtype)
+            if table.shape[0] != self.vocab:
+                x = copy_to(x, ctx.mesh, "model")
             logits = torch.matmul(cast(x, policy.compute_dtype), table.T)
             logits = cast(logits, policy.accum_dtype)
             return ctx.constrain(logits, ("batch", "res_seq", "vocab"))
@@ -298,9 +349,12 @@ class MLP(Module):
 
     def forward(self, params, x, *, ctx: Ctx):
         with ctx.scope(self.name):
-            h = self.wi(params["wi"], x, ctx=ctx)
+            entered = params["wi"]["w"].shape[-1] != self.d_ff
+            if entered:  # one copy_to for both column-parallel products
+                x = copy_to(x, ctx.mesh, "model")
+            h = self.wi(params["wi"], x, ctx=ctx, entered=entered)
             if self.wg is not None:
-                g = self.wg(params["wg"], x, ctx=ctx)
+                g = self.wg(params["wg"], x, ctx=ctx, entered=entered)
                 h = _act(self.activation, g) * h
             else:
                 h = _act(self.activation, h)

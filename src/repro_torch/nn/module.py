@@ -24,7 +24,7 @@ from typing import Any, Iterator, Mapping, Sequence
 import numpy as np
 import torch
 
-from repro_torch.launch.mesh import mesh_of_one
+from repro_torch.launch.mesh import check_mesh
 from repro_torch.nn.dtypes import DTypePolicy, PolicyResolver
 
 # ---------------------------------------------------------------------------
@@ -100,10 +100,13 @@ class Ctx:
     """Carries every woven extra-functional decision through `apply`.
 
     The weaver (repro_torch/core) builds one of these; model code only
-    *reads* it.  `mesh` is None or a mesh of one device
-    (`launch/mesh.make_card_mesh`), where `constrain` is the identity: one
-    device has nothing to constrain.  A mesh of more than one device raises:
-    more than one card is outside this one-card port.
+    *reads* it.  `mesh` is None, a mesh of one device
+    (`launch/mesh.make_card_mesh`) or a live mesh of several ranks
+    (`launch/mesh.make_mesh`), on which the model computes each rank's shard
+    (the parameters' local blocks, `distributed/sharding.local_shard`) and
+    the blocks call the collectives.  `constrain` is the identity either
+    way: a tensor already is the block its rank holds.  An abstract mesh of
+    more than one device has no ranks and raises.
     """
 
     def __init__(
@@ -119,7 +122,7 @@ class Ctx:
     ):
         self.policies = policies or PolicyResolver.default()
         self.impls = list(impls)
-        self.mesh = mesh_of_one(mesh)
+        self.mesh = check_mesh(mesh)
         self.rules = dict(rules or {})
         self.taps_enabled = list(taps_enabled)
         self.deterministic = deterministic
@@ -167,7 +170,7 @@ class Ctx:
     # -- sharding constraints --------------------------------------------------
 
     def constrain(self, x: torch.Tensor, logical_axes: tuple[str | None, ...]) -> torch.Tensor:
-        return x  # a mesh of one: every tensor already lies whole on its device
+        return x  # every tensor already is the block its rank holds
 
 
 class _Scope:
@@ -271,23 +274,39 @@ def flatten_specs(module: Module) -> dict[str, ParamSpec]:
 
 def init_params(
     module: Module, seed: int = 0, policies: PolicyResolver | None = None,
-    device: "str | torch.device" = "cuda",
+    device: "str | torch.device" = "cuda", shardings: Any | None = None,
 ) -> dict[str, Any]:
     """Materialize every parameter on `device`, register it on the module
     that owns it, and return the param tree (nested dicts keyed by module
-    names).  Draws come from one `torch.Generator` on that device."""
+    names).  Draws come from one `torch.Generator` on that device.  Given
+    a sharding tree of a live mesh (`distributed/sharding.param_shardings`),
+    each leaf is drawn whole, as without a mesh, and only this rank's block
+    is kept: the blocks are slices of the one-device parameters."""
     device = resolve_device(device)
     policies = policies or PolicyResolver.default()
     generator = torch.Generator(device=device)
     generator.manual_seed(int(seed))
+    if shardings is not None:
+        from repro_torch.distributed.sharding import local_shard
+
+        flat_shardings = iter(_flat_leaves(shardings))
 
     def leaf(spec: ParamSpec, path: str, owner: torch.nn.Module, name: str):
         value = spec.instantiate(generator, policies.resolve(path), device)
+        if shardings is not None:
+            value = local_shard(value, next(flat_shardings))
         owner.register_parameter(
             name, torch.nn.Parameter(value, requires_grad=False))
         return owner._parameters[name]
 
     return _walk_spec(module, "", leaf)
+
+
+def _flat_leaves(tree) -> list:
+    """A nested dict's leaves in the order `_walk_spec` visits them."""
+    if isinstance(tree, Mapping):
+        return [x for v in tree.values() for x in _flat_leaves(v)]
+    return [tree]
 
 
 def param_tree(module: Module) -> dict[str, Any]:

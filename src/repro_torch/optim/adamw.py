@@ -55,12 +55,23 @@ def init_state(params, cfg: AdamWConfig) -> dict:
     return state
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, mesh=None, split=None) -> torch.Tensor:
     """sqrt of the sum over leaves of sum(g^2), in fp32 (one leaf's square
-    at a time)."""
+    at a time).  On a live mesh, `split[i]` says leaf i is a rank's block of
+    a leaf split over `model`: those squares are summed over `model` (one
+    all-reduce for all of them), and a replicated leaf counts once."""
     total = 0.0
-    for g in leaves(tree):
-        total = total + torch.sum(torch.square(g.to(torch.float32)))
+    parts = 0.0
+    for i, g in enumerate(leaves(tree)):
+        sq = torch.sum(torch.square(g.to(torch.float32)))
+        if split is not None and split[i]:
+            parts = parts + sq
+        else:
+            total = total + sq
+    if split is not None and any(split):
+        from repro_torch.distributed.collectives import all_reduce
+
+        total = total + all_reduce(parts, mesh, "model")
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
@@ -89,16 +100,18 @@ def _update_slice(p, g, master, m, v, cfg, c1, c2, lr):
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state, cfg: AdamWConfig, lr):
+def apply_updates(params, grads, state, cfg: AdamWConfig, lr, *, mesh=None,
+                  split=None):
     """Returns (params, state, metrics) — the same param tensors, updated in
     place, and the state with master / m / v updated in place (a new
     `count`; under compression new fp32 `ef` leaves, as the reference's
     residuals are fp32 whatever `state_dtype` says).  `grads` may be bf16
     (converted one leaf at a time) or fp32 (donated: scaled in place).  A
     leaf is updated `UPDATE_SLICE` elements at a time: the update is
-    elementwise, so the slices give the whole leaf's bits."""
+    elementwise, so the slices give the whole leaf's bits.  `mesh` and
+    `split`: the clipping norm of a live mesh's shards (`global_norm`)."""
     flat_g = leaves(grads)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, split)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
 
     count = state["count"] + 1

@@ -61,6 +61,7 @@ from repro_torch.core.strategies.resilience import (
 from repro_torch.distributed.fault import HeartbeatMonitor
 from repro_torch.monitor.examon import ExamonBroker
 from repro_torch.runtime.pages import PoolExhausted, _prefix_digests
+from repro_torch.launch.mesh import is_live
 from repro_torch.runtime.server import Server
 
 
@@ -148,6 +149,9 @@ class ServingFleet:
             raise ValueError("a fleet needs at least one replica")
         self.factory = factory
         self.replicas = [Replica(h, factory()) for h in range(replicas)]
+        if any(is_live(r.server.mesh) for r in self.replicas):
+            raise NotImplementedError("a fleet of servers on a live mesh "
+                                      "(ROADMAP Queue 1 item 15d)")
         self.spares = deque(Replica(replicas + j, factory())
                             for j in range(spares))
         probe = self.replicas[0].server.woven.state.extra

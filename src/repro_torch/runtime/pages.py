@@ -41,6 +41,12 @@ sharing is invisible to the kernel: two table rows naming one physical page
 stream the same bytes an unshared layout holds, so paged output equals it
 bit for bit.
 
+On a live mesh (`launch/mesh.make_mesh`) every rank runs its own manager
+over the same requests: the allocator's decisions are the same on every
+rank, and a rank's pools hold the KV heads of its q heads (K is its block of
+the KV heads), so `stats()` and the server's `last_pool_stats` count one
+rank's bytes.
+
 A speculative verify step writes a whole draft block; `rollback` trims the
 rejected tail by refcount alone (no page copy).  `PoolAuditor` /
 `audit_pool` check the pool's invariants at the resilience layer's

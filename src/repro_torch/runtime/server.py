@@ -19,6 +19,15 @@ Two serving paths:
     prefill chunk, draft length and the modeled DVFS point as load shifts,
     against TTFT / inter-token SLOs and a power budget).
 
+On a live mesh (`launch/mesh.make_mesh`, Megatron's layout) every rank runs
+the same server over its shards of the weights and of the KV heads (its
+page pool holds its local heads): the steps hand back whole logits, and
+every host decision — the sampled tokens, mARGOt's knobs, memo hits,
+deadline sweeps, the tuned kernel knobs — is rank 0's, broadcast, so the
+ranks schedule alike and meet in every collective.  Speculative decoding,
+the QoS governor and quantized pools raise there (ROADMAP Queue 1 items
+15c, 15d).
+
 Both paths serve the dense family (yi-6b, gemma-2b); the recurrent families
 (recurrentgemma-2b's RG-LRU state, rwkv6-3b's WKV state) serve through
 `serve` / `serve_batch` only: their state is not paged, and `serve_stream` /
@@ -42,9 +51,10 @@ from repro_torch.core.strategies.resilience import (
     NonFiniteLogits,
 )
 from repro_torch.core.weaver import WovenProgram
+from repro_torch.distributed.collectives import broadcast, broadcast_object
 from repro_torch.distributed.fault import Watchdog
 from repro_torch.kernels.flash_attention.ops import CACHE_QMAX, DEFAULT_PAGE_SIZE
-from repro_torch.launch.mesh import require_mesh_on
+from repro_torch.launch.mesh import is_live, require_mesh_on
 from repro_torch.memo.table import MemoTable
 from repro_torch.monitor.examon import ExamonBroker, get_default_broker
 from repro_torch.nn.module import init_params, resolve_device
@@ -77,6 +87,12 @@ def _step_counts() -> dict[str, int]:
     target's counts, a foreign draft's in its own."""
     return {"probe": 0, "prefill": 0, "suffix_prefill": 0, "rescore": 0,
             "decode": 0, "verify": 0, "draft": 0}
+
+
+# the extras TunedKernelAspect may set: rank 0's rule on a live mesh
+TUNED_EXTRAS = ("flash_dkv_n_split", "flash_block_q", "flash_block_q_bwd",
+                "flash_block_kv", "flash_block_kv_bwd", "flash_block_kv_dec",
+                "flash_page_size", "flash_cache_dtype", "speculative_draft_len")
 
 
 @dataclasses.dataclass
@@ -126,10 +142,11 @@ class Server:
         None self-drafts when a draft length is asked for.  `params` is the
         param tree of another server of the same woven program, on the same
         device, to share (a fleet's replicas hold one copy of the weights);
-        None draws them from `cfg.seed`.  `mesh` is None or a mesh of one
-        device (`launch/mesh.make_card_mesh`) on the server's device: the
-        same steps, kernels and bits as None.  A mesh of more than one
-        device raises: more than one card is outside this one-card port."""
+        None draws them from `cfg.seed`.  `mesh` is None, a mesh of one
+        device (`launch/mesh.make_card_mesh`) on the server's device — the
+        same steps, kernels and bits as None — or this rank's live mesh
+        (`launch/mesh.make_mesh`), whose device is the server's: the
+        parameters drawn are this rank's shards of the one-device ones."""
         self.woven = woven
         self.cfg = cfg
         self.draft = draft
@@ -173,8 +190,20 @@ class Server:
         self.probe_vc = build("probe")
         self.paged_prefill_vc = build("paged_prefill")
         self.rescore_vc = build("rescore")
+        shardings = None
+        if self._live:
+            from repro_torch.distributed.sharding import param_shardings
+            from repro_torch.runtime.steps import check_on_mesh
+
+            check_on_mesh(woven, mesh)
+            shardings = param_shardings(woven.program.model, mesh, woven.state.rules)
+            # the tuned kernel knobs are rank 0's (each rank read its tuner cache)
+            for st in [woven.state, *woven.variants.values()]:
+                st.extra.update(broadcast_object(
+                    {k: v for k, v in st.extra.items() if k in TUNED_EXTRAS}, mesh))
         self.params = params if params is not None else init_params(
-            woven.program.model, cfg.seed, woven.state.policies, self.device)
+            woven.program.model, cfg.seed, woven.state.policies, self.device,
+            shardings=shardings)
         self.served = 0
         # latency histories are sliding windows (deques), not unbounded lists
         self.history_window = 4096
@@ -199,12 +228,19 @@ class Server:
         self._last_admit_fault = None  # fault spec its "paged_prefill" fired
         self._verify_steps: dict[tuple, Callable] = {}  # (variant, k) -> step
 
+    @property
+    def _live(self) -> bool:
+        return is_live(self.mesh)
+
     def _variant(self) -> str | None:
         if self.margot is None:
             return None
-        op = self.margot.update()
-        self.info["knobs"].update(op.knobs)
-        return op.knobs.get("variant") or op.knobs.get("precision_mix")
+        knobs = None
+        if not self._live or self.mesh.rank == 0:
+            knobs = dict(self.margot.update().knobs)
+        knobs = broadcast_object(knobs, self.mesh)
+        self.info["knobs"].update(knobs)
+        return knobs.get("variant") or knobs.get("precision_mix")
 
     def _begin(self) -> str | None:
         variant = self._variant()
@@ -235,7 +271,7 @@ class Server:
         n = decode_tokens or self.cfg.decode_tokens
         key = ("serve", tokens.tobytes(), n)
         if self.memo is not None and self.memo.running:
-            hit, out = self.memo.lookup(key)
+            hit, out = broadcast_object(self.memo.lookup(key), self.mesh)
             if hit:
                 return out
         t0 = time.perf_counter()
@@ -246,7 +282,7 @@ class Server:
         logits, cache = self.prefill_vc(variant, self.params, {"tokens": toks})
         outs = []
         pos = S
-        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        tok = self._sampled(torch.argmax(logits[:, -1], dim=-1)[:, None])
         for _ in range(n):
             outs.append(tok)
             logits, cache = self.decode_vc(
@@ -256,7 +292,7 @@ class Server:
                                          device=self.device)},
                 cache,
             )
-            tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+            tok = self._sampled(torch.argmax(logits[:, -1], dim=-1)[:, None])
             pos += 1
         result = torch.cat(outs, dim=1).cpu().numpy()
         return self._finish(key, result, t0, 1)
@@ -277,7 +313,7 @@ class Server:
         n = decode_tokens or self.cfg.decode_tokens
         key = ("serve_batch", tuple(np.asarray(p).tobytes() for p in prompts), n)
         if self.memo is not None and self.memo.running:
-            hit, out = self.memo.lookup(key)
+            hit, out = broadcast_object(self.memo.lookup(key), self.mesh)
             if hit:
                 return out
         t0 = time.perf_counter()
@@ -297,7 +333,7 @@ class Server:
         B = len(prompts)
         pos = torch.tensor([np.asarray(p).reshape(-1).shape[0] for p in prompts],
                            dtype=torch.int32, device=self.device)
-        tok = torch.stack(first_toks).reshape(B, 1).to(torch.int32)
+        tok = self._sampled(torch.stack(first_toks).reshape(B, 1))
         outs = []
         for _ in range(n):
             outs.append(tok)
@@ -306,11 +342,15 @@ class Server:
                 {"tokens": tok, "positions": pos[:, None]},
                 cache,
             )
-            tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+            tok = self._sampled(torch.argmax(logits[:, -1], dim=-1)[:, None])
             pos = pos + 1
         stacked = torch.cat(outs, dim=1).cpu().numpy()
         result = [stacked[b] for b in range(B)]
         return self._finish(key, result, t0, B)
+
+    def _sampled(self, tok: torch.Tensor) -> torch.Tensor:
+        """Greedy tokens as int32, rank 0's on a live mesh."""
+        return broadcast(tok.to(torch.int32), self.mesh)
 
     # -- paged pool + continuous batching -----------------------------------------
 
@@ -344,8 +384,9 @@ class Server:
         if fault is not None and fault.kind == "nan_logits":
             logits = torch.full_like(logits, float("nan"))
         row = logits[0, -1]
-        tok, top = torch.stack([row.argmax().to(torch.float32),
-                                row.to(torch.float32).amax()]).tolist()
+        tok, top = broadcast_object(torch.stack([row.argmax().to(torch.float32),
+                                                 row.to(torch.float32).amax()]).tolist(),
+                                    self.mesh)
         if not np.isfinite(top):
             manager.abort(rid)
             raise NonFiniteLogits(f"non-finite prefill logits for request {rid!r}")
@@ -655,7 +696,7 @@ class Server:
             and not chunk_pre and arrival_waves is None \
             and not self._qos_enabled(qos)
         if memo_ok and self.memo is not None and self.memo.running:
-            hit, out = self.memo.lookup(key)
+            hit, out = broadcast_object(self.memo.lookup(key), self.mesh)
             if hit:
                 # a hit serves no step and builds no pool: clear what a
                 # stats reader (or refine_kernel_tuner) would otherwise take
@@ -867,6 +908,10 @@ class Server:
             k = k_max = 0
         draft_srv = draft or self.draft or self  # self-speculation default
         dmanager: PagedCacheManager | None = None
+        if self._live and (k_max or gov is not None or cache_dtype):
+            what = "quantized page pools (item 15c)" if cache_dtype else \
+                "speculative decoding and the QoS governor (item 15d)"
+            raise NotImplementedError(f"{what} on a live mesh (ROADMAP Queue 1)")
         if k_max:
             # the draft keeps its own (unshared) page pool with the same
             # continuous-batching dynamics; sized for full concurrency so a
@@ -1266,6 +1311,7 @@ class Server:
                            if r in forced_deadline
                            or (deadline_s_eff is not None
                                and now - start_t[r] > deadline_s_eff)]
+            overdue = broadcast_object(overdue, self.mesh)
             for rid in overdue:
                 outcome[rid] = {"status": "deadline_exceeded",
                                 "reason": "request exceeded its deadline"}
@@ -1500,10 +1546,10 @@ class Server:
                         float("nan")
                 last = logits[:, -1]
                 # one transfer: each row's argmax and whether it is finite
-                nxt, finite = torch.stack([
+                nxt, finite = broadcast_object(torch.stack([
                     last.argmax(dim=-1),
                     torch.isfinite(last.to(torch.float32).amax(dim=-1)).to(torch.long),
-                ]).tolist()
+                ]).tolist(), self.mesh)
                 dt_step = time.perf_counter() - ts
                 self.decode_step_latencies.append(dt_step)
                 # the first step at each batch size is left out of the

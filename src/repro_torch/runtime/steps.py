@@ -7,10 +7,16 @@ PyTorch runs eagerly, so there is nothing to compile: a step is a plain
 closure.  The serving steps run under `torch.no_grad()`; the train step
 records the forward and differentiates it.
 
-`mesh` is None or a mesh of one device (`launch/mesh.make_card_mesh`): the
-same kernels, launches and bits either way.  A mesh of more than one device
-raises when the step is built: more than one card is outside this one-card
-port.
+`mesh` is None, a mesh of one device (`launch/mesh.make_card_mesh`: the
+same kernels, launches and bits as None) or a live mesh of several ranks
+(`launch/mesh.make_mesh`) under the Megatron layout.  There every rank runs
+the step on its blocks: the parameters are its local shards, the serving
+steps take the whole batch on every rank (the page pool is shared by every
+request, so `data` replicates a server) and hand back the logits gathered
+over the vocab, and the train step takes the global batch, keeps its
+`data` rows, and means the gradients, the loss and the metrics over
+`data`.  Only the dense family runs on a live mesh; the others, and the
+FSDP layouts, raise when the step is built.
 """
 
 from __future__ import annotations
@@ -21,18 +27,48 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.weaver import WovenProgram
-from repro_torch.launch.mesh import mesh_of_one
+from repro_torch.distributed.collectives import all_reduce
+from repro_torch.launch.mesh import check_mesh, is_live, is_parallel
+from repro_torch.models.lm import greedy_argmax, vocab_cross_entropy, whole_logits
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.tree import leaves as tree_leaves
 from repro_torch.optim.tree import rebuild
 
 
-def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
+MESH_FAMILIES_ITEM = "ROADMAP Queue 1 item 15b"
+
+
+def check_on_mesh(woven: WovenProgram, mesh, state=None):
+    """`mesh` if a step of `woven` runs on it (`launch/mesh.check_mesh`); a
+    live mesh of several ranks takes the dense family under the Megatron
+    layout only."""
+    mesh = check_mesh(mesh)
+    if not is_live(mesh):
+        return mesh
+    from repro_torch.distributed.sharding import check_layout
+
+    family = woven.program.cfg.family
+    if family != "dense":
+        raise NotImplementedError(
+            f"the {family} family ({woven.program.cfg.name}) on a live mesh: only "
+            f"the dense family runs there ({MESH_FAMILIES_ITEM})")
+    state = state or woven.state
+    check_layout(mesh, state.rules, state.extra.get("layout"))
+    return mesh
+
+
+def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mesh=None,
+                   vocab: int | None = None):
     """Mean token NLL + accuracy. logits (B,T,V) may cover more positions
-    than labels (VLM image prefix): align to the last T_label positions."""
+    than labels (VLM image prefix): align to the last T_label positions.
+    On a live mesh the logits may be a rank's vocab block (V = vocab / tp)."""
     T = labels.shape[1]
     logits = logits[:, -T:].to(torch.float32)
+    if vocab is not None and logits.shape[-1] != vocab:
+        nll = vocab_cross_entropy(logits, labels, mesh)
+        top = greedy_argmax(logits.detach(), mesh, vocab)
+        return torch.mean(nll), torch.mean((top == labels).to(torch.float32))
     logp = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None].to(torch.long))[..., 0]
     acc = torch.mean((torch.argmax(logits, dim=-1) == labels).to(torch.float32))
@@ -40,7 +76,9 @@ def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
 
 
 def build_loss_fn(woven: WovenProgram, mesh=None, variant: str | None = None):
-    mesh_of_one(mesh)
+    """loss_fn(params, batch) -> (loss, metrics); on a live mesh `batch`
+    holds this rank's `data` rows and the loss is their mean."""
+    check_on_mesh(woven, mesh, woven.variant_state(variant))
     program = woven.program
     state = woven.variant_state(variant)
     model = program.model
@@ -48,7 +86,7 @@ def build_loss_fn(woven: WovenProgram, mesh=None, variant: str | None = None):
     def loss_fn(params, batch):
         ctx = state.make_ctx(mesh=mesh)
         logits, _ = model(params, batch, ctx=ctx, mode="dense")
-        loss, acc = _cross_entropy(logits, batch["labels"])
+        loss, acc = _cross_entropy(logits, batch["labels"], mesh, program.cfg.vocab)
         metrics = {"loss": loss, "accuracy": acc}
         metrics.update(ctx.taps)
         return loss, metrics
@@ -91,19 +129,43 @@ def build_train_step(woven: WovenProgram, *, mesh=None, variant: str | None = No
     place** and scales the fp32 sums in place (`optim/adamw.py`).  The
     returned params and opt_state are the tensors that were passed in.
     `batch` holds (B, S) integer tensors on the parameters' device.
+
+    On a live mesh `params` and `opt_state` are this rank's shards and
+    `batch` the global batch: the step keeps the rows of its `data`
+    coordinate (`sharding.input_shardings`), means the summed gradients and
+    the metrics over `data`, and the clipping norm sums the squares of
+    leaves split over `model` across it (`adamw.global_norm`).
     """
     from repro_torch.optim.schedule import warmup_cosine
 
     state = woven.variant_state(variant)
+    mesh = check_on_mesh(woven, mesh, state)
     opt_cfg = opt_cfg or AdamWConfig(
         compression=bool(state.extra.get("grad_compression", False)),
         state_dtype=str(state.extra.get("opt_state_dtype", "float32")),
     )
+    split = None  # each leaf: a block of a leaf split over `model` (live meshes)
+    if is_live(mesh):
+        from repro_torch.distributed.sharding import (
+            input_shardings,
+            local_shard,
+            param_shardings,
+        )
+
+        if opt_cfg.compression:
+            raise NotImplementedError(
+                "int8 gradient compression quantizes each leaf at its own scale, "
+                "which a rank's shard does not hold (ROADMAP Queue 1 item 15c)")
+        split = [sh.splits("model") for sh in tree_leaves(
+            param_shardings(woven.program.model, mesh, state.rules))]
     lr_fn = lr_fn or warmup_cosine
     accum = int(state.extra.get("accum_steps", 1))
     grad_fn = build_grad_fn(woven, mesh, variant)
 
     def train_step(params, opt_state, batch, step):
+        if split is not None:  # this rank's data rows
+            shard = input_shardings(batch, mesh, state.rules)
+            batch = {k: local_shard(v, shard[k]) for k, v in batch.items()}
         if accum > 1:
             b = next(iter(batch.values())).shape[0]
             if b % accum:
@@ -125,10 +187,15 @@ def build_train_step(woven: WovenProgram, *, mesh=None, variant: str | None = No
                        for k in per_micro[0]}
         else:
             (_, metrics), grads = grad_fn(params, batch)
+        if is_parallel(mesh, "data"):
+            n = mesh.shape["data"]
+            grads = rebuild(params, [all_reduce(g, mesh, "data").div_(n)
+                                     for g in tree_leaves(grads)])
+            metrics = {k: all_reduce(v, mesh, "data") / n for k, v in metrics.items()}
 
         lr = lr_fn(step)
         params, opt_state, opt_metrics = adamw.apply_updates(
-            params, grads, opt_state, opt_cfg, lr)
+            params, grads, opt_state, opt_cfg, lr, mesh=mesh, split=split)
         metrics.update(opt_metrics)
         return params, opt_state, metrics
 
@@ -139,9 +206,9 @@ def build_prefill_step(woven: WovenProgram, *, mesh=None, variant: str | None = 
                        cache_max_len: int | None = None):
     """`cache_max_len` pins the prefill cache padding on a *copied* weave
     state, without disturbing the shared state the ordinary prefill reads."""
-    mesh_of_one(mesh)
     program = woven.program
     state = woven.variant_state(variant)
+    check_on_mesh(woven, mesh, state)
     if cache_max_len is not None:
         state = state.copy()
         state.extra["cache_max_len"] = cache_max_len
@@ -151,7 +218,7 @@ def build_prefill_step(woven: WovenProgram, *, mesh=None, variant: str | None = 
         ctx = state.make_ctx(mesh=mesh)
         with torch.no_grad():
             logits, cache = model(params, inputs, ctx=ctx, mode="prefill")
-        return logits, cache
+        return whole_logits(logits, mesh, program.cfg.vocab), cache
 
     return prefill_step
 
@@ -164,9 +231,9 @@ def build_paged_prefill_step(woven: WovenProgram, *, mesh=None,
     prefix sharing — the model computes and writes only the non-shared
     suffix, in place, so admission's transient memory is O(live tokens),
     never O(max_len)."""
-    mesh_of_one(mesh)
     program = woven.program
     state = woven.variant_state(variant)
+    check_on_mesh(woven, mesh, state)
     model = program.model
 
     def paged_prefill_step(params, inputs, cache, prefix_len: int = 0):
@@ -174,7 +241,7 @@ def build_paged_prefill_step(woven: WovenProgram, *, mesh=None,
         with torch.no_grad():
             logits, new_cache = model(params, inputs, ctx=ctx, mode="prefill",
                                       cache=cache, prefix_len=prefix_len)
-        return logits, new_cache
+        return whole_logits(logits, mesh, program.cfg.vocab), new_cache
 
     return paged_prefill_step
 
@@ -190,9 +257,9 @@ def build_decode_step(woven: WovenProgram, *, mesh=None, variant: str | None = N
     full-prompt prefix hit re-scores its last prompt token — whose K/V
     already sit on shared pool pages — for the first output logits, without
     touching pages other requests still map."""
-    mesh_of_one(mesh)
     program = woven.program
     state = woven.variant_state(variant)
+    check_on_mesh(woven, mesh, state)
     model = program.model
     extra_kw = {"skip_cache_write": True} if rescore else {}
 
@@ -201,7 +268,7 @@ def build_decode_step(woven: WovenProgram, *, mesh=None, variant: str | None = N
         with torch.no_grad():
             logits, new_cache = model(params, inputs, ctx=ctx, mode="decode",
                                       cache=cache, **extra_kw)
-        return logits, new_cache
+        return whole_logits(logits, mesh, program.cfg.vocab), new_cache
 
     return decode_step
 
@@ -220,8 +287,11 @@ def build_verify_step(woven: WovenProgram, *, mesh=None,
     the block into the cache in place); this function exists so the server
     can pin the draft span on a *copied* weave state (the
     "speculative_draft_len" extra) without disturbing the plain decode
-    variant's state."""
-    mesh_of_one(mesh)
+    variant's state.  A live mesh raises: speculative decoding waits for
+    ROADMAP Queue 1 item 15d."""
+    if is_live(check_mesh(mesh)):
+        raise NotImplementedError("speculative verify on a live mesh "
+                                  "(ROADMAP Queue 1 item 15d)")
     program = woven.program
     state = woven.variant_state(variant)
     if draft_len is not None:

@@ -13,6 +13,13 @@ Composes every ANTAREX runtime service around the train step:
 The parameters live on the program's device (`Program.from_arch(...,
 device=)`), and so does the optimizer state; the train step updates both in
 place (see `runtime/steps.build_train_step`).
+
+On a live mesh (`launch/mesh.make_mesh`) every rank holds its shards of the
+parameters and the optimizer state and hands the step the global batch,
+which keeps the rank's `data` rows.  Every decision is rank 0's: its
+mARGOt knobs and its preemption request are broadcast before a step is
+taken, only it logs, and a checkpoint is the gathered (whole) state that
+rank 0 writes and every rank of any mesh restores its blocks from.
 """
 
 from __future__ import annotations
@@ -26,8 +33,16 @@ import torch
 from repro_torch.checkpoint.checkpointer import Checkpointer, process_index_and_count
 from repro_torch.core.weaver import WovenProgram
 from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.distributed.collectives import barrier, broadcast_object
 from repro_torch.distributed.fault import PreemptionHandler, Watchdog
-from repro_torch.launch.mesh import require_mesh_on
+from repro_torch.distributed.sharding import (
+    NamedSharding,
+    gather_shards,
+    local_shard,
+    param_shardings,
+    tree_shards,
+)
+from repro_torch.launch.mesh import is_live, require_mesh_on
 from repro_torch.monitor.examon import ExamonBroker, get_default_broker
 from repro_torch.monitor.sensors import apply_wrappers
 from repro_torch.nn.module import init_params
@@ -101,9 +116,23 @@ class Trainer:
 
     # -- state ------------------------------------------------------------------
 
+    @property
+    def _live(self) -> bool:
+        return is_live(self.mesh)
+
+    def _shardings(self):
+        """(params, opt_state) sharding trees of a live mesh."""
+        ps = param_shardings(self.woven.program.model, self.mesh, self.woven.state.rules)
+        opt = {"master": ps, "m": ps, "v": ps, "count": NamedSharding(self.mesh)}
+        if self.opt_cfg.compression:
+            opt["ef"] = ps
+        return ps, opt
+
     def init_state(self) -> None:
+        shardings = self._shardings()[0] if self._live else None
         self.params = init_params(self.woven.program.model, self.cfg.seed,
-                                  self.woven.state.policies, self.device)
+                                  self.woven.state.policies, self.device,
+                                  shardings=shardings)
         self.opt_state = adamw.init_state(self.params, self.opt_cfg)
         self.step = 0
 
@@ -122,10 +151,17 @@ class Trainer:
         ckpt = self._ckpt()
         if ckpt is None or self.params is None:
             return
-        tree = {"params": self.params, "opt": self.opt_state,
+        params, opt = self.params, self.opt_state
+        if self._live:  # the whole state, gathered on every rank
+            ps, os_ = self._shardings()
+            params = tree_shards(params, ps, gather_shards)
+            opt = tree_shards(opt, os_, gather_shards)
+            if self.mesh.rank != 0:
+                return
+        tree = {"params": params, "opt": opt,
                 "data": {"step": np.asarray(self.pipeline.step)}}
         ckpt.save(self.step, tree, meta={"arch": self.woven.program.cfg.name},
-                  blocking=blocking)
+                  blocking=blocking, whole=self._live)
 
     def maybe_restore(self) -> bool:
         ckpt = self._ckpt()
@@ -136,6 +172,10 @@ class Trainer:
         template = {"params": self.params, "opt": self.opt_state,
                     "data": {"step": np.asarray(0)}}
         tree, manifest = ckpt.restore(template)
+        if self._live:  # whole leaves on disk: keep this rank's blocks
+            ps, os_ = self._shardings()
+            tree["params"] = tree_shards(tree["params"], ps, local_shard)
+            tree["opt"] = tree_shards(tree["opt"], os_, local_shard)
         # the parameters are the model's registered tensors: written in place
         with torch.no_grad():
             for live, saved in zip(leaves(self.params), leaves(tree["params"])):
@@ -168,14 +208,18 @@ class Trainer:
     def _run_loop(self, watchdog: Watchdog, steps: int) -> list[dict]:
         target = self.step + steps
         while self.step < target:
-            if self.preemption.pending:
+            # rank 0's host decisions, on every rank of a live mesh
+            if broadcast_object(self.preemption.pending, self.mesh):
                 self.save(blocking=True)
                 break
             variant = None
             if self.margot is not None:
-                op = self.margot.update()
-                self.info["knobs"].update(op.knobs)
-                variant = op.knobs.get("variant") or op.knobs.get("precision_mix")
+                knobs = None
+                if not self._live or self.mesh.rank == 0:
+                    knobs = dict(self.margot.update().knobs)
+                knobs = broadcast_object(knobs, self.mesh)
+                self.info["knobs"].update(knobs)
+                variant = knobs.get("variant") or knobs.get("precision_mix")
             watchdog.beat()
             batch = self._batch()
             self.params, self.opt_state, metrics = self.libvc(
@@ -196,12 +240,14 @@ class Trainer:
                 self.margot.observe("step_time", host["step_time"])
             if self.cfg.ckpt_every and self.step % self.cfg.ckpt_every == 0:
                 self.save()
-            if self.cfg.log_every and self.step % self.cfg.log_every == 0:
+            if self.cfg.log_every and self.step % self.cfg.log_every == 0 \
+                    and (not self._live or self.mesh.rank == 0):
                 print(f"step {self.step}: loss={host.get('loss', float('nan')):.4f} "
                       f"t={host['step_time']*1e3:.1f}ms")
         ckpt = self._ckpt()
         if ckpt is not None:
             ckpt.wait()
+            barrier(self.mesh)  # rank 0's checkpoint is on disk for every rank
         return self.history
 
     def _on_timeout(self) -> None:

@@ -4,9 +4,11 @@ every cell's input and cache specs on the production meshes (the
 reference's on `jax.sharding.AbstractMesh`, shard shapes from
 `NamedSharding.shard_shape`), `validate_mesh_rules` and `plan_rescale`; a
 mesh of one card (on the CPU here) giving the same logits, tokens and
-gradients bit for bit as no mesh; a mesh of two devices refused; and
-`reshard_params` restoring a checkpoint bit for bit onto a mesh of one.
-All comparisons are exact."""
+gradients bit for bit as no mesh; an abstract mesh of several devices
+refused (it has no ranks to run on; a live mesh runs in
+`test_torch_mesh_parallel.py`), and so are the FSDP layouts on a live
+mesh; and `reshard_params` restoring a checkpoint bit for bit onto a mesh
+of one.  All comparisons are exact."""
 
 import collections
 import types
@@ -36,11 +38,11 @@ from repro_torch.core.program import Program
 from repro_torch.core.strategies.parallelization import AutoShard
 from repro_torch.core.weaver import weave
 from repro_torch.distributed.elastic import plan_rescale, reshard_params
-from repro_torch.distributed.sharding import (input_shardings, logical_to_pspec,
-                                              param_shardings, shard_shape,
-                                              validate_mesh_rules)
-from repro_torch.launch.mesh import (make_card_mesh, make_production_mesh, make_test_mesh,
-                                     mesh_name)
+from repro_torch.distributed.sharding import (check_layout, input_shardings,
+                                              logical_to_pspec, param_shardings,
+                                              shard_shape, validate_mesh_rules)
+from repro_torch.launch.mesh import (Mesh, make_card_mesh, make_production_mesh,
+                                     make_test_mesh, mesh_name)
 from repro_torch.launch.weave import default_weave
 from repro_torch.models.registry import ARCHS, build_model, cells, get_config, input_specs
 from repro_torch.nn.module import Ctx, flatten_specs, init_params
@@ -251,17 +253,30 @@ def test_mesh_of_one_serves_and_trains_bit_for_bit():
 
 
 def test_a_mesh_of_more_than_one_device_raises():
+    """An abstract mesh of several devices has no ranks to run a step on;
+    a live one is built by `make_mesh` / `run_on_mesh` (and runs the
+    Megatron layout only: the FSDP layouts raise there)."""
     two = make_test_mesh((2, 1))
-    with pytest.raises(NotImplementedError, match="more than one card"):
+    with pytest.raises(NotImplementedError, match="abstract mesh"):
         Ctx(mesh=two)
-    with pytest.raises(NotImplementedError, match="more than one card"):
+    with pytest.raises(NotImplementedError, match="abstract mesh"):
         _reduced_server(two)
     program = Program.from_arch("yi-6b", kind="serve", reduced=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="more than one card"):
+    with pytest.raises(NotImplementedError, match="abstract mesh"):
         build_decode_step(default_weave(program, "decode_32k", {}), mesh=two)
     with pytest.raises(NotImplementedError, match="abstract mesh"):
         _reduced_server(make_test_mesh((1, 1)))
     Ctx(mesh=make_test_mesh((1, 1)))  # costing on meta: a mesh of one, no device
+    with pytest.raises(ValueError, match="make_mesh"):
+        Mesh(("data", "model"), (2, 1), (torch.device("cpu"),) * 2)  # no groups
+    live = types.SimpleNamespace(groups=(None, None), shape={"data": 2, "model": 2})
+    rules = {"batch": ("data",), "heads": "model", "embed": ("data",)}
+    with pytest.raises(NotImplementedError, match="15a"):
+        check_layout(live, rules)
+    with pytest.raises(NotImplementedError, match="15a"):
+        check_layout(live, dict(rules, embed=None), "fsdp_sp")
+    check_layout(live, dict(rules, embed=None), "megatron_tp")
+    check_layout(two, rules)  # an abstract mesh: the dry run's layouts stand
 
 
 def test_reshard_params_onto_a_mesh_of_one(tmp_path):
@@ -281,5 +296,5 @@ def test_reshard_params_onto_a_mesh_of_one(tmp_path):
         assert g.device.type == "cpu" and g.dtype == w.dtype and torch.equal(g, w)
     with pytest.raises(NotImplementedError, match="abstract mesh"):
         reshard_params(program.model, ckpt, make_test_mesh((1, 1)), rules, template, 5)
-    with pytest.raises(NotImplementedError, match="more than one card"):
+    with pytest.raises(NotImplementedError, match="abstract mesh"):
         reshard_params(program.model, ckpt, make_test_mesh((2, 2)), rules, template, 5)

@@ -1,0 +1,76 @@
+#!/usr/bin/env python3
+"""The mesh phase of `chip_smoke.py` over NCCL, one card per rank: needs
+four cards of one host.
+
+    python3 tools/mesh_nccl.py [--out FILE]   # default build/mesh_nccl.json
+
+Builds the kernels, runs `chip_smoke.serve_phase` on the first card (the
+one-card launch counts, requests and serve wall), then
+`chip_smoke.mesh_phase` with `backend="nccl"`: full-width, full-depth yi-6b
+served tensor-parallel on a (1, 4) mesh (each rank's launches by route equal
+the one-card counts, its prefill logits at the full-depth gate against one
+card), and gemma-2b at `MESH_TRAIN_DEPTH` layers trained on a (2, 2) mesh
+(gradients at the training gates against one card, the first batch's loss
+falling).  Prints and writes one JSON object: the phase's summary with the
+one-card serve wall beside the mesh's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+
+def main() -> int:
+    import gc
+
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "mesh_nccl.json"))
+    args = ap.parse_args()
+    if torch.cuda.device_count() < 4:
+        print("mesh_nccl: needs four CUDA devices", file=sys.stderr)
+        return 1
+    os.environ["REPRO_TORCH_TUNER_CACHE"] = os.path.join(tempfile.mkdtemp(), "empty.json")
+    t0 = time.perf_counter()
+    build.build()
+    build.library()
+    counts, server, requests = cs.serve_phase(torch)
+    t1 = time.perf_counter()  # the same traffic again on one card, warm
+    for p in requests["solo"]:
+        server.serve(p)
+    server.serve_batch(requests["batch"])
+    torch.cuda.synchronize()
+    one_card_serve_s = time.perf_counter() - t1
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = cs.mesh_phase(torch, counts, requests, backend="nccl", serve_shape=(1, 4),
+                            train_shapes={"dp2_tp2": (2, 2)})
+    summary["one_card_serve_s"] = one_card_serve_s
+    summary["card"] = cs.nvidia_smi_line()
+    summary["devices"] = torch.cuda.device_count()
+    summary["total_s"] = time.perf_counter() - t0
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(summary, f, default=float)
+    print(json.dumps({k: summary[k] for k in ("card", "devices", "total_s",
+                                              "one_card_serve_s", "ranks_wall_s")},
+                     default=float))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
