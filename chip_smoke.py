@@ -167,9 +167,20 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    full width, cut to `MESH_TRAIN_DEPTH` layers so both ranks' state fits,
    trained three steps on a (2, 1) and a (1, 2) mesh: K1 with lse and K3
    counted per step, the first batch's loss falling, and the meshed
-   gradient at the training gradient gates against one card's.  Two ranks
-   on one card time-slice its SMs: their times are no tensor-parallel
-   speed-up.
+   gradient at the training gradient gates against one card's; then
+   AutoShard's FSDP layouts on the same ranks (`FSDP_RUNS`): (f1)
+   qwen2-72b at 1 of 80 layers on (2, 1), `megatron_tp` with `embed` over
+   `data`; (f2) rwkv6-3b at 4 layers on (1, 2) and (f3) recurrentgemma-2b
+   at 6 layers on (2, 1) under `dp_fsdp`, each served (`serve_batch` of
+   the serving traffic's prompts, each rank its rows: launches by route
+   equal to one card's on those rows, K5's output bit for bit one card's,
+   the prefill logits at the logit gate, rwkv6 in fp32) and trained; (f4)
+   gemma-2b at 4 layers on (1, 2) under `fsdp_sp` — each trained two
+   counted steps (the first batch's loss falling, the meshed gradient at
+   the training gates against one card's, each rank holding only its
+   blocks and their AdamW state, the FSDP gathers and reduce-scatters
+   counted), (f4)'s dense logits against one card's.  Two ranks on one
+   card time-slice its SMs: their times are no parallel speed-up.
 
 Any failed phase ends the run with a non-zero exit code.  The last line of
 the output is `{"ok": true, "device": {...}}`; the line before the card's
@@ -4374,18 +4385,19 @@ def _paths(tree, prefix=""):
         yield prefix, tree
 
 
-def gradient_digest(torch, woven, params, mb, stacks) -> tuple:
+def gradient_digest(torch, woven, params, mb, stacks, match: str = "attn/") -> tuple:
     """One gradient of `woven` at `params` on the microbatch `mb`, kept as
     the loss, the global gradient norm and the attention weights' gradients
-    in fp32 — each leaf of a layer stack (its first path component in
-    `stacks`) as its layers' (L, n) rows, an unrolled block's as one row —
-    so that the rest of the tree is freed before the next gradient."""
+    (the leaves whose path holds `match`) in fp32 — each leaf of a layer
+    stack (its first path component in `stacks`) as its layers' (L, n) rows,
+    an unrolled block's as one row — so that the rest of the tree is freed
+    before the next gradient."""
     from repro_torch.runtime.steps import build_grad_fn
 
     (loss, _), grads = build_grad_fn(woven)(params, mb)
     norm = sum(g.float().pow(2).sum() for _, g in _paths(grads)).sqrt().item()
     attn = {path: g.float().reshape(g.shape[0] if path.split("/")[0] in stacks else 1, -1)
-            for path, g in _paths(grads) if "attn/" in path}
+            for path, g in _paths(grads) if match in path}
     return loss.item(), norm, attn
 
 
@@ -5612,31 +5624,29 @@ def mesh_serve_rank(torch, mesh, solo, batch) -> dict:
     return {"ranks": every_rank(out, mesh), "logits": logits, "tokens": tokens}
 
 
-def mesh_gradient_digest(torch, trainer, mb) -> tuple:
+def mesh_gradient_digest(torch, trainer, mb, match: str = "attn/") -> tuple:
     """`gradient_digest` of a meshed trainer: this rank's rows of `mb`, the
-    gradients meshed over `data` as the train step means them, the norm
-    over every shard, the attention weights' gradients gathered whole."""
-    from repro_torch.distributed.collectives import all_reduce
+    gradients and the loss meaned over the mesh as the train step means
+    them (`steps.build_mesh_mean`), the norm over every shard, the matched
+    weights' gradients gathered whole."""
     from repro_torch.distributed.sharding import (gather_shards, input_shardings,
                                                   local_shard, param_shardings)
     from repro_torch.optim.adamw import global_norm
-    from repro_torch.runtime.steps import build_grad_fn
+    from repro_torch.runtime.steps import build_grad_fn, build_mesh_mean
 
     mesh, woven = trainer.mesh, trainer.woven
     shard = input_shardings(mb, mesh, woven.state.rules)
     local = {k: local_shard(v, shard[k]) for k, v in mb.items()}
     (loss, _), grads = build_grad_fn(woven, mesh)(trainer.params, local)
-    n = mesh.shape["data"]
-    grads = dict(_paths(grads))
-    grads = {k: all_reduce(g, mesh, "data") / n for k, g in grads.items()}
-    shardings = dict(_paths(param_shardings(woven.program.model, mesh, woven.state.rules)))
-    split = [shardings[k].splits("model") for k in sorted(grads)]  # the leaves' order
+    split, mean = build_mesh_mean(woven, mesh)
+    grads, metrics = mean(grads, {"loss": loss})
     norm = global_norm(grads, mesh, split).item()
+    shardings = dict(_paths(param_shardings(woven.program.model, mesh, woven.state.rules)))
     stacks = stack_names(woven)
     attn = {k: gather_shards(g, shardings[k]).float()
             .reshape(g.shape[0] if k.split("/")[0] in stacks else 1, -1).cpu()
-            for k, g in grads.items() if "attn/" in k}
-    return (all_reduce(loss, mesh, "data") / n).item(), norm, attn
+            for k, g in _paths(grads) if match in k}
+    return metrics["loss"].item(), norm, attn
 
 
 def mesh_train_program(torch, device="cuda"):
@@ -5718,31 +5728,538 @@ def mesh_train_rank(torch, mesh, tag) -> dict:
     return {"ranks": every_rank(out, mesh), "digest": digest if mesh.rank == 0 else None}
 
 
-def mesh_rank(solo, batch, train_shapes, mesh) -> dict:
+# AutoShard's FSDP layouts on the same two ranks, each model at published
+# width and cut in depth so that both ranks' state fits the one card:
+# (f1) qwen2-72b at 1 of 80 layers, AutoShard's own megatron_tp with `embed`
+# over data (3.369 B parameters, 47.2 GB of state whole); (f2) rwkv6-3b and
+# (f3) recurrentgemma-2b under dp_fsdp, served (K6 and K5 on each rank's
+# rows) and trained, with the `embed` rule of rwkv6-3b's full depth carried
+# by the `rules` override; (f4) gemma-2b under fsdp_sp, its pod layout,
+# forced through AutoShard's `layout=` with the pod's `embed` rule.
+FSDP_RUNS = {
+    "f1": dict(arch="qwen2-72b", layers=1, mesh=(2, 1), layout="megatron_tp",
+               rules=None, serve=None, match="attn/", attn=1, profile=True),
+    # not profiled: the profiler's own cost on the plain WKV's kernels under
+    # autograd (19 s on a 9.7 s step) is over the phase's budget
+    "f2": dict(arch="rwkv6-3b", layers=4, mesh=(1, 2), layout="dp_fsdp",
+               rules={"embed": ("data", "model")}, serve="double", match="time_mix/",
+               attn=0, profile=False),
+    "f3": dict(arch="recurrentgemma-2b", layers=6, mesh=(2, 1), layout="dp_fsdp",
+               rules={"embed": ("data", "model")}, serve="half", match="attn/", attn=2,
+               profile=True),
+    "f4": dict(arch="gemma-2b", layers=4, mesh=(1, 2), layout="fsdp_sp",
+               rules={"embed": ("data", "model")}, serve=None, match="attn/", attn=4,
+               profile=True),
+}
+FSDP_TRAIN = {"batch": 4, "seq": 512, "steps": 2, "lr": 1e-3}
+# every model call of a served FSDP run gathers every weight through the host
+# (~0.5 GB/s a rank over gloo): the serving traffic's first two prompts, one
+# a rank, two tokens each
+FSDP_PROMPTS = 2
+FSDP_DECODE = 2
+FSDP_LOGIT_ROWS = 4  # (f4) logit positions shipped back: each rank's block's ends
+
+
+def fsdp_program(run, kind: str, device="cuda"):
+    from repro_torch.core.program import Program
+    from repro_torch.models.registry import build_model, get_config
+
+    cfg = get_config(run["arch"]).replace(num_layers=run["layers"])
+    return Program(model=build_model(cfg), cfg=cfg, kind=kind, device=device)
+
+
+def fsdp_aspects(run, mesh_axes: dict, train: bool) -> list:
+    """The aspects that lay `run` out as it says, after `default_weave`'s
+    own AutoShard: AutoShard's `layout=` where it forces one, the `embed`
+    rule where the run carries one."""
+    from repro_torch.core.strategies.parallelization import AutoShard, ShardingAspect
+
+    out = []
+    if run["layout"] == "fsdp_sp":
+        out.append(AutoShard(dict(mesh_axes), train=train, layout="fsdp_sp"))
+    if run["rules"]:
+        out.append(ShardingAspect(run["rules"]))
+    return out
+
+
+def fsdp_server(torch, run, mesh):
+    """`run`'s server, woven to the CUDA kernels as `launch/serve` weaves
+    them, on `mesh` (None: one card) at the run's serving policy."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.weave import cuda_kernel_aspects, default_weave
+    from repro_torch.nn.dtypes import PolicyResolver
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    axes = dict(mesh.shape) if mesh is not None else {}
+    woven = default_weave(fsdp_program(run, "serve"), SHAPES["prefill_32k"], axes,
+                          extra_aspects=cuda_kernel_aspects() + fsdp_aspects(run, axes, False))
+    woven.state.policies = PolicyResolver.default(run["serve"])
+    return Server(woven, ServerConfig(max_cache_len=4096, decode_tokens=FSDP_DECODE,
+                                      seed=0), mesh=mesh)
+
+
+def fsdp_trainer(torch, run, mesh):
+    from functools import partial
+
+    from repro_torch.launch.train import program_trainer
+    from repro_torch.optim.schedule import constant
+    from repro_torch.runtime.trainer import TrainerConfig
+
+    t = FSDP_TRAIN
+    axes = dict(mesh.shape) if mesh is not None else {}
+    overrides = {"accum_steps": 1, "remat": "full", "precision": "half"}
+    return program_trainer(
+        fsdp_program(run, "train"), batch=t["batch"], seq=t["seq"], mesh=mesh,
+        overrides=overrides, extra_aspects=fsdp_aspects(run, axes, True),
+        tcfg=TrainerConfig(steps=t["steps"], log_every=0, seed=0),
+        lr_fn=partial(constant, peak=t["lr"]))
+
+
+@contextlib.contextmanager
+def k5_capture(torch, box: list):
+    """The first K5 call's inputs and output, on the host, into `box`."""
+    from repro_torch.kernels.rglru import ops as lru_ops
+
+    real = lru_ops.rglru
+
+    def record(a, b, h0):
+        out = real(a, b, h0)
+        if not box:
+            box.append({"a": a.float().cpu(), "b": b.float().cpu(), "h0": h0.float().cpu(),
+                        "h": out[0].cpu(), "h_last": out[1].cpu()})
+        return out
+
+    record.launches = real.launches  # the wrapper counts through its module's name
+    lru_ops.rglru = record
+    try:
+        yield box
+    finally:
+        lru_ops.rglru = real
+        real.launches = record.launches
+
+
+def resident_check(torch, tag, trainer) -> dict:
+    """Every leaf of this rank's parameters and AdamW state is its block
+    of the whole leaf (`shard_shape` of the model's spec), none kept
+    gathered; the resident parameter + master + m + v bytes, against the
+    whole model's."""
+    from repro_torch.distributed.sharding import param_shardings
+    from repro_torch.nn.module import flatten_specs
+
+    model = trainer.woven.program.model
+    shardings = dict(_paths(param_shardings(model, trainer.mesh, trainer.woven.state.rules)))
+    whole = {path.split("/", 1)[1]: spec.shape for path, spec in flatten_specs(model).items()}
+    local, full, split = 0, 0, 0
+    for tree in ("params", "master", "m", "v"):
+        leaves = dict(_paths(trainer.params if tree == "params" else trainer.opt_state[tree]))
+        for path, t in leaves.items():
+            want = shardings[path].shard_shape(whole[path])
+            if tuple(t.shape) != tuple(want):
+                raise AssertionError(f"fsdp {tag}: {tree} {path} holds {tuple(t.shape)}, "
+                                     f"its block is {want}")
+            n = 1
+            for d in whole[path]:
+                n *= d
+            local += t.numel() * t.element_size()
+            full += n * t.element_size()
+            split += t.numel() < n
+    return {"resident_gb": local / 1e9, "whole_gb": full / 1e9, "split_leaves": split,
+            "leaves": 4 * len(shardings)}
+
+
+def fsdp_prompts(vocab: int) -> list:
+    """The serving traffic's first `FSDP_PROMPTS` prompts
+    (`SERVE_BATCH_LENS`) in `vocab`, from seed 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, n).astype(np.int64)
+            for n in SERVE_BATCH_LENS[:FSDP_PROMPTS]]
+
+
+def fsdp_serve_rank(torch, mesh, tag, run) -> dict:
+    """`run` served on this rank: a counted `serve_batch` of the traffic's
+    first `FSDP_PROMPTS` prompts (the rank serves its rows), recording the
+    prefill logits of its first prompt and K5's first call on it."""
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import local_shard
+
+    server = fsdp_server(torch, run, mesh)
+    prompts = fsdp_prompts(server.woven.program.cfg.vocab)
+    first, prefill = {}, server.prefill_vc
+
+    def recording(*a, **k):  # the rank's first prefill: its first prompt's logits
+        logits, cache = prefill(*a, **k)
+        first.setdefault("logits", logits.float().cpu())
+        return logits, cache
+
+    server.prefill_vc = recording
+    collectives.reset_counts()
+    t0 = time.perf_counter()
+    with k5_capture(torch, []) as k5:
+        out, counts, routes = counted_run(torch, lambda: server.serve_batch(prompts),
+                                          f"fsdp {tag} serve")
+    wall = time.perf_counter() - t0
+    server.prefill_vc = prefill
+    rank_log(mesh, f"fsdp {tag}: served in {wall:.2f} s")
+    mine = local_shard(torch.arange(len(prompts)), server._rows(len(prompts))).tolist()
+    res = {"rank": mesh.rank, "layout": server.woven.state.extra.get("layout"),
+           "embed": server.woven.state.rules.get("embed"), "rows": mine,
+           "launches": counts, "routes": routes, "serve_wall_s": wall,
+           "collectives": collectives.counts(), "tokens": [o.tolist() for o in out],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "logits": first["logits"], "k5": k5[0] if k5 else None}
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def busy_step(torch, fn) -> dict:
+    """`fn()` (one step) under `torch.profiler`: the host wall, the device's
+    busy time and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(_device_us(e) for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return {"profiled_step_wall_ms": wall_ms, "device_busy_ms": busy_ms or None,
+            "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None}
+
+
+def fsdp_train_rank(torch, mesh, tag, run) -> dict:
+    """`run` trained on this rank: under fsdp_sp the dense logits of the
+    first batch's first row at the initial weights, `FSDP_TRAIN["steps"]`
+    counted steps (the first recording its gradient's digest, the last
+    profiled where the run says), the first batch's loss again, the
+    resident state."""
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import input_shardings, local_shard
+    from repro_torch.runtime.steps import build_loss_fn, build_mesh_mean
+
+    trainer = fsdp_trainer(torch, run, mesh)
+    trainer.init_state()
+    rank_log(mesh, f"fsdp {tag}: trainer state on the card")
+    mb = first_batch(torch, trainer)
+    logits = None
+    if run["layout"] == "fsdp_sp":  # the dense logits of the first row, whole
+        from repro_torch.models.lm import whole_logits
+
+        toks = mb["tokens"][:1]
+        with torch.no_grad():
+            x, _ = trainer.woven.program.model(
+                trainer.params, {"tokens": toks}, ctx=trainer.woven.state.make_ctx(mesh=mesh),
+                mode="dense")
+            x = whole_logits(x, mesh, trainer.woven.program.cfg.vocab)
+        logits = x[0, fsdp_logit_positions(toks.shape[1])].float().cpu()
+        del x
+    n = run["attn"]
+    want = {"flash_attention": 2 * n, "flash_attention_lse": 2 * n,
+            "flash_attention_bwd": n, "flash_decode": 0, "rmsnorm": 0, "rglru": 0, "wkv": 0}
+    collectives.reset_counts()
+    step_s, prof, digest = [], None, []
+    for i in range(FSDP_TRAIN["steps"]):
+        last = i == FSDP_TRAIN["steps"] - 1
+        t0 = time.perf_counter()
+        box = {}
+
+        def step():
+            if last and run["profile"]:
+                box.update(busy_step(torch, lambda: trainer.run(1)))
+            else:
+                trainer.run(1)
+
+        # the first step builds the train step: its gradient mean records the
+        # digest of the first batch's gradient at the initial weights
+        with step_digest(torch, run["match"], digest) if i == 0 else contextlib.nullcontext():
+            _, counts, routes = counted_run(torch, step, f"fsdp {tag} step {i + 1}")
+        step_s.append(time.perf_counter() - t0)
+        prof = box or prof
+        rank_log(mesh, f"fsdp {tag}: step {i + 1} in {step_s[-1]:.2f} s")
+        if counts != want:
+            raise AssertionError(f"fsdp {tag} step {i + 1}: launches {counts} != {want}")
+    colls = collectives.counts()
+    shard = input_shardings(mb, mesh, trainer.woven.state.rules)
+    with torch.no_grad():
+        after, _ = build_loss_fn(trainer.woven, mesh)(
+            trainer.params, {k: local_shard(v, shard[k]) for k, v in mb.items()})
+    after = build_mesh_mean(trainer.woven, mesh)[1]({}, {"loss": after})[1]["loss"].item()
+    out = {"rank": mesh.rank, "mesh": dict(mesh.shape),
+           "layout": trainer.woven.state.extra.get("layout"),
+           "rules": {k: v for k, v in trainer.woven.state.rules.items()
+                     if k in ("batch", "embed", "vocab", "res_seq", "heads", "mlp")},
+           "losses": [h["loss"] for h in trainer.history],
+           "grad_norms": [h["grad_norm"] for h in trainer.history],
+           "first_batch_loss": [digest[0][0], after], "step_s": step_s, "profile": prof,
+           "launches_per_step": counts, "routes_per_step": routes,
+           "collectives_per_run": colls, "resident": resident_check(torch, tag, trainer),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**out, "digest": digest[0], "logits": logits}
+
+
+@contextlib.contextmanager
+def step_digest(torch, match: str, box: list):
+    """`mesh_gradient_digest`'s reading of the train step built inside:
+    its gradient mean (`steps.build_mesh_mean`) records, on its first call,
+    the meaned loss, the global norm over every shard and the matched
+    weights' gradients gathered whole, into `box`."""
+    from repro_torch.distributed.sharding import gather_shards
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.runtime import steps
+
+    real = steps.build_mesh_mean
+
+    def build(woven, mesh, variant=None):
+        from repro_torch.distributed.sharding import param_shardings
+
+        split, mean = real(woven, mesh, variant)
+        shardings = dict(_paths(param_shardings(woven.program.model, mesh,
+                                                woven.state.rules)))
+        stacks = stack_names(woven)
+
+        def recording(grads, metrics):
+            grads, metrics = mean(grads, metrics)
+            if not box:
+                # copies: the optimizer scales the gradients in place next
+                attn = {k: gather_shards(g, shardings[k]).to("cpu", torch.float32, copy=True)
+                        .reshape(g.shape[0] if k.split("/")[0] in stacks else 1, -1)
+                        for k, g in _paths(grads) if match in k}
+                box.append((metrics["loss"].item(), global_norm(grads, mesh, split).item(),
+                            attn))
+            return grads, metrics
+
+        return split, recording
+
+    steps.build_mesh_mean = build
+    try:
+        yield box
+    finally:
+        steps.build_mesh_mean = real
+
+
+def rank_log(mesh, msg: str) -> None:
+    """`log` from the first rank of a live mesh."""
+    if mesh.rank == 0:
+        log(msg)
+
+
+def fsdp_logit_positions(S: int) -> list:
+    """The first and last position of each half of a sequence of S."""
+    return [0, S // 2 - 1, S // 2, S - 1][:FSDP_LOGIT_ROWS]
+
+
+def fsdp_rank(torch, mesh, tag, run) -> dict:
+    """(f1)..(f4) on this rank; each rank's results on every rank."""
+    out = {}
+    if run["serve"]:
+        out["serve"] = every_rank(fsdp_serve_rank(torch, mesh, tag, run), mesh)
+    torch.cuda.reset_peak_memory_stats()
+    out["train"] = every_rank(fsdp_train_rank(torch, mesh, tag, run), mesh)
+    torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+def mesh_rank(solo, batch, train_shapes, fsdp_runs, mesh) -> dict:
     """Phase 12's body on each rank: serve on the mesh run_on_mesh gives,
     then train on each of `train_shapes` ({tag: shape}) over the same
+    ranks, then `fsdp_runs` ({tag: run}), each on its mesh of the same
     ranks."""
     import torch
 
     from repro_torch.kernels import build
-    from repro_torch.launch.mesh import make_mesh
 
     build.library()  # built by the parent: loaded here
+    meshes = {mesh.axis_sizes: mesh}
     out = {"serve": mesh_serve_rank(torch, mesh, solo, batch)}
     for tag, shape in train_shapes.items():
-        sub = mesh if tuple(shape) == mesh.axis_sizes else make_mesh(
-            shape, backend=mesh.backend, device="cuda")
-        out[tag] = mesh_train_rank(torch, sub, tag)
+        out[tag] = mesh_train_rank(torch, mesh_of(meshes, mesh, shape), tag)
+    out.update(fsdp_ranks(torch, fsdp_runs, mesh, meshes))
+    return out
+
+
+def mesh_of(meshes: dict, mesh, shape):
+    """The mesh of `shape` over `mesh`'s ranks: one set of process groups
+    per shape, made by every rank alike."""
+    from repro_torch.launch.mesh import make_mesh
+
+    shape = tuple(shape)
+    if shape not in meshes:
+        meshes[shape] = make_mesh(shape, backend=mesh.backend, device=mesh.device.type)
+    return meshes[shape]
+
+
+def fsdp_ranks(torch, fsdp_runs, mesh, meshes=None) -> dict:
+    """Every run of `fsdp_runs` on this rank, each on its mesh."""
+    meshes = meshes if meshes is not None else {mesh.axis_sizes: mesh}
+    out = {}
+    for tag, run in fsdp_runs.items():
+        t0 = time.perf_counter()
+        out[tag] = fsdp_rank(torch, mesh_of(meshes, mesh, run["mesh"]), tag, run)
+        out[tag]["rank0_wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def fsdp_gathers(tag, rules_embed, mesh_shape: dict, colls: dict, backward: bool) -> None:
+    """The FSDP gathers (and, with `backward`, their reduce-scatters) were
+    counted over every axis of the `embed` rule that spans ranks."""
+    axes = [a for a in (rules_embed or ()) if mesh_shape.get(a, 1) > 1]
+    kinds = ("fsdp_gather", "fsdp_reduce_scatter") if backward else ("fsdp_gather",)
+    for a in axes:
+        for kind in kinds:
+            if not colls.get(kind, {}).get(a, {}).get("calls"):
+                raise AssertionError(f"fsdp {tag}: no {kind} over {a}: {colls}")
+    if not axes:
+        raise AssertionError(f"fsdp {tag}: the embed rule {rules_embed} splits no axis")
+
+
+def fsdp_serve_check(torch, tag, run, ranks) -> dict:
+    """Each rank's serving against one card serving that rank's rows: the
+    launches by route equal, the prefill logits of its first prompt at the
+    logit gates, K5 on its rows bit for bit one card's (the kernel on the
+    rank's recorded inputs; the one-card server's own K5 call on the same
+    prompt beside, printed), the FSDP gathers counted."""
+    import numpy as np
+
+    from repro_torch.kernels.rglru import ops as lru_ops
+
+    one = fsdp_server(torch, run, None)
+    prompts = fsdp_prompts(one.woven.program.cfg.vocab)
+    one.serve(np.zeros((1, 16), np.int32), decode_tokens=2)
+    out = []
+    for r in ranks:
+        if r["layout"] != "dp_fsdp":
+            raise AssertionError(f"fsdp {tag} serve: layout {r['layout']}")
+        mine = [prompts[i] for i in r["rows"]]
+        want_tok, counts, routes = counted_run(torch, lambda: one.serve_batch(mine),
+                                               f"fsdp {tag} one card")
+        got, want = {**r["launches"], **r["routes"]}, {**counts, **routes}
+        if got != want:
+            raise AssertionError(f"fsdp {tag} serve rank {r['rank']}: launches by route "
+                                 f"{got} != one card's on its rows {want}")
+        agree = float(np.mean([np.mean(np.asarray(r["tokens"][i]) == w)
+                               for i, w in zip(r["rows"], want_tok)]))
+        toks = torch.as_tensor(mine[0], device="cuda").to(torch.int32)[None]
+        with k5_capture(torch, []) as k5:
+            logits, cache = one.prefill_vc(None, one.params, {"tokens": toks})
+        del cache
+        gap = logit_diff(torch, f"fsdp {tag} rank {r['rank']} prefill", r["logits"],
+                         logits.float().cpu())
+        if not (gap["max_abs_err"] <= LOGIT_MAX_TOL * gap["logit_scale"]
+                and gap["rms_err"] <= LOGIT_RMS_TOL * gap["logit_scale"]):
+            raise AssertionError(f"fsdp {tag} serve rank {r['rank']}: prefill logits "
+                                 f"against one card {gap}")
+        row = {"rank": r["rank"], "rows": r["rows"], "launches": got,
+               "serve_wall_s": r["serve_wall_s"], "collectives": r["collectives"],
+               "prefill_logits_vs_one_card": gap, "token_agreement_vs_one_card": agree,
+               "peak_memory_gb": r["peak_memory_gb"]}
+        if r["k5"] is not None:
+            x = r["k5"]
+            h, h_last = lru_ops.rglru(x["a"].cuda(), x["b"].cuda(), x["h0"].cuda())
+            row["k5_bitwise_one_card"] = bool(torch.equal(h.cpu(), x["h"])
+                                              and torch.equal(h_last.cpu(), x["h_last"]))
+            if not row["k5_bitwise_one_card"]:
+                raise AssertionError(f"fsdp {tag} rank {r['rank']}: K5 on one card differs "
+                                     "from K5 on the rank's rows")
+            c = k5[0]
+            row["k5_path_inputs_bitwise"] = all(torch.equal(c[k], x[k]) for k in ("a", "b", "h0"))
+            row["k5_path_output_bitwise"] = bool(torch.equal(c["h"], x["h"]))
+        fsdp_gathers(tag, r["embed"], dict(zip(("data", "model"), run["mesh"])),
+                     r["collectives"], backward=False)
+        log(f"fsdp {tag} serve rank {r['rank']}: " + json.dumps(row, default=float))
+        out.append(row)
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ranks": out}
+
+
+def fsdp_train_check(torch, tag, run, ranks) -> dict:
+    """Each rank's training: the layout, the first batch's loss falling, the
+    FSDP gathers and reduce-scatters counted; the meshed gradient at the
+    training gates against one card's (and, under fsdp_sp, the dense
+    logits against one card's)."""
+    import numpy as np
+
+    from repro_torch.nn.module import init_params
+
+    for r in ranks:
+        if r["layout"] != run["layout"]:
+            raise AssertionError(f"fsdp {tag} rank {r['rank']}: layout {r['layout']}")
+        before, after = r["first_batch_loss"]
+        if not (np.isfinite(r["losses"]).all() and after < before):
+            raise AssertionError(f"fsdp {tag} rank {r['rank']}: the first batch's loss did "
+                                 f"not fall: {before} -> {after}")
+        fsdp_gathers(tag, r["rules"].get("embed"), r["mesh"], r["collectives_per_run"],
+                     backward=True)
+        log(f"fsdp {tag} train rank {r['rank']}: losses {r['losses']}, first batch "
+            f"{before} -> {after}, {r['step_s']} s a step, {r['profile']}, resident "
+            f"{r['resident']}, peak {r['peak_memory_gb']} GB")
+    one = fsdp_trainer(torch, run, None)
+    params = init_params(one.woven.program.model, 0, one.woven.state.policies, "cuda")
+    mb = first_batch(torch, one)
+    loss, norm, attn = gradient_digest(torch, one.woven, params, mb,
+                                       stack_names(one.woven), run["match"])
+    want = (loss, norm, {k: g.cpu() for k, g in attn.items()})
+    del attn
+    out = {"ranks": [{k: v for k, v in r.items() if k not in ("digest", "logits")}
+                     for r in ranks]}
+    out["gradient_vs_one_card"] = compare_gradients(
+        f"fsdp-{tag}-train", ranks[0]["digest"], want, len(want[2]),
+        gated=run.get("gated", True), labels=("mesh", "one_card"))
+    if run["layout"] == "fsdp_sp":
+        with torch.no_grad():
+            x, _ = one.woven.program.model(params, {"tokens": mb["tokens"][:1]},
+                                           ctx=one.woven.state.make_ctx(), mode="dense")
+        x = x[0, fsdp_logit_positions(mb["tokens"].shape[1])].float().cpu()
+        gaps = []
+        for r in ranks:
+            gap = logit_diff(torch, f"fsdp {tag} rank {r['rank']} logits", r["logits"], x)
+            if not (gap["max_abs_err"] <= LOGIT_MAX_TOL * gap["logit_scale"]
+                    and gap["rms_err"] <= LOGIT_RMS_TOL * gap["logit_scale"]):
+                raise AssertionError(f"fsdp {tag} rank {r['rank']}: logits against one "
+                                     f"card {gap}")
+            gaps.append(gap)
+        out["logits_vs_one_card"] = gaps
+        log(f"fsdp {tag} logits vs one card: {gaps}")
+    del one, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_checks(torch, fsdp_runs, res) -> dict:
+    """The FSDP runs' one-card references, built after the ranks have gone,
+    and their gates: {"fsdp_<tag>": summary}."""
+    out = {}
+    for tag, run in dict(fsdp_runs).items():
+        t1 = time.perf_counter()
+        got = res[tag]
+        out[f"fsdp_{tag}"] = {
+            "arch": run["arch"], "layers": run["layers"], "mesh": list(run["mesh"]),
+            "layout": run["layout"], "rules": run["rules"], "ranks_wall_s": got["rank0_wall_s"],
+            **({"serve": fsdp_serve_check(torch, tag, run, got["serve"])}
+               if "serve" in got else {}),
+            "train": fsdp_train_check(torch, tag, run, got["train"])}
+        out[f"fsdp_{tag}"]["one_card_s"] = time.perf_counter() - t1
     return out
 
 
 def mesh_phase(torch, serve_counts: dict, requests: dict, *, backend: str = "gloo",
-               serve_shape=(1, 2), train_shapes=MESH_TRAIN_SHAPES) -> dict:
+               serve_shape=(1, 2), train_shapes=MESH_TRAIN_SHAPES,
+               fsdp_runs=FSDP_RUNS) -> dict:
     """Phase 12 (see the module docstring): the ranks' runs, then the
     one-card references they are held against, built here after the ranks
-    have gone.  `backend`, `serve_shape` and `train_shapes` default to
-    phase 12's two gloo ranks on one card (`tools/mesh_nccl.py` runs the
-    same phase over NCCL, a card per rank)."""
+    have gone.  `backend`, `serve_shape`, `train_shapes` and `fsdp_runs`
+    default to phase 12's two gloo ranks on one card (`tools/mesh_nccl.py`
+    runs the same phase over NCCL, a card per rank)."""
     from functools import partial
 
     import numpy as np
@@ -5755,8 +6272,8 @@ def mesh_phase(torch, serve_counts: dict, requests: dict, *, backend: str = "glo
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     res = run_on_mesh(partial(mesh_rank, requests["solo"], requests["batch"],
-                              dict(train_shapes)), serve_shape,
-                      backend=backend, device="cuda", timeout_s=600)
+                              dict(train_shapes), dict(fsdp_runs)), serve_shape,
+                      backend=backend, device="cuda", timeout_s=900)
     ranks_s = time.perf_counter() - t0
     summary = {"ranks_wall_s": ranks_s, "backend": backend,
                "serve_mesh": list(serve_shape),
@@ -5834,6 +6351,7 @@ def mesh_phase(torch, serve_counts: dict, requests: dict, *, backend: str = "glo
         summary[f"train_gemma2b_{tag}"]["gradient_vs_one_card"] = compare_gradients(
             f"mesh-train-{tag}", res[tag]["digest"], want, 4, labels=("mesh", "one_card"))
     summary["depth_gemma2b"] = MESH_TRAIN_DEPTH
+    summary.update(fsdp_checks(torch, fsdp_runs, res))
     summary["seconds"] = time.perf_counter() - t0
     log("mesh " + json.dumps(summary, default=float))
     return summary
@@ -5966,7 +6484,13 @@ def run(torch, build, t_start) -> int:
                 **{f"mesh_train_gemma2b_{tag}_rank{r['rank']}_last_step":
                    {**r["launches_per_step"], **r["routes_per_step"]}.get(key, 0)
                    for tag in MESH_TRAIN_SHAPES
-                   for r in mesh[f"train_gemma2b_{tag}"]["ranks"]}}
+                   for r in mesh[f"train_gemma2b_{tag}"]["ranks"]},
+                **{f"mesh_fsdp_{tag}_serve_rank{r['rank']}": r["launches"].get(key, 0)
+                   for tag in FSDP_RUNS if "serve" in mesh[f"fsdp_{tag}"]
+                   for r in mesh[f"fsdp_{tag}"]["serve"]["ranks"]},
+                **{f"mesh_fsdp_{tag}_train_rank{r['rank']}_last_step":
+                   {**r["launches_per_step"], **r["routes_per_step"]}.get(key, 0)
+                   for tag in FSDP_RUNS for r in mesh[f"fsdp_{tag}"]["train"]["ranks"]}}
 
     # K2's single-token launches (all but widened q) and, of those, the split
     # route's (the rest run the FMA body)

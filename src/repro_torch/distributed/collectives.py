@@ -7,19 +7,25 @@ them for the reference's Megatron layout: an all-reduce after each
 row-parallel product and the vocab-sharded embedding, the log-sum-exp of
 the vocab-sharded loss, a gather of K/V heads that a tensor-parallel axis
 splits, the data-parallel mean of the gradients, and rank 0's host
-decisions broadcast to every rank.
+decisions broadcast to every rank.  Under the FSDP layouts a weight's
+`embed` dim is split as well: `fsdp_gather` puts it together where it is
+used, and its backward hands each rank its block of the gradient summed
+over the gather's axes (a reduce-scatter).
 
 On an axis of one rank (or no mesh) every function returns its input.  The
 gloo backend reduces 16-bit floats in fp32 (exact where one rank holds the
 only non-zero term, as the vocab-sharded embedding's rows do; one rounding
 where partial products add).  gloo moves CUDA tensors for all-reduce and
 broadcast only, so an all-gather of CUDA tensors over gloo is staged through
-the host.
+pinned host buffers, and gloo's reduce-scatter is written as
+point-to-point sends of each rank's block (gloo has no reduce-scatter of
+its own in every torch).
 
 Every call is counted, by kind and by axis, with the bytes each rank sent
 (`counts`, `reset_counts`): the port's form of the reference's
-`parse_collectives(...).counts`.  The counts are this process's, i.e. one
-rank's.
+`parse_collectives(...).counts`.  FSDP's traffic is counted apart from
+Megatron's, as the kinds `fsdp_gather` and `fsdp_reduce_scatter`.  The
+counts are this process's, i.e. one rank's.
 """
 
 from __future__ import annotations
@@ -40,10 +46,11 @@ def reset_counts() -> None:
     _COUNTS.clear()
 
 
-def _count(kind: str, axis: str, t: torch.Tensor) -> None:
+def _count(kind: str, axis: str, t: torch.Tensor, share: float = 1.0) -> None:
+    """One call of `kind` over `axis` that sent `share` of `t`'s bytes."""
     row = _COUNTS.setdefault(kind, {}).setdefault(axis, {"calls": 0, "bytes": 0})
     row["calls"] += 1
-    row["bytes"] += t.numel() * t.element_size()
+    row["bytes"] += int(t.numel() * t.element_size() * share)
 
 
 def _dist():
@@ -68,20 +75,80 @@ def all_reduce(x: torch.Tensor, mesh: Mesh | None, axis: str, op: str = "sum") -
     return out.to(x.dtype) if widen else out
 
 
-def all_gather(x: torch.Tensor, mesh: Mesh | None, axis: str, dim: int) -> torch.Tensor:
+def _pinned(x: torch.Tensor) -> torch.Tensor:
+    """A host copy of a CUDA tensor in page-locked memory (PyTorch's
+    caching host allocator keeps and reuses the buffers): the copies to and
+    from the card run at the link's rate, not at pageable memory's."""
+    buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    return buf.copy_(x)
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh | None, axis: str, dim: int,
+               kind: str = "all_gather") -> torch.Tensor:
     """The ranks' `x` along `axis`, concatenated on `dim` in rank order, on
-    every rank: bit for bit each rank's block."""
+    every rank: bit for bit each rank's block.  Counted under `kind`.  A
+    CUDA tensor over gloo goes through pinned host buffers, and only the
+    other ranks' blocks come back to the card."""
     if not is_parallel(mesh, axis):
         return x
     dist = _dist()
     staged = mesh.backend == "gloo" and x.device.type == "cuda"
-    src = (x.cpu() if staged else x).contiguous()
+    src = _pinned(x.contiguous()) if staged else x.contiguous()
     raw = src.view(torch.uint8)  # a gather copies bits, whatever the type
-    parts = [torch.empty_like(raw) for _ in range(mesh.shape[axis])]
+    parts = [torch.empty(raw.shape, dtype=torch.uint8, device=raw.device, pin_memory=staged)
+             for _ in range(mesh.shape[axis])]
     dist.all_gather(parts, raw, group=mesh.group(axis))
-    _count("all_gather", axis, raw)
-    out = torch.cat([p.view(src.dtype) for p in parts], dim=dim)
-    return out.to(x.device) if staged else out
+    _count(kind, axis, raw)
+    if not staged:
+        return torch.cat([p.view(src.dtype) for p in parts], dim=dim)
+    n, me = x.shape[dim], mesh.coord(axis)
+    shape = list(x.shape)
+    shape[dim] = n * len(parts)
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    for j, p in enumerate(parts):
+        out.narrow(dim, j * n, n).copy_(x if j == me else p.view(x.dtype))
+    return out
+
+
+def reduce_scatter(x: torch.Tensor, mesh: Mesh | None, axis: str, dim: int) -> torch.Tensor:
+    """This rank's block on `dim` of the sum of `x` over the ranks of
+    `axis` (the blocks in rank order, as `all_gather` joins them).  NCCL
+    reduce-scatters; over gloo each rank sends every other rank that rank's
+    block and adds the blocks it receives to its own (16-bit floats sent
+    as they are and added in fp32; a CUDA tensor's blocks staged through
+    pinned host buffers and added on the card)."""
+    if not is_parallel(mesh, axis):
+        return x
+    dist = _dist()
+    n, me, group = mesh.shape[axis], mesh.coord(axis), mesh.group(axis)
+    size = x.shape[dim] // n
+    _count("fsdp_reduce_scatter", axis, x, (n - 1) / n)  # every block but its own
+    if mesh.backend == "nccl":
+        src = x.movedim(dim, 0).contiguous()
+        out = torch.empty((size, *src.shape[1:]), dtype=src.dtype, device=src.device)
+        dist.reduce_scatter_tensor(out, src, group=group)
+        return out.movedim(0, dim).contiguous()
+    staged = x.device.type == "cuda"
+    blocks = list(x.split(size, dim))
+    got = [None] * n
+    ops = []
+    for j in range(n):
+        if j != me:
+            peer = dist.get_global_rank(group, j)
+            send = _pinned(blocks[j].contiguous()) if staged else blocks[j].contiguous()
+            got[j] = torch.empty(send.shape, dtype=send.dtype, pin_memory=staged)
+            ops += [dist.P2POp(dist.isend, send, peer, group),
+                    dist.P2POp(dist.irecv, got[j], peer, group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    # the blocks move as they are; the sum is taken in fp32 for 16-bit floats,
+    # on the tensor's own device
+    widen = x.dtype in (torch.bfloat16, torch.float16)
+    mine = blocks[me].to(torch.float32) if widen else blocks[me].clone()
+    for j in range(n):
+        if j != me:
+            mine += got[j].to(x.device)
+    return mine.to(x.dtype) if widen else mine
 
 
 def broadcast(x: torch.Tensor, mesh: Mesh | None, axis: str | None = None) -> torch.Tensor:
@@ -158,6 +225,29 @@ class _GatherFrom(torch.autograd.Function):
         return mine.contiguous(), None, None, None
 
 
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return all_gather(x, mesh, axis, dim, kind="fsdp_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g.contiguous(), ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+class _SeqBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        n = x.shape[dim] // mesh.shape[axis]
+        return x.narrow(dim, mesh.coord(axis) * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
 def copy_to(x: torch.Tensor, mesh: Mesh | None, axis: str) -> torch.Tensor:
     """Identity forward; the gradient all-reduced over `axis`.  Where a
     replicated activation enters column-parallel products."""
@@ -180,3 +270,27 @@ def gather_from(x: torch.Tensor, mesh: Mesh | None, axis: str, dim: int) -> torc
     if not is_parallel(mesh, axis):
         return x
     return _GatherFrom.apply(x, mesh, axis, dim)
+
+
+def fsdp_gather(x: torch.Tensor, mesh: Mesh | None, axes: tuple[str, ...],
+                dim: int) -> torch.Tensor:
+    """A weight's FSDP block made whole on `dim`, split there over `axes`
+    (row-major, as `sharding.local_shard` splits it): gathered over the
+    innermost axis first.  Backward: this rank's block of the gradient
+    summed over `axes` (a reduce-scatter per axis, outermost first), so the
+    gradient of an FSDP leaf comes out already summed over the ranks of
+    `axes`."""
+    for axis in reversed(axes):
+        if is_parallel(mesh, axis):
+            x = _FsdpGather.apply(x, mesh, axis, dim)
+    return x
+
+
+def seq_block(x: torch.Tensor, mesh: Mesh | None, axis: str, dim: int) -> torch.Tensor:
+    """This rank's block on `dim` of a tensor every rank of `axis` holds
+    whole and alike (the sequence-parallel split of a replicated activation);
+    backward: the ranks' gradient blocks gathered, so every rank holds the
+    whole tensor's gradient, as it holds the whole tensor."""
+    if not is_parallel(mesh, axis):
+        return x
+    return _SeqBlock.apply(x, mesh, axis, dim)

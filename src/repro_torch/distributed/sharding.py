@@ -15,8 +15,12 @@ spec places the whole tensor on the card (`checkpoint/checkpointer.place`);
 on the abstract production meshes the same rules give the per-device shapes
 the dry run's memory arithmetic reads; on a live mesh (`launch/mesh.make_mesh`)
 `local_shard` takes each rank's block and `gather_shards` puts the blocks
-back together.  A live mesh runs the Megatron layout only (`megatron_tp`,
-`embed` unsharded): `check_layout` refuses the FSDP layouts.
+back together.  A live mesh runs AutoShard's three layouts (`check_layout`
+says what it still refuses): Megatron's (`megatron_tp`, its `embed` whole or
+split over the batch axes), `dp_fsdp` and `fsdp_sp`.  A weight split on its
+`embed` dim is an FSDP block: `gather_plan` lists those dims, and the model
+gathers them where the weight is used (`gather_tree`), never keeping a
+gathered copy.
 
 Everything here is shape-aware: a dim smaller than its mesh-axis extent is
 left unsharded rather than relying on padding for parameters.
@@ -30,7 +34,7 @@ from typing import Any, Mapping
 import torch
 
 from repro_torch.launch.mesh import Mesh, is_live
-from repro_torch.nn.module import Module, flatten_specs, param_axes
+from repro_torch.nn.module import Module, _flat_leaves, flatten_specs, param_axes
 
 Spec = tuple  # per-dim entries: None | mesh axis | tuple of mesh axes
 
@@ -102,9 +106,11 @@ class NamedSharding:
     def shard_shape(self, global_shape: tuple[int, ...]) -> tuple[int, ...]:
         return shard_shape(global_shape, self.spec, self.mesh)
 
-    def splits(self, axis: str) -> bool:
-        """Whether a dim of the tensor is split over the mesh axis `axis`."""
-        return any(axis in _axes_tuple(entry) for entry in self.spec)
+    def axes(self) -> tuple[str, ...]:
+        """Every mesh axis of more than one rank some dim of the tensor is
+        split over (`data`, `model` or both), in the spec's order."""
+        return tuple(a for entry in self.spec for a in _axes_tuple(entry)
+                     if self.mesh.shape.get(a, 1) > 1)
 
 
 def param_shardings(model: Module, mesh: Mesh, rules: Mapping[str, Any]):
@@ -245,23 +251,130 @@ def tree_shards(tree, shardings, fn):
     return fn(tree, shardings)
 
 
+# ---------------------------------------------------------------------------
+# FSDP: weights gathered where they are used
+# ---------------------------------------------------------------------------
+
+FSDP_AXIS = "embed"  # the logical axis every FSDP layout splits
+
+
+def gather_plan(model: Module, mesh: Mesh, rules: Mapping[str, Any]):
+    """A tree shaped like the param tree: for each leaf, `((dim, axes),
+    ...)` — the dims whose logical axis is `embed` and which the rules
+    split on the live `mesh`, with the axes they are split over.  None when
+    no leaf has one (Megatron's layout with `embed` whole): nothing is
+    gathered then.  Cached on the model per mesh and rules."""
+    if not is_live(mesh):
+        return None
+    key = (mesh.axis_names, mesh.axis_sizes, mesh.coords,
+           tuple(sorted((k, repr(v)) for k, v in rules.items())))
+    cache = model.__dict__.setdefault("_gather_plans", {})
+    if key not in cache:
+        shardings = param_shardings(model, mesh, rules)
+
+        def walk(sh, axes):
+            if isinstance(sh, Mapping):
+                return {k: walk(sh[k], axes[k]) for k in sh}
+            return tuple((d, _axes_tuple(entry)) for d, (entry, name)
+                         in enumerate(zip(sh.spec, axes))
+                         if name == FSDP_AXIS and entry is not None)
+
+        plan = walk(shardings, param_axes(model))
+        cache[key] = plan if any(_flat_leaves(plan)) else None
+    return cache[key]
+
+
+def gather_tree(tree, plan, mesh: Mesh | None, lead: int = 0):
+    """`tree` with every FSDP dim of `plan` gathered (differentiably:
+    `collectives.fsdp_gather`).  `lead`: the leading dims the leaves have
+    lost against the plan's (1 for one layer's slice of a stacked tree).
+    A None plan returns `tree` itself."""
+    if plan is None or tree is None:
+        return tree
+    from repro_torch.distributed.collectives import fsdp_gather
+
+    if isinstance(tree, Mapping):
+        return {k: gather_tree(v, plan[k], mesh, lead) for k, v in tree.items()}
+    for dim, axes in plan:
+        tree = fsdp_gather(tree, mesh, axes, dim - lead)
+    return tree
+
+
+def seq_axis(mesh: Mesh | None, rules: Mapping[str, Any]) -> str | None:
+    """The mesh axis `fsdp_sp` splits the residual stream's sequence over
+    (`res_seq`), when it spans ranks of a live mesh; else None."""
+    axes = _axes_tuple(rules.get("res_seq"))
+    if len(axes) == 1 and is_live(mesh) and mesh.shape.get(axes[0], 1) > 1:
+        return axes[0]
+    return None
+
+
+def live_axes(mesh: Mesh, value) -> tuple[str, ...]:
+    """The axes of a rule's value that span more than one rank of `mesh`."""
+    return tuple(a for a in _axes_tuple(value) if mesh.shape.get(a, 1) > 1)
+
+
+def grad_axes(mesh: Mesh, rules: Mapping[str, Any]) -> tuple[tuple[str, ...], int]:
+    """(the axes a gradient is summed over, the count it is divided by):
+    the axes whose ranks hold other tokens — the batch's, and under
+    `fsdp_sp` the sequence's — and the extent of the batch's axes, over
+    which the ranks' losses are the terms of the mean (the ranks of a
+    sequence-parallel axis add up one loss)."""
+    batch = live_axes(mesh, rules.get("batch"))
+    seq = seq_axis(mesh, rules)
+    axes = batch + ((seq,) if seq and seq not in batch else ())
+    return axes, _mesh_extent(mesh, batch)
+
+
 MESH_LAYOUTS_ITEM = "ROADMAP Queue 1 item 15a"
+SEQ_CACHE_ITEM = "ROADMAP Queue 1 item 15a-ii"
 
 
-def check_layout(mesh: Mesh | None, rules: Mapping[str, Any], layout: str | None = None) -> None:
-    """A live mesh of more than one rank runs the Megatron layout
-    (`megatron_tp`: batch over data, heads / kv_heads / mlp / vocab over
-    model, `embed` whole).  The FSDP layouts — `fsdp_sp`, `dp_fsdp`, or any
-    rule that shards a weight's `embed` axis — raise."""
+def check_layout(mesh: Mesh | None, rules: Mapping[str, Any], layout: str | None = None,
+                 *, serving: bool = False) -> None:
+    """A live mesh of more than one rank runs AutoShard's three layouts:
+    `megatron_tp` (its `embed` whole or split over the batch's axes),
+    `dp_fsdp` and `fsdp_sp` for training.  It refuses `fsdp_sp` serving
+    (sequence-sharded KV caches), the Korthikanti residuals under Megatron,
+    an FSDP split over an axis whose ranks hold the same tokens (its
+    gathered gradient would add copies), and rules no layout of AutoShard
+    sets (a split layer stack or expert axis)."""
     if not is_live(mesh):
         return
-    if layout not in (None, "megatron_tp"):
-        raise NotImplementedError(
-            f"the {layout!r} layout on a live mesh: only megatron_tp runs there "
-            f"({MESH_LAYOUTS_ITEM}: the FSDP layouts)")
-    for key in ("embed", "layers", "experts", "kv_seq", "seq_act", "res_seq"):
-        if any(a in mesh.shape and mesh.shape[a] > 1 for a in _axes_tuple(rules.get(key))):
+    layout = layout or "megatron_tp"
+    if layout not in ("megatron_tp", "dp_fsdp", "fsdp_sp"):
+        raise ValueError(f"unknown layout {layout!r}")
+    for key in ("layers", "experts"):
+        if live_axes(mesh, rules.get(key)):
             raise NotImplementedError(
-                f"rule {key!r} -> {rules.get(key)!r} shards over a live mesh axis: "
-                f"only the Megatron layout runs there ({MESH_LAYOUTS_ITEM}: the FSDP "
-                "and sequence-sharded layouts)")
+                f"rule {key!r} -> {rules.get(key)!r} shards over a live mesh axis: no "
+                "layout of AutoShard splits it (ROADMAP Queue 1 item 15b)")
+    if layout == "fsdp_sp":
+        if serving:
+            raise NotImplementedError(
+                f"serving under fsdp_sp on a live mesh: its KV caches and pools are "
+                f"sequence-sharded (kv_seq) ({SEQ_CACHE_ITEM})")
+        if seq_axis(mesh, rules) is None or live_axes(mesh, rules.get("seq_act")) != \
+                live_axes(mesh, rules.get("res_seq")):
+            raise NotImplementedError(
+                "fsdp_sp on a live mesh splits the residual stream and the activations "
+                f"over one axis (res_seq == seq_act): {dict(rules)}")
+        for key in ("heads", "kv_heads", "mlp"):
+            if live_axes(mesh, rules.get(key)):
+                raise NotImplementedError(
+                    f"fsdp_sp with rule {key!r} -> {rules.get(key)!r}: its blocks' "
+                    "weights are whole or FSDP blocks, not tensor-parallel")
+    else:
+        for key in ("kv_seq", "seq_act", "res_seq"):
+            if live_axes(mesh, rules.get(key)):
+                raise NotImplementedError(
+                    f"rule {key!r} -> {rules.get(key)!r} under {layout}: sequence-"
+                    f"sharded residuals and caches run under fsdp_sp's training only "
+                    f"({SEQ_CACHE_ITEM})")
+    tokens, _ = grad_axes(mesh, rules)
+    stray = [a for a in live_axes(mesh, rules.get(FSDP_AXIS)) if a not in tokens]
+    if stray:
+        raise NotImplementedError(
+            f"rule 'embed' -> {rules.get(FSDP_AXIS)!r} under {layout}: an FSDP split over "
+            f"{stray}, whose ranks hold the same tokens, would add the copies of one "
+            f"gradient ({MESH_LAYOUTS_ITEM})")

@@ -97,7 +97,8 @@ def _stream(server: Server, prompts, args) -> None:
 
 def build_woven(arch: str, *, reduced: bool, device: str, mesh=None):
     """`Program.from_arch` -> `default_weave`, with the CUDA kernel aspects
-    on the card, laid out for `mesh` (a live one: this rank's)."""
+    on the card, laid out for `mesh` (a live one: this rank's) as AutoShard
+    picks — `dp_fsdp` for the recurrent families."""
     program = Program.from_arch(arch, kind="serve", reduced=reduced, device=device)
     extra = cuda_kernel_aspects() if program.device.type == "cuda" else None
     return default_weave(program, SHAPES["prefill_32k"],

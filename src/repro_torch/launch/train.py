@@ -71,7 +71,9 @@ def program_trainer(program: Program, *, batch: int, seq: int, mode: str = "lcg"
     """A trainer over a built `program` (a published config, or one cut in
     depth): `default_weave` for the train shape, the attention kernels
     woven on the card, the token pipeline at (batch, seq) — on `mesh`, this
-    rank's trainer of a live mesh."""
+    rank's trainer of a live mesh, laid out as AutoShard picks or as
+    `overrides` (`rules`) and `extra_aspects` (an `AutoShard(layout=...)`)
+    say."""
     aspects = list(extra_aspects or [])
     if program.device.type == "cuda":
         aspects = train_kernel_aspects() + aspects

@@ -22,7 +22,16 @@ straight into its page pools), "decode" (S >= 1 tokens against the cache).
 On a live mesh the logits come back as the rank's block of the vocab
 (`whole_logits` gathers them); `vocab_cross_entropy` and `greedy_argmax`
 read them where they lie, with the max and the sums all-reduced over
-`model`.
+`model`.  Under an FSDP layout every weight split on its `embed` dim is
+gathered where it is used (`sharding.gather_plan`): the embedding table,
+`ln0`, the final norm and the head at their call, a layer stack's blocks
+layer by layer, the hybrid's unrolled blocks block by block.  Under
+`fsdp_sp` (`sharding.seq_axis`) the residual stream is the rank's block of
+the sequence: the vocab-split embedding looks up the whole sequence of the
+rank's rows and keeps its block (`collectives.seq_block`), attention runs
+on the gathered sequence (`nn/attention.py`), and the final norm's output
+is gathered back so that the vocab-split logits cover the whole sequence,
+as GSPMD lays out the reference's `res_seq` / `seq_act` / `vocab` rules.
 
 Caches are plain dicts of tensors, with a leading per-layer dim per stack;
 a decode step (and a paged prefill) updates the KV cache tensors it is given
@@ -36,7 +45,9 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.collectives import all_gather, all_reduce, reduce_from
+from repro_torch.distributed.collectives import (all_gather, all_reduce, gather_from,
+                                                reduce_from, seq_block)
+from repro_torch.distributed.sharding import SEQ_CACHE_ITEM, gather_plan, gather_tree, seq_axis
 from repro_torch.nn.attention import Attention, cache_spec
 from repro_torch.nn.blocks import MLP, Embedding, LayerNorm, Linear, RMSNorm
 from repro_torch.nn.module import Ctx, Module
@@ -288,11 +299,17 @@ class TransformerLM(Module):
                 skip_cache_write: bool = False):
         tokens = inputs["tokens"]
         B = tokens.shape[0]
-        x = self.embed(params["embed"], tokens, ctx=ctx)
+        plan = gather_plan(self, ctx.mesh, ctx.rules)
+        sp = seq_axis(ctx.mesh, ctx.rules)
+
+        def whole(key):  # a top-level weight, its FSDP dims gathered at use
+            return gather_tree(params[key], plan and plan[key], ctx.mesh)
+
+        x = self.embed(whole("embed"), tokens, ctx=ctx)
         if self.cfg.family == "vlm" and "embeds" in inputs:
             x = torch.cat([inputs["embeds"].to(x.dtype), x], dim=1)
         if self.ln0 is not None:
-            x = self.ln0(params["ln0"], x, ctx=ctx)
+            x = self.ln0(whole("ln0"), x, ctx=ctx)
         x = ctx.constrain(x, ("batch", "res_seq", "embed"))
 
         S = x.shape[1]
@@ -304,6 +321,8 @@ class TransformerLM(Module):
                 raise ValueError("paged prefill with a shared prefix needs "
                                  "explicit (prefix-offset) positions")
             positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+        if sp is not None:
+            x, positions = self._seq_block(x, positions, params, ctx, sp, mode)
 
         new_caches: dict[str, Any] = {}
         # Hoisted linear-cache decode positions: updated ONCE per step (an
@@ -354,14 +373,21 @@ class TransformerLM(Module):
                     attn_kw = {"block_kwargs": shared}
                 elif shared and isinstance(part, DecoderBlock):
                     attn_kw = shared
+                part_plan = plan and plan[part.name]
+                stacked = isinstance(part, ScannedStack)
+                if stacked:
+                    attn_kw["gather"] = part_plan
                 if remat_unrolled:
-                    def call(p, h, _part=part):
+                    def call(p, h, _part=part, _plan=part_plan):
+                        p = gather_tree(p, _plan, ctx.mesh)
                         return _part(p, h, ctx=ctx, mode=mode, positions=positions)[0]
 
                     x = remat_call(call, params[part.name], x, policy="full", ctx=ctx)
                     c = None
                 else:
-                    x, c = part(params[part.name], x, ctx=ctx, mode=mode,
+                    p = params[part.name] if stacked else gather_tree(
+                        params[part.name], part_plan, ctx.mesh)
+                    x, c = part(p, x, ctx=ctx, mode=mode,
                                 cache=part_cache, positions=positions, **attn_kw)
                 new_caches[part.name] = c
         if mode == "prefill":
@@ -371,15 +397,44 @@ class TransformerLM(Module):
 
         if mode == "prefill":
             x = x[:, -1:]
-        x = self.final_norm(params["final_norm"], x, ctx=ctx)
+        x = self.final_norm(whole("final_norm"), x, ctx=ctx)
+        if sp is not None:  # the vocab-split logits cover the whole sequence
+            x = gather_from(x, ctx.mesh, sp, 1)
         if self.head is not None:
-            logits = self.head(params["head"], x, ctx=ctx)
+            logits = self.head(whole("head"), x, ctx=ctx, entered=sp is not None)
         else:
-            logits = self.embed.attend(params["embed"], x, ctx=ctx)
+            logits = self.embed.attend(whole("embed"), x, ctx=ctx, entered=sp is not None)
         logits = ctx.constrain(logits, ("batch", "res_seq", "vocab"))
         if mode == "dense":
             return logits, None
         return logits, new_caches
+
+    def _seq_block(self, x, positions, params, ctx: Ctx, sp: str, mode: str):
+        """`fsdp_sp`: this rank's block of the sequence of the embedded
+        tokens and of their positions.  The embedding's rows were added over
+        the vocab blocks, so every rank holds them alike, and the block's
+        gradient is gathered back whole (`seq_block`): each rank's vocab
+        block of the table then sees every token's gradient, as the
+        logits, computed on the whole sequence, do."""
+        if mode != "dense":
+            raise NotImplementedError(
+                f"serving under fsdp_sp on a live mesh: its KV caches are "
+                f"sequence-sharded (kv_seq) ({SEQ_CACHE_ITEM})")
+        n = ctx.mesh.shape[sp]
+        if x.shape[1] % n:
+            raise ValueError(f"fsdp_sp splits the sequence over {sp!r}: {x.shape[1]} "
+                             f"tokens do not divide into {n} blocks")
+        rows = params["embed"]["table"].shape[0]
+        head = params.get("head")
+        if rows == self.cfg.vocab or (head is not None
+                                      and head["w"].shape[-1] == self.cfg.vocab):
+            raise NotImplementedError(
+                f"fsdp_sp on a live mesh with a vocab of {self.cfg.vocab} that does not "
+                f"split over {sp!r}: the embedding's and the logits' gradients would "
+                "be partial sums of another kind than the blocks'")
+        size = x.shape[1] // n
+        return (seq_block(x, ctx.mesh, sp, 1),
+                positions.narrow(1, ctx.mesh.coord(sp) * size, size))
 
     # -- roofline components ---------------------------------------------------
 

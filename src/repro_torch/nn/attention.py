@@ -38,6 +38,14 @@ where they do not (gemma-2b's one KV head on two ranks, AutoShard's
 keeps the heads its q heads read (`_maybe_expand_kv`).  The kernels run on
 these local tensors, and the output projection's partial products add over
 `model`.
+
+Under `fsdp_sp` (`sharding.seq_axis`) a rank holds its block of the
+sequence and the whole weights (FSDP-gathered by the model).  Attention
+gathers q / k / v over the sequence axis, runs on the whole sequence of the
+rank's rows (K1 with its lse, K3 in the backward) and keeps the rank's
+block of the output, as the reference's `shard_map` does where the heads do
+not divide `model`: there q is replicated over `model` on the whole
+sequence.
 """
 
 from __future__ import annotations
@@ -47,7 +55,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.distributed.collectives import copy_to, gather_from
+from repro_torch.distributed.collectives import all_gather, copy_to, gather_from
+from repro_torch.distributed.sharding import seq_axis
 from repro_torch.kernels.flash_attention.ops import (
     dequantize_kv,
     flash_attention,
@@ -342,7 +351,15 @@ class Attention(Module):
             q = apply_rope(q, sin, cos)
             k = apply_rope(k, sin, cos)
 
-        out = self._attend_dense(q, k, v, positions, ctx, policy)
+        sp = seq_axis(ctx.mesh, ctx.rules)
+        if sp is None:
+            out = self._attend_dense(q, k, v, positions, ctx, policy)
+        else:  # fsdp_sp: the whole sequence, then this rank's block of it
+            S = q.shape[1]
+            q, k, v = (gather_from(t, ctx.mesh, sp, 1) for t in (q, k, v))
+            out = self._attend_dense(q, k, v, all_gather(positions, ctx.mesh, sp, 1),
+                                     ctx, policy)
+            out = out.narrow(1, ctx.mesh.coord(sp) * S, S)
 
         new_cache = None
         if mode == "prefill":  # the cache stores true KV heads

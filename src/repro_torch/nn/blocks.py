@@ -10,7 +10,11 @@ whose output dim is split is column-parallel (its replicated input enters
 through `collectives.copy_to`), one whose input dim is split is
 row-parallel (its partial products add over `model`); a vocab-split
 `Embedding` looks up the ids of its rows and adds over `model`, and its
-tied head gives the rank's vocab block of the logits.
+tied head gives the rank's vocab block of the logits.  Under an FSDP
+layout a block is handed its parameters with their `embed` dims already
+gathered (`models/lm.py`, `nn/stack.py`), so these shape tests read
+Megatron's splits alone: a weight whose `embed` (input) dim were still an
+FSDP block would read as row-parallel.
 """
 
 from __future__ import annotations
@@ -69,7 +73,8 @@ class Linear(Module):
 
     def forward(self, params, x, *, ctx: Ctx, entered: bool = False):
         """`entered`: x already went through `copy_to` (the MLP's two
-        column-parallel products share one)."""
+        column-parallel products share one), or its gradient is summed over
+        `model` where it was made (the sequence gathered under `fsdp_sp`)."""
         with ctx.scope(self.name):
             policy = ctx.policy()
             w = params["w"]
@@ -181,13 +186,15 @@ class Embedding(Module):
                                      device=x.device)
             return ctx.constrain(x, ("batch", "res_seq", "embed"))
 
-    def attend(self, params, x, *, ctx: Ctx):
+    def attend(self, params, x, *, ctx: Ctx, entered: bool = False):
         """Logits = x @ table.T (tied output head), in the accumulation
-        dtype; on a vocab-split table, this rank's block of them."""
+        dtype; on a vocab-split table, this rank's block of them.
+        `entered`: x's gradient is already summed over `model` where it was
+        made (the sequence gathered under `fsdp_sp`), so no `copy_to`."""
         with ctx.scope(self.name):
             policy = ctx.policy()
             table = cast(params["table"], policy.compute_dtype)
-            if table.shape[0] != self.vocab:
+            if table.shape[0] != self.vocab and not entered:
                 x = copy_to(x, ctx.mesh, "model")
             logits = torch.matmul(cast(x, policy.compute_dtype), table.T)
             logits = cast(logits, policy.accum_dtype)

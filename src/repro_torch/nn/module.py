@@ -103,8 +103,9 @@ class Ctx:
     *reads* it.  `mesh` is None, a mesh of one device
     (`launch/mesh.make_card_mesh`) or a live mesh of several ranks
     (`launch/mesh.make_mesh`), on which the model computes each rank's shard
-    (the parameters' local blocks, `distributed/sharding.local_shard`) and
-    the blocks call the collectives.  `constrain` is the identity either
+    (the parameters' local blocks, `distributed/sharding.local_shard`; an
+    FSDP block gathered where it is used, `sharding.gather_plan`) and the
+    blocks call the collectives.  `constrain` is the identity either
     way: a tensor already is the block its rank holds.  An abstract mesh of
     more than one device has no ranks and raises.
     """

@@ -26,6 +26,11 @@ autograd function is opaque to the rule: the attention kernel's
 but `"none"`, so K1 launches twice a layer under `"full"`, `"dots"` and
 `"dots_no_batch"` alike.
 
+Under an FSDP layout on a live mesh (`gather=`, the stack's part of
+`distributed/sharding.gather_plan`) each layer's parameter slices are
+gathered at the top of the layer and dropped with it: under remat the
+recompute gathers them again, as GSPMD does for the reference.
+
 Joinpoint view: the stack exposes its *template* block (one joinpoint stands
 for all layers in the group).  Models that need per-layer-group weaving
 split the trunk into several ScannedStack groups (see configs.layer_groups).
@@ -40,6 +45,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.distributed.sharding import gather_tree
 from repro_torch.nn.module import Ctx, Module, ParamSpec, _walk_spec
 
 _aten = torch.ops.aten
@@ -168,9 +174,11 @@ class ScannedStack(Module):
         cache: Any = None,  # per-layer tree with leading n_layers dim
         positions=None,
         block_kwargs: dict | None = None,
+        gather: Any = None,  # FSDP: the stack's part of the gather plan
     ):
         with ctx.scope(self.name):
             stacked = params[self._block_name]
+            plan = None if gather is None else gather[self._block_name]
             block_kwargs = dict(block_kwargs or {})
             block = self.template
 
@@ -181,8 +189,11 @@ class ScannedStack(Module):
             ctx.taps_enabled = []
             remat = remat_policy(ctx, mode)
 
+            def whole(layer_params):
+                return gather_tree(layer_params, plan, ctx.mesh, lead=1)
+
             def run_layer(layer_params, h):
-                out, _ = block(layer_params, h, ctx=ctx, mode=mode,
+                out, _ = block(whole(layer_params), h, ctx=ctx, mode=mode,
                                positions=positions, **block_kwargs)
                 return out.to(h.dtype)
 
@@ -198,7 +209,7 @@ class ScannedStack(Module):
                         new_caches.append(None)
                         continue
                     out, layer_cache = block(
-                        layer_params, x, ctx=ctx, mode=mode,
+                        whole(layer_params), x, ctx=ctx, mode=mode,
                         cache=_layer(cache, i), positions=positions,
                         **block_kwargs,
                     )

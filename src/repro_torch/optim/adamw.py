@@ -57,21 +57,23 @@ def init_state(params, cfg: AdamWConfig) -> dict:
 
 def global_norm(tree, mesh=None, split=None) -> torch.Tensor:
     """sqrt of the sum over leaves of sum(g^2), in fp32 (one leaf's square
-    at a time).  On a live mesh, `split[i]` says leaf i is a rank's block of
-    a leaf split over `model`: those squares are summed over `model` (one
-    all-reduce for all of them), and a replicated leaf counts once."""
-    total = 0.0
-    parts = 0.0
+    at a time).  On a live mesh, `split[i]` holds the mesh axes leaf i is
+    split over (a Megatron block over `model`, an FSDP block over `data`
+    and / or `model`): its squares are summed over those axes (one
+    all-reduce per axis for all the leaves split alike), and a replicated
+    leaf counts once."""
+    parts: dict[tuple, torch.Tensor | float] = {}
     for i, g in enumerate(leaves(tree)):
-        sq = torch.sum(torch.square(g.to(torch.float32)))
-        if split is not None and split[i]:
-            parts = parts + sq
-        else:
-            total = total + sq
-    if split is not None and any(split):
+        axes = tuple(split[i]) if split is not None else ()
+        parts[axes] = parts.get(axes, 0.0) + torch.sum(torch.square(g.to(torch.float32)))
+    total = parts.pop((), 0.0)
+    if parts:
         from repro_torch.distributed.collectives import all_reduce
 
-        total = total + all_reduce(parts, mesh, "model")
+        for axes, sq in parts.items():
+            for a in axes:
+                sq = all_reduce(sq, mesh, a)
+            total = total + sq
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
@@ -109,7 +111,9 @@ def apply_updates(params, grads, state, cfg: AdamWConfig, lr, *, mesh=None,
     (converted one leaf at a time) or fp32 (donated: scaled in place).  A
     leaf is updated `UPDATE_SLICE` elements at a time: the update is
     elementwise, so the slices give the whole leaf's bits.  `mesh` and
-    `split`: the clipping norm of a live mesh's shards (`global_norm`)."""
+    `split`: the clipping norm of a live mesh's shards (`global_norm`).
+    The state lives per shard: master, m and v are shaped like the rank's
+    blocks."""
     flat_g = leaves(grads)
     gnorm = global_norm(grads, mesh, split)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)

@@ -24,7 +24,12 @@ the same server over its shards of the weights and of the KV heads (its
 page pool holds its local heads): the steps hand back whole logits, and
 every host decision — the sampled tokens, mARGOt's knobs, memo hits,
 deadline sweeps, the tuned kernel knobs — is rank 0's, broadcast, so the
-ranks schedule alike and meet in every collective.  Speculative decoding,
+ranks schedule alike and meet in every collective.  Under `dp_fsdp` (the
+recurrent families) the requests' rows are split over the batch's axes
+instead, shape-guarded as `sharding.input_shardings` splits a batch: each
+rank serves its rows through `serve` / `serve_batch`, samples their tokens
+itself, and the tokens are gathered in rank order, while the host
+decisions stay rank 0's.  Speculative decoding,
 the QoS governor and quantized pools raise there (ROADMAP Queue 1 items
 15c, 15d).
 
@@ -52,6 +57,7 @@ from repro_torch.core.strategies.resilience import (
 )
 from repro_torch.core.weaver import WovenProgram
 from repro_torch.distributed.collectives import broadcast, broadcast_object
+from repro_torch.distributed.sharding import gather_shards, input_shardings, local_shard
 from repro_torch.distributed.fault import Watchdog
 from repro_torch.kernels.flash_attention.ops import CACHE_QMAX, DEFAULT_PAGE_SIZE
 from repro_torch.launch.mesh import is_live, require_mesh_on
@@ -195,7 +201,7 @@ class Server:
             from repro_torch.distributed.sharding import param_shardings
             from repro_torch.runtime.steps import check_on_mesh
 
-            check_on_mesh(woven, mesh)
+            check_on_mesh(woven, mesh, serving=True)
             shardings = param_shardings(woven.program.model, mesh, woven.state.rules)
             # the tuned kernel knobs are rank 0's (each rank read its tuner cache)
             for st in [woven.state, *woven.variants.values()]:
@@ -231,6 +237,19 @@ class Server:
     @property
     def _live(self) -> bool:
         return is_live(self.mesh)
+
+    @property
+    def _split_rows(self) -> bool:
+        """Whether each rank serves its own rows (`dp_fsdp`)."""
+        return self._live and self.woven.state.extra.get("layout") == "dp_fsdp"
+
+    def _rows(self, n: int):
+        """The sharding of a batch of `n` rows over this rank's mesh, or None
+        where every rank serves the whole batch."""
+        if not self._split_rows:
+            return None
+        return input_shardings({"tokens": ((n, 1), torch.int32)}, self.mesh,
+                               self.woven.state.rules)["tokens"]
 
     def _variant(self) -> str | None:
         if self.margot is None:
@@ -278,6 +297,9 @@ class Server:
         variant = self._begin()
 
         toks = torch.as_tensor(np.asarray(tokens), device=self.device).to(torch.int32)
+        rows = self._rows(toks.shape[0])
+        if rows is not None:
+            toks = local_shard(toks, rows)
         B, S = toks.shape
         logits, cache = self.prefill_vc(variant, self.params, {"tokens": toks})
         outs = []
@@ -294,8 +316,10 @@ class Server:
             )
             tok = self._sampled(torch.argmax(logits[:, -1], dim=-1)[:, None])
             pos += 1
-        result = torch.cat(outs, dim=1).cpu().numpy()
-        return self._finish(key, result, t0, 1)
+        result = torch.cat(outs, dim=1)
+        if rows is not None:
+            result = gather_shards(result, rows)
+        return self._finish(key, result.cpu().numpy(), t0, 1)
 
     def serve_batch(self, prompts: list[np.ndarray], *,
                     decode_tokens: int | None = None) -> list[np.ndarray]:
@@ -319,6 +343,10 @@ class Server:
         t0 = time.perf_counter()
         variant = self._begin()
 
+        rows = self._rows(len(prompts))
+        if rows is not None:  # this rank's requests
+            mine = local_shard(torch.arange(len(prompts)), rows).tolist()
+            prompts = [prompts[i] for i in mine]
         caches, first_toks = [], []
         for p in prompts:
             toks = torch.as_tensor(np.asarray(p), device=self.device) \
@@ -344,12 +372,18 @@ class Server:
             )
             tok = self._sampled(torch.argmax(logits[:, -1], dim=-1)[:, None])
             pos = pos + 1
-        stacked = torch.cat(outs, dim=1).cpu().numpy()
-        result = [stacked[b] for b in range(B)]
-        return self._finish(key, result, t0, B)
+        stacked = torch.cat(outs, dim=1)
+        if rows is not None:
+            stacked = gather_shards(stacked, rows)
+        stacked = stacked.cpu().numpy()
+        result = [stacked[b] for b in range(stacked.shape[0])]
+        return self._finish(key, result, t0, len(result))
 
     def _sampled(self, tok: torch.Tensor) -> torch.Tensor:
-        """Greedy tokens as int32, rank 0's on a live mesh."""
+        """Greedy tokens as int32, rank 0's on a live mesh (each rank's own
+        where it serves its own rows)."""
+        if self._split_rows:
+            return tok.to(torch.int32)
         return broadcast(tok.to(torch.int32), self.mesh)
 
     # -- paged pool + continuous batching -----------------------------------------

@@ -9,14 +9,19 @@ records the forward and differentiates it.
 
 `mesh` is None, a mesh of one device (`launch/mesh.make_card_mesh`: the
 same kernels, launches and bits as None) or a live mesh of several ranks
-(`launch/mesh.make_mesh`) under the Megatron layout.  There every rank runs
-the step on its blocks: the parameters are its local shards, the serving
-steps take the whole batch on every rank (the page pool is shared by every
-request, so `data` replicates a server) and hand back the logits gathered
-over the vocab, and the train step takes the global batch, keeps its
-`data` rows, and means the gradients, the loss and the metrics over
-`data`.  Only the dense family runs on a live mesh; the others, and the
-FSDP layouts, raise when the step is built.
+(`launch/mesh.make_mesh`) under one of AutoShard's layouts.  There every
+rank runs the step on its blocks: the parameters are its local shards (an
+FSDP block is gathered where the model uses it), the serving steps take the
+rows the caller hands them — the whole batch under Megatron's layout (the
+page pool is shared by every request, so `data` replicates a server), the
+rank's rows under `dp_fsdp` (`runtime/server.py` splits them) — and hand
+back the logits gathered over the vocab, and the train step takes the
+global batch, keeps its rows (`sharding.input_shardings`), and sums the
+gradients over the axes whose ranks hold other tokens and means them over
+the batch's (`sharding.grad_axes`).  The dense family runs under
+`megatron_tp` and trains under `fsdp_sp`; the ssm and hybrid families run
+under `dp_fsdp`.  The other families, `fsdp_sp` serving and the layouts a
+family is not laid out in raise when the step is built.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.weaver import WovenProgram
 from repro_torch.distributed.collectives import all_reduce
-from repro_torch.launch.mesh import check_mesh, is_live, is_parallel
+from repro_torch.launch.mesh import check_mesh, is_live
 from repro_torch.models.lm import greedy_argmax, vocab_cross_entropy, whole_logits
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import AdamWConfig
@@ -39,22 +44,34 @@ from repro_torch.optim.tree import rebuild
 MESH_FAMILIES_ITEM = "ROADMAP Queue 1 item 15b"
 
 
-def check_on_mesh(woven: WovenProgram, mesh, state=None):
+# the layouts each family runs under on a live mesh: AutoShard's own choices
+MESH_LAYOUTS = {"dense": ("megatron_tp", "fsdp_sp"), "ssm": ("dp_fsdp",),
+                "hybrid": ("dp_fsdp",)}
+
+
+def check_on_mesh(woven: WovenProgram, mesh, state=None, *, serving: bool = False):
     """`mesh` if a step of `woven` runs on it (`launch/mesh.check_mesh`); a
-    live mesh of several ranks takes the dense family under the Megatron
-    layout only."""
+    live mesh of several ranks takes the dense family under `megatron_tp`
+    (and `fsdp_sp` for training) and the ssm and hybrid families under
+    `dp_fsdp` (`MESH_LAYOUTS`, `sharding.check_layout`)."""
     mesh = check_mesh(mesh)
     if not is_live(mesh):
         return mesh
     from repro_torch.distributed.sharding import check_layout
 
     family = woven.program.cfg.family
-    if family != "dense":
+    if family not in MESH_LAYOUTS:
         raise NotImplementedError(
-            f"the {family} family ({woven.program.cfg.name}) on a live mesh: only "
-            f"the dense family runs there ({MESH_FAMILIES_ITEM})")
+            f"the {family} family ({woven.program.cfg.name}) on a live mesh: the "
+            f"dense, ssm and hybrid families run there ({MESH_FAMILIES_ITEM})")
     state = state or woven.state
-    check_layout(mesh, state.rules, state.extra.get("layout"))
+    layout = state.extra.get("layout") or "megatron_tp"
+    if layout not in MESH_LAYOUTS[family]:
+        raise NotImplementedError(
+            f"the {family} family ({woven.program.cfg.name}) under {layout} on a live "
+            f"mesh: it runs under {' or '.join(MESH_LAYOUTS[family])}, the layouts "
+            f"AutoShard picks for it ({MESH_FAMILIES_ITEM})")
+    check_layout(mesh, state.rules, layout, serving=serving)
     return mesh
 
 
@@ -77,7 +94,7 @@ def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mesh=None,
 
 def build_loss_fn(woven: WovenProgram, mesh=None, variant: str | None = None):
     """loss_fn(params, batch) -> (loss, metrics); on a live mesh `batch`
-    holds this rank's `data` rows and the loss is their mean."""
+    holds this rank's rows and the loss is their mean."""
     check_on_mesh(woven, mesh, woven.variant_state(variant))
     program = woven.program
     state = woven.variant_state(variant)
@@ -131,10 +148,14 @@ def build_train_step(woven: WovenProgram, *, mesh=None, variant: str | None = No
     `batch` holds (B, S) integer tensors on the parameters' device.
 
     On a live mesh `params` and `opt_state` are this rank's shards and
-    `batch` the global batch: the step keeps the rows of its `data`
-    coordinate (`sharding.input_shardings`), means the summed gradients and
-    the metrics over `data`, and the clipping norm sums the squares of
-    leaves split over `model` across it (`adamw.global_norm`).
+    `batch` the global batch: the step keeps its rows
+    (`sharding.input_shardings`), sums each leaf's gradient over the axes
+    whose ranks hold other tokens (`sharding.grad_axes`) but not over the
+    axes the leaf is split on — an FSDP block's gather already summed its
+    gradient over them, a Megatron or vocab block's is its own — and
+    divides by the batch axes' extent; the metrics are meaned over the
+    batch axes; the clipping norm sums each leaf's squares over the axes it
+    is split on (`adamw.global_norm`).
     """
     from repro_torch.optim.schedule import warmup_cosine
 
@@ -144,26 +165,21 @@ def build_train_step(woven: WovenProgram, *, mesh=None, variant: str | None = No
         compression=bool(state.extra.get("grad_compression", False)),
         state_dtype=str(state.extra.get("opt_state_dtype", "float32")),
     )
-    split = None  # each leaf: a block of a leaf split over `model` (live meshes)
+    split = None  # each leaf: the mesh axes it is split over (live meshes)
     if is_live(mesh):
-        from repro_torch.distributed.sharding import (
-            input_shardings,
-            local_shard,
-            param_shardings,
-        )
+        from repro_torch.distributed.sharding import input_shardings, local_shard
 
         if opt_cfg.compression:
             raise NotImplementedError(
                 "int8 gradient compression quantizes each leaf at its own scale, "
                 "which a rank's shard does not hold (ROADMAP Queue 1 item 15c)")
-        split = [sh.splits("model") for sh in tree_leaves(
-            param_shardings(woven.program.model, mesh, state.rules))]
+        split, mesh_mean = build_mesh_mean(woven, mesh, variant)
     lr_fn = lr_fn or warmup_cosine
     accum = int(state.extra.get("accum_steps", 1))
     grad_fn = build_grad_fn(woven, mesh, variant)
 
     def train_step(params, opt_state, batch, step):
-        if split is not None:  # this rank's data rows
+        if split is not None:  # this rank's rows
             shard = input_shardings(batch, mesh, state.rules)
             batch = {k: local_shard(v, shard[k]) for k, v in batch.items()}
         if accum > 1:
@@ -187,11 +203,8 @@ def build_train_step(woven: WovenProgram, *, mesh=None, variant: str | None = No
                        for k in per_micro[0]}
         else:
             (_, metrics), grads = grad_fn(params, batch)
-        if is_parallel(mesh, "data"):
-            n = mesh.shape["data"]
-            grads = rebuild(params, [all_reduce(g, mesh, "data").div_(n)
-                                     for g in tree_leaves(grads)])
-            metrics = {k: all_reduce(v, mesh, "data") / n for k, v in metrics.items()}
+        if split is not None:
+            grads, metrics = mesh_mean(grads, metrics)
 
         lr = lr_fn(step)
         params, opt_state, opt_metrics = adamw.apply_updates(
@@ -202,13 +215,48 @@ def build_train_step(woven: WovenProgram, *, mesh=None, variant: str | None = No
     return train_step
 
 
+def build_mesh_mean(woven: WovenProgram, mesh, variant: str | None = None):
+    """(split, mean) for a live mesh: `split[i]` holds the mesh axes leaf i
+    of the param tree is split over, and `mean(grads, metrics)` turns this
+    rank's gradients and metrics into the global batch's means: each leaf's
+    gradient summed over the axes whose ranks hold other tokens
+    (`sharding.grad_axes`) less the axes it is split over — an FSDP
+    block's gather summed it over those already, a Megatron or vocab
+    block's is its own — and divided by the batch axes' extent (in place:
+    the gradients are the caller's own tensors); the metrics meaned over
+    the batch axes."""
+    from repro_torch.distributed.sharding import grad_axes, live_axes, param_shardings
+
+    state = woven.variant_state(variant)
+    split = [sh.axes() for sh in tree_leaves(
+        param_shardings(woven.program.model, mesh, state.rules))]
+    tokens, n_batch = grad_axes(mesh, state.rules)
+    batch_axes = live_axes(mesh, state.rules.get("batch"))
+
+    def mean(grads, metrics):
+        grads = rebuild(grads, [
+            _sum_over(g, mesh, [a for a in tokens if a not in axes]).div_(n_batch)
+            for g, axes in zip(tree_leaves(grads), split)])
+        metrics = {k: _sum_over(v, mesh, batch_axes) / n_batch for k, v in metrics.items()}
+        return grads, metrics
+
+    return split, mean
+
+
+def _sum_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """`x` summed over the ranks of each of `axes` (`x` itself for none)."""
+    for a in axes:
+        x = all_reduce(x, mesh, a)
+    return x
+
+
 def build_prefill_step(woven: WovenProgram, *, mesh=None, variant: str | None = None,
                        cache_max_len: int | None = None):
     """`cache_max_len` pins the prefill cache padding on a *copied* weave
     state, without disturbing the shared state the ordinary prefill reads."""
     program = woven.program
     state = woven.variant_state(variant)
-    check_on_mesh(woven, mesh, state)
+    check_on_mesh(woven, mesh, state, serving=True)
     if cache_max_len is not None:
         state = state.copy()
         state.extra["cache_max_len"] = cache_max_len
@@ -233,7 +281,7 @@ def build_paged_prefill_step(woven: WovenProgram, *, mesh=None,
     never O(max_len)."""
     program = woven.program
     state = woven.variant_state(variant)
-    check_on_mesh(woven, mesh, state)
+    check_on_mesh(woven, mesh, state, serving=True)
     model = program.model
 
     def paged_prefill_step(params, inputs, cache, prefix_len: int = 0):
@@ -259,7 +307,7 @@ def build_decode_step(woven: WovenProgram, *, mesh=None, variant: str | None = N
     touching pages other requests still map."""
     program = woven.program
     state = woven.variant_state(variant)
-    check_on_mesh(woven, mesh, state)
+    check_on_mesh(woven, mesh, state, serving=True)
     model = program.model
     extra_kw = {"skip_cache_write": True} if rescore else {}
 

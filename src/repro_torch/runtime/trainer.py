@@ -15,8 +15,9 @@ device=)`), and so does the optimizer state; the train step updates both in
 place (see `runtime/steps.build_train_step`).
 
 On a live mesh (`launch/mesh.make_mesh`) every rank holds its shards of the
-parameters and the optimizer state and hands the step the global batch,
-which keeps the rank's `data` rows.  Every decision is rank 0's: its
+parameters and the optimizer state — under an FSDP layout its block of
+every leaf split on its `embed` dim, with that block's master, m and v —
+and hands the step the global batch, which keeps the rank's rows.  Every decision is rank 0's: its
 mARGOt knobs and its preemption request are broadcast before a step is
 taken, only it logs, and a checkpoint is the gathered (whole) state that
 rank 0 writes and every rank of any mesh restores its blocks from.

@@ -254,8 +254,9 @@ def test_mesh_of_one_serves_and_trains_bit_for_bit():
 
 def test_a_mesh_of_more_than_one_device_raises():
     """An abstract mesh of several devices has no ranks to run a step on;
-    a live one is built by `make_mesh` / `run_on_mesh` (and runs the
-    Megatron layout only: the FSDP layouts raise there)."""
+    a live one is built by `make_mesh` / `run_on_mesh` (and runs AutoShard's
+    layouts; an FSDP split over ranks that hold the same tokens and
+    `fsdp_sp` serving raise there)."""
     two = make_test_mesh((2, 1))
     with pytest.raises(NotImplementedError, match="abstract mesh"):
         Ctx(mesh=two)
@@ -271,10 +272,13 @@ def test_a_mesh_of_more_than_one_device_raises():
         Mesh(("data", "model"), (2, 1), (torch.device("cpu"),) * 2)  # no groups
     live = types.SimpleNamespace(groups=(None, None), shape={"data": 2, "model": 2})
     rules = {"batch": ("data",), "heads": "model", "embed": ("data",)}
+    check_layout(live, rules)  # Megatron's layout with its FSDP rule
     with pytest.raises(NotImplementedError, match="15a"):
-        check_layout(live, rules)
-    with pytest.raises(NotImplementedError, match="15a"):
-        check_layout(live, dict(rules, embed=None), "fsdp_sp")
+        check_layout(live, dict(rules, embed=("model",)))
+    sp = {"batch": ("data",), "res_seq": "model", "seq_act": "model", "vocab": "model"}
+    check_layout(live, sp, "fsdp_sp")
+    with pytest.raises(NotImplementedError, match="15a-ii"):
+        check_layout(live, sp, "fsdp_sp", serving=True)
     check_layout(live, dict(rules, embed=None), "megatron_tp")
     check_layout(two, rules)  # an abstract mesh: the dry run's layouts stand
 

@@ -9,10 +9,15 @@ one-card launch counts, requests and serve wall), then
 `chip_smoke.mesh_phase` with `backend="nccl"`: full-width, full-depth yi-6b
 served tensor-parallel on a (1, 4) mesh (each rank's launches by route equal
 the one-card counts, its prefill logits at the full-depth gate against one
-card), and gemma-2b at `MESH_TRAIN_DEPTH` layers trained on a (2, 2) mesh
+card), gemma-2b at `MESH_TRAIN_DEPTH` layers trained on a (2, 2) mesh
 (gradients at the training gates against one card, the first batch's loss
-falling).  Prints and writes one JSON object: the phase's summary with the
-one-card serve wall beside the mesh's.
+falling), and two FSDP runs on (2, 2) (`NCCL_FSDP_RUNS`, held at the gates
+of `chip_smoke.py`'s (f1)..(f4), rwkv6-3b's gradient printed): rwkv6-3b at
+full depth under AutoShard's own `dp_fsdp` (43.4 GB of state, `embed` over
+`(data, model)`), served and trained, and qwen2-72b at 1 of 80 layers under
+`megatron_tp` with the published depth's `embed` rule over `data`, trained.  Prints and writes one
+JSON object: the phase's summary with the one-card serve wall beside the
+mesh's.
 """
 
 from __future__ import annotations
@@ -27,6 +32,21 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "src"))
+
+
+NCCL_FSDP_RUNS = {
+    "n1": dict(arch="qwen2-72b", layers=1, mesh=(2, 2), layout="megatron_tp",
+               rules={"embed": ("data",)}, serve=None, match="attn/", attn=1,
+               profile=True),
+    # AutoShard's own training rule at full depth, carried to serving (whose
+    # 2-byte weights alone would leave `embed` whole).  Its bf16 gradient is
+    # printed beside one card's, not gated: through 32 rwkv6 layers in bf16
+    # a rank's one row and one card's four round apart by more than the
+    # training gates (6.5 % worst, on four H100s)
+    "n2": dict(arch="rwkv6-3b", layers=32, mesh=(2, 2), layout="dp_fsdp",
+               rules={"embed": ("data", "model")}, serve="double", match="time_mix/",
+               attn=0, profile=False, gated=False),
+}
 
 
 def main() -> int:
@@ -58,7 +78,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     summary = cs.mesh_phase(torch, counts, requests, backend="nccl", serve_shape=(1, 4),
-                            train_shapes={"dp2_tp2": (2, 2)})
+                            train_shapes={"dp2_tp2": (2, 2)}, fsdp_runs=NCCL_FSDP_RUNS)
     summary["one_card_serve_s"] = one_card_serve_s
     summary["card"] = cs.nvidia_smi_line()
     summary["devices"] = torch.cuda.device_count()
