@@ -165,22 +165,35 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    step profiled — with the prefill logits held at the full-depth logit
    gate against a one-card server over the same weights; then gemma-2b at
    full width, cut to `MESH_TRAIN_DEPTH` layers so both ranks' state fits,
-   trained three steps on a (2, 1) and a (1, 2) mesh: K1 with lse and K3
+   trained two steps on a (2, 1) and a (1, 2) mesh: K1 with lse and K3
    counted per step, the first batch's loss falling, and the meshed
    gradient at the training gradient gates against one card's; then
    AutoShard's FSDP layouts on the same ranks (`FSDP_RUNS`): (f1)
    qwen2-72b at 1 of 80 layers on (2, 1), `megatron_tp` with `embed` over
-   `data`; (f2) rwkv6-3b at 4 layers on (1, 2) and (f3) recurrentgemma-2b
-   at 6 layers on (2, 1) under `dp_fsdp`, each served (`serve_batch` of
+   `data`; (f2) rwkv6-3b at 2 layers on (1, 2) and (f3) recurrentgemma-2b
+   at 3 layers on (2, 1) under `dp_fsdp`, each served (`serve_batch` of
    the serving traffic's prompts, each rank its rows: launches by route
    equal to one card's on those rows, K5's output bit for bit one card's,
    the prefill logits at the logit gate, rwkv6 in fp32) and trained; (f4)
-   gemma-2b at 4 layers on (1, 2) under `fsdp_sp` — each trained two
-   counted steps (the first batch's loss falling, the meshed gradient at
+   gemma-2b at 4 layers on (1, 2) under `fsdp_sp` — each trained one
+   counted step (the first batch's loss falling, the meshed gradient at
    the training gates against one card's, each rank holding only its
    blocks and their AdamW state, the FSDP gathers and reduce-scatters
-   counted), (f4)'s dense logits against one card's.  Two ranks on one
-   card time-slice its SMs: their times are no parallel speed-up.
+   counted), (f4)'s dense logits against one card's; then the MoE,
+   encoder-decoder and VLM families on (1, 2) under AutoShard's own
+   `megatron_tp` (`FAMILY_MESH_RUNS`): (g1) mixtral-8x22b at 1 of 56
+   layers, two prompts past its window through `serve_continuous` (a paged
+   ring pool); (g2) whisper-small at full depth, two clips of 1500 frames
+   through `serve`; (g3) internvl2-1b at full depth, two requests of 256
+   image embeddings through `serve` — each rank's launches by route equal
+   to one card's on the same traffic, the MoE routing bit for bit the same
+   on both ranks (the share of tokens one card routes elsewhere printed),
+   the prefill logits at the logit gate against one card's (mixtral's and
+   internvl2-1b's in fp32), whisper's cross caches left unwritten on a
+   rank's heads — and each trained two counted steps (whisper through
+   `build_train_step` with frames): the first batch's loss falling, the
+   meshed gradient at the training gates against one card's.  Two ranks on
+   one card time-slice its SMs: their times are no parallel speed-up.
 
 Any failed phase ends the run with a non-zero exit code.  The last line of
 the output is `{"ok": true, "device": {...}}`; the line before the card's
@@ -5557,9 +5570,9 @@ def roofline_phase(torch, serve_cells: dict, train: dict) -> dict:
 # gemma-2b layers a full-width copy per rank (the (2, 1) mesh holds two)
 # leaves room for, with AdamW state and a 2 x 512 microbatch per rank
 MESH_TRAIN_DEPTH = 4
-MESH_TRAIN = {"batch": 4, "seq": 512, "steps": 3, "lr": 1e-3}
+MESH_TRAIN = {"batch": 4, "seq": 512, "steps": 2, "lr": 1e-3}
 MESH_TRAIN_SHAPES = {"data2": (2, 1), "model2": (1, 2)}
-MESH_CONTINUOUS = 4  # prompts of the continuous traffic served on the mesh
+MESH_CONTINUOUS = 2  # prompts of the continuous traffic served on the mesh
 
 
 def every_rank(obj, mesh) -> list:
@@ -5683,8 +5696,8 @@ def first_batch(torch, trainer):
 
 def mesh_train_rank(torch, mesh, tag) -> dict:
     """gemma-2b at `MESH_TRAIN_DEPTH` layers trained on this rank of `mesh`:
-    the gradient digest at the initial weights on the first batch, three
-    counted steps, the first batch's loss again."""
+    the gradient digest at the initial weights on the first batch,
+    `MESH_TRAIN["steps"]` counted steps, the first batch's loss again."""
     from repro_torch.distributed import collectives
     from repro_torch.distributed.collectives import all_reduce
     from repro_torch.distributed.sharding import input_shardings, local_shard
@@ -5719,7 +5732,7 @@ def mesh_train_rank(torch, mesh, tag) -> dict:
            "grad_norms": [h["grad_norm"] for h in trainer.history],
            "first_batch_loss": [digest[0], after], "step_s": step_s,
            "launches_per_step": steps[-1]["counts"], "routes_per_step": steps[-1]["routes"],
-           "collectives_3_steps": collectives.counts(),
+           "collectives_all_steps": collectives.counts(),
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     del trainer
     gc.collect()
@@ -5735,23 +5748,26 @@ def mesh_train_rank(torch, mesh, tag) -> dict:
 # (f3) recurrentgemma-2b under dp_fsdp, served (K6 and K5 on each rank's
 # rows) and trained, with the `embed` rule of rwkv6-3b's full depth carried
 # by the `rules` override; (f4) gemma-2b under fsdp_sp, its pod layout,
-# forced through AutoShard's `layout=` with the pod's `embed` rule.
+# forced through AutoShard's `layout=` with the pod's `embed` rule.  One
+# counted step each (profiled where the run says: a first step, its train
+# step's build included), and (f2) / (f3) at 2 / 3 layers, to leave the
+# script's time limit room for (g1)-(g3).
 FSDP_RUNS = {
     "f1": dict(arch="qwen2-72b", layers=1, mesh=(2, 1), layout="megatron_tp",
                rules=None, serve=None, match="attn/", attn=1, profile=True),
     # not profiled: the profiler's own cost on the plain WKV's kernels under
     # autograd (19 s on a 9.7 s step) is over the phase's budget
-    "f2": dict(arch="rwkv6-3b", layers=4, mesh=(1, 2), layout="dp_fsdp",
+    "f2": dict(arch="rwkv6-3b", layers=2, mesh=(1, 2), layout="dp_fsdp",
                rules={"embed": ("data", "model")}, serve="double", match="time_mix/",
                attn=0, profile=False),
-    "f3": dict(arch="recurrentgemma-2b", layers=6, mesh=(2, 1), layout="dp_fsdp",
-               rules={"embed": ("data", "model")}, serve="half", match="attn/", attn=2,
+    "f3": dict(arch="recurrentgemma-2b", layers=3, mesh=(2, 1), layout="dp_fsdp",
+               rules={"embed": ("data", "model")}, serve="half", match="attn/", attn=1,
                profile=True),
     "f4": dict(arch="gemma-2b", layers=4, mesh=(1, 2), layout="fsdp_sp",
                rules={"embed": ("data", "model")}, serve=None, match="attn/", attn=4,
                profile=True),
 }
-FSDP_TRAIN = {"batch": 4, "seq": 512, "steps": 2, "lr": 1e-3}
+FSDP_TRAIN = {"batch": 4, "seq": 512, "steps": 1, "lr": 1e-3}
 # every model call of a served FSDP run gathers every weight through the host
 # (~0.5 GB/s a rank over gloo): the serving traffic's first two prompts, one
 # a rank, two tokens each
@@ -6067,11 +6083,11 @@ def fsdp_rank(torch, mesh, tag, run) -> dict:
     return out
 
 
-def mesh_rank(solo, batch, train_shapes, fsdp_runs, mesh) -> dict:
+def mesh_rank(solo, batch, train_shapes, fsdp_runs, family_runs, mesh) -> dict:
     """Phase 12's body on each rank: serve on the mesh run_on_mesh gives,
     then train on each of `train_shapes` ({tag: shape}) over the same
     ranks, then `fsdp_runs` ({tag: run}), each on its mesh of the same
-    ranks."""
+    ranks, then `family_runs` ({tag: run}) on (1, 2)."""
     import torch
 
     from repro_torch.kernels import build
@@ -6082,6 +6098,8 @@ def mesh_rank(solo, batch, train_shapes, fsdp_runs, mesh) -> dict:
     for tag, shape in train_shapes.items():
         out[tag] = mesh_train_rank(torch, mesh_of(meshes, mesh, shape), tag)
     out.update(fsdp_ranks(torch, fsdp_runs, mesh, meshes))
+    for tag, run in family_runs.items():
+        out[tag] = family_mesh_rank(torch, mesh_of(meshes, mesh, (1, 2)), tag, run)
     return out
 
 
@@ -6252,14 +6270,416 @@ def fsdp_checks(torch, fsdp_runs, res) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12, (g1)-(g3): the MoE, encoder-decoder and VLM families on the mesh
+# ---------------------------------------------------------------------------
+
+# Each at published width on the same two ranks, (1, 2), under AutoShard's
+# own `megatron_tp` (every head count divides 2; whisper-small's 51865-row
+# and internvl2-1b's 151655-row vocabularies do not, and stay whole on each
+# rank): (g1) mixtral-8x22b cut to 1 of 56 layers (2.906 B parameters, 5.8
+# GB in bf16; AutoShard keeps `embed` whole at that depth), two prompts past
+# its 4096-token window through `serve_continuous` (a paged ring pool);
+# (g2) whisper-small at full depth, two clips of 1500 stub frames and a
+# 4-token prompt through `serve`; (g3) internvl2-1b at full depth, two
+# requests of 256 image embeddings and 256 tokens through `serve`.  Each
+# trains `FAMILY_MESH_TRAIN["steps"]` steps of 2 x 512 tokens (whisper 2 x
+# 448 beside 1500 frames, through `build_train_step`).  `gate`: the policy
+# the prefill logits are held to one card's in — fp32 for mixtral (whose
+# bf16 routing parts from one card's where two gates nearly tie) and for
+# internvl's image prefix, as on one card (`FRONTEND_RUNS`).
+FAMILY_MESH_RUNS = {
+    "g1": dict(arch="mixtral-8x22b", layers=1, lens=[4500, 5000], max_len=6144,
+               gate="double", attn=1, attn_weights=4),
+    "g2": dict(arch="whisper-small", layers=None, batch=2, stub=1500, prompt=4,
+               max_len=448, seq=448, gate="half", attn=24, attn_weights=12),
+    "g3": dict(arch="internvl2-1b", layers=None, batch=2, stub=256, prompt=256,
+               max_len=1024, gate="double", attn=24, attn_weights=7),
+}
+FAMILY_MESH_DECODE = 8
+FAMILY_MESH_TRAIN = {"batch": 2, "seq": 512, "steps": 2, "lr": 1e-3}
+
+
+def family_mesh_program(run, kind: str):
+    from repro_torch.core.program import Program
+    from repro_torch.models.registry import build_model, get_config
+
+    cfg = get_config(run["arch"])
+    if run["layers"] is not None:
+        cfg = cfg.replace(num_layers=run["layers"], layer_groups=())
+    return Program(model=build_model(cfg), cfg=cfg, kind=kind, device="cuda")
+
+
+def family_mesh_server(torch, run, mesh, policy: str = "half"):
+    """The run's server at `policy`, woven to the CUDA kernels as
+    `launch/serve` weaves them, on `mesh` (None: one card), random weights
+    from seed 0 (a rank's blocks are slices of one card's)."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.weave import cuda_kernel_aspects, default_weave
+    from repro_torch.nn.dtypes import PolicyResolver
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    axes = dict(mesh.shape) if mesh is not None else {}
+    woven = default_weave(family_mesh_program(run, "serve"), SHAPES["prefill_32k"], axes,
+                          extra_aspects=cuda_kernel_aspects())
+    woven.state.policies = PolicyResolver.default(policy)
+    return Server(woven, ServerConfig(max_cache_len=run["max_len"],
+                                      decode_tokens=FAMILY_MESH_DECODE, seed=0), mesh=mesh)
+
+
+def family_mesh_traffic(cfg, run) -> dict:
+    """The run's requests from seed 30: the MoE family's prompts; the
+    others' token rows with their frames or image embeddings (fp32)."""
+    import numpy as np
+
+    rng = np.random.default_rng(30)
+    if cfg.family == "moe":
+        return {"prompts": [rng.integers(0, cfg.vocab, n).astype(np.int64)
+                            for n in run["lens"]]}
+    side = "frames" if cfg.family == "encdec" else "embeds"
+    return {"tokens": rng.integers(0, cfg.vocab, (run["batch"], run["prompt"]),
+                                   dtype=np.int32),
+            side: rng.standard_normal((run["batch"], run["stub"], cfg.d_model),
+                                      dtype=np.float32)}
+
+
+def family_mesh_serve(torch, server, tag, traffic) -> tuple:
+    """One counted serve of the traffic: the MoE family's prompts through
+    `serve_continuous` (`check_paged_run`'s gates: every outcome ok, the
+    launches the server's own step counts give; a ring pool of at most
+    4096 / 128 pages a request, no page shared); the others' rows through
+    `serve` with their frames or image embeddings, the launches gated at
+    the count their layers give.  Returns (tokens, launches with routes,
+    wall)."""
+    cfg = server.woven.program.cfg
+    n = FAMILY_MESH_DECODE
+    if cfg.family == "moe":
+        prompts = traffic["prompts"]
+        out, wall, counts, routes = counted_serve(torch, lambda: server.serve_continuous(
+            prompts, max_batch=len(prompts), page_size=FAMILY_PAGE))
+        check_paged_run(server, "mesh", f"{tag} serve", prompts, out, counts, routes, False)
+        pool = server.last_pool_stats
+        ring = len(prompts) * -(-cfg.attn_window // FAMILY_PAGE)
+        if pool["prefix_hits"] or pool["cow_splits"] or not pool["peak_live_pages"] <= ring:
+            raise AssertionError(f"mesh {tag} serve: not a ring pool of {ring} pages: {pool}")
+        return [o.tolist() for o in out], {**counts, **routes}, wall
+    side = {k: v for k, v in traffic.items() if k != "tokens"}
+    t0 = time.perf_counter()
+    out, counts, routes = counted_run(
+        torch, lambda: server.serve(traffic["tokens"], inputs=side), f"mesh {tag} serve")
+    wall = time.perf_counter() - t0
+    encdec, L = cfg.family == "encdec", cfg.num_layers
+    norms = 0 if cfg.norm_type == "layernorm" else 2 * L + 1
+    want = {"flash_attention": L + (cfg.enc_layers if encdec else 0),
+            "flash_decode": (2 if encdec else 1) * L * n, "rmsnorm": norms * (1 + n),
+            "flash_attention_bwd": 0, "flash_attention_lse": 0, "rglru": 0, "wkv": 0}
+    if counts != want:
+        raise AssertionError(f"mesh {tag} serve: launches {counts} != {want}")
+    if out.shape != (traffic["tokens"].shape[0], n) or out.min() < 0 or out.max() >= cfg.vocab:
+        raise AssertionError(f"mesh {tag} serve: tokens of the wrong shape or range")
+    return out.tolist(), {**counts, **routes}, wall
+
+
+def family_mesh_feed(torch, cfg, traffic, dtype) -> dict:
+    """The prefill inputs of the traffic's first request (MoE) or rows, on
+    the card, the frames or image embeddings in `dtype`."""
+    if cfg.family == "moe":
+        return {"tokens": torch.as_tensor(traffic["prompts"][0][None].astype("int32"),
+                                          device="cuda")}
+    return {k: torch.as_tensor(v, device="cuda").to(torch.int32 if k == "tokens" else dtype)
+            for k, v in traffic.items()}
+
+
+def family_mesh_prefill(torch, server, feed) -> tuple:
+    """The prefill logits of `feed` on the server's program (fp32 on the
+    host) and its MoE routings in call order (`RouteRecorder`)."""
+    from repro_torch.runtime.steps import build_prefill_step
+
+    step = build_prefill_step(server.woven, mesh=server.mesh,
+                              cache_max_len=server.cfg.max_cache_len)
+    with RouteRecorder() as rec, torch.no_grad():
+        logits, cache = step(server.params, feed)
+    del cache
+    return logits.float().cpu(), rec.calls
+
+
+def cross_cache_unwritten(torch, server, feed) -> dict:
+    """An encoder-decoder's prefill, then two decode steps: the cross caches
+    come back as the same tensors, their bytes unchanged."""
+    from repro_torch.runtime.steps import build_decode_step, build_prefill_step
+
+    logits, cache = build_prefill_step(server.woven, mesh=server.mesh,
+                                       cache_max_len=server.cfg.max_cache_len)(
+        server.params, feed)
+    cross = cache["decoder"]["cross"]
+    ptr = {k: cross[k].data_ptr() for k in ("ck", "cv")}
+    before = {k: cross[k].double().sum().item() for k in ("ck", "cv")}
+    decode = build_decode_step(server.woven, mesh=server.mesh)
+    pos = feed["tokens"].shape[1]
+    for i in range(2):
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        logits, cache = decode(server.params, {"tokens": tok,
+                                               "positions": torch.full_like(tok, pos + i)},
+                               cache)
+    cross = cache["decoder"]["cross"]
+    out = {"same_tensors": all(cross[k].data_ptr() == ptr[k] for k in ptr),
+           "bytes_unchanged": {k: cross[k].double().sum().item() for k in ptr} == before,
+           "kv_heads": int(cross["ck"].shape[-2])}
+    if not (out["same_tensors"] and out["bytes_unchanged"]):
+        raise AssertionError(f"the cross cache was written: {out}")
+    return out
+
+
+def family_mesh_stepper(torch, run, mesh) -> dict:
+    """The run's training at published width (its depth cut as it says), bf16
+    (`half`), remat `full`, on `mesh` (None: one card), random weights from
+    seed 0: through the launcher's `program_trainer` (a `Trainer`), or for
+    the encoder-decoder through `runtime/steps.build_train_step` with frames
+    from a seed beside the token pipeline's batches.  {"woven", "step" (one
+    step; the first builds the train step), "params" (), "batch0" (the
+    first global batch, on the card)}."""
+    from functools import partial
+
+    import numpy as np
+
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.distributed.sharding import param_shardings
+    from repro_torch.launch.mesh import is_live
+    from repro_torch.launch.train import program_trainer
+    from repro_torch.launch.weave import default_weave, train_kernel_aspects
+    from repro_torch.nn.module import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import constant
+    from repro_torch.runtime.steps import build_train_step
+    from repro_torch.runtime.trainer import TrainerConfig
+
+    t = FAMILY_MESH_TRAIN
+    program = family_mesh_program(run, "train")
+    cfg = program.cfg
+    B, S = t["batch"], run.get("seq", t["seq"])
+    overrides = {"accum_steps": 1, "remat": "full", "precision": "half"}
+    lr = partial(constant, peak=t["lr"])
+    if cfg.family != "encdec":
+        trainer = program_trainer(program, batch=B, seq=S, mesh=mesh, overrides=overrides,
+                                  tcfg=TrainerConfig(steps=99, log_every=0, seed=0),
+                                  lr_fn=lr)
+        trainer.init_state()
+        return {"woven": trainer.woven, "step": lambda: trainer.run(1)[-1],
+                "params": lambda: trainer.params, "batch0": first_batch(torch, trainer)}
+    axes = dict(mesh.shape) if mesh is not None else {}
+    woven = default_weave(program, SHAPES["train_4k"], axes, overrides=dict(overrides),
+                          extra_aspects=train_kernel_aspects())
+    shardings = param_shardings(program.model, mesh, woven.state.rules) \
+        if is_live(mesh) else None
+    state = {"params": init_params(program.model, 0, woven.state.policies, "cuda",
+                                   shardings=shardings), "i": 0, "step": None}
+    state["opt"] = adamw.init_state(state["params"], adamw.AdamWConfig())
+    pipe = TokenPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=S, global_batch=B))
+
+    def batch_at(i):
+        batch = {k: torch.as_tensor(v).to("cuda") for k, v in pipe.batch_at(i).items()}
+        frames = np.random.default_rng([30, i]).standard_normal(
+            (B, run["stub"], cfg.d_model), dtype=np.float32)
+        batch["frames"] = torch.as_tensor(frames, device="cuda").to(torch.bfloat16)
+        return batch
+
+    def step():
+        if state["step"] is None:
+            state["step"] = build_train_step(woven, mesh=mesh, lr_fn=lr)
+        state["params"], state["opt"], m = state["step"](state["params"], state["opt"],
+                                                         batch_at(state["i"]), state["i"])
+        state["i"] += 1
+        return {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item()}
+
+    return {"woven": woven, "step": step, "params": lambda: state["params"],
+            "batch0": batch_at(0)}
+
+
+def family_mesh_train_rank(torch, mesh, tag, run) -> dict:
+    """The run trained on this rank: counted steps (the first recording its
+    gradient's digest through the train step's gradient mean), the first
+    batch's loss again after them."""
+    from repro_torch.distributed.sharding import input_shardings, local_shard
+    from repro_torch.runtime.steps import build_loss_fn, build_mesh_mean
+
+    st = family_mesh_stepper(torch, run, mesh)
+    woven, mb = st["woven"], st["batch0"]
+    n = run["attn"]
+    want = {"flash_attention": 2 * n, "flash_attention_lse": 2 * n,
+            "flash_attention_bwd": n, "flash_decode": 0, "rmsnorm": 0, "rglru": 0, "wkv": 0}
+    step_s, digest, history = [], [], []
+    for i in range(FAMILY_MESH_TRAIN["steps"]):
+        t0 = time.perf_counter()
+        with step_digest(torch, "attn/", digest) if i == 0 else contextlib.nullcontext():
+            m, counts, routes = counted_run(torch, st["step"], f"mesh {tag} step {i + 1}")
+        step_s.append(time.perf_counter() - t0)
+        history.append(m)
+        if counts != want:
+            raise AssertionError(f"mesh {tag} step {i + 1}: launches {counts} != {want}")
+    shard = input_shardings(mb, mesh, woven.state.rules)
+    with torch.no_grad():
+        after, _ = build_loss_fn(woven, mesh)(
+            st["params"](), {k: local_shard(v, shard[k]) for k, v in mb.items()})
+    after = build_mesh_mean(woven, mesh)[1]({}, {"loss": after})[1]["loss"].item()
+    return {"rank": mesh.rank, "layout": woven.state.extra.get("layout"),
+            "losses": [h["loss"] for h in history], "first_batch_loss": [digest[0][0], after],
+            "step_s": step_s, "launches_per_step": counts, "routes_per_step": routes,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "digest": digest[0]}
+
+
+def family_mesh_rank(torch, mesh, tag, run) -> dict:
+    """(g1)..(g3) on this rank: the counted serve, the prefill logits and
+    routings at the gate's policy (and at the serving policy's, for the
+    routing), the cross caches left unwritten, the counted training; each
+    rank's results on every rank."""
+    from repro_torch.distributed import collectives
+
+    t0 = time.perf_counter()
+    server = family_mesh_server(torch, run, mesh)
+    cfg = server.woven.program.cfg
+    traffic = family_mesh_traffic(cfg, run)
+    collectives.reset_counts()
+    tokens, counts, wall = family_mesh_serve(torch, server, tag, traffic)
+    colls = collectives.counts()
+    rank_log(mesh, f"mesh {tag}: served in {wall:.2f} s")
+    feed = family_mesh_feed(torch, cfg, traffic, torch.bfloat16)
+    logits_bf16, routes_bf16 = family_mesh_prefill(torch, server, feed)
+    cross = cross_cache_unwritten(torch, server, feed) if cfg.family == "encdec" else None
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    logits, routes = logits_bf16, routes_bf16
+    if run["gate"] != "half":
+        gate_srv = family_mesh_server(torch, run, mesh, run["gate"])
+        logits, routes = family_mesh_prefill(
+            torch, gate_srv, family_mesh_feed(torch, cfg, traffic, torch.float32))
+        del gate_srv
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train = family_mesh_train_rank(torch, mesh, tag, run)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"rank": mesh.rank, "tokens": tokens, "launches": counts, "serve_wall_s": wall,
+           "collectives": colls, "serve_peak_memory_gb": serve_peak, "cross_cache": cross,
+           "logits_gate": logits, "logits_bf16": logits_bf16, "routing_gate": routes,
+           "routing_bf16": routes_bf16, "train": train,
+           "wall_s": time.perf_counter() - t0}
+    return every_rank(out, mesh)
+
+
+def routing_share(got: list, want: list) -> dict:
+    """How many (grouped) tokens were routed to another set of experts in
+    `got` than in `want` (routings in call order: one a MoE layer)."""
+    differ = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                 for a, b in zip(got, want))
+    total = sum(int(a[..., 0].numel()) for a in want)
+    return {"tokens_routed_differently": differ, "routings_compared": total,
+            "share": differ / total if total else None}
+
+
+def family_mesh_check(torch, tag, run, ranks) -> dict:
+    """The run's one-card references, built after the ranks have gone, and
+    its gates: each rank's launches by route equal one card's on the same
+    traffic; the ranks' routings identical, bit for bit (the share of
+    tokens one card routes elsewhere printed, at both policies); the
+    prefill logits at the logit gate against one card's, at the run's gate
+    policy; the cross caches unwritten; each rank's training: the layout,
+    the first batch's loss falling, its gradient at the training gates
+    against one card's."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    for r in ranks[1:]:
+        for key in ("routing_gate", "routing_bf16"):
+            if len(r[key]) != len(ranks[0][key]) or not all(
+                    torch.equal(a, b) for a, b in zip(r[key], ranks[0][key])):
+                raise AssertionError(f"mesh {tag}: rank {r['rank']} routes otherwise than "
+                                     f"rank 0 ({key})")
+    one = family_mesh_server(torch, run, None)
+    cfg = one.woven.program.cfg
+    traffic = family_mesh_traffic(cfg, run)
+    tokens, counts, wall = family_mesh_serve(torch, one, f"{tag} one card", traffic)
+    feed = family_mesh_feed(torch, cfg, traffic, torch.bfloat16)
+    logits_bf16, routes_bf16 = family_mesh_prefill(torch, one, feed)
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    logits, routes = logits_bf16, routes_bf16
+    if run["gate"] != "half":
+        gate_srv = family_mesh_server(torch, run, None, run["gate"])
+        logits, routes = family_mesh_prefill(
+            torch, gate_srv, family_mesh_feed(torch, cfg, traffic, torch.float32))
+        del gate_srv
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = {"arch": run["arch"], "layers": cfg.num_layers, "one_card_serve_wall_s": wall,
+           "ranks": []}
+    for r in ranks:
+        if r["launches"] != counts:
+            raise AssertionError(f"mesh {tag} rank {r['rank']}: launches by route "
+                                 f"{r['launches']} != one card's {counts}")
+        if not r["collectives"].get("all_reduce", {}).get("model", {}).get("calls"):
+            raise AssertionError(f"mesh {tag} rank {r['rank']}: no all-reduce over model")
+        gap = logit_diff(torch, f"mesh {tag} rank {r['rank']}", r["logits_gate"], logits)
+        if not (gap["max_abs_err"] <= LOGIT_MAX_TOL * gap["logit_scale"]
+                and gap["rms_err"] <= LOGIT_RMS_TOL * gap["logit_scale"]):
+            raise AssertionError(f"mesh {tag} rank {r['rank']}: prefill logits ({run['gate']}) "
+                                 f"against one card {gap}")
+        agree = float(np.mean([np.mean(np.asarray(a) == np.asarray(b))
+                               for a, b in zip(r["tokens"], tokens)]))
+        row = {"rank": r["rank"], "launches": r["launches"], "serve_wall_s": r["serve_wall_s"],
+               "serve_peak_memory_gb": r["serve_peak_memory_gb"],
+               "collectives": r["collectives"], "cross_cache": r["cross_cache"],
+               f"prefill_logits_vs_one_card_{run['gate']}": gap,
+               "prefill_logits_vs_one_card_bf16": logit_diff(
+                   torch, f"mesh {tag} bf16", r["logits_bf16"], logits_bf16),
+               "token_agreement_vs_one_card": agree, "wall_s": r["wall_s"]}
+        if routes:
+            row["routing_vs_one_card"] = {run["gate"]: routing_share(r["routing_gate"], routes),
+                                          "half": routing_share(r["routing_bf16"], routes_bf16)}
+        out["ranks"].append(row)
+        log(f"mesh {tag} serve rank {r['rank']}: " + json.dumps(row, default=float))
+    if ranks[0]["cross_cache"] is not None and ranks[0]["cross_cache"]["kv_heads"] * 2 \
+            != cfg.kv_heads:
+        raise AssertionError(f"mesh {tag}: a rank's cross cache holds "
+                             f"{ranks[0]['cross_cache']['kv_heads']} of {cfg.kv_heads} heads")
+    trains = [r["train"] for r in ranks]
+    for t in trains:
+        before, after = t["first_batch_loss"]
+        if t["layout"] != "megatron_tp" or not (np.isfinite(t["losses"]).all()
+                                                and after < before):
+            raise AssertionError(f"mesh {tag} train rank {t['rank']}: layout {t['layout']}, "
+                                 f"the first batch's loss {before} -> {after}")
+        log(f"mesh {tag} train rank {t['rank']}: losses {t['losses']}, first batch "
+            f"{before} -> {after}, {t['step_s']} s a step, peak {t['peak_memory_gb']} GB")
+    st = family_mesh_stepper(torch, run, None)
+    loss, norm, attn = gradient_digest(torch, st["woven"], st["params"](), st["batch0"],
+                                       stack_names(st["woven"]))
+    want = (loss, norm, {k: g.cpu() for k, g in attn.items()})
+    del st, attn
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train"] = {"ranks": [{k: v for k, v in t.items() if k != "digest"} for t in trains],
+                    "gradient_vs_one_card": compare_gradients(
+                        f"mesh-{tag}-train", trains[0]["digest"], want, run["attn_weights"],
+                        labels=("mesh", "one_card"))}
+    out["one_card_s"] = time.perf_counter() - t0
+    return out
+
+
 def mesh_phase(torch, serve_counts: dict, requests: dict, *, backend: str = "gloo",
                serve_shape=(1, 2), train_shapes=MESH_TRAIN_SHAPES,
-               fsdp_runs=FSDP_RUNS) -> dict:
+               fsdp_runs=FSDP_RUNS, family_runs=FAMILY_MESH_RUNS) -> dict:
     """Phase 12 (see the module docstring): the ranks' runs, then the
     one-card references they are held against, built here after the ranks
-    have gone.  `backend`, `serve_shape`, `train_shapes` and `fsdp_runs`
-    default to phase 12's two gloo ranks on one card (`tools/mesh_nccl.py`
-    runs the same phase over NCCL, a card per rank)."""
+    have gone.  `backend`, `serve_shape`, `train_shapes`, `fsdp_runs` and
+    `family_runs` default to phase 12's two gloo ranks on one card
+    (`tools/mesh_nccl.py` runs the same phase over NCCL, a card per
+    rank)."""
     from functools import partial
 
     import numpy as np
@@ -6272,7 +6692,8 @@ def mesh_phase(torch, serve_counts: dict, requests: dict, *, backend: str = "glo
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     res = run_on_mesh(partial(mesh_rank, requests["solo"], requests["batch"],
-                              dict(train_shapes), dict(fsdp_runs)), serve_shape,
+                              dict(train_shapes), dict(fsdp_runs), dict(family_runs)),
+                      serve_shape,
                       backend=backend, device="cuda", timeout_s=900)
     ranks_s = time.perf_counter() - t0
     summary = {"ranks_wall_s": ranks_s, "backend": backend,
@@ -6352,6 +6773,8 @@ def mesh_phase(torch, serve_counts: dict, requests: dict, *, backend: str = "glo
             f"mesh-train-{tag}", res[tag]["digest"], want, 4, labels=("mesh", "one_card"))
     summary["depth_gemma2b"] = MESH_TRAIN_DEPTH
     summary.update(fsdp_checks(torch, fsdp_runs, res))
+    for tag, run in dict(family_runs).items():
+        summary[f"family_{tag}"] = family_mesh_check(torch, tag, run, res[tag])
     summary["seconds"] = time.perf_counter() - t0
     log("mesh " + json.dumps(summary, default=float))
     return summary
@@ -6490,7 +6913,13 @@ def run(torch, build, t_start) -> int:
                    for r in mesh[f"fsdp_{tag}"]["serve"]["ranks"]},
                 **{f"mesh_fsdp_{tag}_train_rank{r['rank']}_last_step":
                    {**r["launches_per_step"], **r["routes_per_step"]}.get(key, 0)
-                   for tag in FSDP_RUNS for r in mesh[f"fsdp_{tag}"]["train"]["ranks"]}}
+                   for tag in FSDP_RUNS for r in mesh[f"fsdp_{tag}"]["train"]["ranks"]},
+                **{f"mesh_family_{tag}_serve_rank{r['rank']}": r["launches"].get(key, 0)
+                   for tag in FAMILY_MESH_RUNS for r in mesh[f"family_{tag}"]["ranks"]},
+                **{f"mesh_family_{tag}_train_rank{r['rank']}_last_step":
+                   {**r["launches_per_step"], **r["routes_per_step"]}.get(key, 0)
+                   for tag in FAMILY_MESH_RUNS
+                   for r in mesh[f"family_{tag}"]["train"]["ranks"]}}
 
     # K2's single-token launches (all but widened q) and, of those, the split
     # route's (the rest run the FMA body)

@@ -17,7 +17,8 @@ the dry run's memory arithmetic reads; on a live mesh (`launch/mesh.make_mesh`)
 `local_shard` takes each rank's block and `gather_shards` puts the blocks
 back together.  A live mesh runs AutoShard's three layouts (`check_layout`
 says what it still refuses): Megatron's (`megatron_tp`, its `embed` whole or
-split over the batch axes), `dp_fsdp` and `fsdp_sp`.  A weight split on its
+split over the batch axes; a MoE layer's experts replicated, each expert's
+`mlp` dim split over `model`), `dp_fsdp` and `fsdp_sp`.  A weight split on its
 `embed` dim is an FSDP block: `gather_plan` lists those dims, and the model
 gathers them where the weight is used (`gather_tree`), never keeping a
 gathered copy.
@@ -218,6 +219,14 @@ def _block(mesh: Mesh, axes: tuple[str, ...]) -> int:
     return i
 
 
+def block_coords(sharding: NamedSharding, mesh: Mesh | None = None) -> tuple[int, ...]:
+    """This rank's block index along each dim the spec of `sharding` names
+    (0 along a whole dim; () for a replicated tensor)."""
+    mesh = mesh or sharding.mesh
+    return tuple(_block(mesh, _axes_tuple(entry)) if entry is not None else 0
+                 for entry in sharding.spec)
+
+
 def local_shard(x: torch.Tensor, sharding: NamedSharding, mesh: Mesh | None = None) -> torch.Tensor:
     """The block of `x` (the whole tensor) this rank of `mesh` (default: the
     sharding's) holds: a contiguous copy whenever it is not all of `x`."""
@@ -348,7 +357,8 @@ def check_layout(mesh: Mesh | None, rules: Mapping[str, Any], layout: str | None
         if live_axes(mesh, rules.get(key)):
             raise NotImplementedError(
                 f"rule {key!r} -> {rules.get(key)!r} shards over a live mesh axis: no "
-                "layout of AutoShard splits it (ROADMAP Queue 1 item 15b)")
+                "layout of AutoShard splits it (a MoE layer's experts stay replicated, "
+                "tensor-parallel inside: ROADMAP Queue 1 item 15b)")
     if layout == "fsdp_sp":
         if serving:
             raise NotImplementedError(

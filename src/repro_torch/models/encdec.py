@@ -12,6 +12,14 @@ cross caches back unwritten.
 
 Positions are sinusoidal (not learned), as in the reference; the backbone's
 dimensions are whisper-small's.
+
+On a live mesh under Megatron's layout each rank runs both stacks on its
+heads and its block of the MLPs: the encoder non-causal, its output
+replicated on every rank; the cross-attention's K / V (and their cache)
+the rank's heads, projected from those states.  A vocab the `model` axis
+does not divide (whisper-small's 51865 rows) stays whole on every rank.
+Weights split on their `embed` dim (an FSDP rule) are gathered where they
+are used, as the decoder-only LM gathers them (`sharding.gather_plan`).
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import gather_plan, gather_tree
 from repro_torch.nn.attention import Attention, cache_spec
 from repro_torch.nn.blocks import MLP, Embedding, LayerNorm, sinusoidal_positions
 from repro_torch.nn.module import Ctx, Module, cast
@@ -134,19 +143,26 @@ class EncDecLM(Module):
     def encode(self, params, frames, *, ctx: Ctx):
         """frames: (B, T, d_model) stub frame embeddings -> encoder states.
         Frames and positions are each cast to the compute dtype, then added."""
+        plan = gather_plan(self, ctx.mesh, ctx.rules)
         T = frames.shape[1]
         dtype = ctx.policy().compute_dtype
         pos = sinusoidal_positions(torch.arange(T, device=frames.device), self.cfg.d_model)
         x = cast(frames, dtype) + cast(pos, dtype)
         x = ctx.constrain(x, ("batch", "res_seq", "embed"))
-        x, _ = self.encoder(params["encoder"], x, ctx=ctx, mode="dense")
-        return self.enc_norm(params["enc_norm"], x, ctx=ctx)
+        x, _ = self.encoder(params["encoder"], x, ctx=ctx, mode="dense",
+                            gather=plan and plan["encoder"])
+        return self.enc_norm(gather_tree(params["enc_norm"], plan and plan["enc_norm"],
+                                         ctx.mesh), x, ctx=ctx)
 
     def forward(self, params, inputs: dict, *, ctx: Ctx, mode: str = "dense",
                 cache: dict | None = None):
         cfg = self.cfg
         tokens = inputs["tokens"]
         B, S = tokens.shape
+        plan = gather_plan(self, ctx.mesh, ctx.rules)
+
+        def whole(key):  # a top-level weight, its FSDP dims gathered at use
+            return gather_tree(params[key], plan and plan[key], ctx.mesh)
 
         if ctx.extra.get("skip_trunk"):
             enc = None
@@ -158,7 +174,7 @@ class EncDecLM(Module):
         positions = inputs.get("positions")
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
-        x = self.embed(params["embed"], tokens, ctx=ctx)
+        x = self.embed(whole("embed"), tokens, ctx=ctx)
         x = x + cast(sinusoidal_positions(positions, cfg.d_model), x.dtype)
         x = ctx.constrain(x, ("batch", "res_seq", "embed"))
 
@@ -168,11 +184,12 @@ class EncDecLM(Module):
             x, new_dec_cache = self.decoder(
                 params["decoder"], x, ctx=ctx, mode=mode, cache=dec_cache,
                 positions=positions, block_kwargs={"kv_src": enc},
+                gather=plan and plan["decoder"],
             )
         if mode == "prefill":
             x = x[:, -1:]
-        x = self.final_norm(params["final_norm"], x, ctx=ctx)
-        logits = self.embed.attend(params["embed"], x, ctx=ctx)
+        x = self.final_norm(whole("final_norm"), x, ctx=ctx)
+        logits = self.embed.attend(whole("embed"), x, ctx=ctx)
         logits = ctx.constrain(logits, ("batch", "res_seq", "vocab"))
         if mode == "dense":
             return logits, None

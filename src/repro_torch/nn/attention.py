@@ -861,7 +861,8 @@ class Attention(Module):
 
         Without a cache, K and V are projected from `kv_src` and returned as
         the `{"ck", "cv"}` cache; handed one, the cache comes back as the
-        same object and is never written.  A single-token decode step under
+        same object and is never written.  On a live mesh the cache holds
+        the KV heads of the rank's q heads.  A single-token decode step under
         the `cuda` impl attends through `flash_decode` at `index = T - 1`:
         the encoder length is fixed, so every slot is live and the causal
         bound of the last slot is the full mask.  Every multi-token call
@@ -874,6 +875,10 @@ class Attention(Module):
             if kv_src is None:
                 raise ValueError("cross-attention needs kv_src or a cached "
                                  "{'ck', 'cv'}")
+            if params["wq"].shape[-1] != self.n_heads * self.head_dim:
+                # the replicated encoder states enter the column-parallel
+                # K / V projections as the residual enters q's
+                kv_src = copy_to(kv_src, ctx.mesh, "model")
             k, v = self._kv_proj(params, kv_src, policy, ctx)
             new_cache = {"ck": k, "cv": v}
         B, S = q.shape[0], q.shape[1]

@@ -108,13 +108,16 @@ class Linear(Module):
 
 def row_parallel_matmul(x, w, ctx: Ctx) -> torch.Tensor:
     """x @ w for w's rows split over `model` (this rank's block), summed
-    over the ranks.  Served (no autograd), a 16-bit product keeps its fp32
-    partial sums for the all-reduce, so the result is rounded once, as the
-    one-device product rounds its whole sum; under autograd the 16-bit
-    partials are summed (in fp32 over gloo)."""
+    over the ranks; a 3-D `w` (the MoE experts, (E, rows, n)) is a batched
+    product of x (E, N, rows).  Served (no autograd), a 16-bit product
+    keeps its fp32 partial sums for the all-reduce, so the result is
+    rounded once, as the one-device product rounds its whole sum; under
+    autograd the 16-bit partials are summed (in fp32 over gloo)."""
     if x.dtype in (torch.bfloat16, torch.float16) and not (
             torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
-        if x.is_cuda:
+        if x.is_cuda and w.dim() == 3:
+            y = torch.bmm(x, w, out_dtype=torch.float32)
+        elif x.is_cuda:
             y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
             y = y.reshape(*x.shape[:-1], w.shape[-1])
         else:

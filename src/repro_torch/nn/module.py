@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import fnmatch
+import zlib
 from typing import Any, Iterator, Mapping, Sequence
 
 import numpy as np
@@ -276,25 +277,44 @@ def flatten_specs(module: Module) -> dict[str, ParamSpec]:
 def init_params(
     module: Module, seed: int = 0, policies: PolicyResolver | None = None,
     device: "str | torch.device" = "cuda", shardings: Any | None = None,
+    local: bool = False,
 ) -> dict[str, Any]:
     """Materialize every parameter on `device`, register it on the module
     that owns it, and return the param tree (nested dicts keyed by module
     names).  Draws come from one `torch.Generator` on that device.  Given
     a sharding tree of a live mesh (`distributed/sharding.param_shardings`),
     each leaf is drawn whole, as without a mesh, and only this rank's block
-    is kept: the blocks are slices of the one-device parameters."""
+    is kept: the blocks are slices of the one-device parameters.  With
+    `local` each rank draws its block alone, at the whole leaf's
+    distribution, from a generator seeded by `seed`, the leaf and the
+    block (ranks holding one block draw the same values): no rank holds a
+    whole leaf — a model one device cannot hold — and the blocks are not
+    slices of the one-device parameters."""
     device = resolve_device(device)
     policies = policies or PolicyResolver.default()
     generator = torch.Generator(device=device)
     generator.manual_seed(int(seed))
     if shardings is not None:
-        from repro_torch.distributed.sharding import local_shard
+        from repro_torch.distributed.sharding import block_coords, local_shard
 
         flat_shardings = iter(_flat_leaves(shardings))
+    elif local:
+        raise ValueError("local draws are a live mesh's: pass its shardings")
 
     def leaf(spec: ParamSpec, path: str, owner: torch.nn.Module, name: str):
-        value = spec.instantiate(generator, policies.resolve(path), device)
-        if shardings is not None:
+        if local:
+            sh = next(flat_shardings)
+            block = block_coords(sh)
+            generator.manual_seed(int(seed) * 1_000_003
+                                  + zlib.crc32(f"{path}|{block}".encode()))
+            fan_in = spec.shape[0] if spec.init == "scaled" and spec.scale is None \
+                else spec.scale
+            value = dataclasses.replace(spec, shape=sh.shard_shape(spec.shape),
+                                        scale=fan_in).instantiate(
+                generator, policies.resolve(path), device)
+        else:
+            value = spec.instantiate(generator, policies.resolve(path), device)
+        if shardings is not None and not local:
             value = local_shard(value, next(flat_shardings))
         owner.register_parameter(
             name, torch.nn.Parameter(value, requires_grad=False))

@@ -14,6 +14,17 @@ order, and a dropped token (rank >= C) gets an all-zero capacity row, so it
 contributes exactly nothing.  The products are left to cuBLAS, as the
 reference leaves them to XLA: no kernel of this module replaces a TPU
 kernel.
+
+On a live mesh under Megatron's layout (the experts replicated, tensor
+parallelism inside them, as GSPMD splits the reference's `wi` / `wg` / `wo`)
+a rank holds every expert's block of the `mlp` dim: `wi` / `wg` are
+column-parallel and `wo` row-parallel, with one all-reduce over `model`
+after it.  The router, the capacities and the combine stay replicated, so
+every rank routes alike.  The router reads the residual as it is: only the
+experts' branch enters through `copy_to`, whose backward sums the
+gradient over `model` — the router's share of it is whole on every rank
+already.  The all-reduce comes after `wo`, not after the combine, so the
+gates see whole expert outputs and their gradient needs no sum of its own.
 """
 
 from __future__ import annotations
@@ -21,7 +32,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.nn.blocks import _act
+from repro_torch.distributed.collectives import copy_to
+from repro_torch.nn.blocks import _act, row_parallel_matmul
 from repro_torch.nn.module import Ctx, Module, ParamSpec, cast
 
 
@@ -109,9 +121,13 @@ class MoEMLP(Module):
             combine = combine.to(policy.compute_dtype)
 
             # --- dispatch -> expert compute -> combine ---
+            # the experts' mlp dim split over model: their branch enters
+            # through copy_to (the router above read xc as it is)
+            tp = params["wi"].shape[-1] != self.d_ff
+            xe = copy_to(xc, ctx.mesh, "model") if tp else xc
             # expert_in[e,b,c] = the one token of group b in slot (e, c)
             expert_in = torch.matmul(
-                dispatch.permute(0, 2, 3, 1).reshape(Bg, E * C, Sg), xc)
+                dispatch.permute(0, 2, 3, 1).reshape(Bg, E * C, Sg), xe)
             expert_in = expert_in.reshape(Bg, E, C, dm).transpose(0, 1)
             expert_in = expert_in.reshape(E, Bg * C, dm)  # (E, Bg*C, dm)
             wi = cast(params["wi"], policy.compute_dtype)
@@ -122,7 +138,9 @@ class MoEMLP(Module):
             h = torch.bmm(expert_in, wi)
             g = torch.bmm(expert_in, wg)
             h = _act(self.activation, g) * h
-            out_e = torch.bmm(h, wo)  # (E, Bg*C, dm)
+            # (E, Bg*C, dm); row-parallel: the partial products add over model
+            out_e = row_parallel_matmul(h, wo, ctx) if tp else torch.bmm(h, wo)
+            out_e = cast(out_e, policy.compute_dtype)
             out_e = out_e.reshape(E, Bg, C, dm).transpose(0, 1).reshape(Bg, E * C, dm)
             out = torch.matmul(combine.reshape(Bg, Sg, E * C), out_e)
             if n_groups > 1:

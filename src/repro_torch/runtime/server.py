@@ -19,9 +19,12 @@ Two serving paths:
     prefill chunk, draft length and the modeled DVFS point as load shifts,
     against TTFT / inter-token SLOs and a power budget).
 
-On a live mesh (`launch/mesh.make_mesh`, Megatron's layout) every rank runs
-the same server over its shards of the weights and of the KV heads (its
-page pool holds its local heads): the steps hand back whole logits, and
+On a live mesh (`launch/mesh.make_mesh`, Megatron's layout: the dense,
+MoE, encoder-decoder and VLM families) every rank runs the same server
+over its shards of the weights and of the KV heads (its page pool — a
+sliding window's ring pool too — and an encoder-decoder's cross caches
+hold its local heads; an image prefix and the encoder's frames are
+replicated): the steps hand back whole logits, and
 every host decision — the sampled tokens, mARGOt's knobs, memo hits,
 deadline sweeps, the tuned kernel knobs — is rank 0's, broadcast, so the
 ranks schedule alike and meet in every collective.  Under `dp_fsdp` (the
@@ -285,10 +288,20 @@ class Server:
             self.memo.update(key, result)
         return result
 
-    def serve(self, tokens: np.ndarray, *, decode_tokens: int | None = None) -> np.ndarray:
-        """tokens: (B, S) prompt -> (B, N) generated ids (greedy)."""
+    def serve(self, tokens: np.ndarray, *, decode_tokens: int | None = None,
+              inputs: dict[str, np.ndarray] | None = None) -> np.ndarray:
+        """tokens: (B, S) prompt -> (B, N) generated ids (greedy).
+
+        `inputs`: the prompt's other inputs, row for row with `tokens` — an
+        encoder-decoder's `frames` (B, T, d_model), whose encoder states and
+        cross caches the decode steps then carry, or a VLM's image prefix
+        `embeds` (B, P, d_model), whose P tokens the decode positions
+        count.  Without them an encoder-decoder's prefill fails, as the
+        reference's does."""
         n = decode_tokens or self.cfg.decode_tokens
-        key = ("serve", tokens.tobytes(), n)
+        extra = {k: np.asarray(v) for k, v in (inputs or {}).items()}
+        key = ("serve", tokens.tobytes(), n,
+               tuple((k, v.tobytes()) for k, v in sorted(extra.items())))
         if self.memo is not None and self.memo.running:
             hit, out = broadcast_object(self.memo.lookup(key), self.mesh)
             if hit:
@@ -297,13 +310,17 @@ class Server:
         variant = self._begin()
 
         toks = torch.as_tensor(np.asarray(tokens), device=self.device).to(torch.int32)
+        feed = {"tokens": toks}
+        feed.update({k: torch.as_tensor(v, device=self.device) for k, v in extra.items()})
         rows = self._rows(toks.shape[0])
         if rows is not None:
-            toks = local_shard(toks, rows)
+            feed = {k: local_shard(v, rows) for k, v in feed.items()}
+            toks = feed["tokens"]
         B, S = toks.shape
-        logits, cache = self.prefill_vc(variant, self.params, {"tokens": toks})
+        logits, cache = self.prefill_vc(variant, self.params, feed)
         outs = []
-        pos = S
+        # a VLM's decode positions count its image prefix
+        pos = S + (feed["embeds"].shape[1] if "embeds" in feed else 0)
         tok = self._sampled(torch.argmax(logits[:, -1], dim=-1)[:, None])
         for _ in range(n):
             outs.append(tok)

@@ -41,36 +41,35 @@ from repro_torch.optim.tree import leaves as tree_leaves
 from repro_torch.optim.tree import rebuild
 
 
-MESH_FAMILIES_ITEM = "ROADMAP Queue 1 item 15b"
-
-
 # the layouts each family runs under on a live mesh: AutoShard's own choices
-MESH_LAYOUTS = {"dense": ("megatron_tp", "fsdp_sp"), "ssm": ("dp_fsdp",),
-                "hybrid": ("dp_fsdp",)}
+MESH_LAYOUTS = {"dense": ("megatron_tp", "fsdp_sp"), "moe": ("megatron_tp",),
+                "encdec": ("megatron_tp",), "vlm": ("megatron_tp",),
+                "ssm": ("dp_fsdp",), "hybrid": ("dp_fsdp",)}
+# where the MoE, encoder-decoder and VLM families under `fsdp_sp` are queued
+FAMILY_FSDP_SP_ITEM = "ROADMAP Queue 1 item 15b-ii"
 
 
 def check_on_mesh(woven: WovenProgram, mesh, state=None, *, serving: bool = False):
     """`mesh` if a step of `woven` runs on it (`launch/mesh.check_mesh`); a
     live mesh of several ranks takes the dense family under `megatron_tp`
-    (and `fsdp_sp` for training) and the ssm and hybrid families under
-    `dp_fsdp` (`MESH_LAYOUTS`, `sharding.check_layout`)."""
+    (and `fsdp_sp` for training), the MoE, encoder-decoder and VLM families
+    under `megatron_tp` and the ssm and hybrid families under `dp_fsdp`
+    (`MESH_LAYOUTS`, `sharding.check_layout`)."""
     mesh = check_mesh(mesh)
     if not is_live(mesh):
         return mesh
     from repro_torch.distributed.sharding import check_layout
 
     family = woven.program.cfg.family
-    if family not in MESH_LAYOUTS:
-        raise NotImplementedError(
-            f"the {family} family ({woven.program.cfg.name}) on a live mesh: the "
-            f"dense, ssm and hybrid families run there ({MESH_FAMILIES_ITEM})")
     state = state or woven.state
     layout = state.extra.get("layout") or "megatron_tp"
     if layout not in MESH_LAYOUTS[family]:
+        item = FAMILY_FSDP_SP_ITEM if layout == "fsdp_sp" else \
+            "no layout of AutoShard lays it out so"
         raise NotImplementedError(
             f"the {family} family ({woven.program.cfg.name}) under {layout} on a live "
             f"mesh: it runs under {' or '.join(MESH_LAYOUTS[family])}, the layouts "
-            f"AutoShard picks for it ({MESH_FAMILIES_ITEM})")
+            f"AutoShard picks for it ({item})")
     check_layout(mesh, state.rules, layout, serving=serving)
     return mesh
 

@@ -246,9 +246,11 @@ def refusals(mesh):
         except Exception as e:  # the wrong refusal: the test reports it
             out[name] = f"{type(e).__name__}: {e}"
 
-    for arch in ("mixtral-8x22b", "whisper-small", "internvl2-1b"):
-        attempt(arch, lambda a=arch: build_prefill_step(woven(a, "serve", {}, head_dim=None),
-                                                        mesh=mesh))
+    for name, arch in (("whisper_fsdp_sp", "whisper-small"),
+                       ("internvl_fsdp_sp", "internvl2-1b")):
+        fsdp_sp = AutoShard(dict(mesh.shape), train=False, layout="fsdp_sp")
+        attempt(name, lambda a=arch, f=fsdp_sp: build_prefill_step(
+            woven(a, "serve", mesh.shape, head_dim=None, aspects=[f]), mesh=mesh))
     w = woven("yi-6b", "serve", mesh.shape)
     prompts = [np.arange(5, dtype=np.int32)]
 

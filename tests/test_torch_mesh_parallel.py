@@ -12,7 +12,8 @@ step; (d) greedy tokens through `serve_batch` / `serve_continuous`;
 (e) `reshard_params` onto (2, 2) bit for bit, and a meshed trainer's
 whole checkpoint restored by a meshed and a one-device trainer; (f) the
 train step's all-reduces over `model`; (g) what a live mesh refuses (the
-FSDP layouts and the recurrent families run: `test_torch_mesh_fsdp.py`).  The
+FSDP layouts and the recurrent families run: `test_torch_mesh_fsdp.py`; the
+MoE, encoder-decoder and VLM families: `test_torch_mesh_families.py`).  The
 vocab-split argmax breaks ties to the lowest index and the split loss is
 the whole vocab's.  The rank bodies are in `_torch_mesh_ranks.py`."""
 
@@ -281,7 +282,7 @@ def test_a_meshed_trainer_checkpoints_whole_state_any_mesh_restores(tmp_path):
 # -- (g) refusals ------------------------------------------------------------------
 
 REFUSED = {
-    "mixtral-8x22b": "15b", "whisper-small": "15b", "internvl2-1b": "15b",
+    "whisper_fsdp_sp": "15b-ii", "internvl_fsdp_sp": "15b-ii",
     "int8_pool": "15c", "int8_weights": "15c", "grad_compression": "15c",
     "speculative": "15d", "verify_step": "15d", "qos_governor": "15d", "fleet": "15d",
     "fsdp_sp_serving": "15a-ii",
