@@ -119,8 +119,8 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    reduced configuration (`train_phase`);
 9. trains the hybrid, ssm, MoE and encoder-decoder families at published
    width (`train_families_phase`, `TRAIN_FAMILY_RUNS`): recurrentgemma-2b
-   and rwkv6-3b at full depth through the launcher's trainer,
-   mixtral-8x22b cut to one layer, whisper-small through
+   at full depth and rwkv6-3b cut to 8 layers through the launcher's
+   trainer, mixtral-8x22b cut to one layer, whisper-small through
    `build_train_step` with frames from a seed — three counted steps each
    (rwkv6-3b two) with exact launches (every bf16 K1 / K3 launch on the
    tensor cores), finite losses, the first batch's loss falling, step
@@ -192,7 +192,24 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    internvl2-1b's in fp32), whisper's cross caches left unwritten on a
    rank's heads — and each trained two counted steps (whisper through
    `build_train_step` with frames): the first batch's loss falling, the
-   meshed gradient at the training gates against one card's.  Two ranks on
+   meshed gradient at the training gates against one card's; then
+   quantized and speculative serving, int8 weights and int8 gradient
+   compression on (1, 2) (`QUANT_MESH_RUNS`): (q1) the full yi-6b server's
+   continuous prompts again over an int8 pool, plain and self-drafted at
+   k = 2 (K2d on a rank's KV heads, K2's widened verify over its codes;
+   launches by route from the step counts, every outcome ok, a rank's int8
+   page at most 0.55x its bf16 page, the spec stats against the step
+   counts; agreement with one card's (c) and (s3) printed); (q2) yi-6b at
+   4 layers in fp32 over an int8 pool, plain and at k = 2 (speculative bit
+   for bit plain on the mesh), its first prefill's logits against one
+   card's — over the fp32 pool within 1e-5 of the scale, over the int8
+   pool at the logit gate with every code at most one step from one
+   card's; (q3) the same model under `fixed` (int8 MLP weights, bf16):
+   every row-parallel weight's codes and scales bit for bit one card's rows
+   and the prefill logits at the logit gate; (q4) gemma-2b at
+   `MESH_TRAIN_DEPTH` layers trained two steps under `CompressionAspect`:
+   the first batch's loss falling, the compressed gradient at the training
+   gates against one card's, `ef` shaped as a rank's blocks.  Two ranks on
    one card time-slice its SMs: their times are no parallel speed-up.
 
 Any failed phase ends the run with a non-zero exit code.  The last line of
@@ -1945,6 +1962,21 @@ def check_paged_run(server, phase, tag, prompts, out, counts, routes, quantized)
         raise AssertionError(f"{phase} {tag}: routes {routes} != expected {want_routes}")
 
 
+def check_spec_stats(tag, st, sp, out, served: int, k: int) -> None:
+    """Gates of a self-drafted serve at draft length k: `emitted_spec` plus
+    one first token a request is every token served, and the server's step
+    counts are its spec stats' (verify, draft and decode steps; no plain
+    decode round, k + 1 draft steps a round)."""
+    if sp["emitted_spec"] + len(out) != sum(len(o) for o in out) or \
+            sum(len(o) for o in out) != served:
+        raise AssertionError(f"{tag}: emitted {sp['emitted_spec']} + {len(out)} "
+                             f"first tokens != {served} served")
+    if (st["verify"], st["draft"], st["decode"]) != \
+            (sp["verify_steps"], sp["draft_steps"], sp["decode_steps"]) \
+            or sp["decode_steps"] or sp["draft_steps"] != (k + 1) * sp["rounds"]:
+        raise AssertionError(f"{tag}: steps {st} against the spec stats {sp}")
+
+
 def continuous_phase(torch, server) -> dict:
     """The main path proper, at full width and depth: `serve_continuous` and
     `serve_stream` over the paged pool, with a bf16 and an int8 pool.
@@ -2064,8 +2096,11 @@ def continuous_phase(torch, server) -> dict:
     log("continuous-diagnostic " + json.dumps(sharing_diagnostic(torch, server, prompts)))
     log("pool-prefill-logits " + json.dumps(pool_prefill_logit_gate(torch, server)))
     log("profile-wave " + json.dumps(profiled["wave"]))
-    return {tag: {**report[tag]["launches"], **report[tag]["routes"]}
-            for tag in ("a_bf16_shared", "c_int8_shared")}
+    counts = {tag: {**report[tag]["launches"], **report[tag]["routes"]}
+              for tag in ("a_bf16_shared", "c_int8_shared")}
+    # run (c)'s tokens: the mesh's int8 serve (q1) prints its agreement
+    counts["c_int8_tokens"] = [o.tolist() for o in runs["c_int8_shared"]]
+    return counts
 
 
 def speculative_phase(torch, server) -> dict:
@@ -2145,14 +2180,7 @@ def speculative_phase(torch, server) -> dict:
         check_paged_run(server, "speculative", tag, prompts, out, counts, routes,
                         dtype is not None)
         st, sp = server.last_step_counts, server.last_spec_stats
-        if sp["emitted_spec"] + len(prompts) != sum(len(o) for o in out) or \
-                sum(len(o) for o in out) != served:
-            raise AssertionError(f"{tag}: emitted {sp['emitted_spec']} + {len(prompts)} "
-                                 f"first tokens != {served} served")
-        if (st["verify"], st["draft"], st["decode"]) != \
-                (sp["verify_steps"], sp["draft_steps"], sp["decode_steps"]) \
-                or sp["decode_steps"] or sp["draft_steps"] != (k + 1) * sp["rounds"]:
-            raise AssertionError(f"{tag}: steps {st} against the spec stats {sp}")
+        check_spec_stats(tag, st, sp, out, served, k)
         plain_steps = report[base]["steps"]["decode"]
         if not sp["target_steps"] < plain_steps:
             raise AssertionError(f"{tag}: {sp['target_steps']} target steps, the plain "
@@ -2315,6 +2343,8 @@ def speculative_phase(torch, server) -> dict:
                                      "requests": len(prompts), "decode_tokens": n,
                                      "runs": report}))
     log("profile-verify-wave " + json.dumps({"card": card, **wave}))
+    # (s3)'s tokens: the mesh's self-drafted int8 serve (q1) prints its agreement
+    spec_counts["s3_int8_tokens"] = [o.tolist() for o in runs["s3_int8_k2"]]
     return spec_counts
 
 
@@ -4772,7 +4802,10 @@ def remat_policy_runs(torch, trainer, mb, overrides) -> dict:
 TRAIN_FAMILY_RUNS = {
     "h": dict(arch="recurrentgemma-2b", layers=None, batch=2, seq=4096, accum=2, steps=3,
               attn_layers=8, attn_weights=32, gates=("formula", "fp32")),
-    "s": dict(arch="rwkv6-3b", layers=None, batch=4, seq=1024, accum=2, steps=2,
+    # cut to 8 of 32 layers: at full depth its profiled step alone took
+    # 99 s on an H100 (the profiler over ~300 k kernels), the script's
+    # largest single cost
+    "s": dict(arch="rwkv6-3b", layers=8, batch=4, seq=1024, accum=2, steps=2,
               attn_layers=0, attn_weights=0, gates=()),
     "m": dict(arch="mixtral-8x22b", layers=1, batch=1, seq=6144, accum=1, steps=3,
               attn_layers=1, attn_weights=4, gates=("fp32",)),
@@ -5075,8 +5108,8 @@ def train_families_phase(torch) -> dict:
     """Training the hybrid, ssm, MoE and encoder-decoder families on the card
     at published width (`TRAIN_FAMILY_RUNS`): (h) recurrentgemma-2b, 26
     layers (per-block remat; K1 with lse and K3 at H10 K1 D256, window 2048
-    at S 4096, which prunes), B2 x 4096 in 2 microbatches; (s) rwkv6-3b, 32
-    layers, B4 x 1024 in 2 — no hand-written kernel on its training path
+    at S 4096, which prunes), B2 x 4096 in 2 microbatches; (s) rwkv6-3b cut
+    to 8 of 32 layers, B4 x 1024 in 2 — no hand-written kernel on its training path
     (every counter 0): its parameters change, its losses are finite and
     its first batch's loss falls; (m) mixtral-8x22b cut to one layer (2.90 B parameters with the
     embeddings, the depth one card trains), B1 x 6144 (K1 / K3 at G 6, window
@@ -5584,11 +5617,12 @@ def every_rank(obj, mesh) -> list:
     return out
 
 
-def mesh_serve_rank(torch, mesh, solo, batch) -> dict:
+def mesh_serve_rank(torch, mesh, solo, batch, quant: bool = False) -> dict:
     """yi-6b on this rank of the (1, 2) mesh: step 5's requests, counted;
     the prefill logits of the first; a profiled decode step; a short
     continuous serve, counted and checked against the server's own step
-    counts."""
+    counts; with `quant`, (q1) the same prompts over an int8 pool, plain
+    and self-drafted (`mesh_quant_serve`)."""
     import numpy as np
 
     from repro_torch.distributed import collectives
@@ -5620,21 +5654,327 @@ def mesh_serve_rank(torch, mesh, solo, batch) -> dict:
         prompts, max_batch=MESH_CONTINUOUS, page_size=opts["page_size"]))
     check_paged_run(server, "mesh", f"rank{mesh.rank} continuous", prompts, cont, ccounts,
                     croutes, False)
+    ccolls, cpool = collectives.counts(), server.last_pool_stats
+    cstep = dict(server.last_step_counts)
+    quant = mesh_quant_serve(torch, server, mesh, prompts, opts,
+                             cpool["page_hbm_bytes"]) if quant else None
     out = {"rank": mesh.rank, "layout": layout, "build_s": build_s,
            "serve_wall_s": wall, "launches": counts, "routes": routes,
            "collectives": colls, "continuous_wall_s": cwall,
            "continuous_launches": ccounts, "continuous_routes": croutes,
-           "continuous_steps": server.last_step_counts,
-           "continuous_collectives": collectives.counts(),
-           "pool_bytes_per_rank": server.last_pool_stats["page_hbm_bytes"],
+           "continuous_steps": cstep, "continuous_collectives": ccolls,
+           "pool_bytes_per_rank": cpool["page_hbm_bytes"],
            "profile": prof, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     tokens = {"solo": [o.tolist() for o in solo_out], "batch": [o.tolist() for o in batch_out],
               "continuous": [o.tolist() for o in cont]}
+    if quant is not None:
+        out["quant"] = quant.pop("runs")
+        tokens.update(quant)
     del server
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     return {"ranks": every_rank(out, mesh), "logits": logits, "tokens": tokens}
+
+
+def mesh_quant_serve(torch, server, mesh, prompts, opts, bf16_page_bytes) -> dict:
+    """(q1) on this rank: `prompts` through `serve_continuous` over an int8
+    pool, `QUANT_Q1_TOKENS` tokens a request (K2d on the rank's KV heads),
+    then self-drafted at k = 2 over it
+    (K2's widened verify over codes, the draft's steps on the split route,
+    the verify round's decisions rank 0's).  Gated: launches by route as
+    the server's step counts say, every outcome ok, the rank's int8 page at
+    most 0.55x its bf16 page, and the speculative serve's step counts and
+    emitted tokens against its spec stats (`check_spec_stats`).  Returns
+    the runs' counts and each run's tokens."""
+    n, keep = QUANT_Q1_TOKENS, server.cfg.decode_tokens
+    runs, tokens = {}, {}
+    server.cfg.cache_dtype, server.cfg.decode_tokens = "int8", n
+    try:
+        for tag, k in (("int8", 0), ("int8_k2", 2)):
+            out, wall, counts, routes = counted_serve(torch, lambda: server.serve_continuous(
+                prompts, max_batch=len(prompts), page_size=opts["page_size"], draft_len=k))
+            name = f"rank{mesh.rank} continuous {tag}"
+            check_paged_run(server, "mesh", name, prompts, out, counts, routes, True)
+            st, sp, pool = server.last_step_counts, server.last_spec_stats, server.last_pool_stats
+            if k:
+                check_spec_stats(f"mesh {name}", st, sp, out, n * len(prompts), k)
+            if not pool["page_hbm_bytes"] <= 0.55 * bf16_page_bytes:
+                raise AssertionError(f"mesh {name}: a page of {pool['page_hbm_bytes']} B "
+                                     f"against the bf16 pool's {bf16_page_bytes} (bound 0.55x)")
+            runs[tag] = {"wall_s": wall, "launches": counts, "routes": routes,
+                         "steps": dict(st), "page_hbm_bytes": pool["page_hbm_bytes"],
+                         "verify_launches": server.woven.program.cfg.num_layers * st["verify"],
+                         "spec": {key: sp[key] for key in ("acceptance", "rounds",
+                                                          "verify_steps", "draft_steps")}
+                         if sp else None}
+            tokens[f"continuous_{tag}"] = [o.tolist() for o in out]
+    finally:
+        server.cfg.cache_dtype, server.cfg.decode_tokens = None, keep
+    return {"runs": runs, **tokens}
+
+
+# (q2)-(q4) on the same two ranks at (1, 2): yi-6b at full width and 4 of
+# 32 layers, (q2) in fp32 over an int8 pool (plain and self-drafted at
+# k = 2; the first prefill's logits over the pool), (q3) under `fixed`
+# (int8 MLP weights, bf16); (q4) gemma-2b at `MESH_TRAIN_DEPTH` layers
+# trained two steps under `CompressionAspect`
+QUANT_MESH_RUNS = ("q1", "q2", "q3", "q4")
+# (q1)'s greedy tokens a request: a step of the full model on two gloo
+# ranks sharing an H100 takes ~0.8 s (32 tokens: 26.4 s plain, 53.1 s
+# self-drafted)
+QUANT_Q1_TOKENS = 8
+QUANT_MESH_SERVE = dict(arch="yi-6b", layers=4, max_len=4096)
+QUANT_FIXED_PROMPT = 128  # (q3)'s dense prefill
+FP32_POOL_LOGIT_TOL = 1e-5  # (q2): of the logit scale, the fp32 gate
+
+
+def pool_first_logits(torch, server, prompt, dtype: str | None = "int8"):
+    """A first prefill of `prompt` into a fresh `dtype` pool: the logits it
+    returns (the last prompt token's), whole, and the pool it wrote (each
+    layer group's `pk` / `pv`, and an int8 pool's scale sidecars), on the
+    host."""
+    from repro_torch.runtime.pages import PagedCacheManager
+
+    captured = {}
+    first_token = server._first_token
+
+    def capture(manager, rid, logits, fault=None):
+        captured["logits"] = logits[0, -1].float().cpu()
+        return first_token(manager, rid, logits, fault)
+
+    server._first_token = capture
+    try:
+        manager = PagedCacheManager(16, 128, max_len=server.cfg.max_cache_len,
+                                    prefix_sharing=False, cache_dtype=dtype)
+        server._paged_admit(manager, 0, prompt, len(prompt) + 1, None)
+    finally:
+        server._first_token = first_token
+    pools = {f"{name}/{key}": t.cpu() for name, group in manager._pools.items()
+             for key, t in group.items()}
+    return captured["logits"], pools
+
+
+def quant_fp32_rank(torch, mesh, prompts) -> dict:
+    """(q2) on this rank: fp32 yi-6b at 4 layers, the first prefill's
+    logits over an int8 pool, then `prompts` over an int8 pool, plain and
+    at k = 2 (exact launches from the step counts; fp32 q rows take the
+    FMA body).  Gated here: the speculative serve's tokens bit for bit the
+    plain serve's on the mesh."""
+    server = family_mesh_server(torch, QUANT_MESH_SERVE, mesh, policy="double")
+    server._begin()
+    layers = server.woven.program.cfg.num_layers
+    first = {dt or "fp32": pool_first_logits(torch, server, prompts[0], dt)
+             for dt in (None, "int8")}
+    runs, tokens = {}, {}
+    server.cfg.cache_dtype = "int8"
+    try:
+        for tag, k in (("plain", 0), ("k2", 2)):
+            out, wall, counts, routes = counted_serve(torch, lambda: server.serve_continuous(
+                prompts, max_batch=len(prompts), page_size=128, draft_len=k))
+            st = server.last_step_counts
+            want, _ = expected_launches(st, layers, True)
+            if counts != want or any(o["status"] != "ok" for o in server.last_outcomes):
+                raise AssertionError(f"(q2) rank{mesh.rank} {tag}: launches {counts} != "
+                                     f"{want}, or outcomes {server.last_outcomes}")
+            if k:
+                check_spec_stats(f"(q2) rank{mesh.rank} {tag}", st, server.last_spec_stats,
+                                 out, server.cfg.decode_tokens * len(prompts), k)
+            runs[tag] = {"wall_s": wall, "launches": counts, "routes": routes,
+                         "steps": dict(st), "verify_launches": layers * st["verify"]}
+            tokens[tag] = [o.tolist() for o in out]
+    finally:
+        server.cfg.cache_dtype = None
+    if tokens["k2"] != tokens["plain"]:
+        raise AssertionError(f"(q2) rank{mesh.rank}: the fp32 speculative serve over the "
+                             "int8 pool parts from plain greedy on the mesh")
+    del server
+    release(torch)
+    heads = local_heads(QUANT_MESH_SERVE["arch"], mesh)
+    return {"ranks": every_rank(runs, mesh), "tokens": tokens,
+            "first": every_rank({"heads": heads, **first}, mesh)}
+
+
+def local_heads(arch, mesh) -> list:
+    """The one-card KV heads a rank's pool holds (its q heads')."""
+    from repro_torch.kernels.flash_attention.ops import local_kv_heads
+    from repro_torch.models.registry import get_config
+
+    cfg = get_config(arch)
+    h_loc = cfg.n_heads // mesh.shape["model"]
+    return local_kv_heads(cfg.n_heads, cfg.kv_heads, mesh.coord("model") * h_loc, h_loc)
+
+
+def row_parallel_codes(torch, params, mesh=None, tp: int = 1) -> dict:
+    """blake2b digests of the int8 codes and scales of every row-parallel
+    weight (the MLPs' `wo`), layer by layer: on a rank of `mesh`, those of
+    its rows (`_quantize_int8` over the mesh); on one card, the rows each of
+    `tp` ranks holds, cut from the whole weight's codes — {path/layer:
+    [(codes, scales) a rank]}."""
+    import hashlib
+
+    from repro_torch.nn.blocks import _quantize_int8
+
+    def digest(t):
+        return hashlib.blake2b(t.contiguous().cpu().numpy().tobytes(), digest_size=16).hexdigest()
+
+    out = {}
+    for path, w in _paths(params):
+        if not path.endswith("ffn/wo/w"):
+            continue
+        for layer in range(w.shape[0]):
+            q, scale = _quantize_int8(w[layer], mesh)
+            n = q.shape[0] // tp
+            out[f"{path}/{layer}"] = [(digest(q[r * n:(r + 1) * n]), digest(scale))
+                                      for r in range(tp)]
+    return out
+
+
+def quant_fixed_rank(torch, mesh, prompt) -> dict:
+    """(q3) on this rank: yi-6b at 4 layers under `fixed`, the codes and
+    scales of its row-parallel weights (`row_parallel_codes`) and a dense
+    prefill of `prompt`, counted (K1 a layer, K4 twice a layer and once)."""
+    server = family_mesh_server(torch, QUANT_MESH_SERVE, mesh, policy="fixed")
+    server._begin()
+    layers = server.woven.program.cfg.num_layers
+    codes = row_parallel_codes(torch, server.params, mesh)
+    toks = torch.as_tensor(prompt[None], device="cuda")
+    (logits, cache), wall, counts, routes = counted_serve(
+        torch, lambda: server.prefill_vc(None, server.params, {"tokens": toks}))
+    want = {"flash_attention": layers, "flash_decode": 0, "flash_decode_quantized": 0,
+            "rmsnorm": 2 * layers + 1}
+    if counts != want or routes["flash_attention_tc"] != layers:
+        raise AssertionError(f"(q3) rank{mesh.rank}: launches {counts} {routes}, "
+                             f"expected {want} on the tensor cores")
+    out = {"rank": mesh.rank, "coord": mesh.coord("model"), "codes": codes, "wall_s": wall,
+           "launches": counts, "routes": routes}
+    logits = logits.float().cpu()
+    del server, cache
+    release(torch)
+    return {"ranks": every_rank(out, mesh), "logits": logits}
+
+
+def compressed_digest(torch, woven, params, mb, mesh=None, match: str = "attn/") -> tuple:
+    """The gradient AdamW's first step hands on under int8 compression — the
+    gradient of `mb` (on a live mesh: this rank's rows, meaned as the train
+    step means them), clipped, compressed with a zero residual
+    (`compression.ef_compress`, a row's scale over the ranks that split it)
+    — kept as `gradient_digest` keeps a gradient: the loss, the norm, the
+    matched leaves gathered whole as (L, n) rows."""
+    import math
+
+    from repro_torch.distributed.sharding import (gather_shards, input_shardings,
+                                                  local_shard, param_shardings)
+    from repro_torch.optim.adamw import AdamWConfig, global_norm
+    from repro_torch.optim.compression import ef_compress
+    from repro_torch.optim.tree import leaves, rebuild
+    from repro_torch.runtime.steps import build_grad_fn, build_mesh_mean
+
+    split = None
+    if mesh is not None:
+        shard = input_shardings(mb, mesh, woven.state.rules)
+        mb = {k: local_shard(v, shard[k]) for k, v in mb.items()}
+    (loss, _), grads = build_grad_fn(woven, mesh)(params, mb)
+    if mesh is not None:
+        split, mean = build_mesh_mean(woven, mesh)
+        grads, metrics = mean(grads, {"loss": loss})
+        loss = metrics["loss"]
+        shardings = leaves(param_shardings(woven.program.model, mesh, woven.state.rules))
+    scale = min(1.0, AdamWConfig().clip_norm / max(global_norm(grads, mesh, split).item(),
+                                                   1e-12))
+    flat = []
+    for i, g in enumerate(leaves(grads)):
+        kw = {}
+        if mesh is not None:
+            kw = {"mesh": mesh, "row_axes": shardings[i].dim_axes(-1),
+                  "numel": g.numel() * math.prod(mesh.shape[a] for a in split[i])}
+        g = g.float() * scale
+        flat.append(ef_compress(g, torch.zeros_like(g), **kw)[0])
+    grads = rebuild(grads, flat)
+    norm = global_norm(grads, mesh, split).item()
+    whole = dict(_paths(param_shardings(woven.program.model, mesh, woven.state.rules))) \
+        if mesh is not None else {}
+    stacks = stack_names(woven)
+    attn = {k: (gather_shards(g, whole[k]) if mesh is not None else g).float()
+            .reshape(g.shape[0] if k.split("/")[0] in stacks else 1, -1).cpu()
+            for k, g in _paths(grads) if match in k}
+    return loss.item(), norm, attn
+
+
+def quant_compress_rank(torch, mesh) -> dict:
+    """(q4) on this rank: gemma-2b at `MESH_TRAIN_DEPTH` layers under
+    `CompressionAspect`: the compressed gradient's digest at the initial
+    weights on the first batch (`compressed_digest`), `MESH_TRAIN["steps"]`
+    counted steps, the first batch's loss again, and `ef` shaped as the
+    rank's blocks."""
+    from repro_torch.core.strategies.parallelization import CompressionAspect
+    from repro_torch.distributed.sharding import input_shardings, local_shard
+    from repro_torch.optim.tree import leaves
+    from repro_torch.runtime.steps import build_loss_fn
+
+    trainer = mesh_trainer(torch, mesh, aspects=[CompressionAspect()])
+    trainer.init_state()
+    if not trainer.opt_cfg.compression:
+        raise AssertionError("(q4): the woven trainer does not compress")
+    mb = first_batch(torch, trainer)
+    digest = compressed_digest(torch, trainer.woven, trainer.params, mb, mesh)
+    layers = trainer.woven.program.cfg.num_layers
+    want = {"flash_attention": 2 * layers, "flash_attention_lse": 2 * layers,
+            "flash_attention_bwd": layers, "flash_decode": 0, "rmsnorm": 0,
+            "rglru": 0, "wkv": 0}
+    steps, step_s = [], []
+    for i in range(MESH_TRAIN["steps"]):
+        t0 = time.perf_counter()
+        _, counts, routes = counted_run(torch, lambda: trainer.run(1),
+                                        f"mesh (q4) step {i + 1}")
+        step_s.append(time.perf_counter() - t0)
+        if counts != want:
+            raise AssertionError(f"mesh (q4) step {i + 1}: launches {counts} != {want}")
+        steps.append({"counts": counts, "routes": routes})
+    shard = input_shardings(mb, trainer.mesh, trainer.woven.state.rules)
+    with torch.no_grad():
+        after, _ = build_loss_fn(trainer.woven, mesh)(
+            trainer.params, {k: local_shard(v, shard[k]) for k, v in mb.items()})
+    ef = [tuple(e.shape) for e in leaves(trainer.opt_state["ef"])]
+    blocks = [tuple(p.shape) for p in leaves(trainer.params)]
+    if ef != blocks or not any(bool(e.any()) for e in leaves(trainer.opt_state["ef"])):
+        raise AssertionError(f"(q4) rank{mesh.rank}: ef shaped {ef}, the rank's blocks "
+                             f"{blocks}, or all zero")
+    out = {"rank": mesh.rank, "losses": [h["loss"] for h in trainer.history],
+           "first_batch_loss": [digest[0], after.item()], "step_s": step_s,
+           "launches_per_step": steps[-1]["counts"], "routes_per_step": steps[-1]["routes"],
+           "ef_blocks": len(ef), "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del trainer
+    release(torch)
+    return {"ranks": every_rank(out, mesh), "digest": digest if mesh.rank == 0 else None}
+
+
+def quant_mesh_rank(torch, mesh, runs, prompts) -> dict:
+    """(q2)-(q4) of `runs` on this rank of the (1, 2) mesh."""
+    out = {}
+    if "q2" in runs:
+        out["q2"] = quant_fp32_rank(torch, mesh, prompts)
+    if "q3" in runs:
+        out["q3"] = quant_fixed_rank(torch, mesh, fixed_prompt())
+    if "q4" in runs:
+        out["q4"] = quant_compress_rank(torch, mesh)
+    return out
+
+
+def fixed_prompt():
+    """(q3)'s prompt, from seed 31."""
+    import numpy as np
+
+    from repro_torch.models.registry import get_config
+
+    vocab = get_config(QUANT_MESH_SERVE["arch"]).vocab
+    return np.random.default_rng(31).integers(0, vocab, QUANT_FIXED_PROMPT)
+
+
+def release(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
 
 def mesh_gradient_digest(torch, trainer, mb, match: str = "attn/") -> tuple:
@@ -5670,7 +6010,7 @@ def mesh_train_program(torch, device="cuda"):
     return Program(model=build_model(cfg), cfg=cfg, kind="train", device=device)
 
 
-def mesh_trainer(torch, mesh):
+def mesh_trainer(torch, mesh, aspects=()):
     from functools import partial
 
     from repro_torch.launch.train import program_trainer
@@ -5682,7 +6022,7 @@ def mesh_trainer(torch, mesh):
         mesh_train_program(torch), batch=t["batch"], seq=t["seq"], mesh=mesh,
         overrides={"accum_steps": 1, "remat": "full", "precision": "half"},
         tcfg=TrainerConfig(steps=t["steps"], log_every=0, seed=0),
-        lr_fn=partial(constant, peak=t["lr"]))
+        lr_fn=partial(constant, peak=t["lr"]), extra_aspects=list(aspects))
 
 
 def first_batch(torch, trainer):
@@ -6083,24 +6423,46 @@ def fsdp_rank(torch, mesh, tag, run) -> dict:
     return out
 
 
-def mesh_rank(solo, batch, train_shapes, fsdp_runs, family_runs, mesh) -> dict:
-    """Phase 12's body on each rank: serve on the mesh run_on_mesh gives,
-    then train on each of `train_shapes` ({tag: shape}) over the same
-    ranks, then `fsdp_runs` ({tag: run}), each on its mesh of the same
-    ranks, then `family_runs` ({tag: run}) on (1, 2)."""
+def mesh_rank(solo, batch, train_shapes, fsdp_runs, family_runs, quant_runs, t_spawn,
+              mesh) -> dict:
+    """Phase 12's body on each rank: serve on the mesh run_on_mesh gives
+    ((q1) over the int8 pool with "q1" in `quant_runs`), then train on each
+    of `train_shapes` ({tag: shape}) over the same ranks, then `fsdp_runs`
+    ({tag: run}), each on its mesh of the same ranks, then `family_runs`
+    ({tag: run}) and the rest of `quant_runs` on (1, 2).  `t_spawn`: the
+    parent's `time.time()` at the spawn, for the ranks' start-up time."""
     import torch
 
     from repro_torch.kernels import build
 
     build.library()  # built by the parent: loaded here
+    rank_log(mesh, f"mesh ranks: running {time.time() - t_spawn:.1f} s after the spawn")
     meshes = {mesh.axis_sizes: mesh}
-    out = {"serve": mesh_serve_rank(torch, mesh, solo, batch)}
+    clock = PhaseClock(time.perf_counter()) if mesh.rank == 0 else (lambda name: None)
+    out = {"serve": mesh_serve_rank(torch, mesh, solo, batch, quant="q1" in quant_runs)}
+    clock("mesh serve yi-6b")
     for tag, shape in train_shapes.items():
         out[tag] = mesh_train_rank(torch, mesh_of(meshes, mesh, shape), tag)
+        clock(f"mesh train {tag}")
     out.update(fsdp_ranks(torch, fsdp_runs, mesh, meshes))
+    clock("mesh fsdp runs")
     for tag, run in family_runs.items():
         out[tag] = family_mesh_rank(torch, mesh_of(meshes, mesh, (1, 2)), tag, run)
+        clock(f"mesh family {tag}")
+    if set(quant_runs) - {"q1"}:
+        out["quant"] = quant_mesh_rank(torch, mesh_of(meshes, mesh, (1, 2)), quant_runs,
+                                       quant_prompts())
+        clock("mesh (q2)-(q4)")
+    rank_log(mesh, f"mesh ranks: done {time.time() - t_spawn:.1f} s after the spawn")
     return out
+
+
+def quant_prompts() -> list:
+    """(q1) / (q2)'s prompts: the first `MESH_CONTINUOUS` of the continuous
+    traffic."""
+    from repro_torch.models.registry import get_config
+
+    return continuous_traffic(get_config("yi-6b"))[0][:MESH_CONTINUOUS]
 
 
 def mesh_of(meshes: dict, mesh, shape):
@@ -6673,13 +7035,14 @@ def family_mesh_check(torch, tag, run, ranks) -> dict:
 
 def mesh_phase(torch, serve_counts: dict, requests: dict, *, backend: str = "gloo",
                serve_shape=(1, 2), train_shapes=MESH_TRAIN_SHAPES,
-               fsdp_runs=FSDP_RUNS, family_runs=FAMILY_MESH_RUNS) -> dict:
+               fsdp_runs=FSDP_RUNS, family_runs=FAMILY_MESH_RUNS,
+               quant_runs=QUANT_MESH_RUNS) -> dict:
     """Phase 12 (see the module docstring): the ranks' runs, then the
     one-card references they are held against, built here after the ranks
-    have gone.  `backend`, `serve_shape`, `train_shapes`, `fsdp_runs` and
-    `family_runs` default to phase 12's two gloo ranks on one card
-    (`tools/mesh_nccl.py` runs the same phase over NCCL, a card per
-    rank)."""
+    have gone.  `backend`, `serve_shape`, `train_shapes`, `fsdp_runs`,
+    `family_runs` and `quant_runs` default to phase 12's two gloo ranks on
+    one card (`tools/mesh_nccl.py` runs the same phase over NCCL, a card
+    per rank)."""
     from functools import partial
 
     import numpy as np
@@ -6692,10 +7055,12 @@ def mesh_phase(torch, serve_counts: dict, requests: dict, *, backend: str = "glo
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     res = run_on_mesh(partial(mesh_rank, requests["solo"], requests["batch"],
-                              dict(train_shapes), dict(fsdp_runs), dict(family_runs)),
+                              dict(train_shapes), dict(fsdp_runs), dict(family_runs),
+                              tuple(quant_runs), time.time()),
                       serve_shape,
                       backend=backend, device="cuda", timeout_s=900)
     ranks_s = time.perf_counter() - t0
+    log(f"mesh ranks: returned {ranks_s:.1f} s after the spawn")
     summary = {"ranks_wall_s": ranks_s, "backend": backend,
                "serve_mesh": list(serve_shape),
                "train_meshes": {k: list(v) for k, v in dict(train_shapes).items()}}
@@ -6736,6 +7101,14 @@ def mesh_phase(torch, serve_counts: dict, requests: dict, *, backend: str = "glo
         raise AssertionError(f"mesh serve: prefill logits against one card {logit_gate}")
     summary["serve_yi6b"] = {"ranks": serve["ranks"], "prefill_logits_vs_one_card":
                              logit_gate, "token_agreement_vs_one_card": agree}
+    if "q1" in quant_runs:
+        # (q1)'s gates ran on the ranks; read: agreement with one card's int8
+        # run (c) and its self-drafted int8 run (s3) on the same prompts
+        summary["serve_yi6b"]["q1_token_agreement_vs_one_card"] = {
+            tag: token_agreement(serve["tokens"][f"continuous_{tag}"], requests.get(key))
+            for tag, key in (("int8", "one_card_int8"), ("int8_k2", "one_card_s3"))}
+        log(f"mesh (q1): {json.dumps({r['rank']: r['quant'] for r in serve['ranks']})}, "
+            f"agreement {summary['serve_yi6b']['q1_token_agreement_vs_one_card']}")
 
     for tag in train_shapes:
         run = res[tag]
@@ -6753,6 +7126,9 @@ def mesh_phase(torch, serve_counts: dict, requests: dict, *, backend: str = "glo
     loss, norm, attn = gradient_digest(torch, one.woven, one.params, mb, stack_names(one.woven))
     want = (loss, norm, {k: g.cpu() for k, g in attn.items()})  # the ranks' are on the host
     del attn
+    # (q4)'s reference: the same gradient, compressed as one card compresses it
+    compressed = compressed_digest(torch, one.woven, one.params, mb) \
+        if "q4" in quant_runs else None
     step_s = []  # the same steps on one card, for the ranks' step times
     for _ in range(MESH_TRAIN["steps"]):
         torch.cuda.synchronize()
@@ -6772,12 +7148,149 @@ def mesh_phase(torch, serve_counts: dict, requests: dict, *, backend: str = "glo
         summary[f"train_gemma2b_{tag}"]["gradient_vs_one_card"] = compare_gradients(
             f"mesh-train-{tag}", res[tag]["digest"], want, 4, labels=("mesh", "one_card"))
     summary["depth_gemma2b"] = MESH_TRAIN_DEPTH
+    if "q4" in quant_runs:
+        summary["quant_q4"] = quant_compress_check(torch, res["quant"]["q4"], compressed)
     summary.update(fsdp_checks(torch, fsdp_runs, res))
     for tag, run in dict(family_runs).items():
         summary[f"family_{tag}"] = family_mesh_check(torch, tag, run, res[tag])
+    summary.update(quant_mesh_checks(torch, res.get("quant", {}), quant_runs))
     summary["seconds"] = time.perf_counter() - t0
     log("mesh " + json.dumps(summary, default=float))
     return summary
+
+
+def token_agreement(got, want) -> float | None:
+    """The share of equal tokens, request by request, over `got`'s tokens
+    (a longer `want` is cut to them; None without `want`)."""
+    import numpy as np
+
+    if want is None:
+        return None
+    return float(np.mean([np.mean(np.asarray(a) == np.asarray(b)[:len(a)])
+                          for a, b in zip(got, want)]))
+
+
+def quant_mesh_checks(torch, res: dict, runs) -> dict:
+    """(q2) and (q3) against one card, built here after the ranks have gone:
+    (q2) the fp32 first prefill's logits over the int8 pool within
+    `FP32_POOL_LOGIT_TOL` of the scale; (q3) each rank's codes and scales
+    bit for bit one card's rows, and the `fixed` prefill logits at the
+    logit gate."""
+    out = {}
+    if "q2" in runs:
+        out["quant_q2"] = quant_pool_check(torch, res["q2"])
+    if "q3" in runs:
+        q3 = res["q3"]
+        one = family_mesh_server(torch, QUANT_MESH_SERVE, None, policy="fixed")
+        one._begin()
+        want_codes = row_parallel_codes(torch, one.params, tp=len(q3["ranks"]))
+        toks = torch.as_tensor(fixed_prompt()[None], device="cuda")
+        want, cache = one.prefill_vc(None, one.params, {"tokens": toks})
+        want = want.float().cpu()
+        del one, cache
+        release(torch)
+        for r in q3["ranks"]:
+            mine = {k: v[0] for k, v in r["codes"].items()}
+            theirs = {k: v[r["coord"]] for k, v in want_codes.items()}
+            if not mine or mine != theirs:
+                raise AssertionError(f"mesh (q3) rank {r['rank']}: the codes and scales of "
+                                     f"{sorted(k for k in theirs if mine.get(k) != theirs[k])} "
+                                     "differ from one card's rows")
+        got = q3["logits"]
+        scale = want.abs().max().item()
+        gate = {"max_abs_err": (got - want).abs().max().item(),
+                "rms_err": (got - want).pow(2).mean().sqrt().item(), "logit_scale": scale,
+                "row_parallel_weights": len(want_codes)}
+        log(f"mesh (q3): `fixed` prefill logits, (1, 2) vs one card: {gate}")
+        if not (torch.isfinite(got).all() and gate["max_abs_err"] <= LOGIT_MAX_TOL * scale
+                and gate["rms_err"] <= LOGIT_RMS_TOL * scale):
+            raise AssertionError(f"mesh (q3): `fixed` prefill logits against one card {gate}")
+        out["quant_q3"] = {"ranks": [{k: v for k, v in r.items() if k != "codes"}
+                                     for r in q3["ranks"]],
+                           "prefill_logits_vs_one_card": gate,
+                           "codes_bit_for_bit": len(want_codes)}
+    return out
+
+
+def quant_pool_check(torch, q2: dict) -> dict:
+    """(q2)'s first prefills against one card's over the same weights: over
+    the fp32 pool (K1 on a rank's heads) the logits within
+    `FP32_POOL_LOGIT_TOL` of the scale; over the int8 pool (K2d widened at
+    index 0 on a rank's heads) each rank's codes one card's for its heads
+    but where a K / V element that lies on a rounding boundary rounds the
+    other way — a code one step off, never more — and the logits at the
+    logit gate.  Those flipped codes (the ranks' fp32 activations add their
+    partial products in another order) change the next layer's K / V, so
+    the int8 pool's logits part from one card's by more than 1e-5 of the
+    scale: that gap, the flips and the scales' largest relative difference
+    are read and printed."""
+    one = family_mesh_server(torch, QUANT_MESH_SERVE, None, policy="double")
+    one._begin()
+    prompt = quant_prompts()[0]
+    want = {dt or "fp32": pool_first_logits(torch, one, prompt, dt) for dt in (None, "int8")}
+    del one
+    release(torch)
+    report = []
+    for r, got in enumerate(q2["first"]):
+        gaps = {dt: logit_diff(torch, f"mesh (q2) rank {r} {dt} pool's first prefill",
+                               got[dt][0], want[dt][0]) for dt in ("fp32", "int8")}
+        fp, i8 = gaps["fp32"], gaps["int8"]
+        if not fp["max_abs_err"] <= FP32_POOL_LOGIT_TOL * fp["logit_scale"]:
+            raise AssertionError(f"mesh (q2) rank {r}: fp32 pool's first prefill logits {fp}")
+        if not (i8["max_abs_err"] <= LOGIT_MAX_TOL * i8["logit_scale"]
+                and i8["rms_err"] <= LOGIT_RMS_TOL * i8["logit_scale"]):
+            raise AssertionError(f"mesh (q2) rank {r}: int8 pool's first prefill logits {i8}")
+        heads = torch.as_tensor(got["heads"])
+        codes, total, scale_rel = 0, 0, 0.0
+        for key, mine in got["int8"][1].items():
+            theirs = want["int8"][1][key].index_select(-1 if key.endswith("sc") else -2,
+                                                       heads)
+            if key.endswith(("ksc", "vsc")):
+                rel = (mine - theirs).abs() / theirs.abs().clamp(min=1e-30)
+                scale_rel = max(scale_rel, rel.max().item())
+                continue
+            step = (mine.view(torch.int8).to(torch.int16)
+                    - theirs.view(torch.int8).to(torch.int16)).abs()
+            if int(step.max()) > 1:
+                raise AssertionError(f"mesh (q2) rank {r}: codes {key} {int(step.max())} "
+                                     "steps from one card's")
+            codes += int((step != 0).sum())
+            total += step.numel()
+        i8.update(flipped_codes=codes, codes=total, scale_max_rel_err=scale_rel)
+        report.append({"rank": r, "fp32_pool": fp, "int8_pool": i8,
+                       "int8_within_fp32_gate": i8["max_abs_err"]
+                       <= FP32_POOL_LOGIT_TOL * i8["logit_scale"]})
+    log(f"mesh (q2): first prefills against one card {json.dumps(report)}; runs "
+        f"{json.dumps(q2['ranks'])}")
+    return {"ranks": q2["ranks"], "first_prefill_vs_one_card": report,
+            "speculative_bit_identical_to_plain": True}
+
+
+def quant_compress_check(torch, q4: dict, want) -> dict:
+    """(q4): the first batch's loss fell on every rank, and the compressed
+    gradient at the training gates against one card's."""
+    import numpy as np
+
+    for r in q4["ranks"]:
+        before, after = r["first_batch_loss"]
+        if not (np.isfinite(r["losses"]).all() and after < before):
+            raise AssertionError(f"mesh (q4) rank {r['rank']}: the first batch's loss did "
+                                 f"not fall: {before} -> {after}")
+    log(f"mesh (q4): {json.dumps(q4['ranks'])}")
+    return {"ranks": q4["ranks"], "compressed_gradient_vs_one_card": compare_gradients(
+        "mesh-train-q4-compressed", q4["digest"], want, 4, labels=("mesh", "one_card"))}
+
+
+class PhaseClock:
+    """Logs each phase's seconds as it ends, and the time since the start."""
+
+    def __init__(self, t_start: float):
+        self.t_start = self.t_last = t_start
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        log(f"phase {name}: {now - self.t_last:.1f} s ({now - self.t_start:.1f} s in all)")
+        self.t_last = now
 
 
 def main() -> int:
@@ -6810,6 +7323,7 @@ def run(torch, build, t_start) -> int:
         f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB, "
         f"{torch.cuda.device_count()} device(s)")
 
+    clock = PhaseClock(t_start)
     lib_path, seconds = build.build()
     build.library()
     log(f"build: {os.path.relpath(lib_path, HERE)} in {seconds:.1f} s (set-up)")
@@ -6830,6 +7344,7 @@ def run(torch, build, t_start) -> int:
     wkv6 = wkv_cases(torch, gen)
     lse_c, dq_c, dkv_c = flash_bwd_cases(torch, gen)
     front_k1, front_k2 = frontend_kernel_cases(torch, gen)
+    clock("kernel cases")
     pre += front_k1
     dec += front_k2
     for c in (norm + pre + dec + wide + quant + wcodes + verify + lru + wkv6 + lse_c + dq_c
@@ -6838,16 +7353,24 @@ def run(torch, build, t_start) -> int:
     log("shared-prefill-identity " + json.dumps(shared_prefill_identity(torch, gen)))
 
     reduced_phase(torch)
+    clock("reduced")
     serve_counts, server, requests = serve_phase(torch)
+    clock("serve")
     roof_serve = roofline_serve_cells(torch, server, requests, serve_counts,
                                       next(c for c in pre if c["main"]))
+    clock("roofline serve cells")
     cont = continuous_phase(torch, server)
+    clock("continuous")
     spec = speculative_phase(torch, server)
+    clock("speculative")
     shapes = DecodeShapes()
     fsrv = fp32_depth4_server(server)
     qos = qos_phase(torch, server, fsrv, shapes)
+    clock("qos")
     fleet = fleet_phase(torch, server, fsrv, shapes)
+    clock("fleet")
     tun = tuner_phase(torch, server)
+    clock("tuner")
     del server, fsrv
     torch.cuda.empty_cache()
     governed_cases = governed_shape_cases(torch, gen, shapes.shapes)
@@ -6856,22 +7379,33 @@ def run(torch, build, t_start) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fam = families_phase(torch)
+    clock("families")
     fro = frontends_phase(torch)
+    clock("frontends")
     torch.cuda.reset_peak_memory_stats()
     rec = recurrent_phase(torch)
+    clock("recurrent")
     gc.collect()  # the serving phases' models may sit in reference cycles
     torch.cuda.empty_cache()
     train = train_phase(torch)
+    clock("train")
     gc.collect()
     torch.cuda.empty_cache()
     tfam = train_families_phase(torch)
+    clock("train families")
     gc.collect()
     torch.cuda.empty_cache()
     ex = examples_phase(torch)
+    clock("examples")
     roofline_phase(torch, roof_serve, train)
+    clock("roofline")
     gc.collect()
     torch.cuda.empty_cache()
+    requests["one_card_int8"] = cont.pop("c_int8_tokens")[:MESH_CONTINUOUS]
+    requests["one_card_s3"] = spec.pop("s3_int8_tokens")[:MESH_CONTINUOUS]
     mesh = mesh_phase(torch, serve_counts, requests)
+    clock("mesh")
+    q1runs = {r["rank"]: r["quant"] for r in mesh["serve_yi6b"]["ranks"]}
 
     # `launches`: the continuous main path, bf16 pool (run a); the quantized
     # mode over the int8 pool (run c): its single tokens on the split route,
@@ -6919,7 +7453,20 @@ def run(torch, build, t_start) -> int:
                 **{f"mesh_family_{tag}_train_rank{r['rank']}_last_step":
                    {**r["launches_per_step"], **r["routes_per_step"]}.get(key, 0)
                    for tag in FAMILY_MESH_RUNS
-                   for r in mesh[f"family_{tag}"]["train"]["ranks"]}}
+                   for r in mesh[f"family_{tag}"]["train"]["ranks"]},
+                **{f"mesh_q1_yi6b_{tag}_rank{rank}":
+                   {**q[tag]["launches"], **q[tag]["routes"]}.get(key, 0)
+                   for rank, q in q1runs.items() for tag in q},
+                **{f"mesh_q2_yi6b_4l_fp32_int8_{tag}_rank{rank}":
+                   {**q["launches"], **q["routes"]}.get(key, 0)
+                   for rank, runs in enumerate(mesh["quant_q2"]["ranks"])
+                   for tag, q in runs.items()},
+                **{f"mesh_q3_yi6b_4l_fixed_prefill_rank{r['rank']}":
+                   {**r["launches"], **r["routes"]}.get(key, 0)
+                   for r in mesh["quant_q3"]["ranks"]},
+                **{f"mesh_q4_gemma2b_compressed_rank{r['rank']}_last_step":
+                   {**r["launches_per_step"], **r["routes_per_step"]}.get(key, 0)
+                   for r in mesh["quant_q4"]["ranks"]}}
 
     # K2's single-token launches (all but widened q) and, of those, the split
     # route's (the rest run the FMA body)
@@ -6991,7 +7538,9 @@ def run(torch, build, t_start) -> int:
         "src/repro/kernels/flash_attention/decode.py:454", wcodes, c["flash_decode_tc"],
         # the families serve bf16 pools: their quantized launches, all of K2d, are 0
         {"continuous_c_int8": c["flash_decode_tc"],
-         **{f"families_{run}": fam[run]["flash_decode_quantized"] for run in fam}},
+         **{f"families_{run}": fam[run]["flash_decode_quantized"] for run in fam},
+         **{f"mesh_q1_yi6b_{tag}_rank{rank}": q[tag]["routes"]["flash_decode_tc"]
+            for rank, q in q1runs.items() for tag in q}},
         fma_launches=c["flash_decode_fma"]))
     kernels[-1]["library_ms_note"] = "no single PyTorch call attends over an int8 paged pool"
     # the same mode at the speculative verify step's shape: `launches` are
@@ -7004,7 +7553,11 @@ def run(torch, build, t_start) -> int:
             ("s1_bf16_k2", "s2_bf16_k4", "s3_int8_k2")},
          **{f"qos_{run}": qos[run]["verify_launches"] for run in qos},
          **{f"tuner_{run}": tun["counts"][run]["verify_launches"] for run in tun["counts"]},
-         **{f"families_{run}": fam[run]["verify_launches"] for run in fam}}))
+         **{f"families_{run}": fam[run]["verify_launches"] for run in fam},
+         **{f"mesh_q1_yi6b_int8_k2_rank{rank}": q["int8_k2"]["verify_launches"]
+            for rank, q in q1runs.items()},
+         **{f"mesh_q2_yi6b_4l_fp32_int8_k2_rank{rank}": runs["k2"]["verify_launches"]
+            for rank, runs in enumerate(mesh["quant_q2"]["ranks"])}}))
     # every K2 shape the governed and fleet runs launched, held against the
     # plain version (`governed_shape_cases`)
     kernels[1]["qos_fleet_shape_cases"] = governed_cases

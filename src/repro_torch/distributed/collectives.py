@@ -24,7 +24,9 @@ its own in every torch).
 Every call is counted, by kind and by axis, with the bytes each rank sent
 (`counts`, `reset_counts`): the port's form of the reference's
 `parse_collectives(...).counts`.  FSDP's traffic is counted apart from
-Megatron's, as the kinds `fsdp_gather` and `fsdp_reduce_scatter`.  The
+Megatron's, as the kinds `fsdp_gather` and `fsdp_reduce_scatter`, and the
+`max` reductions of the int8 scales (a row-parallel weight's columns, a
+split gradient's rows) as `all_reduce_max`.  The
 counts are this process's, i.e. one rank's.
 """
 
@@ -64,14 +66,15 @@ _OPS = {"sum": "SUM", "max": "MAX", "min": "MIN"}
 
 def all_reduce(x: torch.Tensor, mesh: Mesh | None, axis: str, op: str = "sum") -> torch.Tensor:
     """The reduction of `x` over the ranks of `axis`, on every one of them
-    (a new tensor; `x` is left as it was)."""
+    (a new tensor; `x` is left as it was).  A sum is counted as
+    `all_reduce`, another op under its own kind (`all_reduce_max`)."""
     if not is_parallel(mesh, axis):
         return x
     dist = _dist()
     widen = mesh.backend == "gloo" and x.dtype in (torch.bfloat16, torch.float16)
     out = x.to(torch.float32) if widen else x.clone()
     dist.all_reduce(out, op=getattr(dist.ReduceOp, _OPS[op]), group=mesh.group(axis))
-    _count("all_reduce", axis, out)
+    _count("all_reduce" if op == "sum" else f"all_reduce_{op}", axis, out)
     return out.to(x.dtype) if widen else out
 
 

@@ -113,6 +113,13 @@ class NamedSharding:
         return tuple(a for entry in self.spec for a in _axes_tuple(entry)
                      if self.mesh.shape.get(a, 1) > 1)
 
+    def dim_axes(self, dim: int) -> tuple[str, ...]:
+        """The mesh axes of more than one rank that split dim `dim` (none
+        where the spec leaves it whole; a spec of the param tree has an
+        entry for every dim, or none)."""
+        entry = self.spec[dim] if -len(self.spec) <= dim < len(self.spec) else None
+        return tuple(a for a in _axes_tuple(entry) if self.mesh.shape.get(a, 1) > 1)
+
 
 def param_shardings(model: Module, mesh: Mesh, rules: Mapping[str, Any]):
     """NamedSharding tree matching the param tree."""

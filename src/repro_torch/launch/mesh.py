@@ -26,9 +26,11 @@ import dataclasses
 import itertools
 import math
 import multiprocessing as mp
+import os
 import pickle
 import queue as queue_mod
 import socket
+import tempfile
 import time
 import traceback
 from typing import Any, Callable
@@ -199,9 +201,20 @@ def _rank_main(rank, world, port, fn, shape, axes, backend, device, threads, que
         mesh = make_mesh(shape, axes, backend=backend, device=device)
         result = fn(mesh)
         dist.barrier()
-        # pickled by value here: a tensor the queue shared by file descriptor
-        # would be gone with this process
-        queue.put(("ok", rank, pickle.dumps(result) if rank == 0 else None))
+        path = None
+        if rank == 0:
+            # pickled by value into a file, whose name the queue carries: a
+            # tensor the queue shared by file descriptor would be gone with
+            # this process, and the queue's pipe moves a result of a few GB
+            # far more slowly than a file does
+            fd, path = tempfile.mkstemp(prefix="run_on_mesh_", suffix=".pkl")
+            try:
+                with os.fdopen(fd, "wb") as f:
+                    pickle.dump(result, f, protocol=pickle.HIGHEST_PROTOCOL)
+            except BaseException:
+                os.remove(path)
+                raise
+        queue.put(("ok", rank, path))
     except BaseException:  # reported to the parent, which stops every rank
         queue.put(("error", rank, traceback.format_exc()))
     finally:
@@ -214,10 +227,11 @@ def run_on_mesh(fn: Callable[[Mesh], Any], shape, axes=("data", "model"), *,
                 timeout_s: float = 600.0) -> Any:
     """Spawn one process per device of a `shape` mesh, call `fn(mesh)` on
     every rank with its live mesh, and return rank 0's result (which must
-    pickle; hand back host values).  A rank that raises, or a run past
-    `timeout_s`, stops every rank and raises here with the rank's
-    traceback.  `fn` must be importable by name (a module-level function or
-    a `functools.partial` of one): ranks are spawned, never forked.
+    pickle; hand back host values; it passes through a temporary file).  A
+    rank that raises, or a run past `timeout_s`, stops every rank and
+    raises here with the rank's traceback.  `fn` must be importable by name
+    (a module-level function or a `functools.partial` of one): ranks are
+    spawned, never forked.
     `threads` sets each rank's `torch.set_num_threads`."""
     world = math.prod(int(s) for s in shape)
     ctx = mp.get_context("spawn")
@@ -250,7 +264,11 @@ def run_on_mesh(fn: Callable[[Mesh], Any], shape, axes=("data", "model"), *,
             else:
                 done += 1
                 if rank == 0:
-                    result = pickle.loads(value)
+                    try:
+                        with open(value, "rb") as f:
+                            result = pickle.load(f)
+                    finally:
+                        os.remove(value)
     finally:
         for p in procs:
             p.join(timeout=30 if error is None else 1)
@@ -258,6 +276,15 @@ def run_on_mesh(fn: Callable[[Mesh], Any], shape, axes=("data", "model"), *,
             if p.is_alive():
                 p.kill()
                 p.join()
+        # a result rank 0 wrote as the run failed (its time limit) is removed
+        # unread
+        while error is not None:
+            try:
+                status, rank, value = queue.get_nowait()
+            except (queue_mod.Empty, OSError, EOFError):
+                break
+            if status == "ok" and value is not None and os.path.exists(value):
+                os.remove(value)
         queue.close()
     if error is not None:
         raise RuntimeError(f"run_on_mesh {dict(zip(axes, shape))}: {error}")

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.collectives import copy_to, reduce_from
+from repro_torch.distributed.collectives import all_reduce, copy_to, reduce_from
 from repro_torch.nn.module import Ctx, Module, ParamSpec, cast
 
 
@@ -81,14 +81,13 @@ class Linear(Module):
             row = w.shape[-2] != self.d_in  # input dim split over model
             if w.shape[-1] != self.d_out and not entered:
                 x = copy_to(x, ctx.mesh, "model")
-            if policy.quantized and row:
-                raise NotImplementedError(
-                    "int8 weights of a row-parallel product quantize per output "
-                    "channel over rows another rank holds (ROADMAP Queue 1 item "
-                    "15c: quantized weights and pools on a mesh)")
             if policy.quantized:
-                w, scale = _quantize_int8(w)
-                y = _int8_matmul(cast(x, policy.compute_dtype), w, scale, policy)
+                # a row-parallel block quantizes its rows at the scales of
+                # the whole weight's columns, and its fp32 partial products
+                # add over `model` before the one scaling
+                mesh = ctx.mesh if row else None
+                w, scale = _quantize_int8(w, mesh)
+                y = _int8_matmul(cast(x, policy.compute_dtype), w, scale, policy, mesh)
             elif row:
                 y = row_parallel_matmul(cast(x, policy.compute_dtype),
                                         cast(w, policy.compute_dtype), ctx)
@@ -115,30 +114,48 @@ def row_parallel_matmul(x, w, ctx: Ctx) -> torch.Tensor:
     autograd the 16-bit partials are summed (in fp32 over gloo)."""
     if x.dtype in (torch.bfloat16, torch.float16) and not (
             torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
-        if x.is_cuda and w.dim() == 3:
-            y = torch.bmm(x, w, out_dtype=torch.float32)
-        elif x.is_cuda:
-            y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
-            y = y.reshape(*x.shape[:-1], w.shape[-1])
-        else:
-            y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+        y = _fp32_product(x, w)
     else:
         y = torch.matmul(x, w)
     return reduce_from(y, ctx.mesh, "model")
 
 
-def _quantize_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric per-output-channel int8 quantization (paper's 'fixed')."""
+def _fp32_product(x, w) -> torch.Tensor:
+    """x @ w of 16-bit operands with an fp32 result, rounded once: on the
+    card the GEMM's fp32 sums unrounded, on the CPU the 16-bit values
+    multiplied in fp32.  A 3-D `w` is a batched product of x (E, N, rows)."""
+    if x.is_cuda and w.dim() == 3:
+        return torch.bmm(x, w, out_dtype=torch.float32)
+    if x.is_cuda:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32))
+
+
+def _quantize_int8(w: torch.Tensor, mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-output-channel int8 quantization (paper's 'fixed').
+    `mesh`: `w` is this rank's block of rows of a weight split over
+    `model`; each column's |max| is taken over every rank's rows (an
+    all-reduce with `max`, exact), so the codes and scales are the
+    one-device ones for these rows, bit for bit."""
     wf = w.to(torch.float32)
-    absmax = torch.amax(torch.abs(wf), dim=0, keepdim=True)
+    absmax = all_reduce(torch.amax(torch.abs(wf), dim=0, keepdim=True), mesh, "model",
+                        op="max")
     scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
     q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return q, scale
 
 
-def _int8_matmul(x, wq, scale, policy):
-    y = torch.matmul(x.to(policy.compute_dtype), wq.to(policy.compute_dtype))
-    return y.to(policy.accum_dtype) * scale.to(policy.accum_dtype)
+def _int8_matmul(x, wq, scale, policy, mesh=None):
+    """x @ wq with an fp32 result (`_fp32_product`), scaled in fp32, as the
+    reference asks for its product in the accumulation dtype
+    (`preferred_element_type`).  `mesh`: wq holds this rank's rows, and the
+    partial products add over `model` before the scaling."""
+    x, wq = x.to(policy.compute_dtype), wq.to(policy.compute_dtype)
+    y = _fp32_product(x, wq) if x.dtype in (torch.bfloat16, torch.float16) \
+        else torch.matmul(x, wq)
+    y = reduce_from(y.to(policy.accum_dtype), mesh, "model")
+    return y * scale.to(policy.accum_dtype)
 
 
 # ---------------------------------------------------------------------------

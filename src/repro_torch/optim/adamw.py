@@ -14,6 +14,7 @@ buffers).  The state is a dict of param-shaped trees plus a 0-dim int32
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -103,7 +104,7 @@ def _update_slice(p, g, master, m, v, cfg, c1, c2, lr):
 
 @torch.no_grad()
 def apply_updates(params, grads, state, cfg: AdamWConfig, lr, *, mesh=None,
-                  split=None):
+                  split=None, rows=None):
     """Returns (params, state, metrics) — the same param tensors, updated in
     place, and the state with master / m / v updated in place (a new
     `count`; under compression new fp32 `ef` leaves, as the reference's
@@ -111,9 +112,11 @@ def apply_updates(params, grads, state, cfg: AdamWConfig, lr, *, mesh=None,
     (converted one leaf at a time) or fp32 (donated: scaled in place).  A
     leaf is updated `UPDATE_SLICE` elements at a time: the update is
     elementwise, so the slices give the whole leaf's bits.  `mesh` and
-    `split`: the clipping norm of a live mesh's shards (`global_norm`).
-    The state lives per shard: master, m and v are shaped like the rank's
-    blocks."""
+    `split`: the clipping norm of a live mesh's shards (`global_norm`);
+    `rows[i]`, the axes that split leaf i's last dim, over which
+    compression takes a row's scale (`compression.ef_compress`, which reads
+    the whole leaf's size from `split`).  The state lives per shard:
+    master, m, v and `ef` are shaped like the rank's blocks."""
     flat_g = leaves(grads)
     gnorm = global_norm(grads, mesh, split)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
@@ -130,12 +133,15 @@ def apply_updates(params, grads, state, cfg: AdamWConfig, lr, *, mesh=None,
     flat_v = leaves(state["v"])
     flat_ef = leaves(state["ef"]) if cfg.compression else [None] * len(flat_p)
     new_ef = []
-    for p, g, master, m, v, ef in zip(flat_p, flat_g, flat_master, flat_m, flat_v,
-                                      flat_ef):
+    for i, (p, g, master, m, v, ef) in enumerate(zip(flat_p, flat_g, flat_master, flat_m,
+                                                     flat_v, flat_ef)):
         g = g.to(torch.float32) if g.dtype != torch.float32 else g
         g.mul_(scale)
         if cfg.compression:
-            g, ef = ef_compress(g, ef)
+            shard = {} if split is None else {
+                "mesh": mesh, "row_axes": rows[i],
+                "numel": g.numel() * math.prod(mesh.shape[a] for a in split[i])}
+            g, ef = ef_compress(g, ef, **shard)
             new_ef.append(ef)
         flat = [t.view(-1) for t in (p, master, m, v)] + [g.reshape(-1)]
         del g

@@ -44,8 +44,10 @@ bit for bit.
 On a live mesh (`launch/mesh.make_mesh`) every rank runs its own manager
 over the same requests: the allocator's decisions are the same on every
 rank, and a rank's pools hold the KV heads of its q heads (K is its block of
-the KV heads), so `stats()` and the server's `last_pool_stats` count one
-rank's bytes.
+the KV heads; an int8 / fp8 pool's (P, K) scale sidecars are those heads'
+scales, and a head several ranks hold — gemma-2b's one KV head — has the
+same scales on each), so `stats()` and the server's
+`last_pool_stats` count one rank's bytes.
 
 A speculative verify step writes a whole draft block; `rollback` trims the
 rejected tail by refcount alone (no page copy).  `PoolAuditor` /

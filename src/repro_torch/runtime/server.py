@@ -32,9 +32,11 @@ recurrent families) the requests' rows are split over the batch's axes
 instead, shape-guarded as `sharding.input_shardings` splits a batch: each
 rank serves its rows through `serve` / `serve_batch`, samples their tokens
 itself, and the tokens are gathered in rank order, while the host
-decisions stay rank 0's.  Speculative decoding,
-the QoS governor and quantized pools raise there (ROADMAP Queue 1 items
-15c, 15d).
+decisions stay rank 0's.  An int8 / fp8 pool holds a rank's KV heads and
+their per-page scales; a speculative round drafts on the same heads (a
+foreign draft must be a server on the same mesh), verifies in one widened
+step and takes rank 0's proposals, argmax chain and finiteness.  The QoS
+governor raises on a live mesh (ROADMAP Queue 1 item 15d).
 
 Both paths serve the dense family (yi-6b, gemma-2b); the recurrent families
 (recurrentgemma-2b's RG-LRU state, rwkv6-3b's WKV state) serve through
@@ -959,10 +961,14 @@ class Server:
             k = k_max = 0
         draft_srv = draft or self.draft or self  # self-speculation default
         dmanager: PagedCacheManager | None = None
-        if self._live and (k_max or gov is not None or cache_dtype):
-            what = "quantized page pools (item 15c)" if cache_dtype else \
-                "speculative decoding and the QoS governor (item 15d)"
-            raise NotImplementedError(f"{what} on a live mesh (ROADMAP Queue 1)")
+        if self._live and gov is not None:
+            raise NotImplementedError("the QoS governor on a live mesh (ROADMAP "
+                                      "Queue 1 item 15d)")
+        if k_max and (self._live or is_live(draft_srv.mesh)) \
+                and draft_srv.mesh != self.mesh:
+            # every rank drafts on its own heads in lockstep with its target
+            raise ValueError("a draft server must be on its target's mesh: the "
+                             f"target's is {self.mesh}, the draft's {draft_srv.mesh}")
         if k_max:
             # the draft keeps its own (unshared) page pool with the same
             # continuous-batching dynamics; sized for full concurrency so a
@@ -1504,10 +1510,12 @@ class Server:
                     logits[rids.index(vspec.rid) if vspec.rid in rids else 0] = \
                         float("nan")
                 # one transfer: the proposals, the target's argmax chain and
-                # whether each request's rows are finite
+                # whether each request's rows are finite — rank 0's on a
+                # live mesh, as a decode step's argmax is
                 finite = torch.isfinite(logits.to(torch.float32).amax(dim=(-2, -1)))
-                host = torch.cat([fed.to(torch.long), logits.argmax(dim=-1),
-                                  finite[:, None].to(torch.long)], dim=1).tolist()
+                host = broadcast_object(torch.cat([
+                    fed.to(torch.long), logits.argmax(dim=-1),
+                    finite[:, None].to(torch.long)], dim=1).tolist(), self.mesh)
                 verify_lats.append(time.perf_counter() - ts)
                 manager.absorb(rids, new_cache, advance=S)
                 stats["verify_steps"] += 1

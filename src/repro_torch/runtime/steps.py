@@ -164,15 +164,14 @@ def build_train_step(woven: WovenProgram, *, mesh=None, variant: str | None = No
         compression=bool(state.extra.get("grad_compression", False)),
         state_dtype=str(state.extra.get("opt_state_dtype", "float32")),
     )
-    split = None  # each leaf: the mesh axes it is split over (live meshes)
+    split = rows = None  # each leaf: the mesh axes it / its last dim is split over
     if is_live(mesh):
-        from repro_torch.distributed.sharding import input_shardings, local_shard
+        from repro_torch.distributed.sharding import (input_shardings, local_shard,
+                                                      param_shardings)
 
-        if opt_cfg.compression:
-            raise NotImplementedError(
-                "int8 gradient compression quantizes each leaf at its own scale, "
-                "which a rank's shard does not hold (ROADMAP Queue 1 item 15c)")
         split, mesh_mean = build_mesh_mean(woven, mesh, variant)
+        rows = [sh.dim_axes(-1) for sh in tree_leaves(
+            param_shardings(woven.program.model, mesh, state.rules))]
     lr_fn = lr_fn or warmup_cosine
     accum = int(state.extra.get("accum_steps", 1))
     grad_fn = build_grad_fn(woven, mesh, variant)
@@ -207,7 +206,7 @@ def build_train_step(woven: WovenProgram, *, mesh=None, variant: str | None = No
 
         lr = lr_fn(step)
         params, opt_state, opt_metrics = adamw.apply_updates(
-            params, grads, opt_state, opt_cfg, lr, mesh=mesh, split=split)
+            params, grads, opt_state, opt_cfg, lr, mesh=mesh, split=split, rows=rows)
         metrics.update(opt_metrics)
         return params, opt_state, metrics
 
@@ -334,13 +333,11 @@ def build_verify_step(woven: WovenProgram, *, mesh=None,
     the block into the cache in place); this function exists so the server
     can pin the draft span on a *copied* weave state (the
     "speculative_draft_len" extra) without disturbing the plain decode
-    variant's state.  A live mesh raises: speculative decoding waits for
-    ROADMAP Queue 1 item 15d."""
-    if is_live(check_mesh(mesh)):
-        raise NotImplementedError("speculative verify on a live mesh "
-                                  "(ROADMAP Queue 1 item 15d)")
+    variant's state.  On a live mesh each rank scores its KV heads and the
+    logits come back whole, as the decode step's do."""
     program = woven.program
     state = woven.variant_state(variant)
+    check_on_mesh(woven, mesh, state, serving=True)
     if draft_len is not None:
         state = state.copy()
         state.extra["speculative_draft_len"] = int(draft_len)
@@ -351,7 +348,7 @@ def build_verify_step(woven: WovenProgram, *, mesh=None,
         with torch.no_grad():
             logits, new_cache = model(params, inputs, ctx=ctx, mode="decode",
                                       cache=cache)
-        return logits, new_cache
+        return whole_logits(logits, mesh, program.cfg.vocab), new_cache
 
     return verify_step
 

@@ -13,7 +13,9 @@ step; (d) greedy tokens through `serve_batch` / `serve_continuous`;
 whole checkpoint restored by a meshed and a one-device trainer; (f) the
 train step's all-reduces over `model`; (g) what a live mesh refuses (the
 FSDP layouts and the recurrent families run: `test_torch_mesh_fsdp.py`; the
-MoE, encoder-decoder and VLM families: `test_torch_mesh_families.py`).  The
+MoE, encoder-decoder and VLM families: `test_torch_mesh_families.py`;
+quantized pools and weights, gradient compression and speculative
+decoding: `test_torch_mesh_quantized.py`).  The
 vocab-split argmax breaks ties to the lowest index and the split loss is
 the whole vocab's.  The rank bodies are in `_torch_mesh_ranks.py`."""
 
@@ -279,12 +281,32 @@ def test_a_meshed_trainer_checkpoints_whole_state_any_mesh_restores(tmp_path):
         np.testing.assert_array_equal(got[path], w, err_msg=path)
 
 
+# -- run_on_mesh hands back rank 0's result through a temporary file ----------------
+
+
+@pytest.mark.parametrize("fn,fails", [(ranks.large_result, False),
+                                      (ranks.rank_one_raises, True)],
+                         ids=["result", "a_rank_raises"])
+def test_run_on_mesh_leaves_no_result_file_behind(tmp_path, monkeypatch, fn, fails):
+    import tempfile
+
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    monkeypatch.setattr(tempfile, "tempdir", None)  # read TMPDIR anew
+    if fails:
+        with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
+            on_mesh(fn, (1, 2))
+    else:
+        got = on_mesh(fn, (1, 2))
+        assert got["rank"] == 0 and got["x"].shape == (16, 1 << 20)
+        assert bool((got["x"] == 2.0).all())
+    assert not list(tmp_path.glob("run_on_mesh_*")), list(tmp_path.iterdir())
+
+
 # -- (g) refusals ------------------------------------------------------------------
 
 REFUSED = {
     "whisper_fsdp_sp": "15b-ii", "internvl_fsdp_sp": "15b-ii",
-    "int8_pool": "15c", "int8_weights": "15c", "grad_compression": "15c",
-    "speculative": "15d", "verify_step": "15d", "qos_governor": "15d", "fleet": "15d",
+    "qos_governor": "15d", "fleet": "15d",
     "fsdp_sp_serving": "15a-ii",
     "abstract_mesh": "abstract mesh",
 }

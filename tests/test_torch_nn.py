@@ -80,6 +80,33 @@ def test_quantize_int8_matches_reference():
     np.testing.assert_allclose(to_np(tscale), np.asarray(jscale), rtol=1e-7)
 
 
+@pytest.mark.parametrize("shape", [(64, 4096, 512), (10, 64, 48)])
+def test_int8_matmul_returns_the_references_fp32_result(shape):
+    """`_int8_matmul` under `fixed`: the product of the bf16 x and the codes
+    in fp32, scaled in fp32, as the reference asks for an fp32 result
+    (`preferred_element_type`); a product rounded to bf16 before the scaling
+    parts from it by ~1.7e-3."""
+    from repro.nn.dtypes import DTypePolicy as JDTypePolicy
+    from repro_torch.nn.dtypes import DTypePolicy as TDTypePolicy
+
+    m, k, n = shape
+    x = _x((m, k), seed=5).astype(jnp.bfloat16)
+    w = _x((k, n), seed=6).astype(jnp.bfloat16)
+    jpol, tpol = JDTypePolicy.make("fixed"), TDTypePolicy.make("fixed")
+    jq, jscale = jblocks._quantize_int8(jnp.asarray(w))
+    want = np.asarray(jblocks._int8_matmul(jnp.asarray(x), jq, jscale, jpol), np.float64)
+    tq, tscale = tblocks._quantize_int8(t(np.asarray(w, np.float32)).to(torch.bfloat16))
+    got = tblocks._int8_matmul(t(np.asarray(x, np.float32)).to(torch.bfloat16), tq, tscale,
+                               tpol)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(to_np(tq), np.asarray(jq))
+    np.testing.assert_array_equal(to_np(tscale), np.asarray(jscale))
+    np.testing.assert_allclose(to_np(got), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    rel = np.sqrt(np.mean((to_np(got) - want) ** 2) / np.mean(want ** 2))
+    print(f"int8 product {shape}: relative RMS gap to the reference {rel:.3g}")
+    assert rel < 1e-5, rel
+
+
 @pytest.mark.parametrize("policy", ["double", "half"])
 @pytest.mark.parametrize("scale_by_dim", [False, True])
 def test_embedding_and_attend(policy, scale_by_dim):
