@@ -209,8 +209,26 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    and the prefill logits at the logit gate; (q4) gemma-2b at
    `MESH_TRAIN_DEPTH` layers trained two steps under `CompressionAspect`:
    the first batch's loss falling, the compressed gradient at the training
-   gates against one card's, `ef` shaped as a rank's blocks.  Two ranks on
-   one card time-slice its SMs: their times are no parallel speed-up.
+   gates against one card's, `ef` shaped as a rank's blocks; then the
+   serving control plane on (1, 2), every host decision rank 0's
+   (`CONTROL_MESH_RUNS`): (d1) the first 8 prompts of the continuous
+   traffic through (q2)'s fp32 4-layer server, ungoverned and under the
+   planned governor (`QOS_BASE` + `QOS_MODEL_SLO`): the governed tokens bit
+   for bit the ungoverned, the draft length at 0 and later above it, the
+   `op_history`, switches and distinct operating points one card's; (d2)
+   four short prompts through the full bf16 server under `QOS_BASE` +
+   `QOS_POWER`, reactive on: `freq` below 1 in force, rank 0's host time
+   per `decide` beside its broadcast; (d3) `FLEET` over replicas of the
+   fp32 server on the mesh (one copy of a rank's shards): clean, a replica
+   lost mid-decode, a drain — the tokens one meshed server's, the peak
+   memory over resident below a rank's shards; (d4) a preemption that
+   reaches one rank only (rank 0's reading drains every rank alike), and
+   `refine_kernel_tuner` / `refine_speculative` after rank 0 tunes their
+   signatures (one cache write, rank 0's knobs on every rank) — each
+   rank's launches by route from its step counts, every outcome ok, every
+   rank's operating points, outcomes, events and tokens rank 0's.  Two
+   ranks on one card time-slice its SMs: their times are no parallel
+   speed-up.
 
 Any failed phase ends the run with a non-zero exit code.  The last line of
 the output is `{"ok": true, "device": {...}}`; the line before the card's
@@ -2755,6 +2773,34 @@ FLEET = {"replicas": 2, "spares": 1, "wave_size": 6}
 FLEET_MAX_BATCH = 4
 
 
+def counted_replicas(base, steps: dict, page_size: int, mesh=None):
+    """A `replica_factory` over `base`'s woven program and param tree (on
+    `mesh`), `FLEET_MAX_BATCH` decode slots a replica, whose replicas add
+    the step counts of every serve into `steps`."""
+    from repro_torch.runtime.fleet import replica_factory
+    from repro_torch.runtime.server import ServerConfig
+
+    make = replica_factory(base.woven, ServerConfig(
+        max_cache_len=base.cfg.max_cache_len, decode_tokens=base.cfg.decode_tokens,
+        page_size=page_size, max_batch=FLEET_MAX_BATCH, seed=0), params=base.params,
+        mesh=mesh)
+
+    def replica():
+        srv = make()
+        serve = srv.serve_continuous
+
+        def counted(*a, **k):
+            out = serve(*a, **k)
+            for key, v in (srv.last_step_counts or {}).items():
+                steps[key] += v
+            return out
+
+        srv.serve_continuous = counted
+        return srv
+
+    return replica
+
+
 def fleet_phase(torch, server, fsrv, shapes: DecodeShapes) -> dict:
     """The serving fleet at full width and depth: `FLEET`'s replicas and
     spare of `server`'s woven program (`runtime/fleet.ServingFleet` over
@@ -2772,36 +2818,17 @@ def fleet_phase(torch, server, fsrv, shapes: DecodeShapes) -> dict:
     `spare_in` and at least one re-dispatch in (f2); (f3) hands its queue
     to a peer; (f4) bit for bit.  Printed: `last_fleet_stats`, peak memory,
     wall, and bf16 token agreement with the single server's ungoverned
-    serve of the same prompts."""
+    serve of the same prompts.  Returns the counted runs and (f4)'s
+    tokens, which the mesh's (d3) is read against."""
     import numpy as np
 
     from repro_torch.core.strategies.resilience import FaultInjector
-    from repro_torch.runtime.fleet import ServingFleet, replica_factory
-    from repro_torch.runtime.server import ServerConfig, _step_counts
+    from repro_torch.runtime.fleet import ServingFleet
+    from repro_torch.runtime.server import _step_counts
 
     mcfg = server.woven.program.cfg
     layers, n = mcfg.num_layers, server.cfg.decode_tokens
     prompts, kw = continuous_traffic(mcfg)
-
-    def counted_factory(base, steps):
-        make = replica_factory(base.woven, ServerConfig(
-            max_cache_len=base.cfg.max_cache_len, decode_tokens=n,
-            page_size=kw["page_size"], max_batch=FLEET_MAX_BATCH, seed=0), params=base.params)
-
-        def replica():
-            srv = make()
-            serve = srv.serve_continuous
-
-            def counted(*a, **k):
-                out = serve(*a, **k)
-                for key, v in (srv.last_step_counts or {}).items():
-                    steps[key] += v
-                return out
-
-            srv.serve_continuous = counted
-            return srv
-
-        return replica
 
     weight_bytes = sum(t.numel() * t.element_size()
                        for t in server.woven.program.model.parameters())
@@ -2818,7 +2845,8 @@ def fleet_phase(torch, server, fsrv, shapes: DecodeShapes) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated()
-        fleet = ServingFleet(counted_factory(server, steps), injector=inj, **FLEET, **fkw)
+        fleet = ServingFleet(counted_replicas(server, steps, kw["page_size"]), injector=inj,
+                             **FLEET, **fkw)
         if drain is not None:
             fleet.request_drain(drain)
         with shapes:
@@ -2874,7 +2902,7 @@ def fleet_phase(torch, server, fsrv, shapes: DecodeShapes) -> dict:
     if counts != want:
         raise AssertionError(f"fleet (f4) single server: launches {counts} != {want}")
     steps = _step_counts()
-    fleet = ServingFleet(counted_factory(fsrv, steps), **FLEET)
+    fleet = ServingFleet(counted_replicas(fsrv, steps, kw["page_size"]), **FLEET)
     with shapes:
         fout, _, counts, _ = counted_serve(torch, lambda: fleet.serve(prompts, decode_tokens=n))
     want, _ = expected_launches(steps, 4, False)
@@ -2891,7 +2919,7 @@ def fleet_phase(torch, server, fsrv, shapes: DecodeShapes) -> dict:
             [(p == q).mean() for p, q in zip(outs[tag], base)]))
     log("fleet " + json.dumps({"card": nvidia_smi_line(), "model": "yi-6b", "layers": layers,
                                "requests": len(prompts), "runs": report}, default=str))
-    return counted
+    return counted, [o.tolist() for o in fout]
 
 
 # ---------------------------------------------------------------------------
@@ -5617,12 +5645,15 @@ def every_rank(obj, mesh) -> list:
     return out
 
 
-def mesh_serve_rank(torch, mesh, solo, batch, quant: bool = False) -> dict:
+def mesh_serve_rank(torch, mesh, solo, batch, quant: bool = False, control=()) -> dict:
     """yi-6b on this rank of the (1, 2) mesh: step 5's requests, counted;
     the prefill logits of the first; a profiled decode step; a short
     continuous serve, counted and checked against the server's own step
-    counts; with `quant`, (q1) the same prompts over an int8 pool, plain
-    and self-drafted (`mesh_quant_serve`)."""
+    counts (then, with "d4" in `control`, `refine_kernel_tuner` after it:
+    (d2) decodes in verify rounds only); with `quant`, (q1) the same
+    prompts over an int8 pool, plain and self-drafted (`mesh_quant_serve`);
+    with "d2" in `control`, (d2) (`control_power`), then with "d4"
+    `refine_speculative` after it."""
     import numpy as np
 
     from repro_torch.distributed import collectives
@@ -5656,8 +5687,15 @@ def mesh_serve_rank(torch, mesh, solo, batch, quant: bool = False) -> dict:
                     croutes, False)
     ccolls, cpool = collectives.counts(), server.last_pool_stats
     cstep = dict(server.last_step_counts)
+    ctrl = {}
+    if "d4" in control:
+        ctrl["d4_refine_paged"] = mesh_refine(torch, server, mesh, "paged")
     quant = mesh_quant_serve(torch, server, mesh, prompts, opts,
                              cpool["page_hbm_bytes"]) if quant else None
+    if "d2" in control:
+        ctrl["d2"] = control_power(torch, server, mesh)
+        if "d4" in control:
+            ctrl["d4_refine_speculative"] = mesh_refine(torch, server, mesh, "speculative")
     out = {"rank": mesh.rank, "layout": layout, "build_s": build_s,
            "serve_wall_s": wall, "launches": counts, "routes": routes,
            "collectives": colls, "continuous_wall_s": cwall,
@@ -5670,6 +5708,8 @@ def mesh_serve_rank(torch, mesh, solo, batch, quant: bool = False) -> dict:
     if quant is not None:
         out["quant"] = quant.pop("runs")
         tokens.update(quant)
+    if ctrl:
+        out["control"] = ctrl
     del server
     gc.collect()
     torch.cuda.empty_cache()
@@ -5755,13 +5795,12 @@ def pool_first_logits(torch, server, prompt, dtype: str | None = "int8"):
     return captured["logits"], pools
 
 
-def quant_fp32_rank(torch, mesh, prompts) -> dict:
-    """(q2) on this rank: fp32 yi-6b at 4 layers, the first prefill's
-    logits over an int8 pool, then `prompts` over an int8 pool, plain and
-    at k = 2 (exact launches from the step counts; fp32 q rows take the
-    FMA body).  Gated here: the speculative serve's tokens bit for bit the
-    plain serve's on the mesh."""
-    server = family_mesh_server(torch, QUANT_MESH_SERVE, mesh, policy="double")
+def quant_fp32_rank(torch, server, mesh, prompts) -> dict:
+    """(q2) on this rank with `server`, fp32 yi-6b at 4 layers: the first
+    prefill's logits over an int8 pool, then `prompts` over an int8 pool,
+    plain and at k = 2 (exact launches from the step counts; fp32 q rows
+    take the FMA body).  Gated here: the speculative serve's tokens bit for
+    bit the plain serve's on the mesh."""
     server._begin()
     layers = server.woven.program.cfg.num_layers
     first = {dt or "fp32": pool_first_logits(torch, server, prompts[0], dt)
@@ -5788,8 +5827,6 @@ def quant_fp32_rank(torch, mesh, prompts) -> dict:
     if tokens["k2"] != tokens["plain"]:
         raise AssertionError(f"(q2) rank{mesh.rank}: the fp32 speculative serve over the "
                              "int8 pool parts from plain greedy on the mesh")
-    del server
-    release(torch)
     heads = local_heads(QUANT_MESH_SERVE["arch"], mesh)
     return {"ranks": every_rank(runs, mesh), "tokens": tokens,
             "first": every_rank({"heads": heads, **first}, mesh)}
@@ -5949,16 +5986,355 @@ def quant_compress_rank(torch, mesh) -> dict:
     return {"ranks": every_rank(out, mesh), "digest": digest if mesh.rank == 0 else None}
 
 
-def quant_mesh_rank(torch, mesh, runs, prompts) -> dict:
-    """(q2)-(q4) of `runs` on this rank of the (1, 2) mesh."""
+def quant_mesh_rank(torch, mesh, runs, prompts, control=()) -> dict:
+    """(q2)-(q4) of `runs` on this rank of the (1, 2) mesh, and (d1), (d3)
+    and (d4)'s drain of `control` on (q2)'s fp32 server."""
     out = {}
-    if "q2" in runs:
-        out["q2"] = quant_fp32_rank(torch, mesh, prompts)
+    if "q2" in runs or set(control) & {"d1", "d3", "d4"}:
+        server = family_mesh_server(torch, QUANT_MESH_SERVE, mesh, policy="double")
+        if "q2" in runs:
+            out["q2"] = quant_fp32_rank(torch, server, mesh, prompts)
+        out["control"] = control_fp32_rank(torch, server, mesh, control)
+        del server
+        release(torch)
     if "q3" in runs:
         out["q3"] = quant_fixed_rank(torch, mesh, fixed_prompt())
     if "q4" in runs:
         out["q4"] = quant_compress_rank(torch, mesh)
     return out
+
+
+# (d1)-(d4) on the same two ranks at (1, 2): the serving control plane —
+# the QoS governor, a fleet of meshed replicas, a drain and the tuner's
+# feedback, every host decision rank 0's.  (d1), (d3) and (d4)'s drain
+# serve on (q2)'s fp32 server at 4 layers, (d2) and (d4)'s refines on the
+# full-depth bf16 server of `mesh_serve_rank`
+CONTROL_MESH_RUNS = ("d1", "d2", "d3", "d4")
+# (d1), (d3), (d4)'s drain: the continuous traffic's first 8 prompts (the
+# eight sharers of its 1024-token prefix, two arriving at wave 2),
+# FAMILY_MESH_DECODE tokens each
+CONTROL_PROMPTS = 8
+# (d2): four short prompts from seed 41 arriving at waves 0, 0, 1, 2, six
+# tokens each: a step of the full model on the two ranks takes ~0.8 s, and
+# a verify wave at k = 4 takes six
+CONTROL_D2 = {"lens": (96, 160, 224, 288), "arrivals": (0, 0, 1, 2), "tokens": 6}
+# (d4): the polls of its handler after which a preemption lands on one rank
+CONTROL_DRAIN_AFTER = 3
+
+
+def control_traffic():
+    """(d1), (d3) and (d4)'s drain: the prompts and the serving options."""
+    from repro_torch.models.registry import get_config
+
+    prompts, kw = continuous_traffic(get_config("yi-6b"))
+    return prompts[:CONTROL_PROMPTS], dict(kw, arrival_waves=kw["arrival_waves"][:CONTROL_PROMPTS])
+
+
+def fp32_launch_gate(tag, steps: dict, layers: int, counts, routes) -> dict:
+    """The launches by route a counted fp32 serve's model calls (`steps`)
+    must give: `expected_launches`' counts, every K1 and K2 launch on the
+    FMA body (an fp32 q)."""
+    want, _ = expected_launches(steps, layers, False)
+    want_routes = {"flash_attention_tc": 0, "flash_attention_fma": want["flash_attention"],
+                   "flash_decode_tc": 0, "flash_decode_split": 0,
+                   "flash_decode_fma": want["flash_decode"]}
+    if counts != want or any(routes[k] != v for k, v in want_routes.items()):
+        raise AssertionError(f"{tag}: launches {counts} / routes {routes} against {want} / "
+                             f"{want_routes} from steps {steps}")
+    return {"launches": counts, "routes": routes, "steps": dict(steps),
+            "verify_launches": layers * steps["verify"]}
+
+
+def check_fp32_serve(server, tag, prompts, out, counts, routes, statuses=("ok",)) -> dict:
+    """Gates of a counted serve of an fp32 server: an outcome in `statuses`
+    for every request, and `fp32_launch_gate` from the server's step
+    counts."""
+    bad = [o for o in server.last_outcomes if o["status"] not in statuses]
+    if bad or len(out) != len(prompts):
+        raise AssertionError(f"{tag}: outcomes {bad}")
+    return fp32_launch_gate(tag, server.last_step_counts, server.woven.program.cfg.num_layers,
+                            counts, routes)
+
+
+def same_on_every_rank(tag, ranks: list) -> None:
+    """Every rank's record (`every_rank`) equal to rank 0's."""
+    for r, got in enumerate(ranks):
+        if got != ranks[0]:
+            keys = sorted(k for k in got if got[k] != ranks[0].get(k))
+            raise AssertionError(f"{tag}: rank {r} parts from rank 0 in {keys}")
+
+
+def control_governed(torch, server, mesh) -> dict:
+    """(d1) on this rank: `control_traffic` through the fp32 server
+    ungoverned, then under `QOS_BASE` + `QOS_MODEL_SLO` (planned, the draft
+    length governed, self-drafted).  Gated: every outcome ok and the
+    launches by route from the step counts, both serves; the governed
+    tokens bit for bit the ungoverned; distinct_ops >= 2; the draft length
+    at 0 and later above it; every rank's `last_qos_stats`, the operating
+    point of each wave, the step counts and the tokens rank 0's."""
+    prompts, kw = control_traffic()
+    runs, tokens = {}, {}
+    for tag, qos in (("ungoverned", None), ("governed", {**QOS_BASE, **QOS_MODEL_SLO})):
+        events = []
+        out, wall, counts, routes = counted_serve(torch, lambda: server.serve_continuous(
+            prompts, **kw, qos=qos, on_event=events.append))
+        runs[tag] = {"wall_s": wall, **check_fp32_serve(
+            server, f"mesh (d1) rank{mesh.rank} {tag}", prompts, out, counts, routes)}
+        tokens[tag] = [o.tolist() for o in out]
+    q = server.last_qos_stats
+    ks = [h["knobs"]["draft_len"] for h in q["op_history"]]
+    if tokens["governed"] != tokens["ungoverned"] or q["distinct_ops"] < 2 or 0 not in ks \
+            or not any(k > 0 for k in ks[ks.index(0) + 1:]):
+        raise AssertionError(f"mesh (d1) rank{mesh.rank}: governed tokens == ungoverned "
+                             f"{tokens['governed'] == tokens['ungoverned']}, "
+                             f"{q['distinct_ops']} distinct operating points, draft lengths {ks}")
+    same_on_every_rank("mesh (d1)", every_rank(
+        {"qos": q, "ops": [(e["wave"], e["op"]) for e in events if e["event"] == "wave"],
+         "steps": runs["governed"]["steps"], "tokens": tokens["governed"]}, mesh))
+    return {"runs": runs, "qos": q, "tokens": tokens["governed"]}
+
+
+def control_fleet(torch, server, mesh) -> dict:
+    """(d3) on this rank: `FLEET`'s replicas and spare of the fp32 server on
+    the mesh (`counted_replicas` over its param tree, the rank's shards),
+    `control_traffic`'s prompts: clean, a replica lost at its second
+    dispatch half-way through its decode, replica 0 drained; and one meshed
+    server's `serve_continuous` of the same prompts.  Gated: every outcome
+    ok; launches by route from the step counts; the clean tokens bit for
+    bit the one server's, the loss's and the drain's the clean run's; the
+    loss's `replica_loss`, `declared_dead` and `spare_in` events and a
+    re-dispatch, the drain's hand-off; every replica and spare holding the
+    server's shards, the peak memory over what was resident below one copy
+    of them; every rank's outcomes, events and tokens rank 0's."""
+    from repro_torch.core.strategies.resilience import FaultInjector
+    from repro_torch.optim.tree import leaves
+    from repro_torch.runtime.fleet import ServingFleet
+    from repro_torch.runtime.server import _step_counts
+
+    prompts, kw = control_traffic()
+    layers, n = server.woven.program.cfg.num_layers, server.cfg.decode_tokens
+    shard_bytes = sum(t.numel() * t.element_size() for t in leaves(server.params))
+    single, _, counts, routes = counted_serve(torch, lambda: server.serve_continuous(
+        prompts, max_batch=kw["max_batch"], page_size=kw["page_size"]))
+    runs = {"single": check_fp32_serve(server, f"mesh (d3) rank{mesh.rank} one server",
+                                       prompts, single, counts, routes)}
+    tokens = {"single": [o.tolist() for o in single]}
+    mine = {}
+    for tag, fkw, inj, drain in (
+            ("clean", {}, None, None),
+            ("replica_loss", {"kill_step": n // 2},
+             FaultInjector.single("replica_loss", "raise", at=1), None),
+            ("drain", {}, None, 0)):
+        steps = _step_counts()
+        release(torch)
+        resident = torch.cuda.memory_allocated()
+        fleet = ServingFleet(counted_replicas(server, steps, kw["page_size"], mesh),
+                             injector=inj, **FLEET, **fkw)
+        if drain is not None:
+            fleet.request_drain(drain)
+        out, wall, counts, routes = counted_serve(
+            torch, lambda: fleet.serve(prompts, decode_tokens=n))
+        peak = torch.cuda.max_memory_allocated()
+        name = f"mesh (d3) rank{mesh.rank} {tag}"
+        st = fleet.last_fleet_stats
+        servers = [r.server for r in fleet.replicas] + [r.server for r in fleet.spares]
+        if st["outcomes"] != {"ok": len(prompts)} or \
+                any(s.params is not server.params for s in servers) \
+                or not peak - resident < shard_bytes:
+            raise AssertionError(f"{name}: outcomes {st['outcomes']}, shared shards "
+                                 f"{[s.params is server.params for s in servers]}, peak "
+                                 f"{peak} B over {resident} resident, shards {shard_bytes} B")
+        tokens[tag] = [o.tolist() for o in out]
+        runs[tag] = {"wall_s": wall, **fp32_launch_gate(name, steps, layers, counts, routes),
+                     "rounds": st["rounds"], "redispatched": st["redispatched"],
+                     "event_kinds": [e["kind"] for e in st["events"]],
+                     "peak_over_resident_gb": (peak - resident) / 1e9,
+                     "shard_gb": shard_bytes / 1e9}
+        mine[tag] = {"outcomes": fleet.last_outcomes, "events": st["events"],
+                     "tokens": tokens[tag]}
+    loss = runs["replica_loss"]
+    drains = [e for e in mine["drain"]["events"] if e["kind"] == "drain"]
+    if tokens["clean"] != tokens["single"] \
+            or tokens["replica_loss"] != tokens["clean"] or tokens["drain"] != tokens["clean"] \
+            or not {"replica_loss", "declared_dead", "spare_in"} <= set(loss["event_kinds"]) \
+            or loss["redispatched"] < 1 or not drains or drains[0]["host"] != 0 \
+            or drains[0]["handoff"] < 1:
+        raise AssertionError(f"mesh (d3) rank{mesh.rank}: tokens equal one server / clean "
+                             f"{[tokens[t] == tokens['single'] for t in mine]}, loss "
+                             f"{loss['event_kinds']} {loss['redispatched']} re-dispatched, "
+                             f"drains {drains}")
+    same_on_every_rank("mesh (d3)", every_rank(mine, mesh))
+    return {"runs": runs, "tokens": tokens}
+
+
+def control_drain(torch, server, mesh) -> dict:
+    """(d4)'s drain on this rank: `control_traffic`'s prompts two at a time,
+    with a `PreemptionHandler` whose `pending` turns true on one rank alone
+    after `CONTROL_DRAIN_AFTER` polls — rank 0's, then rank 1's.  Every rank
+    polls its own handler and takes rank 0's reading.  Gated: every rank
+    drains the same requests at the same waves — some where the preemption
+    reaches rank 0, none where it reaches rank 1 alone —, polls its handler
+    as often and gives the same outcomes and tokens; the launches by route
+    from the step counts; the serve ends."""
+    from repro_torch.distributed.fault import PreemptionHandler
+
+    class OneRank(PreemptionHandler):
+        def __init__(self, rank):
+            super().__init__(install=False)
+            self.mine, self.polls = mesh.rank == rank, 0
+
+        @property
+        def pending(self) -> bool:
+            self.polls += 1
+            if self.mine and self.polls > CONTROL_DRAIN_AFTER:
+                self.request()
+            return self.requested.is_set()
+
+    prompts, kw = control_traffic()
+    runs = {}
+    for rank in (0, 1):
+        pre, events = OneRank(rank), []
+        toks, wall, counts, routes = counted_serve(torch, lambda: server.serve_continuous(
+            prompts, **dict(kw, max_batch=2), preemption=pre, on_event=events.append))
+        tag = f"mesh (d4) drain reaching rank {rank}"
+        rep = check_fp32_serve(server, f"{tag}, rank{mesh.rank}", prompts, toks, counts,
+                               routes, statuses=("ok", "drained"))
+        drained = [(e["rid"], e["wave"]) for e in events
+                   if e["event"] == "outcome" and e["status"] == "drained"]
+        same_on_every_rank(tag, every_rank(
+            {"drained": drained, "polls": pre.polls, "tokens": [t.tolist() for t in toks],
+             "outcomes": [o["status"] for o in server.last_outcomes]}, mesh))
+        if bool(drained) != (rank == 0):
+            raise AssertionError(f"{tag}: drained {drained}")
+        runs[f"reaches_rank{rank}"] = {"wall_s": wall, **rep, "drained": drained,
+                                       "polls": pre.polls}
+    return {"runs": runs}
+
+
+def control_fp32_rank(torch, server, mesh, runs) -> dict:
+    """(d1), (d3) and (d4)'s drain of `runs` on this rank with (q2)'s fp32
+    server: rank 0's reports, each run's seconds, and every rank's launches
+    by route (and verify launches) by run."""
+    out, counted = {}, {}
+    for tag, fn in (("d1", control_governed), ("d3", control_fleet), ("d4", control_drain)):
+        if tag not in runs:
+            continue
+        t0 = time.perf_counter()
+        out[tag] = fn(torch, server, mesh)
+        out[tag]["seconds"] = time.perf_counter() - t0
+        counted.update({f"{tag}_{name}": {**rep["launches"], **rep["routes"],
+                                          "verify_launches": rep["verify_launches"]}
+                        for name, rep in out[tag]["runs"].items()})
+    out["launches"] = every_rank(counted, mesh)
+    return out
+
+
+def control_power(torch, server, mesh) -> dict:
+    """(d2) on this rank: `CONTROL_D2`'s prompts through the full-depth bf16
+    server under `QOS_BASE` + `QOS_POWER` with `reactive` on: rank 0's
+    governor plans and learns from rank 0's clock, one broadcast a
+    re-selection.  Gated: every outcome ok and exact launches by route
+    (`check_paged_run`); every rank's `op_history` and operating point of
+    each wave rank 0's; freq < 1 in force at some wave.  Printed: the
+    op_history, modeled energy, TTFT and gap, and on rank 0 the host µs of
+    `decide` beside a re-selection's (`decide` and its broadcast)."""
+    import numpy as np
+
+    from repro_torch.runtime import server as server_mod
+    from repro_torch.runtime.qos import QoSGovernor
+
+    rng = np.random.default_rng(41)
+    prompts = [rng.integers(0, server.woven.program.cfg.vocab, s) for s in CONTROL_D2["lens"]]
+    gov = QoSGovernor({**QOS_BASE, **QOS_POWER, "reactive": True}, broker=server.broker)
+    glog = governed(gov)
+    plane, events = [], []
+    real = server_mod._RankZeroGovernor.decide
+
+    def timed(self, **load):
+        t0 = time.perf_counter()
+        knobs = real(self, **load)
+        plane.append(time.perf_counter() - t0)
+        return knobs
+
+    keep = server.cfg.decode_tokens
+    server_mod._RankZeroGovernor.decide = timed
+    server.cfg.decode_tokens = CONTROL_D2["tokens"]
+    try:
+        t0 = time.perf_counter()
+        out, wall, counts, routes = counted_serve(torch, lambda: server.serve_continuous(
+            prompts, page_size=128, max_batch=len(prompts),
+            arrival_waves=list(CONTROL_D2["arrivals"]), qos=gov, on_event=events.append))
+        check_paged_run(server, "mesh", f"rank{mesh.rank} (d2)", prompts, out, counts,
+                        routes, False)
+    finally:
+        server_mod._RankZeroGovernor.decide = real
+        server.cfg.decode_tokens = keep
+    q, st, sp = server.last_qos_stats, dict(server.last_step_counts), server.last_spec_stats
+    ops = [(e["wave"], e["op"]) for e in events if e["event"] == "wave"]
+    same_on_every_rank("mesh (d2)", every_rank({"op_history": q["op_history"], "ops": ops},
+                                               mesh))
+    freq = min(op["freq"] for _, op in ops)
+    if not freq < 1.0:
+        raise AssertionError(f"mesh (d2) rank{mesh.rank}: freq never fell below 1 ({ops})")
+    rep = {"op_history": q["op_history"], "switches": q["switches"],
+           "distinct_ops": q["distinct_ops"], "waves": q["waves"],
+           "energy_j_modeled": q["energy_j"], "tokens_per_joule_modeled": q["tokens_per_joule"],
+           "capper": q["power"], "freq_min_in_force": freq, **latency_summary(server, wall),
+           "launches": counts, "routes": routes, "steps": st,
+           "verify_launches": server.woven.program.cfg.num_layers * st["verify"],
+           "spec": {k: sp[k] for k in ("rounds", "verify_steps", "draft_steps", "acceptance")},
+           "seconds": time.perf_counter() - t0}
+    if mesh.rank == 0:
+        decide = 1e6 * float(np.mean(glog["decide_s"]))
+        rep.update(decide_us=decide, reselection_us=1e6 * float(np.mean(plane)),
+                   broadcast_us=1e6 * float(np.mean(plane)) - decide,
+                   observe_wave_us=1e6 * float(np.mean(glog["observe_s"])))
+    return rep
+
+
+def mesh_refine(torch, server, mesh, kind: str) -> dict:
+    """(d4)'s feedback on this rank after `server`'s last serve: rank 0
+    tunes the signature the refine keys on into a file of its own
+    (`KernelTuner.tune` on the card), then every rank calls
+    `refine_kernel_tuner` (kind "paged") or `refine_speculative` over a
+    tuner of that file, with a budget of twice what it observed.  Gated: one
+    cache write, rank 0's; every rank returns rank 0's knobs, and knobs.
+    Printed: rank 0's stored `error_coef` and observation."""
+    import numpy as np
+
+    from repro_torch.autotune import kernel_tuner as kt
+
+    t0 = time.perf_counter()
+    home = os.path.dirname(os.environ["REPRO_TORCH_TUNER_CACHE"])
+    tuner = kt.KernelTuner(os.path.join(home, f"mesh_{kind}.json"))
+    cfg = server.woven.program.cfg
+    if kind == "paged":
+        lat = server._step_lat_by_batch
+        batch = max(lat, key=lambda b: len(lat[b]))
+        observed = float(np.mean(lat[batch]))
+        sig = server._paged_signature(batch=batch, dtype=server._paged_dtype)
+        refine = server.refine_kernel_tuner
+    else:
+        st = server.last_spec_stats
+        batch = max(1, round(st["request_rounds"] / max(st["rounds"], 1)))
+        observed = float(st["verify_latency_s"])
+        sig = kt.speculative_signature(batch, server.cfg.max_cache_len, cfg.n_heads,
+                                       cfg.kv_heads, cfg.resolved_head_dim, server._paged_dtype)
+        refine = server.refine_speculative
+    if mesh.rank == 0:
+        tuner.tune(sig, num_tests=3)
+    tune_s = time.perf_counter() - t0
+    puts, put = [], tuner.cache.put
+    tuner.cache.put = lambda key, entry: (puts.append(key), put(key, entry))
+    knobs = refine(latency_budget=2 * observed, tuner=tuner)
+    ranks = every_rank({"knobs": knobs, "writes": len(puts)}, mesh)
+    if [r["writes"] for r in ranks] != [1] + [0] * (mesh.size - 1) or knobs is None \
+            or any(r["knobs"] != ranks[0]["knobs"] for r in ranks):
+        raise AssertionError(f"mesh (d4) {kind} refine: {ranks}")
+    entry = tuner.cache.get(tuner._key(sig)) if mesh.rank == 0 else None
+    return {"signature": sig.key(), "ranks": ranks, "tune_s": tune_s,
+            "runtime": entry["runtime"] if entry else None,
+            "seconds": time.perf_counter() - t0}
 
 
 def fixed_prompt():
@@ -6423,13 +6799,14 @@ def fsdp_rank(torch, mesh, tag, run) -> dict:
     return out
 
 
-def mesh_rank(solo, batch, train_shapes, fsdp_runs, family_runs, quant_runs, t_spawn,
-              mesh) -> dict:
+def mesh_rank(solo, batch, train_shapes, fsdp_runs, family_runs, quant_runs, control_runs,
+              t_spawn, mesh) -> dict:
     """Phase 12's body on each rank: serve on the mesh run_on_mesh gives
-    ((q1) over the int8 pool with "q1" in `quant_runs`), then train on each
-    of `train_shapes` ({tag: shape}) over the same ranks, then `fsdp_runs`
-    ({tag: run}), each on its mesh of the same ranks, then `family_runs`
-    ({tag: run}) and the rest of `quant_runs` on (1, 2).  `t_spawn`: the
+    ((q1) over the int8 pool with "q1" in `quant_runs`, (d2) and (d4)'s
+    refines of `control_runs`), then train on each of `train_shapes` ({tag:
+    shape}) over the same ranks, then `fsdp_runs` ({tag: run}), each on its
+    mesh of the same ranks, then `family_runs` ({tag: run}), the rest of
+    `quant_runs` and (d1), (d3) and (d4)'s drain on (1, 2).  `t_spawn`: the
     parent's `time.time()` at the spawn, for the ranks' start-up time."""
     import torch
 
@@ -6439,7 +6816,8 @@ def mesh_rank(solo, batch, train_shapes, fsdp_runs, family_runs, quant_runs, t_s
     rank_log(mesh, f"mesh ranks: running {time.time() - t_spawn:.1f} s after the spawn")
     meshes = {mesh.axis_sizes: mesh}
     clock = PhaseClock(time.perf_counter()) if mesh.rank == 0 else (lambda name: None)
-    out = {"serve": mesh_serve_rank(torch, mesh, solo, batch, quant="q1" in quant_runs)}
+    out = {"serve": mesh_serve_rank(torch, mesh, solo, batch, quant="q1" in quant_runs,
+                                    control=control_runs)}
     clock("mesh serve yi-6b")
     for tag, shape in train_shapes.items():
         out[tag] = mesh_train_rank(torch, mesh_of(meshes, mesh, shape), tag)
@@ -6449,10 +6827,10 @@ def mesh_rank(solo, batch, train_shapes, fsdp_runs, family_runs, quant_runs, t_s
     for tag, run in family_runs.items():
         out[tag] = family_mesh_rank(torch, mesh_of(meshes, mesh, (1, 2)), tag, run)
         clock(f"mesh family {tag}")
-    if set(quant_runs) - {"q1"}:
+    if set(quant_runs) - {"q1"} or set(control_runs) & {"d1", "d3", "d4"}:
         out["quant"] = quant_mesh_rank(torch, mesh_of(meshes, mesh, (1, 2)), quant_runs,
-                                       quant_prompts())
-        clock("mesh (q2)-(q4)")
+                                       quant_prompts(), control_runs)
+        clock("mesh (q2)-(q4), (d1), (d3), (d4)")
     rank_log(mesh, f"mesh ranks: done {time.time() - t_spawn:.1f} s after the spawn")
     return out
 
@@ -7036,13 +7414,13 @@ def family_mesh_check(torch, tag, run, ranks) -> dict:
 def mesh_phase(torch, serve_counts: dict, requests: dict, *, backend: str = "gloo",
                serve_shape=(1, 2), train_shapes=MESH_TRAIN_SHAPES,
                fsdp_runs=FSDP_RUNS, family_runs=FAMILY_MESH_RUNS,
-               quant_runs=QUANT_MESH_RUNS) -> dict:
+               quant_runs=QUANT_MESH_RUNS, control_runs=CONTROL_MESH_RUNS) -> dict:
     """Phase 12 (see the module docstring): the ranks' runs, then the
     one-card references they are held against, built here after the ranks
     have gone.  `backend`, `serve_shape`, `train_shapes`, `fsdp_runs`,
-    `family_runs` and `quant_runs` default to phase 12's two gloo ranks on
-    one card (`tools/mesh_nccl.py` runs the same phase over NCCL, a card
-    per rank)."""
+    `family_runs`, `quant_runs` and `control_runs` default to phase 12's
+    two gloo ranks on one card (`tools/mesh_nccl.py` runs the same phase
+    over NCCL, a card per rank)."""
     from functools import partial
 
     import numpy as np
@@ -7056,7 +7434,7 @@ def mesh_phase(torch, serve_counts: dict, requests: dict, *, backend: str = "glo
     t0 = time.perf_counter()
     res = run_on_mesh(partial(mesh_rank, requests["solo"], requests["batch"],
                               dict(train_shapes), dict(fsdp_runs), dict(family_runs),
-                              tuple(quant_runs), time.time()),
+                              tuple(quant_runs), tuple(control_runs), time.time()),
                       serve_shape,
                       backend=backend, device="cuda", timeout_s=900)
     ranks_s = time.perf_counter() - t0
@@ -7154,6 +7532,8 @@ def mesh_phase(torch, serve_counts: dict, requests: dict, *, backend: str = "glo
     for tag, run in dict(family_runs).items():
         summary[f"family_{tag}"] = family_mesh_check(torch, tag, run, res[tag])
     summary.update(quant_mesh_checks(torch, res.get("quant", {}), quant_runs))
+    if control_runs:
+        summary["control"] = control_checks(torch, res, requests, control_runs)
     summary["seconds"] = time.perf_counter() - t0
     log("mesh " + json.dumps(summary, default=float))
     return summary
@@ -7281,6 +7661,56 @@ def quant_compress_check(torch, q4: dict, want) -> dict:
         "mesh-train-q4-compressed", q4["digest"], want, 4, labels=("mesh", "one_card"))}
 
 
+def control_checks(torch, res: dict, requests: dict, runs) -> dict:
+    """(d1)-(d4) as the ranks gated them, and against one card, built here
+    after the ranks have gone: (d1)'s `op_history`, switches and distinct
+    operating points gated equal to one card's governed serve of the same
+    traffic, policy and depth (the fp32 4-layer server over the same
+    weights), and the share of its tokens one card gives, printed; (d3)'s
+    clean tokens against `fleet_phase`'s one-card (f4) on the same prompts'
+    first tokens, printed.  Returns the `mesh` line's `control` entry, with
+    every counted run's launches by rank."""
+    serve_ranks = res["serve"]["ranks"]
+    fp = res.get("quant", {}).get("control", {})
+    out = {"runs": list(runs), "launches": {}}
+    for r, rank in enumerate(serve_ranks):
+        for name, rep in rank.get("control", {}).items():
+            if "launches" in rep:
+                out["launches"][f"{name}_rank{r}"] = {**rep["launches"], **rep["routes"],
+                                                      "verify_launches": rep["verify_launches"]}
+    for r, counted in enumerate(fp.get("launches", [])):
+        out["launches"].update({f"{name}_rank{r}": c for name, c in counted.items()})
+    if "d2" in runs:
+        out["d2"] = [rank["control"]["d2"] for rank in serve_ranks]
+    if "d4" in runs:
+        out["d4_refine"] = {k.removeprefix("d4_refine_"): v
+                            for k, v in serve_ranks[0]["control"].items()
+                            if k.startswith("d4_refine_")}
+        out["d4_drain"] = fp["d4"]
+    if "d1" in runs:
+        d1 = fp["d1"]
+        prompts, kw = control_traffic()
+        one = family_mesh_server(torch, QUANT_MESH_SERVE, None, policy="double")
+        toks = one.serve_continuous(prompts, **kw, qos={**QOS_BASE, **QOS_MODEL_SLO})
+        want = one.last_qos_stats
+        del one
+        release(torch)
+        gate = {k: {"mesh": d1["qos"][k], "one_card": want[k]}
+                for k in ("op_history", "switches", "distinct_ops")}
+        log(f"mesh (d1): the governor's choices, (1, 2) vs one card: {json.dumps(gate)}")
+        if any(v["mesh"] != v["one_card"] for v in gate.values()):
+            raise AssertionError(f"mesh (d1): operating points against one card's {gate}")
+        out["d1"] = {"runs": d1["runs"], "qos": d1["qos"], "seconds": d1["seconds"],
+                     "token_agreement_vs_one_card": token_agreement(
+                         d1["tokens"], [t.tolist() for t in toks])}
+    if "d3" in runs:
+        d3 = fp["d3"]
+        out["d3"] = {"runs": d3["runs"], "seconds": d3["seconds"],
+                     "token_agreement_vs_one_card_f4": token_agreement(
+                         d3["tokens"]["clean"], requests.get("one_card_f4"))}
+    return out
+
+
 class PhaseClock:
     """Logs each phase's seconds as it ends, and the time since the start."""
 
@@ -7367,7 +7797,7 @@ def run(torch, build, t_start) -> int:
     fsrv = fp32_depth4_server(server)
     qos = qos_phase(torch, server, fsrv, shapes)
     clock("qos")
-    fleet = fleet_phase(torch, server, fsrv, shapes)
+    fleet, requests["one_card_f4"] = fleet_phase(torch, server, fsrv, shapes)
     clock("fleet")
     tun = tuner_phase(torch, server)
     clock("tuner")
@@ -7466,7 +7896,9 @@ def run(torch, build, t_start) -> int:
                    for r in mesh["quant_q3"]["ranks"]},
                 **{f"mesh_q4_gemma2b_compressed_rank{r['rank']}_last_step":
                    {**r["launches_per_step"], **r["routes_per_step"]}.get(key, 0)
-                   for r in mesh["quant_q4"]["ranks"]}}
+                   for r in mesh["quant_q4"]["ranks"]},
+                **{f"mesh_control_{run}": c.get(key, 0)
+                   for run, c in mesh["control"]["launches"].items()}}
 
     # K2's single-token launches (all but widened q) and, of those, the split
     # route's (the rest run the FMA body)
@@ -7557,7 +7989,9 @@ def run(torch, build, t_start) -> int:
          **{f"mesh_q1_yi6b_int8_k2_rank{rank}": q["int8_k2"]["verify_launches"]
             for rank, q in q1runs.items()},
          **{f"mesh_q2_yi6b_4l_fp32_int8_k2_rank{rank}": runs["k2"]["verify_launches"]
-            for rank, runs in enumerate(mesh["quant_q2"]["ranks"])}}))
+            for rank, runs in enumerate(mesh["quant_q2"]["ranks"])},
+         **{f"mesh_control_{run}": c["verify_launches"]
+            for run, c in mesh["control"]["launches"].items()}}))
     # every K2 shape the governed and fleet runs launched, held against the
     # plain version (`governed_shape_cases`)
     kernels[1]["qos_fleet_shape_cases"] = governed_cases

@@ -181,6 +181,14 @@ def broadcast_object(obj, mesh: Mesh | None):
     return box[0]
 
 
+def on_rank_zero(fn, mesh: Mesh | None):
+    """`fn()` off a live mesh; on one, rank 0's `fn()` on every rank (the
+    others do not call it): a host decision only rank 0 makes."""
+    if not is_live(mesh):
+        return fn()
+    return broadcast_object(fn() if mesh.rank == 0 else None, mesh)
+
+
 def barrier(mesh: Mesh | None) -> None:
     """Every rank of the mesh waits for the others (nothing off a live mesh)."""
     if is_live(mesh):

@@ -175,7 +175,7 @@ class RecurrentBlock(Module):
             "proj_out": self.proj_out,
         }
 
-    def init_state(self, batch: int, device="cpu"):
+    def init_state(self, batch: int, device):
         return {
             "conv": torch.zeros((batch, self.conv.width - 1, self.lru_width),
                                 dtype=torch.bfloat16, device=device),

@@ -37,10 +37,16 @@ every decode step past `kill_step`, exhausting the server's retry budget
 (kept) and in-flight ones as `failed` with partial output, exactly the
 structured-outcome contract the re-dispatch consumes.
 
-On one card every replica is a `Server` over one woven program; a factory
-made by `replica_factory` hands each replica the first one's param tree,
-so the fleet holds one copy of the weights and one page pool per replica
-(each `serve_continuous` allocates its own).
+Every replica is a `Server` over one woven program; a factory made by
+`replica_factory` hands each replica the first one's param tree, so the
+fleet holds one copy of the weights and one page pool per replica (each
+`serve_continuous` allocates its own).  On a live mesh every rank runs the
+same fleet in lockstep over replicas on that mesh, each holding this
+rank's shards (one copy of them, shared as on one card): the routing, the
+heartbeats on the round clock, the straggler demotion, the injected faults
+and the re-dispatches are the same on every rank by construction, and what
+reads a clock or a signal — the fleet deadline, a replica's drain — is
+rank 0's reading, broadcast.
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ from repro_torch.core.strategies.resilience import (
     FaultInjector,
     FaultSpec,
 )
+from repro_torch.distributed.collectives import broadcast_object
 from repro_torch.distributed.fault import HeartbeatMonitor
 from repro_torch.monitor.examon import ExamonBroker
 from repro_torch.runtime.pages import PoolExhausted, _prefix_digests
@@ -65,16 +72,17 @@ from repro_torch.launch.mesh import is_live
 from repro_torch.runtime.server import Server
 
 
-def replica_factory(woven, cfg, *, params=None) -> Callable[[], Server]:
+def replica_factory(woven, cfg, *, params=None, mesh=None) -> Callable[[], Server]:
     """A `ServingFleet` factory over one woven program.  Every replica shares
-    one param tree: `params` (another server's, on the same device) when
-    given, else the one the first replica draws from `cfg.seed` — replicas
-    and spares built after a loss hold no copy of their own.  Each replica
-    gets its own `ServerConfig` copy (a knob moved on one stays there)."""
+    one param tree: `params` (another server's, on the same device and
+    mesh) when given, else the one the first replica draws from `cfg.seed`
+    — replicas and spares built after a loss hold no copy of their own.
+    On a live `mesh` that tree is this rank's shards.  Each replica gets its
+    own `ServerConfig` copy (a knob moved on one stays there)."""
     shared = [params] if params is not None else []
 
     def make() -> Server:
-        srv = Server(woven, dataclasses.replace(cfg),
+        srv = Server(woven, dataclasses.replace(cfg), mesh=mesh,
                      params=shared[0] if shared else None)
         if not shared:
             shared.append(srv.params)
@@ -127,7 +135,11 @@ class ServingFleet:
 
     `factory` builds one replica's Server (`replica_factory` makes one
     whose replicas share one woven program and one copy of the weights,
-    which is what N processes from one image would hold).  Policy knobs left None resolve from the
+    which is what N processes from one image would hold).  Its replicas
+    may sit on one live mesh (`replica_factory(..., mesh=)`): every rank
+    then builds and runs the same fleet in lockstep, each replica serving
+    on this rank's shards, and the fleet's outcomes, events and tokens are
+    the same on every rank.  Policy knobs left None resolve from the
     woven `fleet_resilience` extras (FleetResilienceAspect), then from
     `DEFAULT_FLEET_POLICY`; an explicit `injector` (or the woven
     `fleet_injector`) arms the fleet join points.
@@ -148,12 +160,16 @@ class ServingFleet:
         if replicas < 1:
             raise ValueError("a fleet needs at least one replica")
         self.factory = factory
+        # on a live mesh every rank builds the same replicas and spares here,
+        # in the same order: a meshed Server's construction is a collective
         self.replicas = [Replica(h, factory()) for h in range(replicas)]
-        if any(is_live(r.server.mesh) for r in self.replicas):
-            raise NotImplementedError("a fleet of servers on a live mesh "
-                                      "(ROADMAP Queue 1 item 15d)")
         self.spares = deque(Replica(replicas + j, factory())
                             for j in range(spares))
+        meshes = [r.server.mesh for r in [*self.replicas, *self.spares]]
+        self.mesh = next((m for m in meshes if is_live(m)), None)
+        if self.mesh is not None and any(m is not self.mesh for m in meshes):
+            raise ValueError("the replicas of a fleet on a live mesh must all be "
+                             "on that mesh")
         probe = self.replicas[0].server.woven.state.extra
         pol = dict(DEFAULT_FLEET_POLICY)
         pol.update(probe.get("fleet_resilience", {}))
@@ -373,8 +389,8 @@ class ServingFleet:
         def _retire_overdue() -> None:
             if deadline_s is None:
                 return
-            now = time.monotonic()
-            if now - t0 <= deadline_s:
+            # rank 0's clock decides for every rank of a live mesh
+            if not broadcast_object(time.monotonic() - t0 > deadline_s, self.mesh):
                 return
             stuck = list(pending) + [r for rs in limbo.values() for r in rs]
             pending.clear()

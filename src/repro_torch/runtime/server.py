@@ -36,7 +36,11 @@ decisions stay rank 0's.  An int8 / fp8 pool holds a rank's KV heads and
 their per-page scales; a speculative round drafts on the same heads (a
 foreign draft must be a server on the same mesh), verifies in one widened
 step and takes rank 0's proposals, argmax chain and finiteness.  The QoS
-governor raises on a live mesh (ROADMAP Queue 1 item 15d).
+governor plans on rank 0 alone, from rank 0's clock, and one broadcast a
+re-selection hands its operating point to every rank (`_RankZeroGovernor`);
+a graceful drain is rank 0's reading of its preemption handler (every rank
+still polls its own); the tuner's runtime feedback refines from rank 0's
+observations, rank 0 writes the cache and every rank returns its knobs.
 
 Both paths serve the dense family (yi-6b, gemma-2b); the recurrent families
 (recurrentgemma-2b's RG-LRU state, rwkv6-3b's WKV state) serve through
@@ -61,7 +65,7 @@ from repro_torch.core.strategies.resilience import (
     NonFiniteLogits,
 )
 from repro_torch.core.weaver import WovenProgram
-from repro_torch.distributed.collectives import broadcast, broadcast_object
+from repro_torch.distributed.collectives import broadcast, broadcast_object, on_rank_zero
 from repro_torch.distributed.sharding import gather_shards, input_shardings, local_shard
 from repro_torch.distributed.fault import Watchdog
 from repro_torch.kernels.flash_attention.ops import CACHE_QMAX, DEFAULT_PAGE_SIZE
@@ -104,6 +108,36 @@ def _step_counts() -> dict[str, int]:
 TUNED_EXTRAS = ("flash_dkv_n_split", "flash_block_q", "flash_block_q_bwd",
                 "flash_block_kv", "flash_block_kv_bwd", "flash_block_kv_dec",
                 "flash_page_size", "flash_cache_dtype", "speculative_draft_len")
+
+
+class _RankZeroGovernor:
+    """A QoS governor on a live mesh: rank 0's governor plans and learns from
+    rank 0's clock (its TTFTs and wave latencies, its modeled power report
+    a wave), and one broadcast a re-selection hands the operating point it
+    chose to every rank.  A follower rank's governor decides and observes
+    nothing; `stats()` is rank 0's on every rank."""
+
+    def __init__(self, gov: QoSGovernor, mesh):
+        self.gov, self.mesh = gov, mesh
+        self.lead = mesh.rank == 0
+        self.reselect_every = gov.reselect_every
+
+    def knob_values(self, name: str) -> tuple:
+        return self.gov.knob_values(name)
+
+    def decide(self, **load) -> dict:
+        return on_rank_zero(lambda: self.gov.decide(**load), self.mesh)
+
+    def observe(self, metric: str, value: float) -> None:
+        if self.lead:
+            self.gov.observe(metric, value)
+
+    def observe_wave(self, dt_s: float, **kw) -> None:
+        if self.lead:
+            self.gov.observe_wave(dt_s, **kw)
+
+    def stats(self) -> dict[str, Any]:
+        return on_rank_zero(self.gov.stats, self.mesh)
 
 
 @dataclasses.dataclass
@@ -259,10 +293,7 @@ class Server:
     def _variant(self) -> str | None:
         if self.margot is None:
             return None
-        knobs = None
-        if not self._live or self.mesh.rank == 0:
-            knobs = dict(self.margot.update().knobs)
-        knobs = broadcast_object(knobs, self.mesh)
+        knobs = on_rank_zero(lambda: dict(self.margot.update().knobs), self.mesh)
         self.info["knobs"].update(knobs)
         return knobs.get("variant") or knobs.get("precision_mix")
 
@@ -869,7 +900,8 @@ class Server:
         Graceful drain (`preemption`, a PreemptionHandler or anything with a
         `.pending` bool): once preemption is requested no new request is
         admitted; in-flight requests finish their decode, and the waiting
-        queue returns structured `drained` outcomes.
+        queue returns structured `drained` outcomes.  On a live mesh rank
+        0's reading drains every rank at the same wave.
 
         QoS (`qos`, a QoSGovernor or a policy dict; else a woven QoSAspect;
         `qos=False` forces it off; `slo_ttft_s` / `slo_tok_s`, or
@@ -883,7 +915,9 @@ class Server:
         scheduling: every emitted token is still a target argmax.  Each
         wave's latency is observed (`observe_wave`), each first token's
         TTFT too; `last_qos_stats` holds the governor's `stats()` and every
-        `wave` event carries the operating point in force as `op`.
+        `wave` event carries the operating point in force as `op`.  On a
+        live mesh these are rank 0's: its governor plans from its own clock
+        and every rank takes the operating point it chose.
 
         `last_pool_stats`, `last_spec_stats`, `last_fault_stats`,
         `last_qos_stats`, `last_step_counts` and `decode_step_latencies`
@@ -907,6 +941,8 @@ class Server:
         inj = fault_injector if fault_injector is not None \
             else state.extra.get("fault_injector")
         gov = self._qos_governor(state, qos, slo_ttft_s, slo_tok_s)
+        if gov is not None and self._live:
+            gov = _RankZeroGovernor(gov, self.mesh)
         # chunked prefill: explicit argument, then ServerConfig, then the
         # governor's prefill_chunk knob (0/None: one-shot admission).
         # Capacity-routed MoE couples a prefill's tokens within their group
@@ -961,9 +997,6 @@ class Server:
             k = k_max = 0
         draft_srv = draft or self.draft or self  # self-speculation default
         dmanager: PagedCacheManager | None = None
-        if self._live and gov is not None:
-            raise NotImplementedError("the QoS governor on a live mesh (ROADMAP "
-                                      "Queue 1 item 15d)")
         if k_max and (self._live or is_live(draft_srv.mesh)) \
                 and draft_srv.mesh != self.mesh:
             # every rank drafts on its own heads in lockstep with its target
@@ -1292,8 +1325,13 @@ class Server:
                 _emit("outcome", rid=rid, status="drained",
                       reason=outcome[rid]["reason"], tokens=0)
 
+        def _preempted() -> bool:
+            # every rank polls its own handler (a counting poller keeps one
+            # count on every rank); rank 0's reading drains every rank
+            return broadcast_object(bool(preemption.pending), self.mesh)
+
         def _admit_or_drain() -> None:
-            if preemption is not None and preemption.pending:
+            if preemption is not None and _preempted():
                 _drain_waiting()
                 return
             admit_ready()
@@ -1344,8 +1382,7 @@ class Server:
                 _admit_or_drain()
             # preemption arriving mid-serve drains the queue at the next
             # round boundary; the admitted batch keeps decoding to the end
-            if preemption is not None and preemption.pending \
-                    and (waiting or pending):
+            if preemption is not None and _preempted() and (waiting or pending):
                 _drain_waiting()
                 if not active and not prefilling:
                     break
@@ -1761,20 +1798,26 @@ class Server:
         kernel-tuner cache (`kernel_tuner.refine_from_runtime`, among the
         rows of this server's device): serving traffic refines the DSE
         priors, so the next server picks its page size under observed
-        latency.  Returns the re-selected knobs (None if never tuned)."""
+        latency.  Returns the re-selected knobs (None if never tuned).  On a
+        live mesh rank 0 refines from its own observations and writes the
+        cache, and every rank returns rank 0's knobs."""
         from repro_torch.autotune.kernel_tuner import refine_from_runtime
 
-        if self._paged_sig is None or not self._step_lat_by_batch:
-            return None
-        # continuous batching shrinks the batch as requests retire: observe
-        # the best-sampled batch size and refine the signature keyed to it
-        batch = max(self._step_lat_by_batch,
-                    key=lambda b: len(self._step_lat_by_batch[b]))
-        observed = float(np.mean(self._step_lat_by_batch[batch]))
-        sig = self._paged_signature(batch=batch, dtype=self._paged_dtype)
-        return refine_from_runtime(
-            sig, {"latency_s": observed}, tuner=tuner, latency_budget=latency_budget,
-            objective_knob="page_size", device=self.device.type)
+        def refine():
+            if self._paged_sig is None or not self._step_lat_by_batch:
+                return None
+            # continuous batching shrinks the batch as requests retire:
+            # observe the best-sampled batch size and refine the signature
+            # keyed to it
+            batch = max(self._step_lat_by_batch,
+                        key=lambda b: len(self._step_lat_by_batch[b]))
+            observed = float(np.mean(self._step_lat_by_batch[batch]))
+            sig = self._paged_signature(batch=batch, dtype=self._paged_dtype)
+            return refine_from_runtime(
+                sig, {"latency_s": observed}, tuner=tuner, latency_budget=latency_budget,
+                objective_knob="page_size", device=self.device.type)
+
+        return on_rank_zero(refine, self.mesh)
 
     def refine_speculative(self, *, latency_budget: float,
                            tuner=None) -> dict | None:
@@ -1784,27 +1827,31 @@ class Server:
         verify-step latency the latency expectations, then `draft_len` is
         re-selected under the adjusted budget.  Returns the re-selected
         knobs (None when the last serve was not speculative or never
-        tuned)."""
+        tuned).  On a live mesh it is rank 0's, as `refine_kernel_tuner`
+        is."""
         from repro_torch.autotune.kernel_tuner import (
             refine_from_runtime,
             speculative_signature,
         )
 
-        stats = self.last_spec_stats
-        if not stats or not stats.get("verify_steps"):
-            return None
-        cfg = self.woven.program.cfg
-        cache_len = self.cfg.max_cache_len
-        window = getattr(cfg, "attn_window", None)
-        if window is not None and window < cache_len:
-            cache_len, window = window, None  # ring layout
-        batch = max(1, round(stats["request_rounds"] / max(stats["rounds"], 1)))
-        sig = speculative_signature(batch, cache_len, cfg.n_heads, cfg.kv_heads,
-                                    cfg.resolved_head_dim,
-                                    self._paged_dtype or "bfloat16", window=window)
-        observed = {"tokens_per_step": float(stats["mean_tokens_per_verify"])}
-        if stats.get("verify_latency_s"):
-            observed["latency_s"] = float(stats["verify_latency_s"])
-        return refine_from_runtime(
-            sig, observed, tuner=tuner, latency_budget=latency_budget,
-            objective_knob="draft_len", device=self.device.type)
+        def refine():
+            stats = self.last_spec_stats
+            if not stats or not stats.get("verify_steps"):
+                return None
+            cfg = self.woven.program.cfg
+            cache_len = self.cfg.max_cache_len
+            window = getattr(cfg, "attn_window", None)
+            if window is not None and window < cache_len:
+                cache_len, window = window, None  # ring layout
+            batch = max(1, round(stats["request_rounds"] / max(stats["rounds"], 1)))
+            sig = speculative_signature(batch, cache_len, cfg.n_heads, cfg.kv_heads,
+                                        cfg.resolved_head_dim,
+                                        self._paged_dtype or "bfloat16", window=window)
+            observed = {"tokens_per_step": float(stats["mean_tokens_per_verify"])}
+            if stats.get("verify_latency_s"):
+                observed["latency_s"] = float(stats["verify_latency_s"])
+            return refine_from_runtime(
+                sig, observed, tuner=tuner, latency_budget=latency_budget,
+                objective_knob="draft_len", device=self.device.type)
+
+        return on_rank_zero(refine, self.mesh)

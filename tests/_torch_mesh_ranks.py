@@ -3,7 +3,6 @@ each rank and imports this module there, so it imports the port and torch
 only; every function takes the rank's live mesh last and returns host
 values (rank 0's reach the test)."""
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -229,9 +228,6 @@ def refusals(mesh):
     that it did not raise}."""
     from repro_torch.core.strategies.parallelization import AutoShard
     from repro_torch.nn.module import Ctx
-    from repro_torch.runtime.fleet import ServingFleet
-    from repro_torch.runtime.qos import QoSGovernor
-    from repro_torch.runtime.server import Server, ServerConfig
     from repro_torch.runtime.steps import build_prefill_step
     from repro_torch.launch.mesh import make_test_mesh
 
@@ -251,17 +247,6 @@ def refusals(mesh):
         fsdp_sp = AutoShard(dict(mesh.shape), train=False, layout="fsdp_sp")
         attempt(name, lambda a=arch, f=fsdp_sp: build_prefill_step(
             woven(a, "serve", mesh.shape, head_dim=None, aspects=[f]), mesh=mesh))
-    w = woven("yi-6b", "serve", mesh.shape)
-    prompts = [np.arange(5, dtype=np.int32)]
-
-    def server(**kw):
-        return Server(w, ServerConfig(max_cache_len=32, decode_tokens=2, **kw),
-                      mesh=mesh, device="cpu")
-
-    srv = server()
-    attempt("qos_governor", lambda: srv.serve_continuous(
-        prompts, qos=QoSGovernor({"reselect_every": 1})))
-    attempt("fleet", lambda: ServingFleet(server, replicas=1, spares=0))
     sp = woven("gemma-2b", "serve", mesh.shape,
                aspects=[AutoShard(dict(mesh.shape), train=False, layout="fsdp_sp")])
     attempt("fsdp_sp_serving", lambda: build_prefill_step(sp, mesh=mesh))

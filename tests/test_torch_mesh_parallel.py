@@ -15,7 +15,8 @@ train step's all-reduces over `model`; (g) what a live mesh refuses (the
 FSDP layouts and the recurrent families run: `test_torch_mesh_fsdp.py`; the
 MoE, encoder-decoder and VLM families: `test_torch_mesh_families.py`;
 quantized pools and weights, gradient compression and speculative
-decoding: `test_torch_mesh_quantized.py`).  The
+decoding: `test_torch_mesh_quantized.py`; the QoS governor, the fleet, the
+drain and the tuner's feedback: `test_torch_mesh_control.py`).  The
 vocab-split argmax breaks ties to the lowest index and the split loss is
 the whole vocab's.  The rank bodies are in `_torch_mesh_ranks.py`."""
 
@@ -306,7 +307,6 @@ def test_run_on_mesh_leaves_no_result_file_behind(tmp_path, monkeypatch, fn, fai
 
 REFUSED = {
     "whisper_fsdp_sp": "15b-ii", "internvl_fsdp_sp": "15b-ii",
-    "qos_governor": "15d", "fleet": "15d",
     "fsdp_sp_serving": "15a-ii",
     "abstract_mesh": "abstract mesh",
 }

@@ -255,7 +255,8 @@ def test_recurrent_block_prefill_then_decode():
         got, tst = tmod(tparams, t(xd), ctx=tctx, state=tst, mode="decode")
         _close(got, want)
         assert_tree_close(tst, np_tree(jst), **TOL)
-    assert_tree_close(tmod.init_state(2), np_tree(jmod.init_state(2)), atol=0, rtol=0)
+    assert_tree_close(tmod.init_state(2, device="cpu"), np_tree(jmod.init_state(2)),
+                      atol=0, rtol=0)
     specs = trglru.RecurrentBlock.state_spec(2, 64)
     for key, sds in jrglru.RecurrentBlock.state_spec(2, 64).items():
         assert specs[key][0] == sds.shape
