@@ -102,7 +102,8 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    (`frontends_phase`; its K1 / K2 shapes are `frontend_kernel_cases`);
 7. serves full-width, full-depth recurrentgemma-2b (RG-LRU kernel K5, and
    the attention and RMSNorm kernels over its local-attention rings) and
-   rwkv6-3b (WKV kernel K6) through `serve` and `serve_batch`, with exact
+   full-width rwkv6-3b at `RWKV_SERVE_LAYERS` (8 of 32) layers (WKV kernel
+   K6) through `serve` and `serve_batch`, with exact
    launch counts, no K5 / K6 launch in decode, the logit gates against the
    plain implementations, and a decode-step profile each
    (`recurrent_phase`);
@@ -119,7 +120,7 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    reduced configuration (`train_phase`);
 9. trains the hybrid, ssm, MoE and encoder-decoder families at published
    width (`train_families_phase`, `TRAIN_FAMILY_RUNS`): recurrentgemma-2b
-   at full depth and rwkv6-3b cut to 8 layers through the launcher's
+   at full depth and rwkv6-3b cut to 4 layers through the launcher's
    trainer, mixtral-8x22b cut to one layer, whisper-small through
    `build_train_step` with frames from a seed — three counted steps each
    (rwkv6-3b two) with exact launches (every bf16 K1 / K3 launch on the
@@ -158,12 +159,13 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    trainer's synchronised sensor, and host wall and profiler busy over five
    more steps), tokens/s, MFU, peak memory; serve latencies; the DSE table;
 12. runs two ranks on the one card over gloo (`run_on_mesh`, `mesh_phase`):
-   full-width, full-depth yi-6b served tensor-parallel on a (1, 2) mesh
-   through `serve` / `serve_batch` (step 5's requests) and a short
-   `serve_continuous` over the paged pool — each rank's launches by route
-   equal to step 5's one-card counts, its collectives counted, its decode
-   step profiled — with the prefill logits held at the full-depth logit
-   gate against a one-card server over the same weights; then gemma-2b at
+   full-width yi-6b at `MESH_SERVE_DEPTH` (4 of 32) layers served
+   tensor-parallel on a (1, 2) mesh through `serve` / `serve_batch` (step
+   5's requests) and a short `serve_continuous` over the paged pool — each
+   rank's launches by route equal to step 5's one-card counts scaled to
+   the depth (`depth_counts`), its collectives counted, its decode step
+   profiled — with the prefill logits held at the full-depth logit gate
+   against a one-card server of the same depth and weights; then gemma-2b at
    full width, cut to `MESH_TRAIN_DEPTH` layers so both ranks' state fits,
    trained two steps on a (2, 1) and a (1, 2) mesh: K1 with lse and K3
    counted per step, the first batch's loss falling, and the meshed
@@ -192,8 +194,22 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    internvl2-1b's in fp32), whisper's cross caches left unwritten on a
    rank's heads — and each trained two counted steps (whisper through
    `build_train_step` with frames): the first batch's loss falling, the
-   meshed gradient at the training gates against one card's; then
-   quantized and speculative serving, int8 weights and int8 gradient
+   meshed gradient at the training gates against one card's; then the same
+   families trained under `fsdp_sp` on (1, 2), each rank on its block of
+   the sequence (`FAMILY_SP_RUNS`): (p1) internvl2-1b at full depth, 2 x
+   (256 image embeddings + 256 tokens), and (p2) whisper-small at full
+   depth, 2 x 448 tokens over 1500 frames, through `build_train_step`,
+   two counted steps; (p3) mixtral-8x22b at 1 of 56 layers with
+   AutoShard's own FSDP `embed` rule, 2 x 512 through the `Trainer`, one
+   counted step — the first batch's dense logits with K1 and K4 woven
+   (fp32 for internvl and mixtral) at the logit gate against one card's,
+   their launches by route one card's, mixtral's keep masks bit for bit
+   one card's and alike on both ranks; K1 with lse and K3 on the gathered
+   sequence counted per step, the first batch's loss falling, the
+   sequence's gathers (and mixtral's FSDP gathers and reduce-scatters)
+   counted, each rank's resident blocks, the meshed gradient at the
+   training gates against one card's; then quantized and speculative
+   serving, int8 weights and int8 gradient
    compression on (1, 2) (`QUANT_MESH_RUNS`): (q1) the full yi-6b server's
    continuous prompts again over an int8 pool, plain and self-drafted at
    k = 2 (K2d on a rank's KV heads, K2's widened verify over its codes;
@@ -3658,16 +3674,21 @@ def family_servers(torch, arch, max_cache_len):
 
 class RouteRecorder:
     """While active, keeps every MoE routing's top-k experts in call order
-    (`MoEMLP.route`), for the two paths of a logit gate to be compared."""
+    (`MoEMLP.route`), for the two paths of a logit gate to be compared, and
+    its keep mask (each (token, k)'s capacity rank below the group's
+    capacity at the layer's capacity factor)."""
 
     def __enter__(self):
-        from repro_torch.nn.moe import MoEMLP
+        from repro_torch.nn.moe import MoEMLP, capacity
 
-        self.calls, self.real = [], MoEMLP.route
+        self.calls, self.keeps, self.real = [], [], MoEMLP.route
 
-        def recorded(module, *a, **k):
-            out = self.real(module, *a, **k)
+        def recorded(module, params, xc, *a, **k):
+            out = self.real(module, params, xc, *a, **k)
             self.calls.append(out[1].cpu())
+            cap = capacity(xc.shape[1], module.top_k, module.capacity_factor,
+                           module.num_experts)
+            self.keeps.append((out[3] < cap).cpu())
             return out
 
         MoEMLP.route = recorded
@@ -4165,30 +4186,44 @@ def counted_run(torch, fn, tag):
     return out, counts, routes
 
 
+# rwkv6-3b's served layers (of 32), as many as its training runs
+# (`TRAIN_FAMILY_RUNS`): the phase builds five full-width servers of it (the
+# kernels', the plain chunked and sequential WKV's, the kernels' and the
+# plain chunked WKV's again in fp32), each serving at this depth
+RWKV_SERVE_LAYERS = 8
+
+
 def recurrent_phase(torch) -> dict:
-    """Full-width, full-depth recurrentgemma-2b (26 layers, 18 RG-LRU and 8
-    local-attention blocks) and rwkv6-3b (32 layers), random weights from
-    seed 0, through `serve` and `serve_batch`; see `serve_recurrent`."""
+    """Full-width recurrentgemma-2b at full depth (26 layers, 18 RG-LRU and 8
+    local-attention blocks) and rwkv6-3b at `RWKV_SERVE_LAYERS` of 32
+    layers, random weights from seed 0, through `serve` and `serve_batch`;
+    see `serve_recurrent`."""
     out = {}
     for arch, published in (("recurrentgemma-2b", (26, 2560, 256000)),
-                            ("rwkv6-3b", (32, 2560, 65536))):
+                            ("rwkv6-3b", (RWKV_SERVE_LAYERS, 2560, 65536))):
         out[arch] = serve_recurrent(torch, arch, published)
         torch.cuda.empty_cache()
     return out
 
 
-def recurrent_server(torch, arch, cfg, *, kernels: bool, policy=None, wkv=None):
-    """A full-width server built as `launch/serve.build_server` builds it,
-    woven to the CUDA kernels or to the plain implementations (`wkv` picks
-    the plain WKV form), at the `half` policy or the given one."""
+def recurrent_server(torch, arch, cfg, layers: int, *, kernels: bool, policy=None,
+                     wkv=None):
+    """A full-width server of `layers` layers built as
+    `launch/serve.build_server` builds it, woven to the CUDA kernels or to
+    the plain implementations (`wkv` picks the plain WKV form), at the
+    `half` policy or the given one."""
     from repro_torch.configs.base import SHAPES
     from repro_torch.core.program import Program
     from repro_torch.core.strategies.kernels import KernelAspect
     from repro_torch.launch.weave import cuda_kernel_aspects, default_weave
+    from repro_torch.models.registry import build_model, get_config
     from repro_torch.nn.dtypes import PolicyResolver
     from repro_torch.runtime.server import Server
 
-    program = Program.from_arch(arch, kind="serve", reduced=False, device="cuda")
+    mcfg = get_config(arch)
+    if layers != mcfg.num_layers:
+        mcfg = mcfg.replace(num_layers=layers, layer_groups=())
+    program = Program(model=build_model(mcfg), cfg=mcfg, kind="serve", device="cuda")
     aspects = cuda_kernel_aspects() if kernels else (
         [KernelAspect("*", "wkv", wkv)] if wkv else None)
     woven = default_weave(program, SHAPES["prefill_32k"], {}, extra_aspects=aspects)
@@ -4264,14 +4299,13 @@ def serve_recurrent(torch, arch, published) -> dict:
     and a decode-step profile."""
     import numpy as np
 
-    from repro_torch.launch.serve import build_server
     from repro_torch.models.lm import RecBlock
     from repro_torch.runtime.server import ServerConfig
 
     decode_tokens = 32
     cfg = ServerConfig(max_cache_len=4096, decode_tokens=decode_tokens, seed=0)
     t0 = time.perf_counter()
-    server = build_server(arch, reduced=False, device="cuda", cfg=cfg)
+    server = recurrent_server(torch, arch, cfg, published[0], kernels=True)
     torch.cuda.synchronize()
     model, mcfg = server.woven.program.model, server.woven.program.cfg
     layers = mcfg.num_layers
@@ -4280,7 +4314,7 @@ def serve_recurrent(torch, arch, published) -> dict:
         f"{n_params / 1e9:.2f} B parameters on the card in {time.perf_counter() - t0:.1f} s; "
         f"impls {server.woven.state.impls}")
     if (layers, mcfg.d_model, mcfg.vocab) != published:
-        raise AssertionError(f"not the published {arch} configuration")
+        raise AssertionError(f"not the published {arch} configuration at {layers} layers")
     hybrid = mcfg.family == "hybrid"
     rec = sum(isinstance(p, RecBlock) for p in model.trunk) if hybrid else 0
     attn = layers - rec if hybrid else 0
@@ -4338,7 +4372,7 @@ def serve_recurrent(torch, arch, published) -> dict:
     del cache
 
     # -- against the same model woven to the plain implementations ------------
-    eager = recurrent_server(torch, arch, cfg, kernels=False)
+    eager = recurrent_server(torch, arch, cfg, layers, kernels=False)
     for a, b in zip(model.parameters(), eager.woven.program.model.parameters()):
         if not torch.equal(a, b):
             raise AssertionError("the two servers drew different weights from one seed")
@@ -4354,13 +4388,13 @@ def serve_recurrent(torch, arch, published) -> dict:
         # grow through 32 layers of random weights.  The reading is printed;
         # the gate holds the kernel path to the plain path in fp32, where
         # the two forms agree within 2e-5 (ROADMAP Queue 3).
-        scan = recurrent_server(torch, arch, cfg, kernels=False, wkv="scan")
+        scan = recurrent_server(torch, arch, cfg, layers, kernels=False, wkv="scan")
         report["bf16_plain_scan_vs_plain_chunked"] = logit_gap(
             torch, scan, eager, toks, "plain sequential WKV vs plain chunked WKV, bf16")
         del scan, eager
         torch.cuda.empty_cache()
-        k32 = recurrent_server(torch, arch, cfg, kernels=True, policy="double")
-        e32 = recurrent_server(torch, arch, cfg, kernels=False, policy="double")
+        k32 = recurrent_server(torch, arch, cfg, layers, kernels=True, policy="double")
+        e32 = recurrent_server(torch, arch, cfg, layers, kernels=False, policy="double")
         report["fp32"] = logit_gap(torch, k32, e32, toks, "kernels vs plain, fp32")
         del e32
         # the same batch-vs-solo reading in fp32: what the bf16 one owes to
@@ -4830,10 +4864,10 @@ def remat_policy_runs(torch, trainer, mb, overrides) -> dict:
 TRAIN_FAMILY_RUNS = {
     "h": dict(arch="recurrentgemma-2b", layers=None, batch=2, seq=4096, accum=2, steps=3,
               attn_layers=8, attn_weights=32, gates=("formula", "fp32")),
-    # cut to 8 of 32 layers: at full depth its profiled step alone took
+    # cut to 4 of 32 layers: at full depth its profiled step alone took
     # 99 s on an H100 (the profiler over ~300 k kernels), the script's
-    # largest single cost
-    "s": dict(arch="rwkv6-3b", layers=8, batch=4, seq=1024, accum=2, steps=2,
+    # largest single cost; at 8 layers its steps took 5.5-5.8 s
+    "s": dict(arch="rwkv6-3b", layers=4, batch=4, seq=1024, accum=2, steps=2,
               attn_layers=0, attn_weights=0, gates=()),
     "m": dict(arch="mixtral-8x22b", layers=1, batch=1, seq=6144, accum=1, steps=3,
               attn_layers=1, attn_weights=4, gates=("fp32",)),
@@ -5137,7 +5171,7 @@ def train_families_phase(torch) -> dict:
     at published width (`TRAIN_FAMILY_RUNS`): (h) recurrentgemma-2b, 26
     layers (per-block remat; K1 with lse and K3 at H10 K1 D256, window 2048
     at S 4096, which prunes), B2 x 4096 in 2 microbatches; (s) rwkv6-3b cut
-    to 8 of 32 layers, B4 x 1024 in 2 — no hand-written kernel on its training path
+    to 4 of 32 layers, B4 x 1024 in 2 — no hand-written kernel on its training path
     (every counter 0): its parameters change, its losses are finite and
     its first batch's loss falls; (m) mixtral-8x22b cut to one layer (2.90 B parameters with the
     embeddings, the depth one card trains), B1 x 6144 (K1 / K3 at G 6, window
@@ -5634,6 +5668,48 @@ MESH_TRAIN_DEPTH = 4
 MESH_TRAIN = {"batch": 4, "seq": 512, "steps": 2, "lr": 1e-3}
 MESH_TRAIN_SHAPES = {"data2": (2, 1), "model2": (1, 2)}
 MESH_CONTINUOUS = 2  # prompts of the continuous traffic served on the mesh
+# the meshed yi-6b server's layers (of 32), reused by (q1), (d2) and (d4):
+# its ranks' serve took 101.4-168.2 s at full depth and 83.3 s at 8 layers
+# on an H100 over gloo, the time the families' fsdp_sp runs (p1)-(p3) need;
+# its launch gates are step 5's one-card counts scaled to the depth
+# (`depth_counts`)
+MESH_SERVE_DEPTH = 4
+
+
+def yi_server(torch, mesh, depth, cfg):
+    """Full-width yi-6b's server as `launch/serve.build_server` builds it, cut
+    to `depth` layers (None: all 32), on `mesh` (None: one card)."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core.program import Program
+    from repro_torch.launch.weave import cuda_kernel_aspects, default_weave
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.runtime.server import Server
+
+    mcfg = get_config("yi-6b")
+    if depth is not None:
+        mcfg = mcfg.replace(num_layers=depth, layer_groups=())
+    program = Program(model=build_model(mcfg), cfg=mcfg, kind="serve", device="cuda")
+    woven = default_weave(program, SHAPES["prefill_32k"],
+                          dict(mesh.shape) if mesh is not None else {},
+                          extra_aspects=cuda_kernel_aspects())
+    return Server(woven, cfg, mesh=mesh)
+
+
+def depth_counts(counts: dict, layers: int, depth: int | None) -> dict:
+    """A serve's launch counts by route at `layers` layers as the same serve
+    at `depth` (None: `layers`) gives them: each attention kernel launches
+    once a layer and model call, RMSNorm twice a layer and once at the
+    end."""
+    if depth is None:
+        return dict(counts)
+    out = {}
+    for key, n in counts.items():
+        per, rest = divmod(n, 2 * layers + 1) if key == "rmsnorm" else divmod(n, layers)
+        if rest:
+            raise AssertionError(f"{key}: {n} launches are no whole number of calls "
+                                 f"of {layers} layers")
+        out[key] = per * (2 * depth + 1) if key == "rmsnorm" else per * depth
+    return out
 
 
 def every_rank(obj, mesh) -> list:
@@ -5645,8 +5721,10 @@ def every_rank(obj, mesh) -> list:
     return out
 
 
-def mesh_serve_rank(torch, mesh, solo, batch, quant: bool = False, control=()) -> dict:
-    """yi-6b on this rank of the (1, 2) mesh: step 5's requests, counted;
+def mesh_serve_rank(torch, mesh, solo, batch, depth, quant: bool = False,
+                    control=()) -> dict:
+    """yi-6b at `depth` layers (None: all) on this rank of the (1, 2) mesh:
+    step 5's requests, counted;
     the prefill logits of the first; a profiled decode step; a short
     continuous serve, counted and checked against the server's own step
     counts (then, with "d4" in `control`, `refine_kernel_tuner` after it:
@@ -5657,12 +5735,11 @@ def mesh_serve_rank(torch, mesh, solo, batch, quant: bool = False, control=()) -
     import numpy as np
 
     from repro_torch.distributed import collectives
-    from repro_torch.launch.serve import build_server
     from repro_torch.runtime.server import ServerConfig
 
     t0 = time.perf_counter()
-    server = build_server("yi-6b", reduced=False, device="cuda", mesh=mesh,
-                          cfg=ServerConfig(max_cache_len=4096, decode_tokens=32, seed=0))
+    server = yi_server(torch, mesh, depth,
+                       ServerConfig(max_cache_len=4096, decode_tokens=32, seed=0))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     mcfg = server.woven.program.cfg
@@ -6789,23 +6866,36 @@ def fsdp_logit_positions(S: int) -> list:
 
 
 def fsdp_rank(torch, mesh, tag, run) -> dict:
-    """(f1)..(f4) on this rank; each rank's results on every rank."""
+    """(f1)..(f4) on this rank; each rank's results on every rank, and this
+    rank's gradient digest beside its own (`rank0_digest`)."""
     out = {}
     if run["serve"]:
         out["serve"] = every_rank(fsdp_serve_rank(torch, mesh, tag, run), mesh)
     torch.cuda.reset_peak_memory_stats()
-    out["train"] = every_rank(fsdp_train_rank(torch, mesh, tag, run), mesh)
+    out["train"] = rank0_digest(fsdp_train_rank(torch, mesh, tag, run), mesh)
     torch.cuda.reset_peak_memory_stats()
     return out
 
 
-def mesh_rank(solo, batch, train_shapes, fsdp_runs, family_runs, quant_runs, control_runs,
-              t_spawn, mesh) -> dict:
-    """Phase 12's body on each rank: serve on the mesh run_on_mesh gives
-    ((q1) over the int8 pool with "q1" in `quant_runs`, (d2) and (d4)'s
-    refines of `control_runs`), then train on each of `train_shapes` ({tag:
-    shape}) over the same ranks, then `fsdp_runs` ({tag: run}), each on its
-    mesh of the same ranks, then `family_runs` ({tag: run}), the rest of
+def rank0_digest(out: dict, mesh) -> list:
+    """`every_rank` of a rank's results but its gradient digest (`digest`),
+    which goes back into its own entry only: the parent reads rank 0's, and
+    a digest (whole attention-weight gradients) would otherwise be pickled
+    and moved through the host once for every rank."""
+    digest = out.pop("digest")
+    ranks = every_rank(out, mesh)
+    ranks[mesh.rank]["digest"] = digest
+    return ranks
+
+
+def mesh_rank(solo, batch, serve_depth, train_shapes, fsdp_runs, family_runs, family_sp_runs,
+              quant_runs, control_runs, t_spawn, mesh) -> dict:
+    """Phase 12's body on each rank: serve on the mesh run_on_mesh gives (yi-6b
+    at `serve_depth` layers; (q1) over the int8 pool with "q1" in
+    `quant_runs`, (d2) and (d4)'s refines of `control_runs`), then train on
+    each of `train_shapes` ({tag: shape}) over the same ranks, then
+    `fsdp_runs` ({tag: run}), each on its mesh of the same ranks, then
+    `family_runs` and `family_sp_runs` ({tag: run}), the rest of
     `quant_runs` and (d1), (d3) and (d4)'s drain on (1, 2).  `t_spawn`: the
     parent's `time.time()` at the spawn, for the ranks' start-up time."""
     import torch
@@ -6816,8 +6906,8 @@ def mesh_rank(solo, batch, train_shapes, fsdp_runs, family_runs, quant_runs, con
     rank_log(mesh, f"mesh ranks: running {time.time() - t_spawn:.1f} s after the spawn")
     meshes = {mesh.axis_sizes: mesh}
     clock = PhaseClock(time.perf_counter()) if mesh.rank == 0 else (lambda name: None)
-    out = {"serve": mesh_serve_rank(torch, mesh, solo, batch, quant="q1" in quant_runs,
-                                    control=control_runs)}
+    out = {"serve": mesh_serve_rank(torch, mesh, solo, batch, serve_depth,
+                                    quant="q1" in quant_runs, control=control_runs)}
     clock("mesh serve yi-6b")
     for tag, shape in train_shapes.items():
         out[tag] = mesh_train_rank(torch, mesh_of(meshes, mesh, shape), tag)
@@ -6826,6 +6916,9 @@ def mesh_rank(solo, batch, train_shapes, fsdp_runs, family_runs, quant_runs, con
     clock("mesh fsdp runs")
     for tag, run in family_runs.items():
         out[tag] = family_mesh_rank(torch, mesh_of(meshes, mesh, (1, 2)), tag, run)
+        clock(f"mesh family {tag}")
+    for tag, run in family_sp_runs.items():
+        out[tag] = family_sp_rank(torch, mesh_of(meshes, mesh, (1, 2)), tag, run)
         clock(f"mesh family {tag}")
     if set(quant_runs) - {"q1"} or set(control_runs) & {"d1", "d3", "d4"}:
         out["quant"] = quant_mesh_rank(torch, mesh_of(meshes, mesh, (1, 2)), quant_runs,
@@ -7170,20 +7263,19 @@ def cross_cache_unwritten(torch, server, feed) -> dict:
     return out
 
 
-def family_mesh_stepper(torch, run, mesh) -> dict:
+def family_mesh_stepper(torch, run, mesh, aspects=()) -> dict:
     """The run's training at published width (its depth cut as it says), bf16
-    (`half`), remat `full`, on `mesh` (None: one card), random weights from
-    seed 0: through the launcher's `program_trainer` (a `Trainer`), or for
-    the encoder-decoder through `runtime/steps.build_train_step` with frames
-    from a seed beside the token pipeline's batches.  {"woven", "step" (one
-    step; the first builds the train step), "params" (), "batch0" (the
-    first global batch, on the card)}."""
+    (`half`), remat `full`, on `mesh` (None: one card), laid out by
+    AutoShard and then `aspects`, random weights from seed 0: through the
+    launcher's `program_trainer` (a `Trainer`), or for the encoder-decoder
+    and a run with `image` set through `runtime/steps.build_train_step`
+    with frames (image embeddings) from a seed beside the token pipeline's
+    batches.  {"woven", "step" (one step; the first builds the train step),
+    "params" (), "opt" (), "batch0" (the first global batch, on the
+    card)}."""
     from functools import partial
 
-    import numpy as np
-
     from repro_torch.configs.base import SHAPES
-    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
     from repro_torch.distributed.sharding import param_shardings
     from repro_torch.launch.mesh import is_live
     from repro_torch.launch.train import program_trainer
@@ -7200,29 +7292,26 @@ def family_mesh_stepper(torch, run, mesh) -> dict:
     B, S = t["batch"], run.get("seq", t["seq"])
     overrides = {"accum_steps": 1, "remat": "full", "precision": "half"}
     lr = partial(constant, peak=t["lr"])
-    if cfg.family != "encdec":
+    if cfg.family != "encdec" and not run.get("image"):
         trainer = program_trainer(program, batch=B, seq=S, mesh=mesh, overrides=overrides,
                                   tcfg=TrainerConfig(steps=99, log_every=0, seed=0),
-                                  lr_fn=lr)
+                                  lr_fn=lr, extra_aspects=list(aspects))
         trainer.init_state()
         return {"woven": trainer.woven, "step": lambda: trainer.run(1)[-1],
-                "params": lambda: trainer.params, "batch0": first_batch(torch, trainer)}
+                "params": lambda: trainer.params, "opt": lambda: trainer.opt_state,
+                "batch0": first_batch(torch, trainer)}
     axes = dict(mesh.shape) if mesh is not None else {}
     woven = default_weave(program, SHAPES["train_4k"], axes, overrides=dict(overrides),
-                          extra_aspects=train_kernel_aspects())
+                          extra_aspects=train_kernel_aspects() + list(aspects))
     shardings = param_shardings(program.model, mesh, woven.state.rules) \
         if is_live(mesh) else None
     state = {"params": init_params(program.model, 0, woven.state.policies, "cuda",
                                    shardings=shardings), "i": 0, "step": None}
     state["opt"] = adamw.init_state(state["params"], adamw.AdamWConfig())
-    pipe = TokenPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=S, global_batch=B))
 
     def batch_at(i):
-        batch = {k: torch.as_tensor(v).to("cuda") for k, v in pipe.batch_at(i).items()}
-        frames = np.random.default_rng([30, i]).standard_normal(
-            (B, run["stub"], cfg.d_model), dtype=np.float32)
-        batch["frames"] = torch.as_tensor(frames, device="cuda").to(torch.bfloat16)
-        return batch
+        return {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+                for k, v in family_train_batch(torch, run, cfg, i).items()}
 
     def step():
         if state["step"] is None:
@@ -7233,7 +7322,28 @@ def family_mesh_stepper(torch, run, mesh) -> dict:
         return {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item()}
 
     return {"woven": woven, "step": step, "params": lambda: state["params"],
-            "batch0": batch_at(0)}
+            "opt": lambda: state["opt"], "batch0": batch_at(0)}
+
+
+def family_train_batch(torch, run, cfg, i: int) -> dict:
+    """The run's global batch `i` on the card: the token pipeline's batch at
+    the run's sequence length (`FAMILY_MESH_TRAIN`'s batch) and, for the
+    encoder-decoder and a run with `image` set, its frames or image
+    embeddings from seed [30, i] (fp32)."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+
+    B = FAMILY_MESH_TRAIN["batch"]
+    pipe = TokenPipeline(PipelineConfig(vocab=cfg.vocab, global_batch=B,
+                                        seq_len=run.get("seq", FAMILY_MESH_TRAIN["seq"])))
+    batch = {k: torch.as_tensor(v).to("cuda") for k, v in pipe.batch_at(i).items()}
+    if cfg.family == "encdec" or run.get("image"):
+        stub = np.random.default_rng([30, i]).standard_normal(
+            (B, run["stub"], cfg.d_model), dtype=np.float32)
+        batch["frames" if cfg.family == "encdec" else "embeds"] = torch.as_tensor(
+            stub, device="cuda")
+    return batch
 
 
 def family_mesh_train_rank(torch, mesh, tag, run) -> dict:
@@ -7307,8 +7417,10 @@ def family_mesh_rank(torch, mesh, tag, run) -> dict:
            "collectives": colls, "serve_peak_memory_gb": serve_peak, "cross_cache": cross,
            "logits_gate": logits, "logits_bf16": logits_bf16, "routing_gate": routes,
            "routing_bf16": routes_bf16, "train": train,
-           "wall_s": time.perf_counter() - t0}
-    return every_rank(out, mesh)
+           "wall_s": time.perf_counter() - t0, "digest": train.pop("digest")}
+    ranks = rank0_digest(out, mesh)
+    ranks[mesh.rank]["train"]["digest"] = ranks[mesh.rank].pop("digest")
+    return ranks
 
 
 def routing_share(got: list, want: list) -> dict:
@@ -7411,30 +7523,245 @@ def family_mesh_check(torch, tag, run, ranks) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12, (p1)-(p3): the MoE, encoder-decoder and VLM families trained
+# under fsdp_sp
+# ---------------------------------------------------------------------------
+
+# Each at published width on the same two ranks, (1, 2), under `fsdp_sp`
+# forced through AutoShard's `layout=` (as (f4) forces it): each rank holds
+# its block of the sequence — internvl2-1b's image prefix and tokens
+# together, whisper-small's frames and its tokens — and runs K1 (with its
+# lse) and K3 on the gathered sequence; whisper-small's 51865-row and
+# internvl2-1b's 151655-row vocabularies do not split over the axis and
+# stay whole on each rank, mixtral-8x22b's head (its `embed` dim FSDP over
+# `(data, model)`, AutoShard's own rule at this depth) too, while its table
+# splits its 32768 rows.  (p1) internvl2-1b at full depth, 2 x (256 image
+# embeddings + 256 tokens); (p2) whisper-small at full depth, 2 x 448
+# tokens over 1500 frames; both through `build_train_step` with their side
+# inputs from a seed, two counted steps; (p3) mixtral-8x22b at 1 of 56
+# layers, 2 x 512 tokens through the launcher's `Trainer`, one counted step
+# (every weight crosses the host at ~0.5 GB/s a rank).  The first batch's
+# dense logits are held at `gate`'s policy (fp32 for internvl's image
+# prefix and for mixtral, whose bf16 routing parts from one card's where
+# two gates nearly tie), with RMSNorm's kernel woven in beside K1 (a
+# forward without a gradient); `attn_weights`: the attention weights a
+# gradient digest holds, as in (g1)-(g3).
+FAMILY_SP_RUNS = {
+    "p1": dict(arch="internvl2-1b", layers=None, image=True, stub=256, seq=256, steps=2,
+               gate="double", attn=24, attn_weights=7),
+    "p2": dict(arch="whisper-small", layers=None, stub=1500, seq=448, steps=2,
+               gate="half", attn=24, attn_weights=12),
+    "p3": dict(arch="mixtral-8x22b", layers=1, seq=512, steps=1, gate="double",
+               attn=1, attn_weights=4),
+}
+FAMILY_SP_ASPECTS = {"layout": "fsdp_sp", "rules": None}  # `fsdp_aspects`' reading
+
+
+def family_sp_logits(torch, run, mesh) -> dict:
+    """The first batch's dense logits of the run at its gate policy on
+    `mesh` (None: one card), from seed 0, with every forward kernel woven
+    (K1, and K4 where the model has RMSNorm): the logits of the first row
+    at each sequence block's ends (`fsdp_logit_positions`), the launches
+    by route (`counted_serve`: no plain version), and the MoE layers' top-k
+    experts and keep masks in call order."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core.strategies.kernels import KernelAspect
+    from repro_torch.distributed.sharding import (input_shardings, local_shard,
+                                                  param_shardings, seq_axis)
+    from repro_torch.launch.mesh import is_live
+    from repro_torch.launch.weave import default_weave, train_kernel_aspects
+    from repro_torch.models.lm import whole_logits
+    from repro_torch.nn.dtypes import PolicyResolver
+    from repro_torch.nn.module import init_params
+
+    axes = dict(mesh.shape) if mesh is not None else {}
+    program = family_mesh_program(run, "train")
+    cfg = program.cfg
+    woven = default_weave(program, SHAPES["train_4k"], axes,
+                          overrides={"accum_steps": 1, "remat": "full"},
+                          extra_aspects=train_kernel_aspects()
+                          + [KernelAspect("*", "norm", "cuda")]
+                          + fsdp_aspects(FAMILY_SP_ASPECTS, axes, True))
+    woven.state.policies = PolicyResolver.default(run["gate"])
+    shardings = param_shardings(program.model, mesh, woven.state.rules) \
+        if is_live(mesh) else None
+    params = init_params(program.model, 0, woven.state.policies, "cuda",
+                         shardings=shardings)
+    feed = family_train_batch(torch, run, cfg, 0)
+    dtype = torch.float32 if run["gate"] != "half" else torch.bfloat16
+    feed = {k: v.to(dtype) if v.is_floating_point() else v for k, v in feed.items()
+            if k != "labels"}
+    if is_live(mesh):
+        shard = input_shardings(feed, mesh, woven.state.rules)
+        feed = {k: local_shard(v, shard[k]) for k, v in feed.items()}
+    with RouteRecorder() as rec, torch.no_grad():
+        x, wall, counts, routes = counted_serve(torch, lambda: program.model(
+            params, feed, ctx=woven.state.make_ctx(mesh=mesh), mode="dense")[0])
+        if is_live(mesh):
+            x = whole_logits(x, mesh, cfg.vocab, seq_axis(mesh, woven.state.rules))
+    logits = x[0, fsdp_logit_positions(x.shape[1])].float().cpu()
+    del x, params
+    return {"logits": logits, "launches": {**counts, **routes}, "wall_s": wall,
+            "routing": rec.calls, "keep": rec.keeps}
+
+
+def family_sp_rank(torch, mesh, tag, run) -> dict:
+    """(p1)..(p3) on this rank: the first batch's dense logits at the gate's
+    policy (`family_sp_logits`), then `run["steps"]` counted steps (the
+    first recording its gradient's digest through the train step's gradient
+    mean), the first batch's loss again after them, the collectives of the
+    steps and the rank's resident state; each rank's results on every
+    rank."""
+    from types import SimpleNamespace
+
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import input_shardings, local_shard
+    from repro_torch.runtime.steps import build_loss_fn, build_mesh_mean
+
+    t0 = time.perf_counter()
+    dense = family_sp_logits(torch, run, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rank_log(mesh, f"mesh {tag}: dense logits in {dense['wall_s']:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    st = family_mesh_stepper(torch, run, mesh,
+                             fsdp_aspects(FAMILY_SP_ASPECTS, dict(mesh.shape), True))
+    woven, mb = st["woven"], st["batch0"]
+    n = run["attn"]
+    want = {"flash_attention": 2 * n, "flash_attention_lse": 2 * n,
+            "flash_attention_bwd": n, "flash_decode": 0, "rmsnorm": 0, "rglru": 0, "wkv": 0}
+    collectives.reset_counts()
+    step_s, digest, history = [], [], []
+    for i in range(run["steps"]):
+        t1 = time.perf_counter()
+        with step_digest(torch, "attn/", digest) if i == 0 else contextlib.nullcontext():
+            m, counts, routes = counted_run(torch, st["step"], f"mesh {tag} step {i + 1}")
+        step_s.append(time.perf_counter() - t1)
+        history.append(m)
+        rank_log(mesh, f"mesh {tag}: step {i + 1} in {step_s[-1]:.2f} s")
+        if counts != want:
+            raise AssertionError(f"mesh {tag} step {i + 1}: launches {counts} != {want}")
+    colls = collectives.counts()
+    shard = input_shardings(mb, mesh, woven.state.rules)
+    with torch.no_grad():
+        after, _ = build_loss_fn(woven, mesh)(
+            st["params"](), {k: local_shard(v, shard[k]) for k, v in mb.items()})
+    after = build_mesh_mean(woven, mesh)[1]({}, {"loss": after})[1]["loss"].item()
+    resident = resident_check(torch, tag, SimpleNamespace(
+        woven=woven, mesh=mesh, params=st["params"](), opt_state=st["opt"]()))
+    train = {"rank": mesh.rank, "layout": woven.state.extra.get("layout"),
+             "rules": {k: v for k, v in woven.state.rules.items()
+                       if k in ("batch", "embed", "vocab", "res_seq", "heads", "mlp")},
+             "losses": [h["loss"] for h in history], "first_batch_loss": [digest[0][0], after],
+             "step_s": step_s, "launches_per_step": counts, "routes_per_step": routes,
+             "collectives_per_run": colls, "resident": resident,
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del st, woven
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"rank": mesh.rank, "dense": dense, "train": train, "digest": digest[0],
+           "wall_s": time.perf_counter() - t0}
+    return rank0_digest(out, mesh)
+
+
+def family_sp_check(torch, tag, run, ranks) -> dict:
+    """The run's one-card references, built after the ranks have gone, and
+    its gates: each rank's dense-logit launches by route equal one card's
+    on the same batch, its logits at the logit gate against one card's (at
+    the gate's policy), MoE keep masks bit for bit one card's and alike on
+    both ranks; each rank's training: the layout, the launches (K1 twice an
+    attention layer and step, with its lse, K3 once: one card's on the
+    gathered sequence), the first batch's loss falling, the sequence's
+    gathers and (FSDP) the weights' gathers and reduce-scatters counted,
+    its resident blocks, and the meshed gradient at the training gates
+    against one card's."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    one = family_sp_logits(torch, run, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"arch": run["arch"], "layers": run["layers"], "ranks": []}
+    for r in ranks:
+        d, t = r["dense"], r["train"]
+        if d["launches"] != one["launches"]:
+            raise AssertionError(f"mesh {tag} rank {r['rank']}: dense-logit launches by route "
+                                 f"{d['launches']} != one card's {one['launches']}")
+        gap = logit_diff(torch, f"mesh {tag} rank {r['rank']}", d["logits"], one["logits"])
+        if not (gap["max_abs_err"] <= LOGIT_MAX_TOL * gap["logit_scale"]
+                and gap["rms_err"] <= LOGIT_RMS_TOL * gap["logit_scale"]):
+            raise AssertionError(f"mesh {tag} rank {r['rank']}: logits ({run['gate']}) "
+                                 f"against one card {gap}")
+        keep = None
+        if one["keep"]:
+            same = len(d["keep"]) == len(one["keep"]) and all(
+                torch.equal(a, b) for a, b in zip(d["keep"], one["keep"]))
+            alike = all(torch.equal(a, b) for a, b in zip(d["keep"], ranks[0]["dense"]["keep"]))
+            keep = {"bitwise_one_card": same, "bitwise_rank0": alike,
+                    "kept": [float(k.float().mean()) for k in d["keep"]],
+                    "routing_vs_one_card": routing_share(d["routing"], one["routing"])}
+            if not (same and alike):
+                raise AssertionError(f"mesh {tag} rank {r['rank']}: keep masks {keep}")
+        before, after = t["first_batch_loss"]
+        if t["layout"] != "fsdp_sp" or not (np.isfinite(t["losses"]).all() and after < before):
+            raise AssertionError(f"mesh {tag} train rank {r['rank']}: layout {t['layout']}, "
+                                 f"the first batch's loss {before} -> {after}")
+        colls = t["collectives_per_run"]
+        for kind in ("all_gather", "all_reduce"):
+            if not colls.get(kind, {}).get("model", {}).get("calls"):
+                raise AssertionError(f"mesh {tag} rank {r['rank']}: no {kind} over model")
+        if t["rules"].get("embed"):
+            fsdp_gathers(tag, t["rules"]["embed"], {"data": 1, "model": 2}, colls,
+                         backward=True)
+        row = {"rank": r["rank"], "dense_launches": d["launches"],
+               "dense_wall_s": d["wall_s"], f"logits_vs_one_card_{run['gate']}": gap,
+               "keep": keep, "wall_s": r["wall_s"],
+               "train": {k: v for k, v in t.items() if k != "rank"}}
+        out["ranks"].append(row)
+        log(f"mesh {tag} rank {r['rank']}: " + json.dumps(row, default=float))
+    st = family_mesh_stepper(torch, run, None, fsdp_aspects(FAMILY_SP_ASPECTS, {}, True))
+    loss, norm, attn = gradient_digest(torch, st["woven"], st["params"](), st["batch0"],
+                                       stack_names(st["woven"]))
+    want = (loss, norm, {k: g.cpu() for k, g in attn.items()})
+    del st, attn
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["gradient_vs_one_card"] = compare_gradients(
+        f"mesh-{tag}-train", ranks[0]["digest"], want, run["attn_weights"],
+        labels=("mesh", "one_card"))
+    out["one_card_s"] = time.perf_counter() - t0
+    return out
+
+
 def mesh_phase(torch, serve_counts: dict, requests: dict, *, backend: str = "gloo",
-               serve_shape=(1, 2), train_shapes=MESH_TRAIN_SHAPES,
-               fsdp_runs=FSDP_RUNS, family_runs=FAMILY_MESH_RUNS,
+               serve_shape=(1, 2), serve_depth: int | None = MESH_SERVE_DEPTH,
+               train_shapes=MESH_TRAIN_SHAPES, fsdp_runs=FSDP_RUNS,
+               family_runs=FAMILY_MESH_RUNS, family_sp_runs=FAMILY_SP_RUNS,
                quant_runs=QUANT_MESH_RUNS, control_runs=CONTROL_MESH_RUNS) -> dict:
     """Phase 12 (see the module docstring): the ranks' runs, then the
     one-card references they are held against, built here after the ranks
-    have gone.  `backend`, `serve_shape`, `train_shapes`, `fsdp_runs`,
-    `family_runs`, `quant_runs` and `control_runs` default to phase 12's
-    two gloo ranks on one card (`tools/mesh_nccl.py` runs the same phase
-    over NCCL, a card per rank)."""
+    have gone.  `backend`, `serve_shape`, `serve_depth` (the meshed yi-6b
+    server's layers, None: all; `serve_counts`, step 5's one-card counts at
+    full depth, are scaled to it), `train_shapes`, `fsdp_runs`,
+    `family_runs`, `family_sp_runs`, `quant_runs` and `control_runs`
+    default to phase 12's two gloo ranks on one card (`tools/mesh_nccl.py`
+    runs the same phase over NCCL, a card per rank)."""
     from functools import partial
 
     import numpy as np
 
     from repro_torch.launch.mesh import run_on_mesh
-    from repro_torch.launch.serve import build_server
     from repro_torch.runtime.server import ServerConfig
 
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    res = run_on_mesh(partial(mesh_rank, requests["solo"], requests["batch"],
+    res = run_on_mesh(partial(mesh_rank, requests["solo"], requests["batch"], serve_depth,
                               dict(train_shapes), dict(fsdp_runs), dict(family_runs),
-                              tuple(quant_runs), tuple(control_runs), time.time()),
+                              dict(family_sp_runs), tuple(quant_runs), tuple(control_runs),
+                              time.time()),
                       serve_shape,
                       backend=backend, device="cuda", timeout_s=900)
     ranks_s = time.perf_counter() - t0
@@ -7444,22 +7771,24 @@ def mesh_phase(torch, serve_counts: dict, requests: dict, *, backend: str = "glo
                "train_meshes": {k: list(v) for k, v in dict(train_shapes).items()}}
 
     serve = res["serve"]
+    want_counts = depth_counts(serve_counts, 32, serve_depth)
     for r in serve["ranks"]:
         if r["layout"] != "megatron_tp":
             raise AssertionError(f"mesh serve: layout {r['layout']}")
         got = {**r["launches"], **r["routes"]}
-        diff = {k: (got.get(k), v) for k, v in serve_counts.items() if got.get(k) != v}
+        diff = {k: (got.get(k), v) for k, v in want_counts.items() if got.get(k) != v}
         if diff:
             raise AssertionError(f"mesh serve rank {r['rank']}: launches by route differ "
                                  f"from the one-card run's (mesh, one card): {diff}")
         if not r["collectives"].get("all_reduce", {}).get("model", {}).get("calls"):
             raise AssertionError(f"mesh serve rank {r['rank']}: no all-reduce over model")
+    # agreement with step 5's tokens where the mesh serves its depth
     agree = {k: float(np.mean([np.mean(np.asarray(a) == np.asarray(b)) for a, b in
                                zip(serve["tokens"][k], requests[f"{k}_out"])]))
-             for k in ("solo", "batch")}
+             for k in ("solo", "batch")} if serve_depth is None else None
 
-    one = build_server("yi-6b", reduced=False, device="cuda",
-                       cfg=ServerConfig(max_cache_len=4096, decode_tokens=32, seed=0))
+    one = yi_server(torch, None, serve_depth,
+                    ServerConfig(max_cache_len=4096, decode_tokens=32, seed=0))
     toks = torch.as_tensor(requests["solo"][0], device="cuda")
     want, cache = one.prefill_vc(None, one.params, {"tokens": toks})
     want = want.float().cpu()
@@ -7477,14 +7806,17 @@ def mesh_phase(torch, serve_counts: dict, requests: dict, *, backend: str = "glo
     log(f"mesh serve: prefill logits, {tuple(serve_shape)} mesh vs one card: {logit_gate}")
     if not (err <= LOGIT_MAX_TOL * scale and rms <= LOGIT_RMS_TOL * scale):
         raise AssertionError(f"mesh serve: prefill logits against one card {logit_gate}")
-    summary["serve_yi6b"] = {"ranks": serve["ranks"], "prefill_logits_vs_one_card":
-                             logit_gate, "token_agreement_vs_one_card": agree}
+    summary["serve_yi6b"] = {"ranks": serve["ranks"], "layers": serve_depth or 32,
+                             "prefill_logits_vs_one_card": logit_gate,
+                             "token_agreement_vs_one_card": agree}
     if "q1" in quant_runs:
-        # (q1)'s gates ran on the ranks; read: agreement with one card's int8
-        # run (c) and its self-drafted int8 run (s3) on the same prompts
+        # (q1)'s gates ran on the ranks; read, where the mesh serves step 5's
+        # depth: agreement with one card's int8 run (c) and its self-drafted
+        # int8 run (s3) on the same prompts
         summary["serve_yi6b"]["q1_token_agreement_vs_one_card"] = {
             tag: token_agreement(serve["tokens"][f"continuous_{tag}"], requests.get(key))
-            for tag, key in (("int8", "one_card_int8"), ("int8_k2", "one_card_s3"))}
+            for tag, key in (("int8", "one_card_int8"), ("int8_k2", "one_card_s3"))
+        } if serve_depth is None else None
         log(f"mesh (q1): {json.dumps({r['rank']: r['quant'] for r in serve['ranks']})}, "
             f"agreement {summary['serve_yi6b']['q1_token_agreement_vs_one_card']}")
 
@@ -7531,6 +7863,8 @@ def mesh_phase(torch, serve_counts: dict, requests: dict, *, backend: str = "glo
     summary.update(fsdp_checks(torch, fsdp_runs, res))
     for tag, run in dict(family_runs).items():
         summary[f"family_{tag}"] = family_mesh_check(torch, tag, run, res[tag])
+    for tag, run in dict(family_sp_runs).items():
+        summary[f"family_{tag}"] = family_sp_check(torch, tag, run, res[tag])
     summary.update(quant_mesh_checks(torch, res.get("quant", {}), quant_runs))
     if control_runs:
         summary["control"] = control_checks(torch, res, requests, control_runs)
@@ -7884,6 +8218,13 @@ def run(torch, build, t_start) -> int:
                    {**r["launches_per_step"], **r["routes_per_step"]}.get(key, 0)
                    for tag in FAMILY_MESH_RUNS
                    for r in mesh[f"family_{tag}"]["train"]["ranks"]},
+                **{f"mesh_family_{tag}_fsdp_sp_logits_rank{r['rank']}":
+                   r["dense_launches"].get(key, 0)
+                   for tag in FAMILY_SP_RUNS for r in mesh[f"family_{tag}"]["ranks"]},
+                **{f"mesh_family_{tag}_fsdp_sp_train_rank{r['rank']}_last_step":
+                   {**r["train"]["launches_per_step"],
+                    **r["train"]["routes_per_step"]}.get(key, 0)
+                   for tag in FAMILY_SP_RUNS for r in mesh[f"family_{tag}"]["ranks"]},
                 **{f"mesh_q1_yi6b_{tag}_rank{rank}":
                    {**q[tag]["launches"], **q[tag]["routes"]}.get(key, 0)
                    for rank, q in q1runs.items() for tag in q},

@@ -24,7 +24,10 @@ gathers them where the weight is used (`gather_tree`), never keeping a
 gathered copy.
 
 Everything here is shape-aware: a dim smaller than its mesh-axis extent is
-left unsharded rather than relying on padding for parameters.
+left unsharded rather than relying on padding for parameters.  So under
+`fsdp_sp` a vocab the sequence axis does not divide (whisper-small's 51865,
+internvl2-1b's 151655) leaves the embedding table and the head whole in
+their vocab dim on every rank, as GSPMD lays out the reference's rules.
 """
 
 from __future__ import annotations

@@ -20,16 +20,36 @@ the rank's heads, projected from those states.  A vocab the `model` axis
 does not divide (whisper-small's 51865 rows) stays whole on every rank.
 Weights split on their `embed` dim (an FSDP rule) are gathered where they
 are used, as the decoder-only LM gathers them (`sharding.gather_plan`).
+
+Under `fsdp_sp` (`sharding.seq_axis`) each rank runs both stacks on its
+block of the sequence, with the weights whole or FSDP blocks gathered at
+use.  The encoder adds the sinusoidal positions to the whole frames and
+keeps the rank's block of them (a plain slice: frames are an input, not a
+weight); its non-causal attention gathers q / k / v over the axis
+(`nn/attention.py`), and its output is gathered once over the axis
+(`gather_from`, whose backward sums the ranks' gradient blocks) for every
+decoder layer's cross-attention, whose q is the rank's block of tokens.
+The decoder's embedded tokens take the rank's block as the decoder-only
+LM's do (`lm.sequence_block`: a plain slice of a whole table's rows, or a
+vocab-split table's rows with their gradient gathered back).  Frames the
+axis does not divide stay whole on every rank, as the reference's
+shape-guarded constraint leaves them: each rank runs the whole encoder,
+and its gradient is then the rank's partial sum (it comes from the
+rank's decoder block alone), which the train step's sum over the
+sequence axis completes.  Decoder tokens the axis does not divide raise.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import gather_plan, gather_tree
+from repro_torch.distributed.collectives import gather_from
+from repro_torch.distributed.sharding import SEQ_CACHE_ITEM, gather_plan, gather_tree, seq_axis
+from repro_torch.models.lm import sequence_block
 from repro_torch.nn.attention import Attention, cache_spec
 from repro_torch.nn.blocks import MLP, Embedding, LayerNorm, sinusoidal_positions
 from repro_torch.nn.module import Ctx, Module, cast
@@ -142,17 +162,28 @@ class EncDecLM(Module):
 
     def encode(self, params, frames, *, ctx: Ctx):
         """frames: (B, T, d_model) stub frame embeddings -> encoder states.
-        Frames and positions are each cast to the compute dtype, then added."""
+        Frames and positions are each cast to the compute dtype, then added.
+        Under `fsdp_sp` the states are the whole encoder output on every
+        rank (see the module's docstring)."""
         plan = gather_plan(self, ctx.mesh, ctx.rules)
         T = frames.shape[1]
         dtype = ctx.policy().compute_dtype
         pos = sinusoidal_positions(torch.arange(T, device=frames.device), self.cfg.d_model)
         x = cast(frames, dtype) + cast(pos, dtype)
         x = ctx.constrain(x, ("batch", "res_seq", "embed"))
+        sp = seq_axis(ctx.mesh, ctx.rules)
+        split = sp is not None and T % ctx.mesh.shape[sp] == 0
+        if split:  # this rank's block of the frames
+            size = T // ctx.mesh.shape[sp]
+            x = x.narrow(1, ctx.mesh.coord(sp) * size, size)
+        elif sp is not None:  # whole frames: no sequence split inside
+            ctx = copy.copy(ctx)
+            ctx.rules = {**ctx.rules, "res_seq": None, "seq_act": None}
         x, _ = self.encoder(params["encoder"], x, ctx=ctx, mode="dense",
                             gather=plan and plan["encoder"])
-        return self.enc_norm(gather_tree(params["enc_norm"], plan and plan["enc_norm"],
-                                         ctx.mesh), x, ctx=ctx)
+        x = self.enc_norm(gather_tree(params["enc_norm"], plan and plan["enc_norm"],
+                                      ctx.mesh), x, ctx=ctx)
+        return gather_from(x, ctx.mesh, sp, 1) if split else x
 
     def forward(self, params, inputs: dict, *, ctx: Ctx, mode: str = "dense",
                 cache: dict | None = None):
@@ -160,6 +191,11 @@ class EncDecLM(Module):
         tokens = inputs["tokens"]
         B, S = tokens.shape
         plan = gather_plan(self, ctx.mesh, ctx.rules)
+        sp = seq_axis(ctx.mesh, ctx.rules)
+        if sp is not None and mode != "dense":
+            raise NotImplementedError(
+                f"serving under fsdp_sp on a live mesh: its KV caches are "
+                f"sequence-sharded (kv_seq) ({SEQ_CACHE_ITEM})")
 
         def whole(key):  # a top-level weight, its FSDP dims gathered at use
             return gather_tree(params[key], plan and plan[key], ctx.mesh)
@@ -177,6 +213,9 @@ class EncDecLM(Module):
         x = self.embed(whole("embed"), tokens, ctx=ctx)
         x = x + cast(sinusoidal_positions(positions, cfg.d_model), x.dtype)
         x = ctx.constrain(x, ("batch", "res_seq", "embed"))
+        split_vocab = params["embed"]["table"].shape[0] != cfg.vocab
+        if sp is not None:
+            x, positions = sequence_block(x, positions, ctx, sp, split_vocab)
 
         new_dec_cache = None
         if not ctx.extra.get("skip_trunk"):
@@ -189,7 +228,10 @@ class EncDecLM(Module):
         if mode == "prefill":
             x = x[:, -1:]
         x = self.final_norm(whole("final_norm"), x, ctx=ctx)
-        logits = self.embed.attend(whole("embed"), x, ctx=ctx)
+        entered = sp is not None and split_vocab
+        if entered:  # the vocab-split logits cover the whole sequence
+            x = gather_from(x, ctx.mesh, sp, 1)
+        logits = self.embed.attend(whole("embed"), x, ctx=ctx, entered=entered)
         logits = ctx.constrain(logits, ("batch", "res_seq", "vocab"))
         if mode == "dense":
             return logits, None

@@ -27,11 +27,17 @@ gathered where it is used (`sharding.gather_plan`): the embedding table,
 `ln0`, the final norm and the head at their call, a layer stack's blocks
 layer by layer, the hybrid's unrolled blocks block by block.  Under
 `fsdp_sp` (`sharding.seq_axis`) the residual stream is the rank's block of
-the sequence: the vocab-split embedding looks up the whole sequence of the
-rank's rows and keeps its block (`collectives.seq_block`), attention runs
-on the gathered sequence (`nn/attention.py`), and the final norm's output
-is gathered back so that the vocab-split logits cover the whole sequence,
-as GSPMD lays out the reference's `res_seq` / `seq_act` / `vocab` rules.
+the sequence (a VLM's image prefix and its tokens together): the embedding
+looks up the whole sequence of the rank's rows and the rank keeps its
+block (`sequence_block`), attention runs on the gathered sequence
+(`nn/attention.py`), and so does a MoE layer's routing (`nn/moe.py`).  A
+vocab the sequence axis divides is split over it, as is the head's: the
+final norm's output is then gathered back so that the vocab-split logits
+cover the whole sequence.  A vocab it does not divide (the rules'
+shape-aware drop, `sharding.logical_to_pspec`) stays whole on every rank:
+the logits are then the rank's block of positions over the whole vocab
+(`whole_logits` puts either kind together), as GSPMD lays out the
+reference's `res_seq` / `seq_act` / `vocab` rules.
 
 Caches are plain dicts of tensors, with a leading per-layer dim per stack;
 a decode step (and a paged prefill) updates the KV cache tensors it is given
@@ -70,12 +76,38 @@ def _make_norm(name: str, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def whole_logits(logits: torch.Tensor, mesh, vocab: int) -> torch.Tensor:
-    """The logits over the whole vocab from a rank's block of them (a
-    gather over `model`; the logits themselves where they are whole)."""
-    if logits.shape[-1] == vocab:
-        return logits
-    return all_gather(logits, mesh, "model", logits.dim() - 1)
+def whole_logits(logits: torch.Tensor, mesh, vocab: int,
+                 sp: str | None = None) -> torch.Tensor:
+    """The whole logits of the rank's rows from its block of them: a block
+    of the vocab gathered over `model`; under `fsdp_sp` (`sp`, the
+    sequence's axis) logits over the whole vocab are a block of positions,
+    gathered over `sp`; the logits themselves where they are whole."""
+    if logits.shape[-1] != vocab:
+        return all_gather(logits, mesh, "model", logits.dim() - 1)
+    if sp is not None:
+        return all_gather(logits, mesh, sp, 1)
+    return logits
+
+
+def sequence_block(x: torch.Tensor, positions: torch.Tensor, ctx: Ctx, sp: str,
+                   gathered_grad: bool):
+    """`fsdp_sp`: this rank's block of the sequence of `x` (B, S, ...),
+    which every rank of `sp` holds whole and alike, and of its positions.
+    `gathered_grad`: the block's gradient is gathered back whole
+    (`collectives.seq_block`) — for rows looked up in a vocab-split table,
+    each of whose vocab blocks then sees every token's gradient, as the
+    logits over the whole sequence do.  Else a plain slice: a whole table's
+    gradient is the rank's partial sum, which the train step's sum over
+    the sequence axis completes (`sharding.grad_axes`), as it completes a
+    block's."""
+    n = ctx.mesh.shape[sp]
+    if x.shape[1] % n:
+        raise ValueError(f"fsdp_sp splits the sequence over {sp!r}: {x.shape[1]} "
+                         f"tokens do not divide into {n} blocks")
+    size = x.shape[1] // n
+    start = ctx.mesh.coord(sp) * size
+    block = seq_block(x, ctx.mesh, sp, 1) if gathered_grad else x.narrow(1, start, size)
+    return block, positions.narrow(1, start, size)
 
 
 def greedy_argmax(logits: torch.Tensor, mesh, vocab: int) -> torch.Tensor:
@@ -398,12 +430,15 @@ class TransformerLM(Module):
         if mode == "prefill":
             x = x[:, -1:]
         x = self.final_norm(whole("final_norm"), x, ctx=ctx)
-        if sp is not None:  # the vocab-split logits cover the whole sequence
+        head = params["head"]["w"].shape[-1] if self.head is not None \
+            else params["embed"]["table"].shape[0]
+        entered = sp is not None and head != self.cfg.vocab
+        if entered:  # the vocab-split logits cover the whole sequence
             x = gather_from(x, ctx.mesh, sp, 1)
         if self.head is not None:
-            logits = self.head(whole("head"), x, ctx=ctx, entered=sp is not None)
+            logits = self.head(whole("head"), x, ctx=ctx, entered=entered)
         else:
-            logits = self.embed.attend(whole("embed"), x, ctx=ctx, entered=sp is not None)
+            logits = self.embed.attend(whole("embed"), x, ctx=ctx, entered=entered)
         logits = ctx.constrain(logits, ("batch", "res_seq", "vocab"))
         if mode == "dense":
             return logits, None
@@ -411,30 +446,15 @@ class TransformerLM(Module):
 
     def _seq_block(self, x, positions, params, ctx: Ctx, sp: str, mode: str):
         """`fsdp_sp`: this rank's block of the sequence of the embedded
-        tokens and of their positions.  The embedding's rows were added over
-        the vocab blocks, so every rank holds them alike, and the block's
-        gradient is gathered back whole (`seq_block`): each rank's vocab
-        block of the table then sees every token's gradient, as the
-        logits, computed on the whole sequence, do."""
+        tokens (after a VLM's image prefix) and of their positions
+        (`sequence_block`); rows of a vocab-split table were added over the
+        vocab blocks, so every rank holds them alike."""
         if mode != "dense":
             raise NotImplementedError(
                 f"serving under fsdp_sp on a live mesh: its KV caches are "
                 f"sequence-sharded (kv_seq) ({SEQ_CACHE_ITEM})")
-        n = ctx.mesh.shape[sp]
-        if x.shape[1] % n:
-            raise ValueError(f"fsdp_sp splits the sequence over {sp!r}: {x.shape[1]} "
-                             f"tokens do not divide into {n} blocks")
-        rows = params["embed"]["table"].shape[0]
-        head = params.get("head")
-        if rows == self.cfg.vocab or (head is not None
-                                      and head["w"].shape[-1] == self.cfg.vocab):
-            raise NotImplementedError(
-                f"fsdp_sp on a live mesh with a vocab of {self.cfg.vocab} that does not "
-                f"split over {sp!r}: the embedding's and the logits' gradients would "
-                "be partial sums of another kind than the blocks'")
-        size = x.shape[1] // n
-        return (seq_block(x, ctx.mesh, sp, 1),
-                positions.narrow(1, ctx.mesh.coord(sp) * size, size))
+        split = params["embed"]["table"].shape[0] != self.cfg.vocab
+        return sequence_block(x, positions, ctx, sp, split)
 
     # -- roofline components ---------------------------------------------------
 

@@ -45,7 +45,9 @@ gathers q / k / v over the sequence axis, runs on the whole sequence of the
 rank's rows (K1 with its lse, K3 in the backward) and keeps the rank's
 block of the output, as the reference's `shard_map` does where the heads do
 not divide `model`: there q is replicated over `model` on the whole
-sequence.
+sequence.  Cross-attention's q is the rank's block of decoder tokens and
+its K / V come from the whole encoder output (`models/encdec.py` gathers
+it once over the axis): its output is the rank's block as it stands.
 """
 
 from __future__ import annotations
@@ -862,7 +864,10 @@ class Attention(Module):
         Without a cache, K and V are projected from `kv_src` and returned as
         the `{"ck", "cv"}` cache; handed one, the cache comes back as the
         same object and is never written.  On a live mesh the cache holds
-        the KV heads of the rank's q heads.  A single-token decode step under
+        the KV heads of the rank's q heads; under `fsdp_sp` q is the rank's
+        block of tokens and `kv_src` the whole encoder output, entering the
+        whole K / V projections (the `copy_to` below is Megatron's column
+        split's alone).  A single-token decode step under
         the `cuda` impl attends through `flash_decode` at `index = T - 1`:
         the encoder length is fixed, so every slot is live and the causal
         bound of the last slot is the full mask.  Every multi-token call

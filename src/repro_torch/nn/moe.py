@@ -25,6 +25,22 @@ experts' branch enters through `copy_to`, whose backward sums the
 gradient over `model` — the router's share of it is whole on every rank
 already.  The all-reduce comes after `wo`, not after the combine, so the
 gates see whole expert outputs and their gradient needs no sum of its own.
+
+Under `fsdp_sp` (`sharding.seq_axis`) a rank holds its block of the
+sequence, and the experts whole (or FSDP blocks gathered at use).  The
+layer gathers the sequence over the axis (`gather_from`), groups, routes
+and runs the experts on it, and keeps its block of the output, as
+attention does in this layout.  A group then spans the ranks' blocks as it
+spans the whole sequence on one device (`group_size` and `capacity` read
+the global length), each token's capacity rank is its place in the
+cumulative sum over the whole group, so its keep mask is bit for bit the
+unmeshed layer's, and the `moe_drop_frac` tap is the global share on every
+rank.  (Adding the lower ranks' per-expert counts to a local cumulative sum
+would route alike with less work, but it is a second routing path that has
+to agree with this one bit for bit; the gather keeps one.)  The gather's
+backward sums the ranks' gradients and hands each its block: a token's
+output depends on its own input alone (the capacity ranks are
+discrete), so each rank's gradient is its block's.
 """
 
 from __future__ import annotations
@@ -32,7 +48,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.distributed.collectives import copy_to
+from repro_torch.distributed.collectives import copy_to, gather_from
+from repro_torch.distributed.sharding import seq_axis
 from repro_torch.nn.blocks import _act, row_parallel_matmul
 from repro_torch.nn.module import Ctx, Module, ParamSpec, cast
 
@@ -90,62 +107,71 @@ class MoEMLP(Module):
 
     def forward(self, params, x, *, ctx: Ctx):
         with ctx.scope(self.name):
-            policy = ctx.policy()
-            B, S, dm = x.shape
-            E, K = self.num_experts, self.top_k
-            cf = float(ctx.extra.get("moe_capacity_factor", self.capacity_factor))
-            # bounded dispatch groups: the one-hot products cost
-            # O(tokens x E x C x d) with C proportional to the group
-            grp = group_size(S, int(ctx.extra.get("moe_group_size", 2048)))
-            n_groups = S // grp
-            C = capacity(grp, K, cf, E)
+            sp = seq_axis(ctx.mesh, ctx.rules)
+            if sp is not None:  # fsdp_sp: route the whole sequence
+                block = x.shape[1]
+                out = self._experts(params, gather_from(x, ctx.mesh, sp, 1), ctx)
+                return out.narrow(1, ctx.mesh.coord(sp) * block, block)
+            return self._experts(params, x, ctx)
 
-            xc = cast(x, policy.compute_dtype)
-            if n_groups > 1:
-                xc = xc.reshape(B * n_groups, grp, dm)
-            Bg, Sg = xc.shape[0], grp
-            topg, tope, onehot, rank = self.route(params, xc, policy)
-            keep = rank < C
-            # the mean as the reference takes it: the sum times 1/n in fp32
-            ctx.tap("moe_drop_frac", lambda: 1.0 - torch.sum(keep.to(torch.float32))
-                    * np.float32(1.0 / keep.numel()))
+    def _experts(self, params, x, ctx: Ctx):
+        """Group, route, dispatch to the experts and combine `x` (B, S, dm)."""
+        policy = ctx.policy()
+        B, S, dm = x.shape
+        E, K = self.num_experts, self.top_k
+        cf = float(ctx.extra.get("moe_capacity_factor", self.capacity_factor))
+        # bounded dispatch groups: the one-hot products cost
+        # O(tokens x E x C x d) with C proportional to the group
+        grp = group_size(S, int(ctx.extra.get("moe_group_size", 2048)))
+        n_groups = S // grp
+        C = capacity(grp, K, cf, E)
 
-            gate_kept = torch.where(keep, topg, torch.zeros_like(topg))
-            # a dropped token's rank (>= C) matches no slot: its row is zero
-            slot_oh = (rank.to(torch.long)[..., None]
-                       == torch.arange(C, device=x.device)).to(torch.float32)
-            # combine[b,s,e,c] = sum_k gate * onehot_e * onehot_c (one term
-            # at most: a token's k experts are distinct)
-            combine = torch.einsum("bske,bskc->bsec", onehot * gate_kept[..., None], slot_oh)
-            dispatch = (combine > 0).to(policy.compute_dtype)  # (Bg, Sg, E, C)
-            combine = combine.to(policy.compute_dtype)
+        xc = cast(x, policy.compute_dtype)
+        if n_groups > 1:
+            xc = xc.reshape(B * n_groups, grp, dm)
+        Bg, Sg = xc.shape[0], grp
+        topg, tope, onehot, rank = self.route(params, xc, policy)
+        keep = rank < C
+        # the mean as the reference takes it: the sum times 1/n in fp32
+        ctx.tap("moe_drop_frac", lambda: 1.0 - torch.sum(keep.to(torch.float32))
+                * np.float32(1.0 / keep.numel()))
 
-            # --- dispatch -> expert compute -> combine ---
-            # the experts' mlp dim split over model: their branch enters
-            # through copy_to (the router above read xc as it is)
-            tp = params["wi"].shape[-1] != self.d_ff
-            xe = copy_to(xc, ctx.mesh, "model") if tp else xc
-            # expert_in[e,b,c] = the one token of group b in slot (e, c)
-            expert_in = torch.matmul(
-                dispatch.permute(0, 2, 3, 1).reshape(Bg, E * C, Sg), xe)
-            expert_in = expert_in.reshape(Bg, E, C, dm).transpose(0, 1)
-            expert_in = expert_in.reshape(E, Bg * C, dm)  # (E, Bg*C, dm)
-            wi = cast(params["wi"], policy.compute_dtype)
-            wg = cast(params["wg"], policy.compute_dtype)
-            wo = cast(params["wo"], policy.compute_dtype)
-            # products accumulate in fp32 inside the GEMM and come back in
-            # the compute dtype, the cast the reference applies after them
-            h = torch.bmm(expert_in, wi)
-            g = torch.bmm(expert_in, wg)
-            h = _act(self.activation, g) * h
-            # (E, Bg*C, dm); row-parallel: the partial products add over model
-            out_e = row_parallel_matmul(h, wo, ctx) if tp else torch.bmm(h, wo)
-            out_e = cast(out_e, policy.compute_dtype)
-            out_e = out_e.reshape(E, Bg, C, dm).transpose(0, 1).reshape(Bg, E * C, dm)
-            out = torch.matmul(combine.reshape(Bg, Sg, E * C), out_e)
-            if n_groups > 1:
-                out = out.reshape(B, S, dm)
-            return cast(out, policy.compute_dtype)
+        gate_kept = torch.where(keep, topg, torch.zeros_like(topg))
+        # a dropped token's rank (>= C) matches no slot: its row is zero
+        slot_oh = (rank.to(torch.long)[..., None]
+                   == torch.arange(C, device=x.device)).to(torch.float32)
+        # combine[b,s,e,c] = sum_k gate * onehot_e * onehot_c (one term
+        # at most: a token's k experts are distinct)
+        combine = torch.einsum("bske,bskc->bsec", onehot * gate_kept[..., None], slot_oh)
+        dispatch = (combine > 0).to(policy.compute_dtype)  # (Bg, Sg, E, C)
+        combine = combine.to(policy.compute_dtype)
+
+        # --- dispatch -> expert compute -> combine ---
+        # the experts' mlp dim split over model: their branch enters
+        # through copy_to (the router above read xc as it is)
+        tp = params["wi"].shape[-1] != self.d_ff
+        xe = copy_to(xc, ctx.mesh, "model") if tp else xc
+        # expert_in[e,b,c] = the one token of group b in slot (e, c)
+        expert_in = torch.matmul(
+            dispatch.permute(0, 2, 3, 1).reshape(Bg, E * C, Sg), xe)
+        expert_in = expert_in.reshape(Bg, E, C, dm).transpose(0, 1)
+        expert_in = expert_in.reshape(E, Bg * C, dm)  # (E, Bg*C, dm)
+        wi = cast(params["wi"], policy.compute_dtype)
+        wg = cast(params["wg"], policy.compute_dtype)
+        wo = cast(params["wo"], policy.compute_dtype)
+        # products accumulate in fp32 inside the GEMM and come back in
+        # the compute dtype, the cast the reference applies after them
+        h = torch.bmm(expert_in, wi)
+        g = torch.bmm(expert_in, wg)
+        h = _act(self.activation, g) * h
+        # (E, Bg*C, dm); row-parallel: the partial products add over model
+        out_e = row_parallel_matmul(h, wo, ctx) if tp else torch.bmm(h, wo)
+        out_e = cast(out_e, policy.compute_dtype)
+        out_e = out_e.reshape(E, Bg, C, dm).transpose(0, 1).reshape(Bg, E * C, dm)
+        out = torch.matmul(combine.reshape(Bg, Sg, E * C), out_e)
+        if n_groups > 1:
+            out = out.reshape(B, S, dm)
+        return cast(out, policy.compute_dtype)
 
     def route(self, params, xc, policy):
         """Routing of grouped tokens `xc` (Bg, Sg, dm): the renormalised

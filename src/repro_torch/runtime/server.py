@@ -818,7 +818,10 @@ class Server:
         fs = self.last_fault_stats
         clean = (memo_ok and fs["events"] == 0 and not fs["actions"]
                  and all(o["status"] == "ok" for o in self.last_outcomes))
-        if self.memo is not None and clean:
+        # on a live mesh the store is rank 0's decision: a watchdog overrun
+        # is recorded (in `actions`) on the rank that saw it alone, and the
+        # ranks' tables must not part
+        if self.memo is not None and broadcast_object(clean, self.mesh):
             self.memo.update(key, result)
         return result
 

@@ -18,10 +18,10 @@ rank's rows under `dp_fsdp` (`runtime/server.py` splits them) — and hand
 back the logits gathered over the vocab, and the train step takes the
 global batch, keeps its rows (`sharding.input_shardings`), and sums the
 gradients over the axes whose ranks hold other tokens and means them over
-the batch's (`sharding.grad_axes`).  The dense family runs under
-`megatron_tp` and trains under `fsdp_sp`; the ssm and hybrid families run
-under `dp_fsdp`.  The other families, `fsdp_sp` serving and the layouts a
-family is not laid out in raise when the step is built.
+the batch's (`sharding.grad_axes`).  The dense, MoE, encoder-decoder and
+VLM families run under `megatron_tp` and train under `fsdp_sp`; the ssm
+and hybrid families run under `dp_fsdp`.  `fsdp_sp` serving and the
+layouts a family is not laid out in raise when the step is built.
 """
 
 from __future__ import annotations
@@ -32,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.weaver import WovenProgram
-from repro_torch.distributed.collectives import all_reduce
+from repro_torch.distributed.collectives import all_reduce, reduce_from
+from repro_torch.distributed.sharding import seq_axis
 from repro_torch.launch.mesh import check_mesh, is_live
 from repro_torch.models.lm import greedy_argmax, vocab_cross_entropy, whole_logits
 from repro_torch.optim import adamw
@@ -42,19 +43,19 @@ from repro_torch.optim.tree import rebuild
 
 
 # the layouts each family runs under on a live mesh: AutoShard's own choices
-MESH_LAYOUTS = {"dense": ("megatron_tp", "fsdp_sp"), "moe": ("megatron_tp",),
-                "encdec": ("megatron_tp",), "vlm": ("megatron_tp",),
+# (`fsdp_sp` for training only: `sharding.check_layout`)
+_ATTENTION_LAYOUTS = ("megatron_tp", "fsdp_sp")
+MESH_LAYOUTS = {"dense": _ATTENTION_LAYOUTS, "moe": _ATTENTION_LAYOUTS,
+                "encdec": _ATTENTION_LAYOUTS, "vlm": _ATTENTION_LAYOUTS,
                 "ssm": ("dp_fsdp",), "hybrid": ("dp_fsdp",)}
-# where the MoE, encoder-decoder and VLM families under `fsdp_sp` are queued
-FAMILY_FSDP_SP_ITEM = "ROADMAP Queue 1 item 15b-ii"
 
 
 def check_on_mesh(woven: WovenProgram, mesh, state=None, *, serving: bool = False):
     """`mesh` if a step of `woven` runs on it (`launch/mesh.check_mesh`); a
-    live mesh of several ranks takes the dense family under `megatron_tp`
-    (and `fsdp_sp` for training), the MoE, encoder-decoder and VLM families
-    under `megatron_tp` and the ssm and hybrid families under `dp_fsdp`
-    (`MESH_LAYOUTS`, `sharding.check_layout`)."""
+    live mesh of several ranks takes the dense, MoE, encoder-decoder and
+    VLM families under `megatron_tp` (and `fsdp_sp` for training) and the
+    ssm and hybrid families under `dp_fsdp` (`MESH_LAYOUTS`,
+    `sharding.check_layout`)."""
     mesh = check_mesh(mesh)
     if not is_live(mesh):
         return mesh
@@ -64,21 +65,47 @@ def check_on_mesh(woven: WovenProgram, mesh, state=None, *, serving: bool = Fals
     state = state or woven.state
     layout = state.extra.get("layout") or "megatron_tp"
     if layout not in MESH_LAYOUTS[family]:
-        item = FAMILY_FSDP_SP_ITEM if layout == "fsdp_sp" else \
-            "no layout of AutoShard lays it out so"
         raise NotImplementedError(
             f"the {family} family ({woven.program.cfg.name}) under {layout} on a live "
             f"mesh: it runs under {' or '.join(MESH_LAYOUTS[family])}, the layouts "
-            f"AutoShard picks for it ({item})")
+            f"AutoShard picks for it (no layout of AutoShard lays it out so)")
     check_layout(mesh, state.rules, layout, serving=serving)
     return mesh
 
 
+def _block_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mesh, sp: str):
+    """`fsdp_sp` with a vocab the sequence axis does not divide: `logits`
+    (B, s, vocab) are this rank's block of the P + T positions, positions
+    [c·s, (c+1)·s); the labels cover the last T of them (P: a VLM's image
+    prefix).  The rank's NLL and hits are sums over its labelled
+    positions, divided by the global count of labels (B·T) and added over
+    `sp`: the loss is the mean on every rank, and its gradient there the
+    rank's share, which the train step's sum over `sp` completes."""
+    B, T = labels.shape
+    s = logits.shape[1]
+    start = mesh.coord(sp) * s
+    prefix = s * mesh.shape[sp] - T
+    first = min(max(prefix - start, 0), s)  # the block's first labelled position
+    lo = start + first - prefix
+    mine = logits[:, first:].to(torch.float32)
+    lab = labels[:, lo:lo + s - first].to(torch.long)
+    logp = F.log_softmax(mine, dim=-1)
+    nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
+    hits = torch.sum((torch.argmax(mine.detach(), dim=-1) == lab).to(torch.float32))
+    count = float(B * T)
+    return (reduce_from(torch.sum(nll) / count, mesh, sp),
+            all_reduce(hits / count, mesh, sp))
+
+
 def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mesh=None,
-                   vocab: int | None = None):
+                   vocab: int | None = None, sp: str | None = None):
     """Mean token NLL + accuracy. logits (B,T,V) may cover more positions
     than labels (VLM image prefix): align to the last T_label positions.
-    On a live mesh the logits may be a rank's vocab block (V = vocab / tp)."""
+    On a live mesh the logits may be a rank's vocab block (V = vocab / tp),
+    or under `fsdp_sp` (`sp`) a rank's block of positions over the whole
+    vocab (`_block_cross_entropy`)."""
+    if sp is not None and logits.shape[-1] == vocab:
+        return _block_cross_entropy(logits, labels, mesh, sp)
     T = labels.shape[1]
     logits = logits[:, -T:].to(torch.float32)
     if vocab is not None and logits.shape[-1] != vocab:
@@ -98,11 +125,12 @@ def build_loss_fn(woven: WovenProgram, mesh=None, variant: str | None = None):
     program = woven.program
     state = woven.variant_state(variant)
     model = program.model
+    sp = seq_axis(mesh, state.rules)
 
     def loss_fn(params, batch):
         ctx = state.make_ctx(mesh=mesh)
         logits, _ = model(params, batch, ctx=ctx, mode="dense")
-        loss, acc = _cross_entropy(logits, batch["labels"], mesh, program.cfg.vocab)
+        loss, acc = _cross_entropy(logits, batch["labels"], mesh, program.cfg.vocab, sp)
         metrics = {"loss": loss, "accuracy": acc}
         metrics.update(ctx.taps)
         return loss, metrics

@@ -162,7 +162,48 @@ def control(np_params, prompts, kw, runs, tuner_path, mesh):
                                "serve_qos": w.state.extra["serve_qos"]}, mesh)
     out["drain"] = {rank: drain(srv, prompts, plain, rank, mesh) for rank in (0, 1)}
     out["tuner"] = tuner(srv, prompts, tuner_path, mesh)
+    out["memo"] = memo_overrun(srv.params, prompts[:3], mesh)
     return out
+
+
+# -- the memo table after a watchdog overrun on one rank -------------------------------
+
+# `step_deadline_s` by rank: rank 1's decode steps, slowed past its deadline
+# (`SLOW_S` after each), overrun it; rank 0's never do
+DEADLINES = (60.0, 0.01)
+SLOW_S = 0.05
+
+
+def memo_overrun(params, prompts, mesh):
+    """A server with a memo table serves `prompts` with rank 1's watchdog
+    firing on its decode steps alone, then serves them again: each rank's
+    watchdog timeouts, the keys its table holds after the first serve, and
+    its own hits and misses after the second."""
+    from repro_torch.memo.table import MemoTable
+
+    w = woven(mesh.shape)
+    w.state.extra["serve_resilience"] = {"step_deadline_s": DEADLINES[mesh.rank]}
+    srv = server(w, params, mesh)
+    srv.memo = MemoTable()
+    real = srv.decode_vc
+
+    def slowed(*a, **k):
+        out = real(*a, **k)
+        time.sleep(SLOW_S)
+        return out
+
+    if mesh.rank == 1:
+        srv.decode_vc = slowed
+    first = srv.serve_continuous(prompts, page_size=8)
+    fired = (srv.last_fault_stats["watchdog_timeouts"],
+             [a["kind"] for a in srv.last_fault_stats["actions"]])
+    keys = sorted(srv.memo._data)
+    srv.decode_vc = real
+    second = srv.serve_continuous(prompts, page_size=8)
+    return every_rank({"fired": fired, "keys": keys, "hits": srv.memo.hits,
+                       "misses": srv.memo.misses,
+                       "same": [list(map(int, t)) for t in first]
+                       == [list(map(int, t)) for t in second]}, mesh)
 
 
 # -- the drain ----------------------------------------------------------------------

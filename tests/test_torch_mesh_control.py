@@ -19,7 +19,9 @@ tokens on every rank, the clean fleet one meshed server's tokens, and
 shards.  (c) the drain: a preemption that reaches one rank only drains every
 rank alike, by rank 0's reading.  (d) the tuner's feedback: a refine writes
 the cache once, from rank 0's observation, and every rank returns rank 0's
-knobs.  The rank bodies are in `_torch_control_ranks.py`."""
+knobs.  (e) the memo table: a watchdog overrun on one rank alone leaves
+every rank's table holding the same keys (the store is rank 0's
+decision), and a repeat of the serve hits on every rank.  The rank bodies are in `_torch_control_ranks.py`."""
 
 import functools
 import json
@@ -267,3 +269,19 @@ def test_d_refine_writes_once_and_gives_rank_zeros_knobs(control, kind, want):
     assert all(r["knobs"] == want for r in runs)
     entry = json.loads(path.read_text())[runs[0]["key"]]
     assert entry["runtime"]["observed"] == runs[0]["observed"]
+
+
+# -- (e) the memo table ------------------------------------------------------------------
+
+
+def test_e_the_memo_tables_stay_equal_after_a_watchdog_overrun_on_one_rank(control):
+    """Rank 1's decode steps overrun its `step_deadline_s`, rank 0's do not:
+    the overrun is recorded on rank 1 alone, yet both ranks store the
+    result (rank 0's reading of a clean serve), so their tables hold the
+    same keys and the repeat hits each rank's own table."""
+    zero, one = control[0]["memo"]
+    assert zero["fired"] == (0, [])
+    assert one["fired"][0] > 0 and set(one["fired"][1]) == {"watchdog_overrun"}
+    assert len(zero["keys"]) == 1 and one["keys"] == zero["keys"]
+    for r in (zero, one):
+        assert (r["hits"], r["misses"]) == (1, 1) and r["same"]

@@ -20,7 +20,8 @@ the meshed server against the unmeshed server: mixtral's ring pool through
 `serve_continuous`, whisper's `serve` with frames (its cross caches come
 back unwritten, a rank's heads), internvl's with its image prefix; (e)
 each rank holds its block of every expert leaf and of its AdamW state.
-What the families refuse under `fsdp_sp` (ROADMAP Queue 1 item 15b-ii),
+What the families' servers refuse under `fsdp_sp` (ROADMAP Queue 1 item
+15a-ii; their training under it is `test_torch_mesh_families_sp.py`'s),
 and rwkv6-3b's fp32 gradient at 8 layers under `dp_fsdp` against the
 unmeshed one.  The rank bodies are in `_torch_family_ranks.py`."""
 
@@ -420,11 +421,10 @@ def apart():
     return got, ranks.rwkv_gradient(RWKV_LAYERS, batch)
 
 
-@pytest.mark.parametrize("kind", ["serve", "train"])
 @pytest.mark.parametrize("run", ["mixtral-8x22b", "whisper-small", "internvl2-1b"])
-def test_the_families_under_fsdp_sp_wait_for_15b_ii(apart, run, kind):
-    said = apart[0]["fsdp_sp"][f"{run}/{kind}"]
-    assert "15b-ii" in said and "fsdp_sp" in said, said
+def test_the_families_serving_under_fsdp_sp_wait_for_15a_ii(apart, run):
+    said = apart[0]["fsdp_sp"][f"{run}/serve"]
+    assert "15a-ii" in said and "fsdp_sp" in said, said
 
 
 RWKV_LAYERS = 8

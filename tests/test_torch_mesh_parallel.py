@@ -306,7 +306,7 @@ def test_run_on_mesh_leaves_no_result_file_behind(tmp_path, monkeypatch, fn, fai
 # -- (g) refusals ------------------------------------------------------------------
 
 REFUSED = {
-    "whisper_fsdp_sp": "15b-ii", "internvl_fsdp_sp": "15b-ii",
+    "whisper_fsdp_sp": "15a-ii", "internvl_fsdp_sp": "15a-ii",
     "fsdp_sp_serving": "15a-ii",
     "abstract_mesh": "abstract mesh",
 }
