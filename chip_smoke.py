@@ -26,6 +26,14 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    the same bits twice.  It
    times both, times the one-call PyTorch library function where there is
    one, and computes the least time the card could take (the roofline bound).
+   K2's block mode (a rank's share of a sequence-split cache, returning o
+   and lse) is held on every route at the main-path shape cut into 2 and 4
+   shares, dense and paged, and at every shape the serving runs under
+   fsdp_sp give it (gemma-2b's D 256 pool, whisper's cross caches,
+   mixtral's ring) cut in two (`block_decode_cases`): each share's o and lse
+   against the plain version, the merged shares against the whole cache,
+   a share past the index exactly 0 / -inf, the whole cache as one share
+   bit for bit the call without the block mode.
    The quantized mode of flash decode (int8 / fp8 pages with fp32 scales) is
    held to its plain version, to the dense layout of the same codes bit for
    bit, and to flash decode over the bf16 values it quantizes.  Every
@@ -159,7 +167,7 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    trainer's synchronised sensor, and host wall and profiler busy over five
    more steps), tokens/s, MFU, peak memory; serve latencies; the DSE table;
 12. runs two ranks on the one card over gloo (`run_on_mesh`, `mesh_phase`):
-   full-width yi-6b at `MESH_SERVE_DEPTH` (4 of 32) layers served
+   full-width yi-6b at `MESH_SERVE_DEPTH` (2 of 32) layers served
    tensor-parallel on a (1, 2) mesh through `serve` / `serve_batch` (step
    5's requests) and a short `serve_continuous` over the paged pool — each
    rank's launches by route equal to step 5's one-card counts scaled to
@@ -177,7 +185,7 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    the serving traffic's prompts, each rank its rows: launches by route
    equal to one card's on those rows, K5's output bit for bit one card's,
    the prefill logits at the logit gate, rwkv6 in fp32) and trained; (f4)
-   gemma-2b at 4 layers on (1, 2) under `fsdp_sp` — each trained one
+   gemma-2b at 2 layers on (1, 2) under `fsdp_sp` — each trained one
    counted step (the first batch's loss falling, the meshed gradient at
    the training gates against one card's, each rank holding only its
    blocks and their AdamW state, the FSDP gathers and reduce-scatters
@@ -208,8 +216,19 @@ Needs one CUDA device, `nvcc`, and nothing from the network.  It
    sequence counted per step, the first batch's loss falling, the
    sequence's gathers (and mixtral's FSDP gathers and reduce-scatters)
    counted, each rank's resident blocks, the meshed gradient at the
-   training gates against one card's; then quantized and speculative
-   serving, int8 weights and int8 gradient
+   training gates against one card's; then serving under `fsdp_sp` on
+   (1, 2), each rank holding its share of every KV cache and page pool
+   (`SERVE_SP_RUNS`): (s1) gemma-2b at 4 of 18 layers, the continuous
+   traffic chunked in bf16, over the int8 pool plain and at k = 2, at 2
+   layers in fp32, and a `serve_batch` of a 1024- and a 1023-token prompt;
+   (s2)-(s4) (g2), (g3) and (g1)'s traffic — each rank's launches by route
+   one card's with every K2 launch in the block mode, its pool bytes and
+   cache slots half one card's (an int8 pool's scales whole), the prefill
+   and first-decode logits at the logit gate (fp32 within 1e-5 of the
+   scale, fp32 tokens one card's), the int8 pool's first logits on the
+   gate's RMS half, MoE routing alike on both ranks, whisper's cross caches
+   (750 frames a rank) unwritten, the ranks' merges counted; then
+   quantized and speculative serving, int8 weights and int8 gradient
    compression on (1, 2) (`QUANT_MESH_RUNS`): (q1) the full yi-6b server's
    continuous prompts again over an int8 pool, plain and self-drafted at
    k = 2 (K2d on a rank's KV heads, K2's widened verify over its codes;
@@ -431,14 +450,15 @@ def live_pairs(S, T, causal, window) -> int:
 
 ROUTE_COUNTERS = ("flash_attention_tc", "flash_attention_fma", "flash_attention_bwd_tc",
                   "flash_attention_bwd_fma", "flash_decode_tc", "flash_decode_split",
-                  "flash_decode_fma")
+                  "flash_decode_fma", "flash_decode_block")
 
 
 def route_counts(reset: bool = False) -> dict:
     """The route counters of K1, K3 and K2 (widened q and single token on
     the tensor cores, an fp32 q on the FMA body) — each launch counted by
-    the route its kernel's entry point reported — and, with `reset`, set to
-    0 first."""
+    the route its kernel's entry point reported — with K2's launches over a
+    rank's share of a sequence-split cache beside them (`block`, on every
+    route), and, with `reset`, set to 0 first."""
     from repro_torch.kernels.flash_attention import ops
 
     out = {}
@@ -780,6 +800,239 @@ def decode_cases(torch, gen):
                           **({} if lib is not None else {
                               "library_ms_note": "no single PyTorch call soft-caps scores"})))
         del pk, pv
+    return cases
+
+
+# K2's block mode: the worst |lse| error of a rank's share against its plain
+# version, by q's type (a bf16 q's products round otherwise on the tensor
+# cores; an fp32 q's run in fp32 on the FMA body)
+BLOCK_LSE_TOL = {"bf16": 1e-3, "fp32": 1e-5}
+BLOCK_RAGGED = [199, 511, 1023, 1500, 2047, 2999, 3500, 4095]
+# the shapes a rank of the serving runs under fsdp_sp gives K2's block mode:
+# name, (B, T, H, K, D), the requests' last positions, layouts, share
+# counts, routes
+BLOCK_SHAPES = (
+    # the main-path shape (yi-6b's decode step), every route, 2 and 4 shares
+    ("yi6b", (8, 4096, 32, 4, 128), BLOCK_RAGGED, ("dense", "paged"), (2, 4),
+     ("split_bf16", "split_int8", "tc_widened_S3_bf16", "fma_fp32")),
+    # (s1)'s gemma-2b: MQA at D 256 over its pool of page 128 split in two —
+    # the decode tokens over values and codes, the widened suffixes and
+    # verify steps over values and codes, the fp32 run
+    ("gemma2b", (8, 4096, 8, 1, 256), BLOCK_RAGGED, ("paged",), (2,),
+     ("split_bf16", "split_int8", "tc_widened_S3_bf16", "tc_widened_S3_int8", "fma_fp32")),
+    # (s2)'s whisper-small cross caches at index T - 1: 750 of 1500 frames
+    ("whisper_cross", (2, 1500, 12, 12, 64), [1499, 1499], ("dense",), (2,),
+     ("split_bf16",)),
+    # (s4)'s mixtral-8x22b past its 4096-token window: the ring pool (paged
+    # ring) and the fp32 gate's dense ring caches
+    ("mixtral_ring", (2, 4096, 48, 8, 128), [4500, 5000], ("dense", "paged"), (2,),
+     ("split_bf16", "fma_fp32")),
+)
+# each route: its q (S tokens, type), whether the cache holds int8 codes,
+# the route its launches report
+BLOCK_ROUTES = {
+    "split_bf16": (1, "bf16", False, "tc_split"),
+    "split_int8": (1, "bf16", True, "tc_split"),
+    "tc_widened_S3_bf16": (3, "bf16", False, "tc"),
+    "tc_widened_S3_int8": (3, "bf16", True, "tc"),
+    "fma_fp32": (1, "fp32", False, "fma"),
+}
+
+
+def block_decode_cases(torch, gen):
+    """K2's block mode (a rank's share of a sequence-split cache, returning
+    o and lse for the ranks' merge) at every shape `BLOCK_SHAPES` lists: the
+    main-path shape, B8 T4096 K4 G8 D128 with ragged index 199..4095, on
+    each route (the split route over bf16 values and over int8 codes, the
+    tensor-core route at widened S = 3, the FMA route in fp32), cut into
+    n = 2 and n = 4 shares, dense (rank r: slots [r T/n, (r+1) T/n)) and
+    paged (page 128, shuffled tables, dead pages poisoned; rank r: slots
+    [r 128/n, (r+1) 128/n) of every page); and the shapes the serving runs
+    under fsdp_sp launch besides, each cut in two: (s1)'s gemma-2b at D 256
+    over its page pool on every route it takes (widened S = 3 over int8
+    codes among them), (s2)'s whisper-small cross caches at index T - 1
+    (750 of 1500 frames a rank), (s4)'s mixtral-8x22b ring past its window
+    (the paged ring pool, and its dense ring caches in fp32).  Gates: each
+    share's launch reports its route; its o at the kernel gate and its lse
+    within `BLOCK_LSE_TOL` of the plain version (-inf exactly where the
+    plain one is); the shares merged in rank order at the kernel gate
+    against the whole-cache K2; every request a share holds nothing of
+    (request 0, index 199, on the main shape's last dense share) o == 0
+    and lse == -inf exactly; and the whole cache as one share, (T, T, 0)
+    dense and (128, 128, 0) paged, rounded to q's type, bit for bit the
+    call without the block mode.  The main case (the split route over bf16
+    values, dense, rank 0 of 2 at the main shape: the main path's decode
+    step on a rank of (s1)'s mesh) is timed beside its plain version and
+    SDPA over the same share with a prebuilt mask (which returns no lse)."""
+    cases = []
+    for shape in BLOCK_SHAPES:
+        cases += block_shape_cases(torch, gen, *shape)
+    return cases
+
+
+def block_shape_cases(torch, gen, shape_name, dims, last, layouts, shares, route_names):
+    """`block_decode_cases` at one shape (see there)."""
+    import torch.nn.functional as F
+
+    from repro_torch.distributed.collectives import merge_attention
+    from repro_torch.kernels.flash_attention.decode import flash_decode_fwd, share_count
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_decode,
+        kv_scale_from_absmax,
+        quantize_kv_write,
+    )
+    from repro_torch.kernels.flash_attention.ref import decode_ref
+
+    (B, T, H, K, D), ps = dims, 128
+    G = H // K
+    k = torch.randn((B, T, K, D), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((B, T, K, D), generator=gen, device="cuda").to(torch.bfloat16)
+    paged_too = "paged" in layouts
+    nb = T // ps if paged_too else 0
+    P = B * nb + 16
+    perm = torch.randperm(P, generator=gen, device="cuda")[:B * nb]
+    tables = perm.reshape(B, nb).to(torch.int32)
+
+    def codes(x):
+        """(B, T, K, D) values -> int8 codes and their (B, NP, K) page scales."""
+        pages = x.float().reshape(B, T // ps, ps, K, D)
+        scale = kv_scale_from_absmax(pages.abs().amax(dim=(2, 4)), torch.int8)
+        return (quantize_kv_write(pages, scale[:, :, None, :], torch.int8)
+                .reshape(B, T, K, D), scale)
+
+    def pool(x, fill):
+        """The dense (B, T, K, D) `x` as the shuffled pool; unused pages `fill`."""
+        out = torch.full((P, ps, *x.shape[2:]), fill, dtype=x.dtype, device="cuda")
+        out[perm] = x.reshape(B * nb, ps, *x.shape[2:])
+        return out
+
+    def scales(sc):
+        out = torch.full((P, K), float("nan"), device="cuda")
+        out[perm] = sc.reshape(B * nb, K)
+        return out
+
+    def caches(route):
+        """The route's dense (k, v, kwargs) and, where paged, its pool's."""
+        _, qt, coded, _ = BLOCK_ROUTES[route]
+        if coded:
+            (kk, ks), (vv, vs) = codes(k), codes(v)
+            dense = (kk, vv, dict(k_scale=ks, v_scale=vs, scale_page=ps))
+            fill, pkw = 127, dict(k_scale=scales(ks), v_scale=scales(vs))
+        else:
+            kk, vv = (k.float(), v.float()) if qt == "fp32" else (k, v)
+            dense, fill, pkw = (kk, vv, {}), float("nan"), {}
+        paged = (pool(kk, fill), pool(vv, fill), pkw) if paged_too else None
+        return {"dense": dense, "paged": paged}
+
+    def share_of(kk, vv, kw, paged, n, r):
+        """Rank r of n's share of a dense cache or a pool, its kwargs and block."""
+        if paged:
+            sub = ps // n
+            blk = (sub, ps, r * sub)
+            return (kk[:, r * sub:(r + 1) * sub].contiguous(),
+                    vv[:, r * sub:(r + 1) * sub].contiguous(),
+                    dict(kw, tables=tables, kv_len=T), blk)
+        sub = T // n
+        kw = dict(kw)
+        if "k_scale" in kw:  # the share's own scale rows
+            rows = slice(r * sub // ps, (r + 1) * sub // ps)
+            kw.update(k_scale=kw["k_scale"][:, rows].contiguous(),
+                      v_scale=kw["v_scale"][:, rows].contiguous())
+        return (kk[:, r * sub:(r + 1) * sub].contiguous(),
+                vv[:, r * sub:(r + 1) * sub].contiguous(), kw, (sub, T, r * sub))
+
+    cases = []
+    for name in route_names:
+        S, qt, _, route = BLOCK_ROUTES[name]
+        q = torch.randn((B, S, H, D), generator=gen, device="cuda")
+        if qt == "bf16":
+            q = q.to(torch.bfloat16)
+        idx = [i - (S - 1) for i in last]
+        index = torch.tensor(idx, dtype=torch.int32, device="cuda")
+        tol = BF16_TOL if qt == "bf16" else FP32_TOL
+        built = caches(name)
+        for layout in layouts:
+            kk, vv, kw = built[layout]
+            paged = layout == "paged"
+            pkw = dict(kw, tables=tables, kv_len=T) if paged else kw
+            whole = flash_decode(q, kk, vv, index, **pkw)
+            one, _ = flash_decode(q, kk, vv, index, block=(ps, ps, 0) if paged else (T, T, 0),
+                                  **pkw)
+            torch.cuda.synchronize()
+            if not torch.equal(one.to(q.dtype), whole):
+                raise AssertionError(f"block {shape_name} {name} {layout}: the whole cache "
+                                     "as one share differs from the call without the block "
+                                     "mode")
+            for n in shares:
+                tag = f"block_{shape_name}_{name}_{layout}_n{n}"
+                os_, ls_, err, lerr, rms, past = [], [], 0.0, 0.0, 0.0, 0
+                for r in range(n):
+                    ks_, vs_, skw, blk = share_of(kk, vv, kw, paged, n, r)
+                    o, lse = flash_decode(q, ks_, vs_, index, block=blk, **skw)
+                    torch.cuda.synchronize()
+                    if flash_decode_fwd.last_route != route:
+                        raise AssertionError(f"{tag}: launched the "
+                                             f"{flash_decode_fwd.last_route} route")
+                    o_ref, l_ref = decode_ref(q, ks_, vs_, index, block=blk, **skw)
+                    e, rr = check_close(torch, f"{tag} rank {r}", o, o_ref, tol)
+                    err, rms = max(err, e), max(rms, rr)
+                    dead = l_ref == -float("inf")
+                    if not torch.equal(dead, lse == -float("inf")):
+                        raise AssertionError(f"{tag} rank {r}: lse is -inf elsewhere than "
+                                             "the plain version's")
+                    le = (lse[~dead] - l_ref[~dead]).abs().max().item() if (~dead).any() else 0.0
+                    if not le <= BLOCK_LSE_TOL[qt]:
+                        raise AssertionError(f"{tag} rank {r}: lse off by {le}")
+                    lerr = max(lerr, le)
+                    for b, i in enumerate(last):  # requests the share holds nothing of
+                        if share_count(i, blk) == 0:
+                            past += 1
+                            if not (bool((o[b] == 0).all())
+                                    and bool((lse[b] == -float("inf")).all())):
+                                raise AssertionError(f"{tag} rank {r}: a share past request "
+                                                     f"{b}'s index gave o != 0 or lse != -inf")
+                    os_.append(o)
+                    ls_.append(lse)
+                merged = merge_attention(torch.stack(os_), torch.stack(ls_)).to(q.dtype)
+                m_err, m_rms = check_close(torch, f"{tag} merged", merged, whole, tol)
+                case = dict(case=tag, main=False, route=route, max_abs_err=err, ref_rms=rms,
+                            lse_max_abs_err=lerr, merged_max_abs_err=m_err,
+                            merged_ref_rms=m_rms, bitwise_whole_share=True,
+                            past_index_rows=past, ms=None, plain_ms=None,
+                            bound_ms=None, bound_by=None, library_ms=None)
+                if (shape_name, name, layout, n) == ("yi6b", "split_bf16", "dense", 2):
+                    ks_, vs_, skw, blk = share_of(kk, vv, kw, False, 2, 0)
+                    copies = [(ks_, vs_)] + [(ks_.clone(), vs_.clone()) for _ in range(3)]
+                    case["ms"] = time_ms(torch, [
+                        (lambda a=a, b=b: flash_decode(q, a, b, index, block=blk, **skw))
+                        for a, b in copies], 20, graph=True)
+                    case["plain_ms"] = time_ms(
+                        torch, [lambda: decode_ref(q, ks_, vs_, index, block=blk, **skw)], 2)
+                    sub = blk[0]
+                    mask = (torch.arange(sub, device="cuda")[None] <
+                            torch.tensor([min(sub, share_count(i, blk)) for i in idx],
+                                         device="cuda")[:, None])[:, None, None, :]
+                    qt_ = q.transpose(1, 2)
+                    libs = [(a.transpose(1, 2).repeat_interleave(G, dim=1),
+                             b.transpose(1, 2).repeat_interleave(G, dim=1))
+                            for a, b in copies[:2]]
+                    case["library_ms"] = time_ms(torch, [
+                        (lambda a=a, b=b: F.scaled_dot_product_attention(qt_, a, b,
+                                                                         attn_mask=mask))
+                        for a, b in libs], 10, graph=True)
+                    case["library_ms_note"] = ("SDPA over the same share with a prebuilt "
+                                               "mask; it returns no lse")
+                    del libs
+                    slots = sum(min(sub, share_count(i, blk)) for i in idx)
+                    nbytes = (slots * K * D * 2 * 2 + q.numel() * 2 + q.numel() * 4
+                              + B * H * 4)
+                    case["bound_ms"], case["bound_by"] = bound(nbytes, 4.0 * D * slots * H,
+                                                               "bf16")
+                    case["gb_s"] = nbytes / case["ms"] / 1e6
+                    case["main"] = True
+                    del copies
+                cases.append(case)
+        del built
     return cases
 
 
@@ -5662,18 +5915,20 @@ def roofline_phase(torch, serve_cells: dict, train: dict) -> dict:
 # phase 12: a live mesh of two ranks on the one card
 # ---------------------------------------------------------------------------
 
-# gemma-2b layers a full-width copy per rank (the (2, 1) mesh holds two)
-# leaves room for, with AdamW state and a 2 x 512 microbatch per rank
-MESH_TRAIN_DEPTH = 4
+# gemma-2b layers of a full-width copy per rank (the (2, 1) mesh holds two)
+# with AdamW state and a 2 x 512 microbatch per rank: 4 fit, 2 keep the
+# phase's time (the gradient's all-reduce through the host is most of a
+# (2, 1) step) for the serving runs under fsdp_sp
+MESH_TRAIN_DEPTH = 2
 MESH_TRAIN = {"batch": 4, "seq": 512, "steps": 2, "lr": 1e-3}
 MESH_TRAIN_SHAPES = {"data2": (2, 1), "model2": (1, 2)}
 MESH_CONTINUOUS = 2  # prompts of the continuous traffic served on the mesh
 # the meshed yi-6b server's layers (of 32), reused by (q1), (d2) and (d4):
-# its ranks' serve took 101.4-168.2 s at full depth and 83.3 s at 8 layers
-# on an H100 over gloo, the time the families' fsdp_sp runs (p1)-(p3) need;
-# its launch gates are step 5's one-card counts scaled to the depth
-# (`depth_counts`)
-MESH_SERVE_DEPTH = 4
+# its ranks' serve took 101.4-168.2 s at full depth, 83.3 s at 8 layers and
+# 45.5 s at 4 on an H100 over gloo, the time the families' fsdp_sp runs
+# (p1)-(p3) and serving runs (s1)-(s4) need; its launch gates are step 5's
+# one-card counts scaled to the depth (`depth_counts`)
+MESH_SERVE_DEPTH = 2
 
 
 def yi_server(torch, mesh, depth, cfg):
@@ -6543,8 +6798,8 @@ def mesh_train_rank(torch, mesh, tag) -> dict:
 # by the `rules` override; (f4) gemma-2b under fsdp_sp, its pod layout,
 # forced through AutoShard's `layout=` with the pod's `embed` rule.  One
 # counted step each (profiled where the run says: a first step, its train
-# step's build included), and (f2) / (f3) at 2 / 3 layers, to leave the
-# script's time limit room for (g1)-(g3).
+# step's build included), and (f2) / (f3) / (f4) at 2 / 3 / 2 layers, to
+# leave the script's time limit room for (g1)-(g3) and (s1)-(s4).
 FSDP_RUNS = {
     "f1": dict(arch="qwen2-72b", layers=1, mesh=(2, 1), layout="megatron_tp",
                rules=None, serve=None, match="attn/", attn=1, profile=True),
@@ -6556,8 +6811,8 @@ FSDP_RUNS = {
     "f3": dict(arch="recurrentgemma-2b", layers=3, mesh=(2, 1), layout="dp_fsdp",
                rules={"embed": ("data", "model")}, serve="half", match="attn/", attn=1,
                profile=True),
-    "f4": dict(arch="gemma-2b", layers=4, mesh=(1, 2), layout="fsdp_sp",
-               rules={"embed": ("data", "model")}, serve=None, match="attn/", attn=4,
+    "f4": dict(arch="gemma-2b", layers=2, mesh=(1, 2), layout="fsdp_sp",
+               rules={"embed": ("data", "model")}, serve=None, match="attn/", attn=2,
                profile=True),
 }
 FSDP_TRAIN = {"batch": 4, "seq": 512, "steps": 1, "lr": 1e-3}
@@ -6889,13 +7144,14 @@ def rank0_digest(out: dict, mesh) -> list:
 
 
 def mesh_rank(solo, batch, serve_depth, train_shapes, fsdp_runs, family_runs, family_sp_runs,
-              quant_runs, control_runs, t_spawn, mesh) -> dict:
+              serve_sp_runs, quant_runs, control_runs, t_spawn, mesh) -> dict:
     """Phase 12's body on each rank: serve on the mesh run_on_mesh gives (yi-6b
     at `serve_depth` layers; (q1) over the int8 pool with "q1" in
     `quant_runs`, (d2) and (d4)'s refines of `control_runs`), then train on
     each of `train_shapes` ({tag: shape}) over the same ranks, then
     `fsdp_runs` ({tag: run}), each on its mesh of the same ranks, then
-    `family_runs` and `family_sp_runs` ({tag: run}), the rest of
+    `family_runs` and `family_sp_runs` ({tag: run}), `serve_sp_runs`
+    (tags of `SERVE_SP_RUNS`), the rest of
     `quant_runs` and (d1), (d3) and (d4)'s drain on (1, 2).  `t_spawn`: the
     parent's `time.time()` at the spawn, for the ranks' start-up time."""
     import torch
@@ -6920,6 +7176,9 @@ def mesh_rank(solo, batch, serve_depth, train_shapes, fsdp_runs, family_runs, fa
     for tag, run in family_sp_runs.items():
         out[tag] = family_sp_rank(torch, mesh_of(meshes, mesh, (1, 2)), tag, run)
         clock(f"mesh family {tag}")
+    if serve_sp_runs:
+        out["serve_sp"] = serve_sp_rank(torch, mesh_of(meshes, mesh, (1, 2)), serve_sp_runs)
+        clock("mesh serve (s1)-(s4)")
     if set(quant_runs) - {"q1"} or set(control_runs) & {"d1", "d3", "d4"}:
         out["quant"] = quant_mesh_rank(torch, mesh_of(meshes, mesh, (1, 2)), quant_runs,
                                        quant_prompts(), control_runs)
@@ -7143,21 +7402,22 @@ def family_mesh_program(run, kind: str):
     return Program(model=build_model(cfg), cfg=cfg, kind=kind, device="cuda")
 
 
-def family_mesh_server(torch, run, mesh, policy: str = "half"):
-    """The run's server at `policy`, woven to the CUDA kernels as
-    `launch/serve` weaves them, on `mesh` (None: one card), random weights
-    from seed 0 (a rank's blocks are slices of one card's)."""
-    from repro_torch.configs.base import SHAPES
-    from repro_torch.launch.weave import cuda_kernel_aspects, default_weave
+def family_mesh_server(torch, run, mesh, policy: str = "half", layout: str | None = None):
+    """The run's server at `policy`, woven as `launch/serve` weaves a server
+    (`weave_server`: the CUDA kernels, and on a live mesh AutoShard's
+    `layout` where it is forced; one card has none), on `mesh` (None: one
+    card), random weights from seed 0 (a rank's blocks are slices of one
+    card's)."""
+    from repro_torch.launch.serve import weave_server
     from repro_torch.nn.dtypes import PolicyResolver
     from repro_torch.runtime.server import Server, ServerConfig
 
-    axes = dict(mesh.shape) if mesh is not None else {}
-    woven = default_weave(family_mesh_program(run, "serve"), SHAPES["prefill_32k"], axes,
-                          extra_aspects=cuda_kernel_aspects())
+    woven = weave_server(family_mesh_program(run, "serve"), mesh=mesh,
+                         layout=layout if mesh is not None else None)
     woven.state.policies = PolicyResolver.default(policy)
     return Server(woven, ServerConfig(max_cache_len=run["max_len"],
-                                      decode_tokens=FAMILY_MESH_DECODE, seed=0), mesh=mesh)
+                                      decode_tokens=run.get("decode", FAMILY_MESH_DECODE),
+                                      seed=0), mesh=mesh)
 
 
 def family_mesh_traffic(cfg, run) -> dict:
@@ -7735,17 +7995,315 @@ def family_sp_check(torch, tag, run, ranks) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12, (s1)-(s4): serving under fsdp_sp
+# ---------------------------------------------------------------------------
+
+# Each on the same two ranks, (1, 2), under `fsdp_sp` forced through
+# AutoShard's `layout=`: every rank holds its share of every KV cache and
+# page pool (`sharding.seq_share`: a dense cache's half of the slots, half
+# the slots of every page of 128), a decode step's token is whole on both
+# ranks, K2's block mode attends each rank's share and returns its lse, and
+# the ranks' partials are merged (`collectives.combine_attention`).  (s1)
+# gemma-2b at 4 of 18 layers, full width: the continuous traffic of step 6
+# (ten requests over a page-128 pool, eight sharing a 1024-token prefix)
+# with chunked prefill in bf16, the same without chunks at 2 layers in
+# fp32, over the int8 pool plain and self-drafted at k = 2, and a
+# `serve_batch` of a 1024- and a 1023-token prompt (the axis divides the
+# first, not the second: that prefill runs whole on both ranks), with
+# `SERVE_SP_DECODE` tokens a request; (s2) whisper-small at full depth, two
+# clips of 1500 frames through `serve` (cross caches of 750 frames a rank);
+# (s3) internvl2-1b at full depth, two requests of 256 image embeddings +
+# 256 tokens; (s4) mixtral-8x22b at 1 of 56 layers, two prompts past its
+# window through `serve_continuous` (a ring pool split over the ranks).
+# (s2)-(s4) serve (g2), (g3) and (g1)'s traffic, from the same weights;
+# (s3) and (s4)'s logits are held in fp32 (their gate policy), within
+# `FP32_SERVE_TOL` of the scale as (s1)'s fp32 run is.
+SERVE_SP_DECODE = 8
+SERVE_SP_RUNS = {
+    "s1": dict(arch="gemma-2b", layers=4, fp32_layers=2, max_len=4096,
+               batch=(1024, 1023)),
+    "s2": FAMILY_MESH_RUNS["g2"],
+    "s3": FAMILY_MESH_RUNS["g3"],
+    "s4": FAMILY_MESH_RUNS["g1"],
+}
+FP32_SERVE_TOL = 1e-5  # fp32 logits against one card's, a share of the scale
+
+
+def logit_pair(torch, server, feed) -> dict:
+    """A prefill of `feed` and one greedy decode step on the server's steps:
+    both logits (fp32 on the host), the first layer group's self-cache
+    slots, and the cross caches' frames where the model has them (with
+    `cross_cache_unwritten`'s reading)."""
+    from repro_torch.runtime.steps import build_decode_step, build_prefill_step
+
+    with RouteRecorder() as rec, torch.no_grad():
+        logits, cache = build_prefill_step(server.woven, mesh=server.mesh,
+                                           cache_max_len=server.cfg.max_cache_len)(
+            server.params, feed)
+        prefill = logits.float().cpu()
+        pos = feed["tokens"].shape[1] + (feed["embeds"].shape[1] if "embeds" in feed else 0)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        step, cache = build_decode_step(server.woven, mesh=server.mesh)(
+            server.params, {"tokens": tok, "positions": torch.full_like(tok, pos)}, cache)
+    group = cache["decoder"]["self"] if "decoder" in cache else cache["blocks0"]
+    out = {"prefill": prefill, "decode": step.float().cpu(),
+           "cache_slots": int(group["k"].shape[-3]), "routing": rec.calls}
+    if "decoder" in cache:
+        out["cross_frames"] = int(cache["decoder"]["cross"]["ck"].shape[-3])
+        out["cross"] = cross_cache_unwritten(torch, server, feed)
+    del cache
+    return out
+
+
+def gemma_sp_server(torch, mesh, layers: int, policy: str):
+    """(s1)'s gemma-2b server at `layers` layers and `policy`, on `mesh`
+    (None: one card) under `fsdp_sp`, random weights from seed 0."""
+    run = dict(SERVE_SP_RUNS["s1"], layers=layers, decode=SERVE_SP_DECODE)
+    return family_mesh_server(torch, run, mesh, policy, "fsdp_sp")
+
+
+class FirstLogits:
+    """While active, keeps each paged admission's first logits (fp32, host)."""
+
+    def __enter__(self):
+        from repro_torch.runtime.server import Server
+
+        self.rows, self.real = [], Server._first_token
+
+        def first(server, manager, rid, logits, fault=None):
+            self.rows.append(logits[0, -1].float().cpu())
+            return self.real(server, manager, rid, logits, fault)
+
+        Server._first_token = first
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.runtime.server import Server
+
+        Server._first_token = self.real
+
+
+def serve_sp_gemma(torch, mesh) -> dict:
+    """(s1) on this rank (or one card, `mesh` None): each counted serve's
+    tokens, launches by route, step counts, pool stats and seconds, the
+    logit pairs of a 1024-token prompt in bf16 and in fp32, the int8 pool's
+    first logits and the collectives counted."""
+    from repro_torch.distributed import collectives
+
+    run = SERVE_SP_RUNS["s1"]
+    out = {"rank": mesh.rank if mesh is not None else None}
+    collectives.reset_counts()
+    srv = gemma_sp_server(torch, mesh, run["layers"], "half")
+    prompts, kw = continuous_traffic(srv.woven.program.cfg)
+    batch = [prompts[7][:n] for n in run["batch"]]
+    out["pair_bf16"] = logit_pair(torch, srv, {
+        "tokens": torch.as_tensor(batch[0][None].astype("int32"), device="cuda")})
+
+    def counted(tag, fn, first=False):
+        with FirstLogits() as fl:
+            got, wall, counts, routes = counted_serve(torch, fn)
+        out[tag] = {"tokens": [list(map(int, o)) for o in got], "wall_s": wall,
+                    "launches": {**counts, **routes},
+                    "steps": dict(srv.last_step_counts or {}),
+                    "pool": dict(srv.last_pool_stats or {}),
+                    "spec": dict(srv.last_spec_stats or {})}
+        if first:
+            out[tag]["first_logits"] = fl.rows
+        if mesh is not None:
+            rank_log(mesh, f"mesh s1 {tag}: {wall:.2f} s")
+
+    counted("batch", lambda: srv.serve_batch(batch))
+    counted("continuous_bf16", lambda: srv.serve_continuous(prompts, prefill_chunk=512, **kw))
+    srv.cfg.cache_dtype = "int8"
+    try:
+        counted("continuous_int8", lambda: srv.serve_continuous(prompts, **kw), first=True)
+        counted("continuous_int8_k2", lambda: srv.serve_continuous(prompts, draft_len=2, **kw))
+    finally:
+        srv.cfg.cache_dtype = None
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    srv = gemma_sp_server(torch, mesh, run["fp32_layers"], "double")
+    out["pair_fp32"] = logit_pair(torch, srv, {
+        "tokens": torch.as_tensor(batch[0][None].astype("int32"), device="cuda")})
+    counted("continuous_fp32", lambda: srv.serve_continuous(prompts, **kw))
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["collectives"] = collectives.counts()
+    return out
+
+
+def serve_sp_family(torch, mesh, tag, run) -> dict:
+    """(s2)-(s4) on this rank (or one card, `mesh` None): the counted serve
+    of (g)'s traffic (`family_mesh_serve`'s launch gates), the pool stats,
+    the logit pair at the gate's policy with its MoE routings, and the
+    collectives counted."""
+    from repro_torch.distributed import collectives
+
+    collectives.reset_counts()
+    srv = family_mesh_server(torch, run, mesh, "half", "fsdp_sp")
+    cfg = srv.woven.program.cfg
+    traffic = family_mesh_traffic(cfg, run)
+    tokens, counts, wall = family_mesh_serve(torch, srv, f"s {tag}", traffic)
+    out = {"rank": mesh.rank if mesh is not None else None, "tokens": tokens,
+           "launches": counts, "wall_s": wall, "pool": dict(srv.last_pool_stats or {})}
+    policy, dtype = run["gate"], torch.float32
+    if policy == "half":
+        gate_srv, dtype = srv, torch.bfloat16
+    else:
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+        gate_srv = family_mesh_server(torch, run, mesh, policy, "fsdp_sp")
+    out["pair"] = logit_pair(torch, gate_srv, family_mesh_feed(torch, cfg, traffic, dtype))
+    del gate_srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["collectives"] = collectives.counts()
+    return out
+
+
+def serve_sp_rank(torch, mesh, runs) -> dict:
+    """(s1)-(s4) on this rank, each run's results from every rank."""
+    out = {}
+    for tag in runs:
+        t0 = time.perf_counter()
+        got = serve_sp_gemma(torch, mesh) if tag == "s1" else \
+            serve_sp_family(torch, mesh, tag, SERVE_SP_RUNS[tag])
+        got["seconds"] = time.perf_counter() - t0
+        rank_log(mesh, f"mesh {tag}: served in {got['seconds']:.1f} s")
+        out[tag] = every_rank(got, mesh)
+    return out
+
+
+def sp_launch_gate(tag, got: dict, want: dict) -> None:
+    """A rank's launches by route are one card's on the same traffic, and
+    every K2 launch of the rank ran in the block mode (none on one card)."""
+    if want.get("flash_decode_block"):
+        raise AssertionError(f"mesh {tag}: one card launched K2's block mode")
+    if got.get("flash_decode_block") != got.get("flash_decode"):
+        raise AssertionError(f"mesh {tag}: {got.get('flash_decode_block')} block launches of "
+                             f"{got.get('flash_decode')} K2 launches")
+    diff = {k: (got.get(k), v) for k, v in want.items()
+            if k != "flash_decode_block" and got.get(k) != v}
+    if diff:
+        raise AssertionError(f"mesh {tag}: launches by route (mesh, one card) differ: {diff}")
+
+
+def sp_logit_gate(torch, tag, got, want, tol=None) -> dict:
+    """`logit_diff`, gated at the logit gate (or within `tol` of the scale)."""
+    gap = logit_diff(torch, f"mesh {tag}", got, want)
+    ok = (gap["max_abs_err"] <= tol * gap["logit_scale"]) if tol else (
+        gap["max_abs_err"] <= LOGIT_MAX_TOL * gap["logit_scale"]
+        and gap["rms_err"] <= LOGIT_RMS_TOL * gap["logit_scale"])
+    if not ok:
+        raise AssertionError(f"mesh {tag}: logits against one card {gap}")
+    return gap
+
+
+def serve_sp_checks(torch, res: dict, runs) -> dict:
+    """(s1)-(s4) against one card, built here after the ranks have gone:
+    launches by route one card's (`sp_launch_gate`), a rank's pool bytes
+    and cache slots half one card's, the cross caches unwritten, the
+    attention's merge counted, the logit pairs at the logit gate (fp32
+    within `FP32_SERVE_TOL` of the scale, and its tokens one card's; the
+    int8 pool's first logits on the gate's RMS half), MoE routing alike on
+    both ranks; bf16 token agreement printed."""
+    import numpy as np
+
+    out = {}
+    for tag in runs:
+        t0 = time.perf_counter()
+        run = SERVE_SP_RUNS[tag]
+        one = serve_sp_gemma(torch, None) if tag == "s1" else \
+            serve_sp_family(torch, None, tag, run)
+        from repro_torch.models.registry import get_config
+
+        cfg = get_config(run["arch"])
+        cfg = cfg.replace(num_layers=run["layers"] or cfg.num_layers)
+        rows = []
+        for r in res[tag]:
+            row = {"rank": r["rank"], "seconds": r["seconds"], "launches": {}}
+            if not r["collectives"].get("attention_combine", {}).get("model", {}).get("calls"):
+                raise AssertionError(f"mesh {tag} rank {r['rank']}: no attention merge counted")
+            row["attention_combine"] = r["collectives"]["attention_combine"]["model"]
+            serves = ("batch", "continuous_bf16", "continuous_int8", "continuous_int8_k2",
+                      "continuous_fp32") if tag == "s1" else (None,)
+            for key in serves:
+                g, w = (r[key], one[key]) if key else (r, one)
+                sp_launch_gate(f"{tag} {key or 'serve'} rank {r['rank']}", g["launches"],
+                               w["launches"])
+                row["launches"][key or "serve"] = g["launches"]
+                if w["pool"]:  # half the slots; an int8 pool's page scales whole
+                    sc = 8 * cfg.kv_heads * cfg.num_layers if w["pool"]["cache_dtype"] else 0
+                    if (g["pool"]["page_hbm_bytes"] - sc) * 2 != w["pool"]["page_hbm_bytes"] - sc:
+                        raise AssertionError(f"mesh {tag} {key}: a rank's page bytes "
+                                             f"{g['pool']['page_hbm_bytes']} of one card's "
+                                             f"{w['pool']['page_hbm_bytes']}")
+                row[f"{key or 'serve'}_token_agreement"] = float(np.mean(
+                    [np.mean(np.asarray(a) == np.asarray(b))
+                     for a, b in zip(g["tokens"], w["tokens"])]))
+                row[f"{key or 'serve'}_wall_s"] = [g["wall_s"], w["wall_s"]]
+            pairs = (("pair_bf16", None), ("pair_fp32", FP32_SERVE_TOL)) if tag == "s1" \
+                else (("pair", None if run["gate"] == "half" else FP32_SERVE_TOL),)
+            for key, tol in pairs:
+                g, w = r[key], one[key]
+                if g["cache_slots"] * 2 != w["cache_slots"]:
+                    raise AssertionError(f"mesh {tag}: a rank's cache holds {g['cache_slots']} "
+                                         f"of one card's {w['cache_slots']} slots")
+                row[f"{key}_prefill"] = sp_logit_gate(torch, f"{tag} {key} prefill",
+                                                      g["prefill"], w["prefill"], tol)
+                row[f"{key}_decode"] = sp_logit_gate(torch, f"{tag} {key} decode",
+                                                     g["decode"], w["decode"], tol)
+                if "cross" in w:
+                    if g["cross_frames"] * 2 != w["cross_frames"] or \
+                            not g["cross"]["bytes_unchanged"]:
+                        raise AssertionError(f"mesh {tag}: cross caches {g['cross_frames']} of "
+                                             f"{w['cross_frames']} frames, {g['cross']}")
+                    row["cross_frames"] = [g["cross_frames"], w["cross_frames"]]
+                if w["routing"]:  # MoE: alike on both ranks
+                    first = res[tag][0][key]["routing"]
+                    if not all(torch.equal(a, b) for a, b in zip(g["routing"], first)):
+                        raise AssertionError(f"mesh {tag}: the ranks routed otherwise")
+                    row["routing_vs_one_card"] = routing_share(g["routing"], w["routing"])
+            if tag == "s1":
+                if r["continuous_fp32"]["tokens"] != one["continuous_fp32"]["tokens"]:
+                    raise AssertionError("mesh s1: fp32 tokens differ from one card's")
+                firsts = list(zip(r["continuous_int8"]["first_logits"],
+                                  one["continuous_int8"]["first_logits"]))
+                if not firsts:
+                    raise AssertionError("mesh s1: no int8 admission's logits")
+                gaps = [logit_diff(torch, "mesh s1 int8", a, b) for a, b in firsts]
+                if any(g["rms_err"] > LOGIT_RMS_TOL * g["logit_scale"] for g in gaps):
+                    raise AssertionError(f"mesh s1: int8 first logits against one card {gaps}")
+                row["int8_first_logits_worst"] = max(
+                    gaps, key=lambda g: g["rms_err"] / g["logit_scale"])
+                row["int8_k2_spec"] = r["continuous_int8_k2"]["spec"]
+            rows.append(row)
+            log(f"mesh {tag} rank {r['rank']}: " + json.dumps(row, default=float))
+        out[f"serve_sp_{tag}"] = {"arch": run["arch"], "ranks": rows,
+                                  "one_card_s": time.perf_counter() - t0}
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def mesh_phase(torch, serve_counts: dict, requests: dict, *, backend: str = "gloo",
                serve_shape=(1, 2), serve_depth: int | None = MESH_SERVE_DEPTH,
                train_shapes=MESH_TRAIN_SHAPES, fsdp_runs=FSDP_RUNS,
                family_runs=FAMILY_MESH_RUNS, family_sp_runs=FAMILY_SP_RUNS,
-               quant_runs=QUANT_MESH_RUNS, control_runs=CONTROL_MESH_RUNS) -> dict:
+               serve_sp_runs=tuple(SERVE_SP_RUNS), quant_runs=QUANT_MESH_RUNS,
+               control_runs=CONTROL_MESH_RUNS) -> dict:
     """Phase 12 (see the module docstring): the ranks' runs, then the
     one-card references they are held against, built here after the ranks
     have gone.  `backend`, `serve_shape`, `serve_depth` (the meshed yi-6b
     server's layers, None: all; `serve_counts`, step 5's one-card counts at
     full depth, are scaled to it), `train_shapes`, `fsdp_runs`,
-    `family_runs`, `family_sp_runs`, `quant_runs` and `control_runs`
+    `family_runs`, `family_sp_runs`, `serve_sp_runs`, `quant_runs` and
+    `control_runs`
     default to phase 12's two gloo ranks on one card (`tools/mesh_nccl.py`
     runs the same phase over NCCL, a card per rank)."""
     from functools import partial
@@ -7760,8 +8318,8 @@ def mesh_phase(torch, serve_counts: dict, requests: dict, *, backend: str = "glo
     t0 = time.perf_counter()
     res = run_on_mesh(partial(mesh_rank, requests["solo"], requests["batch"], serve_depth,
                               dict(train_shapes), dict(fsdp_runs), dict(family_runs),
-                              dict(family_sp_runs), tuple(quant_runs), tuple(control_runs),
-                              time.time()),
+                              dict(family_sp_runs), tuple(serve_sp_runs), tuple(quant_runs),
+                              tuple(control_runs), time.time()),
                       serve_shape,
                       backend=backend, device="cuda", timeout_s=900)
     ranks_s = time.perf_counter() - t0
@@ -7865,6 +8423,8 @@ def mesh_phase(torch, serve_counts: dict, requests: dict, *, backend: str = "glo
         summary[f"family_{tag}"] = family_mesh_check(torch, tag, run, res[tag])
     for tag, run in dict(family_sp_runs).items():
         summary[f"family_{tag}"] = family_sp_check(torch, tag, run, res[tag])
+    if serve_sp_runs:
+        summary.update(serve_sp_checks(torch, res["serve_sp"], serve_sp_runs))
     summary.update(quant_mesh_checks(torch, res.get("quant", {}), quant_runs))
     if control_runs:
         summary["control"] = control_checks(torch, res, requests, control_runs)
@@ -8108,11 +8668,12 @@ def run(torch, build, t_start) -> int:
     wkv6 = wkv_cases(torch, gen)
     lse_c, dq_c, dkv_c = flash_bwd_cases(torch, gen)
     front_k1, front_k2 = frontend_kernel_cases(torch, gen)
+    blk = block_decode_cases(torch, gen)
     clock("kernel cases")
     pre += front_k1
     dec += front_k2
     for c in (norm + pre + dec + wide + quant + wcodes + verify + lru + wkv6 + lse_c + dq_c
-              + dkv_c):
+              + dkv_c + blk):
         log("kernel-case " + json.dumps({k: v for k, v in c.items() if k != "main"}))
     log("shared-prefill-identity " + json.dumps(shared_prefill_identity(torch, gen)))
 
@@ -8239,7 +8800,10 @@ def run(torch, build, t_start) -> int:
                    {**r["launches_per_step"], **r["routes_per_step"]}.get(key, 0)
                    for r in mesh["quant_q4"]["ranks"]},
                 **{f"mesh_control_{run}": c.get(key, 0)
-                   for run, c in mesh["control"]["launches"].items()}}
+                   for run, c in mesh["control"]["launches"].items()},
+                **{f"mesh_serve_sp_{tag}_{run}_rank{r['rank']}": c.get(key, 0)
+                   for tag in SERVE_SP_RUNS for r in mesh[f"serve_sp_{tag}"]["ranks"]
+                   for run, c in r["launches"].items()}}
 
     # K2's single-token launches (all but widened q) and, of those, the split
     # route's (the rest run the FMA body)
@@ -8333,6 +8897,17 @@ def run(torch, build, t_start) -> int:
             for rank, runs in enumerate(mesh["quant_q2"]["ranks"])},
          **{f"mesh_control_{run}": c["verify_launches"]
             for run, c in mesh["control"]["launches"].items()}}))
+    # K2's block mode over a rank's share of a sequence-split cache: the
+    # serving runs under fsdp_sp, (s1)'s chunked bf16 continuous run on
+    # rank 0 the main path
+    s1 = mesh["serve_sp_s1"]["ranks"][0]["launches"]["continuous_bf16"]
+    kernels.append(kernel_entry(
+        "flash_decode_block", "src/repro_torch/csrc/flash_decode.cu",
+        "src/repro/kernels/flash_attention/decode.py:454", blk, s1["flash_decode_block"],
+        by_run("flash_decode_block"), split_source="src/repro_torch/csrc/decode_split.cuh",
+        gb_s=next(x["gb_s"] for x in blk if x["main"])))
+    kernels[-1]["library_ms_note"] = ("SDPA over the same share with a prebuilt mask; "
+                                      "it returns no lse")
     # every K2 shape the governed and fleet runs launched, held against the
     # plain version (`governed_shape_cases`)
     kernels[1]["qos_fleet_shape_cases"] = governed_cases

@@ -42,8 +42,9 @@
 // of K1 over the whole prompt, and over codes the same rows of K2 over the
 // whole prompt at index 0.
 //
-// `Rows` gives the block's q rows (q, q_ss, o, o_ss, nrows), each row's live
-// slots lo(r) <= kp < hi(r) (both non-decreasing in r) and store_lse; `Tiles`
+// `Rows` gives the block's q rows (q, q_ss, nrows), each row's live slots
+// lo(r) <= kp < hi(r) (both non-decreasing in r), store_o (two adjacent
+// output columns of a row) and store_lse; `Tiles`
 // issues the cp.async copies of tile jb's K and V slots, zero-filling any
 // slot it must not read (over codes: the codes and their scales, and
 // `widen` turns a landed stage into the bf16 tiles).
@@ -249,11 +250,10 @@ __device__ __forceinline__ void tc_attend(const Rows& rows, const Tiles& tiles, 
     const float denom = fmaxf(quad_sum(l[i]), 1e-30f);
     const int r = rw * 16 + g + 8 * i;
     if (r < rows.nrows) {
-      bf16* orow = rows.o + (int64_t)r * rows.o_ss;
 #pragma unroll
       for (int d = 0; d < NDT; ++d) {
         const int col = (cs * NDT + d) * 8 + 2 * t;
-        if (col < D) store_bf16x2(orow + col, o[d][2 * i] / denom, o[d][2 * i + 1] / denom);
+        if (col < D) rows.store_o(r, col, o[d][2 * i] / denom, o[d][2 * i + 1] / denom);
       }
       if (cs == 0 && t == 0) rows.store_lse(r, (m[i] == neg_inf() ? kNegInf : m[i]) + logf(denom));
     }

@@ -56,6 +56,11 @@
 //   l takes the unscaled p).  A slot's scale is read per slot:
 //   table[slot / page_size] when paged, row slot / scale_page when dense,
 //   so any page size works and paged and dense read the same value.
+// - A rank's share.  Under a sequence split the cache holds the rank's
+//   slots (`Share`): the walk is the same over them, only each row's live
+//   bounds are the share's, and the call writes fp32 o with each row's lse
+//   for the ranks' merge.  A request with nothing live on the rank launches
+//   no block; its o = 0 and lse = -inf are the wrapper's fill.
 // - Combine.  A chunk's unnormalised (m, l, acc) go to fp32 scratch that
 //   the wrapper allocates; the last block of a (request, KV head, row tile)
 //   to finish — an atomic ticket, which that block resets for the next call
@@ -71,6 +76,31 @@
 #include "mma_tile.cuh"
 
 namespace repro_torch {
+
+// A rank's share of the cache's slots under a sequence split (its slot l holds
+// the cache's slot (l / sub) * span + phase + l % sub; sub == 0: the whole
+// cache).  The walk, the tiles and the pages stay in the rank's own slot
+// space; only a row's live bounds change: on a whole cache the reference's
+// clip(p + 1, 1, T), on a share the count of its slots that hold slots <= p
+// (0 where none does: the row sees nothing, o = 0 and lse = -inf).
+struct Share {
+  int sub, span, phase;
+  // the share's slots holding cache slots <= x
+  __device__ __forceinline__ int count(int x) const {
+    if (x < 0) return 0;
+    const int q = x / span, rem = x - q * span;
+    return q * sub + min(max(rem - phase + 1, 0), sub);
+  }
+  // one past the last slot a row at position p sees, of T
+  __device__ __forceinline__ int hi(int p, int T) const {
+    return sub > 0 ? min(T, count(p)) : max(1, min(T, p + 1));
+  }
+  // the first slot it sees under a window (negative on a whole cache)
+  __device__ __forceinline__ int lo(int p, int window) const {
+    if (window <= 0) return 0;
+    return sub > 0 ? count(p - window) : p - window + 1;
+  }
+};
 
 constexpr int kSplitChunk = 128;  // logical slots of a chunk (decode.py SPLIT_CHUNK)
 constexpr int kSplitTile = 64;    // slots of a schedule tile (decode_schedule at 64)
@@ -161,10 +191,10 @@ flash_decode_split_kernel(Args a) {
 
   // the walked tiles, as the reference's schedule computes them (q_span 1),
   // and the chunks that hold them
-  const int last_live = max(1, min(a.T, index + 1));
+  const int last_live = a.share.hi(index, a.T);
   const int hi_t = (last_live + kSplitTile - 1) / kSplitTile;
   int lo_t = 0;
-  if (a.window > 0) lo_t = max(0, min((index + 1 - a.window) / kSplitTile, hi_t - 1));
+  if (a.window > 0) lo_t = max(0, min(a.share.lo(index, a.window) / kSplitTile, hi_t - 1));
   const int c_begin = a.pruned ? lo_t / CT : 0;
   const int c_end = a.pruned ? (hi_t + CT - 1) / CT : nc;  // nc: the cache's chunks
   if (c < c_begin || c >= c_end) return;
@@ -172,7 +202,7 @@ flash_decode_split_kernel(Args a) {
 
   // every row of one token sees the slots row_lo <= kp < row_hi; the walk
   // reads [slot_begin, slot_end) and zero-fills the rest
-  const int row_lo = a.window > 0 ? index - a.window + 1 : 0;
+  const int row_lo = a.share.lo(index, a.window);
   const int row_hi = last_live;
   const int slot_begin = a.pruned ? max(0, row_lo) : 0;
   const int slot_end = a.pruned ? last_live : a.T;
@@ -410,7 +440,13 @@ flash_decode_split_kernel(Args a) {
 #pragma unroll
   for (int w = 0; w < kSplitWarps; ++w)
     wm[w] = reinterpret_cast<const float*>(smem_raw + kSplitRows * DP * 2 + w * Sh::WARP);
-  bf16* op = static_cast<bf16*>(a.o) + b * a.o_sb + (int64_t)h0 * a.o_sh;
+  // a share's call writes fp32 o and each row's lse = m + log l (-inf where
+  // the row saw nothing); a whole cache's, bf16 o
+  const bool share = a.share.sub > 0;
+  const int64_t o_off = b * a.o_sb + (int64_t)h0 * a.o_sh;
+  bf16* op = static_cast<bf16*>(a.o) + o_off;
+  float* op32 = static_cast<float*>(a.o) + o_off;
+  float* lsep = share ? a.lse + (int64_t)b * a.lse_sb + h0 : nullptr;
   float* part_o = a.part;                             // (B, H, nc, D)
   float* part_ml = a.part + (int64_t)gridDim.z * H * nc * a.D;  // (B, H, nc, 2)
   for (int i = tid; i < nrows * a.D; i += NT) {
@@ -427,7 +463,12 @@ flash_decode_split_kernel(Args a) {
       A += wm[w][2 * kSplitRows + r * Sh::OSTRIDE + d] * e;
     }
     if (n_chunks == 1) {
-      op[(int64_t)r * a.o_sh + d] = __float2bfloat16(A / fmaxf(L, 1e-30f));
+      if (share) {
+        op32[(int64_t)r * a.o_sh + d] = A / fmaxf(L, 1e-30f);
+        if (d == 0) lsep[r] = L > 0.f ? Mu + logf(L) : neg_inf();
+      } else {
+        op[(int64_t)r * a.o_sh + d] = __float2bfloat16(A / fmaxf(L, 1e-30f));
+      }
     } else {
       const int64_t row = ((int64_t)b * H + h0 + r) * nc + c;
       part_o[row * a.D + d] = A;
@@ -467,6 +508,7 @@ flash_decode_split_kernel(Args a) {
     }
     Ms[tid] = Mu;
     Ls[tid] = fmaxf(L, 1e-30f);
+    if (share) lsep[tid] = L > 0.f ? Mu + logf(L) : neg_inf();
   }
   __syncthreads();
   // o = (sum of acc exp(m - M) in chunk order) / L, four columns a thread
@@ -484,9 +526,14 @@ flash_decode_split_kernel(Args a) {
       A.x += x.x * e; A.y += x.y * e; A.z += x.z * e; A.w += x.w * e;
     }
     const float L = Ls[r];
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(op + (int64_t)r * a.o_sh + 4 * d4);
-    dst[0] = __floats2bfloat162_rn(A.x / L, A.y / L);
-    dst[1] = __floats2bfloat162_rn(A.z / L, A.w / L);
+    if (share) {
+      float* dst = op32 + (int64_t)r * a.o_sh + 4 * d4;
+      dst[0] = A.x / L; dst[1] = A.y / L; dst[2] = A.z / L; dst[3] = A.w / L;
+    } else {
+      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(op + (int64_t)r * a.o_sh + 4 * d4);
+      dst[0] = __floats2bfloat162_rn(A.x / L, A.y / L);
+      dst[1] = __floats2bfloat162_rn(A.z / L, A.w / L);
+    }
   }
   if (tid == 0) *ticket = 0;  // ready for the next call on this stream
 }

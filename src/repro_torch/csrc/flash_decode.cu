@@ -53,6 +53,14 @@
 // and the dense walk do the same arithmetic in the same order and agree bit
 // for bit; slots outside the live range of the request are never read (dead
 // pages may hold anything).
+//
+// A rank's share of a sequence-split cache (the `Share` of decode_split.cuh)
+// runs each route over the rank's slots alone, with every row's live bounds
+// counted in those slots (none may be live: o = 0, lse = -inf), and writes
+// fp32 o and each row's lse for the ranks' merge; with no share every route
+// is bit for bit what it is without one.
+#include <type_traits>
+
 #include "attend_core.cuh"
 #include "attend_tc.cuh"
 #include "decode_split.cuh"
@@ -81,6 +89,9 @@ struct DecodeArgs {
   int block_kv, pruned;
   float* part;   // split route: fp32 chunk partials (B, H, chunks, D + 2)
   int* tickets;  // split route: (B, K x row tiles) counters, 0 between calls
+  Share share;   // a rank's share of the slots (sub == 0: the whole cache)
+  float* lse;    // a share's call: (B, S, H) fp32 lse, o in fp32
+  int64_t lse_sb, lse_ss;
 };
 
 template <typename T>
@@ -88,6 +99,9 @@ struct DecodeRows {
   const T* q; T* o;  // at (b, token 0, head kh * G)
   int64_t q_ss, q_sh, o_ss, o_sh;
   int row0, G, index, T_len, window;
+  Share share;
+  float* lse;        // a share's call: at (b, token 0, head kh * G), else nullptr
+  int64_t lse_ss;
   __device__ __forceinline__ const T* q_row(int r) const {
     const int g = row0 + r;
     return q + (int64_t)(g / G) * q_ss + (int64_t)(g % G) * q_sh;
@@ -97,12 +111,17 @@ struct DecodeRows {
     return o + (int64_t)(g / G) * o_ss + (int64_t)(g % G) * o_sh;
   }
   __device__ __forceinline__ int lo(int r) const {
-    return window > 0 ? index + (row0 + r) / G - window + 1 : 0;
+    return share.lo(index + (row0 + r) / G, window);
   }
   __device__ __forceinline__ int hi(int r) const {
-    return max(1, min(T_len, index + (row0 + r) / G + 1));
+    return share.hi(index + (row0 + r) / G, T_len);
   }
-  __device__ __forceinline__ void store_lse(int, float, float) const {}  // serving only
+  // a share's call keeps lse = m + log l, -inf where the row saw nothing
+  __device__ __forceinline__ void store_lse(int r, float m, float l) const {
+    if (lse == nullptr) return;
+    const int g = row0 + r;
+    lse[(int64_t)(g / G) * lse_ss + g % G] = m <= kNegInf ? tc::neg_inf() : m + logf(l);
+  }
 };
 
 template <typename TK>
@@ -149,17 +168,20 @@ flash_decode_kernel(DecodeArgs a) {
   const int nk = (a.T + bkv - 1) / bkv;
   const int index = a.index[b];
 
-  // live interval, as the reference computes it
-  const int last_live = max(1, min(a.T, index + a.S));  // clip(index + q_span, 1, T)
+  // live interval, as the reference computes it: clip(index + q_span, 1, T)
+  // on a whole cache
+  const int last_live = a.share.hi(index + a.S - 1, a.T);
   const int hi = (last_live + bkv - 1) / bkv;
   int lo = 0;
-  if (a.window > 0) lo = max(0, min((index + 1 - a.window) / bkv, hi - 1));
+  if (a.window > 0) lo = max(0, min(a.share.lo(index, a.window) / bkv, hi - 1));
 
   const bool paged = a.tables != nullptr;
   DecodeRows<T> rows{
       static_cast<const T*>(a.q) + b * a.q_sb + (int64_t)kh * a.G * a.q_sh,
       static_cast<T*>(a.o) + b * a.o_sb + (int64_t)kh * a.G * a.o_sh,
-      a.q_ss, a.q_sh, a.o_ss, a.o_sh, row0, a.G, index, a.T, a.window};
+      a.q_ss, a.q_sh, a.o_ss, a.o_sh, row0, a.G, index, a.T, a.window, a.share,
+      a.lse == nullptr ? nullptr : a.lse + b * a.lse_sb + (int64_t)kh * a.G,
+      a.lse_ss};
   const int64_t sc_off = (paged ? 0 : b * a.sc_b) + kh * a.sc_k;
   CacheBlocks<TK> blocks{
       static_cast<const TK*>(a.k) + (paged ? 0 : b * a.k_sb) + kh * a.k_sh,
@@ -172,7 +194,7 @@ flash_decode_kernel(DecodeArgs a) {
       a.sc_p, a.scale_page};
   // pruned: stream only the live blocks and, inside them, only the slots the
   // request can see.  Unpruned baseline: stream every block of the cache.
-  const int slot_begin = a.pruned ? (a.window > 0 ? max(0, index + 1 - a.window) : 0) : 0;
+  const int slot_begin = a.pruned ? max(0, a.share.lo(index, a.window)) : 0;
   const int slot_end = a.pruned ? last_live : a.T;
   attend_rows<T, TK, kDecodeRT, kDecodeMR, DC>(
       rows, blocks, nrows, a.D, bkv, lo, hi, a.pruned ? lo : 0, a.pruned ? hi : nk,
@@ -184,16 +206,53 @@ flash_decode_kernel(DecodeArgs a) {
 // ---------------------------------------------------------------------------
 
 // The block's q rows: tokens q0 + r of one (request, head), at positions
-// index + q0 + r, masked as DecodeRows masks them.
+// index + q0 + r, masked as DecodeRows masks them.  kShare (a share's call,
+// its own instantiation: the whole cache's keeps the code it had without
+// the block mode) writes o in fp32 and keeps each row's lse.
+template <bool kShare>
 struct DecodeTcRows {
-  const tc::bf16* q; tc::bf16* o;
+  using TO = std::conditional_t<kShare, float, tc::bf16>;
+  const tc::bf16* q; TO* o;
   int64_t q_ss, o_ss;
   int nrows;
   int pos0, T, window;  // pos0 = index + q0
-  __device__ __forceinline__ int lo(int r) const { return window > 0 ? pos0 + r - window + 1 : 0; }
-  __device__ __forceinline__ int hi(int r) const { return max(1, min(T, pos0 + r + 1)); }
-  __device__ __forceinline__ void store_lse(int, float) const {}  // serving only
+  Share share;
+  float* lse;           // a share's call: at (b, token q0, head h)
+  int64_t lse_ss;
+  __device__ __forceinline__ int lo(int r) const {
+    if constexpr (kShare) return share.lo(pos0 + r, window);
+    else return window > 0 ? pos0 + r - window + 1 : 0;
+  }
+  __device__ __forceinline__ int hi(int r) const {
+    if constexpr (kShare) return share.hi(pos0 + r, T);
+    else return max(1, min(T, pos0 + r + 1));
+  }
+  __device__ __forceinline__ void store_o(int r, int col, float x, float y) const {
+    if constexpr (kShare) {
+      *reinterpret_cast<float2*>(o + (int64_t)r * o_ss + col) = make_float2(x, y);
+    } else {
+      tc::store_bf16x2(o + (int64_t)r * o_ss + col, x, y);
+    }
+  }
+  // x = m + log l, exactly kNegInf where the row saw nothing (m = -inf)
+  __device__ __forceinline__ void store_lse(int r, float x) const {
+    if constexpr (kShare) lse[(int64_t)r * lse_ss] = x == kNegInf ? tc::neg_inf() : x;
+  }
 };
+
+// one past the last slot a row at position p sees, and (under a window) the
+// first: a share's in its slots, a whole cache's clip(p + 1, 1, T) and
+// p - window + 1
+template <bool kShare>
+__device__ __forceinline__ int tc_row_hi(const DecodeArgs& a, int p) {
+  if constexpr (kShare) return a.share.hi(p, a.T);
+  else return max(1, min(a.T, p + 1));
+}
+template <bool kShare>
+__device__ __forceinline__ int tc_row_lo(const DecodeArgs& a, int p) {
+  if constexpr (kShare) return a.share.lo(p, a.window);
+  else return p - a.window + 1;
+}
 
 // 64-slot tiles of a dense cache or, through the request's block table, of
 // a page pool; slots outside [slot_begin, slot_end) are zero-filled.
@@ -288,7 +347,7 @@ struct CacheTcCodeTiles {
   }
 };
 
-template <int DP, typename TK>
+template <int DP, typename TK, bool kShare>
 __global__ void __launch_bounds__(TcShape<DP>::NT)
 flash_decode_tc_kernel(DecodeArgs a) {
   using Sh = TcShape<DP>;
@@ -300,18 +359,22 @@ flash_decode_tc_kernel(DecodeArgs a) {
   const int nk = (a.T + BKV - 1) / BKV;
   // the call's live slots, as the FMA mode computes them, and this block's
   // tiles: from its first row's window to its last row's boundary
-  const int last_live = max(1, min(a.T, index + a.S));
-  const int hi = (max(1, min(a.T, index + q0 + nrows)) + BKV - 1) / BKV;
+  const int last_live = tc_row_hi<kShare>(a, index + a.S - 1);
+  const int hi = (tc_row_hi<kShare>(a, index + q0 + nrows - 1) + BKV - 1) / BKV;
   int lo = 0;
-  if (a.window > 0) lo = max(0, min((index + q0 + 1 - a.window) / BKV, hi - 1));
-  const int slot_begin = a.pruned ? (a.window > 0 ? max(0, index + 1 - a.window) : 0) : 0;
+  if (a.window > 0) lo = max(0, min(tc_row_lo<kShare>(a, index + q0) / BKV, hi - 1));
+  const int slot_begin =
+      a.pruned && a.window > 0 ? max(0, tc_row_lo<kShare>(a, index)) : 0;
   const int slot_end = a.pruned ? last_live : a.T;
 
   const bool paged = a.tables != nullptr;
-  DecodeTcRows rows{
+  using Rows = DecodeTcRows<kShare>;
+  Rows rows{
       static_cast<const tc::bf16*>(a.q) + b * a.q_sb + (int64_t)h * a.q_sh + (int64_t)q0 * a.q_ss,
-      static_cast<tc::bf16*>(a.o) + b * a.o_sb + (int64_t)h * a.o_sh + (int64_t)q0 * a.o_ss,
-      a.q_ss, a.o_ss, nrows, index + q0, a.T, a.window};
+      static_cast<typename Rows::TO*>(a.o) + b * a.o_sb + (int64_t)h * a.o_sh +
+          (int64_t)q0 * a.o_ss,
+      a.q_ss, a.o_ss, nrows, index + q0, a.T, a.window, a.share,
+      kShare ? a.lse + b * a.lse_sb + (int64_t)q0 * a.lse_ss + h : nullptr, a.lse_ss};
   const int* table = paged ? a.tables + (int64_t)b * a.NB : nullptr;
   const TK* kp = static_cast<const TK*>(a.k) + (paged ? 0 : b * a.k_sb) + kh * a.k_sh;
   const TK* vp = static_cast<const TK*>(a.v) + (paged ? 0 : b * a.v_sb) + kh * a.v_sh;
@@ -333,8 +396,12 @@ template <int DP, typename TK>
 static cudaError_t launch_decode_tc(const DecodeArgs& a, int B, int H, cudaStream_t stream) {
   using Sh = TcShape<DP>;
   dim3 grid((a.S + Sh::BQ - 1) / Sh::BQ, H, B);
-  return launch_with_smem(flash_decode_tc_kernel<DP, TK>, grid, dim3(Sh::NT),
-                          IsCode<TK>::value ? Sh::smem_codes : Sh::smem, stream, a);
+  const size_t smem = IsCode<TK>::value ? Sh::smem_codes : Sh::smem;
+  if (a.lse != nullptr)
+    return launch_with_smem(flash_decode_tc_kernel<DP, TK, true>, grid, dim3(Sh::NT), smem,
+                            stream, a);
+  return launch_with_smem(flash_decode_tc_kernel<DP, TK, false>, grid, dim3(Sh::NT), smem,
+                          stream, a);
 }
 
 // The tensor-core mode at the padded head dim of `a.D` (64, 128 or 256).
@@ -381,7 +448,15 @@ static cudaError_t launch_decode_codes(const DecodeArgs& a, int kv_dtype, int B,
 // ceil(T / split_chunk) * (D + 2) floats, and `tickets`, B * K *
 // ceil(G / 16) ints that are 0 (the kernel leaves them 0); `split_chunk`
 // must equal the compiled chunk.  S > 1 bf16 tokens over bf16 values or
-// codes take the tensor-core mode.  Both have their tiles compiled in (block_kv is not
+// codes take the tensor-core mode.  A rank's share of a sequence-split cache
+// (`blk_sub` > 0: the cache holds its slots l of the cache's slots
+// (l / blk_sub) * blk_span + blk_phase + l % blk_sub; T counts the share's
+// slots) runs every route over the share with the rows' live bounds in the
+// share's slots, writes o as float32 (o's strides in floats) and each row's
+// lse = m + log l to `lse` (float32, strides lse_sb per request and lse_ss
+// per token, heads contiguous; -inf and o = 0 where a row sees no slot: the
+// caller fills o with 0 and lse with -inf first, since the split route
+// launches no block for a request with nothing live).  Both have their tiles compiled in (block_kv is not
 // read).  *route is set to the route launched (2 split, 1 tensor cores, 0
 // FMA; -1 none).  Returns the CUDA error code of the launch (0 = success).
 extern "C" int repro_torch_flash_decode(
@@ -395,7 +470,9 @@ extern "C" int repro_torch_flash_decode(
     long long o_sb, long long o_ss, long long o_sh,
     long long sc_b, long long sc_p, long long sc_k, int scale_page,
     int window, float softcap, float scale, int block_kv, int pruned,
-    void* part, void* tickets, int split_chunk, int* route, void* stream) {
+    void* part, void* tickets, int split_chunk,
+    int blk_sub, int blk_span, int blk_phase, void* lse, long long lse_sb, long long lse_ss,
+    int* route, void* stream) {
   using namespace repro_torch;
   *route = -1;
   if (D > 256 || D % 8 != 0 || H % K != 0 || block_kv < 1 || block_kv > kBKV || T < 1)
@@ -408,13 +485,18 @@ extern "C" int repro_torch_flash_decode(
     return (int)cudaErrorInvalidValue;
   if (codes && tables == nullptr && (scale_page < 1 || scale_page % block_kv != 0))
     return (int)cudaErrorInvalidValue;
+  if (blk_sub < 0 || (blk_sub > 0 && (lse == nullptr || blk_span < blk_sub || blk_phase < 0 ||
+                                      blk_phase + blk_sub > blk_span)))
+    return (int)cudaErrorInvalidValue;
   DecodeArgs a{q, k, v, o, static_cast<const int*>(index), static_cast<const int*>(tables),
                static_cast<const float*>(ksc), static_cast<const float*>(vsc),
                sc_b, sc_p, sc_k, scale_page,
                NB, page_size, S, T, H / K, D,
                q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_ss, o_sh,
                window, softcap, scale, block_kv, pruned,
-               static_cast<float*>(part), static_cast<int*>(tickets)};
+               static_cast<float*>(part), static_cast<int*>(tickets),
+               Share{blk_sub, blk_span, blk_phase},
+               blk_sub > 0 ? static_cast<float*>(lse) : nullptr, lse_sb, lse_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && S == 1) {
     if (part == nullptr || tickets == nullptr || split_chunk != kSplitChunk)

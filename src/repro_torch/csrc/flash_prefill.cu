@@ -79,6 +79,9 @@ struct PrefillTcRows {
     return (causal && window > 0) ? q_start + r - window + 1 : 0;
   }
   __device__ __forceinline__ int hi(int r) const { return causal ? min(T, q_start + r + 1) : T; }
+  __device__ __forceinline__ void store_o(int r, int col, float x, float y) const {
+    tc::store_bf16x2(o + (int64_t)r * o_ss + col, x, y);
+  }
   __device__ __forceinline__ void store_lse(int r, float x) const {
     if (lse != nullptr) lse[r] = x;
   }

@@ -26,8 +26,9 @@ Every call is counted, by kind and by axis, with the bytes each rank sent
 `parse_collectives(...).counts`.  FSDP's traffic is counted apart from
 Megatron's, as the kinds `fsdp_gather` and `fsdp_reduce_scatter`, and the
 `max` reductions of the int8 scales (a row-parallel weight's columns, a
-split gradient's rows) as `all_reduce_max`.  The
-counts are this process's, i.e. one rank's.
+split gradient's rows) as `all_reduce_max`, and the merge of the ranks'
+partial attention under `fsdp_sp` serving (`combine_attention`) as
+`attention_combine`.  The counts are this process's, i.e. one rank's.
 """
 
 from __future__ import annotations
@@ -193,6 +194,39 @@ def barrier(mesh: Mesh | None) -> None:
     """Every rank of the mesh waits for the others (nothing off a live mesh)."""
     if is_live(mesh):
         _dist().barrier()
+
+
+def merge_attention(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """Partial attentions over disjoint shares of the keys merged in the
+    order of their leading dim: `o` (n, ..., D) and `lse` (n, ...), each
+    partial normalised over its share, `lse = m + log l` (-inf where a share
+    saw nothing).  M = max lse, w_r = exp(lse_r - M), o = sum_r w_r o_r /
+    sum_r w_r, the sums taken in order in fp32 (0 where no share saw a
+    key)."""
+    o, lse = o.to(torch.float32), lse.to(torch.float32)
+    M = torch.amax(lse, dim=0)
+    Mu = torch.where(M == -torch.inf, torch.zeros_like(M), M)
+    num = torch.zeros_like(o[0])
+    den = torch.zeros_like(lse[0])
+    for r in range(o.shape[0]):
+        w = torch.exp(lse[r] - Mu)
+        num = num + w[..., None] * o[r]
+        den = den + w
+    return num / torch.clamp(den, min=1e-30)[..., None]
+
+
+def combine_attention(o: torch.Tensor, lse: torch.Tensor, mesh: Mesh | None,
+                      axis: str) -> torch.Tensor:
+    """The attention over every rank's share of the keys from this rank's
+    `o` (B, S, H, D) and its `lse` (B, S, H), both fp32 and normalised over
+    its own share: one all-gather of `(o, lse)` over `axis` (B·S·H·(D + 1)
+    floats a rank, counted as `attention_combine`), merged in rank order
+    (`merge_attention`): the same bits on every rank, fp32."""
+    if not is_parallel(mesh, axis):
+        return o.to(torch.float32)
+    packed = torch.cat([o.to(torch.float32), lse.to(torch.float32)[..., None]], dim=-1)
+    parts = all_gather(packed[None], mesh, axis, 0, kind="attention_combine")
+    return merge_attention(parts[..., :-1], parts[..., -1])
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,8 @@ the dry run's memory arithmetic reads; on a live mesh (`launch/mesh.make_mesh`)
 back together.  A live mesh runs AutoShard's three layouts (`check_layout`
 says what it still refuses): Megatron's (`megatron_tp`, its `embed` whole or
 split over the batch axes; a MoE layer's experts replicated, each expert's
-`mlp` dim split over `model`), `dp_fsdp` and `fsdp_sp`.  A weight split on its
+`mlp` dim split over `model`), `dp_fsdp` and `fsdp_sp`, whose KV caches and
+page pools are split over `kv_seq` (`seq_share`).  A weight split on its
 `embed` dim is an FSDP block: `gather_plan` lists those dims, and the model
 gathers them where the weight is used (`gather_tree`), never keeping a
 gathered copy.
@@ -345,19 +346,49 @@ def grad_axes(mesh: Mesh, rules: Mapping[str, Any]) -> tuple[tuple[str, ...], in
     return axes, _mesh_extent(mesh, batch)
 
 
+def kv_seq_axis(mesh: Mesh | None, rules: Mapping[str, Any]) -> str | None:
+    """The mesh axis `fsdp_sp` splits the KV caches' and page pools'
+    sequence over (`kv_seq`), when it spans ranks of a live mesh; else None."""
+    axes = _axes_tuple(rules.get("kv_seq"))
+    if len(axes) == 1 and is_live(mesh) and mesh.shape.get(axes[0], 1) > 1:
+        return axes[0]
+    return None
+
+
+def seq_share(mesh: Mesh | None, rules: Mapping[str, Any],
+              length: int) -> tuple[int, int, int] | None:
+    """This rank's share of a cache dim of `length` slots split over
+    `kv_seq`: `(sub, span, phase)`, where the rank's slot l holds the
+    dim's slot `(l // sub) * span + phase + l % sub`.  A dense cache is one
+    span (`length` = T: the rank's contiguous block `[phase, phase + sub)`,
+    the block `input_shardings` gives its sequence dim); a page pool's
+    `length` is the page size, and the rank holds slots `[phase, phase +
+    sub)` of every page.  None where the dim stays whole: off a live mesh,
+    with `kv_seq` unset, or a length the axis does not divide (the rules'
+    shape-aware drop)."""
+    axis = kv_seq_axis(mesh, rules)
+    if axis is None:
+        return None
+    n = mesh.shape[axis]
+    if length < n or length % n:
+        return None
+    sub = length // n
+    return sub, length, mesh.coord(axis) * sub
+
+
 MESH_LAYOUTS_ITEM = "ROADMAP Queue 1 item 15a"
-SEQ_CACHE_ITEM = "ROADMAP Queue 1 item 15a-ii"
+SEQ_MEGATRON_ITEM = "ROADMAP Queue 1 item 15a-iii"
 
 
-def check_layout(mesh: Mesh | None, rules: Mapping[str, Any], layout: str | None = None,
-                 *, serving: bool = False) -> None:
+def check_layout(mesh: Mesh | None, rules: Mapping[str, Any],
+                 layout: str | None = None) -> None:
     """A live mesh of more than one rank runs AutoShard's three layouts:
     `megatron_tp` (its `embed` whole or split over the batch's axes),
-    `dp_fsdp` and `fsdp_sp` for training.  It refuses `fsdp_sp` serving
-    (sequence-sharded KV caches), the Korthikanti residuals under Megatron,
-    an FSDP split over an axis whose ranks hold the same tokens (its
-    gathered gradient would add copies), and rules no layout of AutoShard
-    sets (a split layer stack or expert axis)."""
+    `dp_fsdp` and `fsdp_sp`, for training and serving alike.  It refuses the
+    Korthikanti residuals and sequence-split caches under Megatron, an FSDP
+    split over an axis whose ranks hold the same tokens (its gathered
+    gradient would add copies), and rules no layout of AutoShard sets (a
+    split layer stack or expert axis)."""
     if not is_live(mesh):
         return
     layout = layout or "megatron_tp"
@@ -370,10 +401,6 @@ def check_layout(mesh: Mesh | None, rules: Mapping[str, Any], layout: str | None
                 "layout of AutoShard splits it (a MoE layer's experts stay replicated, "
                 "tensor-parallel inside: ROADMAP Queue 1 item 15b)")
     if layout == "fsdp_sp":
-        if serving:
-            raise NotImplementedError(
-                f"serving under fsdp_sp on a live mesh: its KV caches and pools are "
-                f"sequence-sharded (kv_seq) ({SEQ_CACHE_ITEM})")
         if seq_axis(mesh, rules) is None or live_axes(mesh, rules.get("seq_act")) != \
                 live_axes(mesh, rules.get("res_seq")):
             raise NotImplementedError(
@@ -384,13 +411,18 @@ def check_layout(mesh: Mesh | None, rules: Mapping[str, Any], layout: str | None
                 raise NotImplementedError(
                     f"fsdp_sp with rule {key!r} -> {rules.get(key)!r}: its blocks' "
                     "weights are whole or FSDP blocks, not tensor-parallel")
+        kv = live_axes(mesh, rules.get("kv_seq"))
+        if kv and kv != live_axes(mesh, rules.get("res_seq")):
+            raise NotImplementedError(
+                f"fsdp_sp with rule 'kv_seq' -> {rules.get('kv_seq')!r}: the caches split "
+                "over the residual stream's sequence axis or stay whole")
     else:
         for key in ("kv_seq", "seq_act", "res_seq"):
             if live_axes(mesh, rules.get(key)):
                 raise NotImplementedError(
                     f"rule {key!r} -> {rules.get(key)!r} under {layout}: sequence-"
-                    f"sharded residuals and caches run under fsdp_sp's training only "
-                    f"({SEQ_CACHE_ITEM})")
+                    f"sharded residuals and caches run under fsdp_sp only "
+                    f"({SEQ_MEGATRON_ITEM})")
     tokens, _ = grad_axes(mesh, rules)
     stray = [a for a in live_axes(mesh, rules.get(FSDP_AXIS)) if a not in tokens]
     if stray:

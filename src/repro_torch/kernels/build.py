@@ -40,7 +40,8 @@ SIGNATURES = {
         + [_INT, _INT, _FLOAT, _FLOAT, _INT, _INT, _INT, _INT, _INT, _PTR, _PTR]),
     "repro_torch_flash_decode": (
         [_PTR] * 8 + [_INT] * 10 + [_I64] * 15
-        + [_INT, _INT, _FLOAT, _FLOAT, _INT, _INT, _PTR, _PTR, _INT, _PTR, _PTR]),
+        + [_INT, _INT, _FLOAT, _FLOAT, _INT, _INT, _PTR, _PTR, _INT]
+        + [_INT, _INT, _INT, _PTR, _I64, _I64, _PTR, _PTR]),
     "repro_torch_rglru": [_PTR] * 5 + [_INT] * 3 + [_PTR],
     "repro_torch_wkv6": [_PTR] * 10 + [_INT] * 5 + [_PTR],
 }

@@ -28,6 +28,14 @@ reports the one it launched, kept in `flash_decode_fwd.last_route`):
   exactly and the scales are factored out of the products, as on the
   split route; its plain twin is `ref.decode_widened_codes_ref`.
 - "fma": an fp32 q (over fp32 values or codes).
+
+Each route also runs over a rank's share of a sequence-split cache (`block`
+= `(sub, span, phase)`, `distributed/sharding.seq_share`): the cache (or
+pool) holds the rank's slots, every row's live bounds are counted in them
+(`share_count`; none may be live), and the launch returns fp32 o beside
+each row's lse = m + log l, which the ranks merge
+(`distributed/collectives.combine_attention`).  Without `block` every route
+is what it was.
 """
 
 from __future__ import annotations
@@ -123,6 +131,32 @@ def paged_decode_schedule(
     return [(int(table[jb // spb]), jb % spb) for jb in logical]
 
 
+def share_count(x: int, block: tuple[int, int, int]) -> int:
+    """The slots of a rank's share `block` = (sub, span, phase) — its slot l
+    holds the cache's slot (l // sub) * span + phase + l % sub — that hold
+    cache slots <= x (0 for x < 0)."""
+    if x < 0:
+        return 0
+    sub, span, phase = block
+    q, rem = divmod(int(x), span)
+    return q * sub + min(max(rem - phase + 1, 0), sub)
+
+
+def share_bounds(p: int, T: int, window: int | None,
+                 block: tuple[int, int, int]) -> tuple[int, int]:
+    """[lo, hi): the slots of the share (of T) a row at position p sees."""
+    hi = min(T, share_count(p, block))
+    lo = share_count(p - window, block) if window is not None else 0
+    return lo, hi
+
+
+def share_slots(n: int, block: tuple[int, int, int], device=None) -> torch.Tensor:
+    """(n,) the cache slot each of a share's first n slots holds."""
+    sub, span, phase = block
+    ar = torch.arange(n, device=device)
+    return (ar // sub) * span + phase + ar % sub
+
+
 def split_decode_schedule(
     T: int, index: int, *, window: int | None = None, pruned: bool = True,
     chunk: int = SPLIT_CHUNK,
@@ -191,7 +225,11 @@ def flash_decode_fwd(
     k_scale: torch.Tensor | None = None,  # fp32 scales: paged (P, K),
     v_scale: torch.Tensor | None = None,  # dense (B, NP, K)
     scale_page: int | None = None,        # dense only: slots per scale row
-) -> torch.Tensor:
+    block: tuple[int, int, int] | None = None,  # a rank's share of the slots
+):
+    """The output (B, S, H, D) in q's type; with `block`, a rank's share of
+    a sequence-split cache: (o, lse), o (B, S, H, D) and lse (B, S, H)
+    float32, `kv_len` the whole cache's logical length when paged."""
     code, kv_code = check_qkv(q, k, v, QUANT_DTYPES)
     B, S, H, D = q.shape
     K = k.shape[2]
@@ -206,7 +244,7 @@ def flash_decode_fwd(
     if tables is not None:
         if kv_len is None:
             raise ValueError("paged flash_decode requires kv_len")
-        T = int(kv_len)
+        T = int(kv_len) if block is None else share_count(int(kv_len) - 1, block)
         page_size = k.shape[1]
         block_kv = page_block_kv(block_kv, page_size)
         if tables.dtype != torch.int32 or tables.device != q.device \
@@ -249,7 +287,18 @@ def flash_decode_fwd(
         sc_ptrs = (k_scale.data_ptr(), v_scale.data_ptr())
         sc_strides = ((0, *k_scale.stride()) if tables is not None
                       else tuple(k_scale.stride()))
-    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lse = None
+    if block is None:
+        out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    else:  # rows that see nothing keep these (the split route skips them)
+        sub, span, phase = (int(x) for x in block)
+        if not 0 < sub <= span or not 0 <= phase <= span - sub:
+            raise ValueError(f"block {block} is no share of a span")
+        if tables is not None and k.shape[1] != sub:
+            raise ValueError(f"a share of pages of {span} slots holds {sub} a page, "
+                             f"the pool {k.shape[1]}")
+        out = torch.zeros((B, S, H, D), dtype=torch.float32, device=q.device)
+        lse = torch.full((B, S, H), -math.inf, dtype=torch.float32, device=q.device)
     part = tickets = None
     if decode_route(q.dtype, k.dtype, S) == "tc_split":
         # fp32 (acc, m, l) of every (request, head, chunk), and the tickets
@@ -271,11 +320,13 @@ def flash_decode_fwd(
         1.0 / math.sqrt(D), block_kv, int(bool(pruned)),
         part.data_ptr() if part is not None else None,
         tickets.data_ptr() if tickets is not None else None, SPLIT_CHUNK,
+        *((sub, span, phase, lse.data_ptr(), S * H, H) if block is not None
+          else (0, 0, 0, None, 0, 0)),
         ctypes.byref(route),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch(err, "flash_decode")
     flash_decode_fwd.last_route = build.route_name(route)
-    return out
+    return out if block is None else (out, lse)
 
 
 flash_decode_fwd.last_route = None  # the mode the last launch reported

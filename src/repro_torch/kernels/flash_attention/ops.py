@@ -386,7 +386,8 @@ def flash_decode(
     k_scale: torch.Tensor | None = None,  # quantized caches: fp32 scales —
     v_scale: torch.Tensor | None = None,  # paged (P, K); dense (B, NP, K)
     scale_page: int | None = None,        # dense only: cache slots per scale row
-) -> torch.Tensor:
+    block: tuple[int, int, int] | None = None,  # a rank's share of the slots
+):
     """One decode step over a live-block-pruned cache; see decode.py.
 
     With S > 1 q tokens (the widened-q variant) token s attends through
@@ -412,6 +413,14 @@ def flash_decode(
     does not change their result.  `block_kv=None` resolves from the kernel
     tuner's cache for q's device (the `block_kv_dec` knob of the FMA body;
     the paged signature first, then the dense one), else the default.
+
+    With `block` = (sub, span, phase) the cache (or pool) is a rank's share
+    of a sequence-split cache (`distributed/sharding.seq_share`; `kv_len`
+    the whole cache's logical length when paged): the launch takes the same
+    route over the share's slots and returns `(o, lse)` in fp32, o (B, S,
+    H, D) and lse (B, S, H), for the ranks' merge
+    (`collectives.combine_attention`); it counts once more in
+    `flash_decode.block_launches`.
     """
     if block_kv is None:  # the kernel tuner's block, as the reference's lookup
         from repro_torch.autotune.kernel_tuner import tuned_decode_blocks, tuned_paged_blocks
@@ -428,9 +437,12 @@ def flash_decode(
         return decode_ref(q, k_cache, v_cache, index, window=window,
                           softcap=softcap, block_kv=block_kv, pruned=pruned,
                           tables=tables, kv_len=kv_len, k_scale=k_scale,
-                          v_scale=v_scale, scale_page=scale_page)
-    if q.numel() == 0:
-        return torch.empty_like(q)  # nothing to launch, nothing counted
+                          v_scale=v_scale, scale_page=scale_page, block=block)
+    if q.numel() == 0:  # nothing to launch, nothing counted
+        if block is None:
+            return torch.empty_like(q)
+        return (torch.zeros(q.shape, dtype=torch.float32, device=q.device),
+                torch.full(q.shape[:3], -float("inf"), device=q.device))
     B = q.shape[0]
     index = index.to(torch.int32).reshape(-1).expand(B).contiguous()
     if tables is not None:
@@ -438,8 +450,10 @@ def flash_decode(
     out = flash_decode_fwd(q, k_cache, v_cache, index, window=window,
                            softcap=softcap, block_kv=block_kv, pruned=pruned,
                            tables=tables, kv_len=kv_len, k_scale=k_scale,
-                           v_scale=v_scale, scale_page=scale_page)
+                           v_scale=v_scale, scale_page=scale_page, block=block)
     flash_decode.launches += 1
+    if block is not None:
+        flash_decode.block_launches += 1
     if k_scale is not None:
         flash_decode.quantized_launches += 1
     if flash_decode_fwd.last_route == "tc":  # as the entry point reported it
@@ -456,3 +470,4 @@ flash_decode.quantized_launches = 0  # of which in the quantized-pool mode
 flash_decode.tc_launches = 0  # of which widened bf16 q on the tensor cores
 flash_decode.split_launches = 0  # of which one bf16 token on the split route
 flash_decode.fma_launches = 0  # of which an fp32 q on the FMA body
+flash_decode.block_launches = 0  # of which over a rank's share of the slots

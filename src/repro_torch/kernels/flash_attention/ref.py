@@ -15,6 +15,8 @@ from repro_torch.kernels.flash_attention.decode import (
     SPLIT_WARPS,
     decode_schedule,
     page_block_kv,
+    share_bounds,
+    share_count,
     split_decode_schedule,
     split_step_slots,
 )
@@ -149,14 +151,27 @@ def decode_ref(
     k_scale: torch.Tensor | None = None,  # paged (P, K); dense (B, NP, K)
     v_scale: torch.Tensor | None = None,
     scale_page: int | None = None,        # dense only: slots per scale row
-) -> torch.Tensor:
+    block: tuple[int, int, int] | None = None,  # a rank's share of the slots
+):
     """Touches only the cache blocks `decode_schedule` names for each
     request (through the block table when paged): whatever dead blocks or
     dead pages hold, NaNs included, cannot reach the output.
 
     With scales, each live K/V slot is dequantized as `float(code) * scale`
     in fp32 before it enters the products — the kernel's order, and the
-    reference kernel's."""
+    reference kernel's.
+
+    With `block` = (sub, span, phase) the cache holds a rank's share of a
+    sequence-split cache (`decode.share_count`; `kv_len` the whole cache's
+    logical length when paged): each row attends the share's slots it sees
+    and the call returns `(o, lse)`, o (B, S, H, D) and lse (B, S, H) in
+    fp32 (float64 for float64 q), lse = m + log l; a row that sees none of
+    the share's slots gives o = 0 and lse = -inf."""
+    if block is not None:
+        return _decode_share_ref(q, k_cache, v_cache, index, window=window,
+                                 softcap=softcap, tables=tables, kv_len=kv_len,
+                                 k_scale=k_scale, v_scale=v_scale,
+                                 scale_page=scale_page, block=block)
     B, S, H, D = q.shape
     K = k_cache.shape[2]
     G = H // K
@@ -214,6 +229,67 @@ def decode_ref(
         out = pv / torch.clamp(l, min=1e-30)  # (K, G, S, D)
         outs.append(out.permute(2, 0, 1, 3).reshape(S, H, D))
     return torch.stack(outs).to(q.dtype)
+
+
+def _decode_share_ref(q, k_cache, v_cache, index, *, window, softcap, tables,
+                      kv_len, k_scale, v_scale, scale_page, block):
+    """`decode_ref` over a rank's share of the slots (see there)."""
+    B, S, H, D = q.shape
+    K = k_cache.shape[2]
+    G = H // K
+    paged = tables is not None
+    quant = k_scale is not None
+    if quant and v_scale is None:
+        raise ValueError("quantized decode requires both k/v scales")
+    if paged:
+        if kv_len is None:
+            raise ValueError("paged decode requires kv_len")
+        page_size = k_cache.shape[1]
+        if page_size != block[0]:
+            raise ValueError(f"a share of pages of {block[1]} slots holds {block[0]} "
+                             f"a page, the pool {page_size}")
+        T = share_count(int(kv_len) - 1, block)
+    else:
+        T = k_cache.shape[1]
+        if quant and scale_page is None:
+            raise ValueError("dense quantized decode requires scale_page")
+    idx = [int(i) for i in torch.as_tensor(index).reshape(-1).expand(B).tolist()]
+    acc = _acc_dtype(q)
+    scale = 1.0 / math.sqrt(D)
+    out = torch.zeros((B, S, H, D), dtype=acc, device=q.device)
+    lse = torch.full((B, S, H), -math.inf, dtype=acc, device=q.device)
+    for b in range(B):
+        bounds = [share_bounds(idx[b] + s, T, window, block) for s in range(S)]
+        lo_all, hi_all = bounds[0][0], bounds[-1][1]  # both rise with s
+        if hi_all <= lo_all:
+            continue  # the share holds nothing this request sees
+        slots = torch.arange(lo_all, hi_all, device=q.device)
+        if paged:
+            page = tables[b].to(torch.long)[slots // page_size]
+            kb, vb = k_cache[page, slots % page_size], v_cache[page, slots % page_size]
+            if quant:
+                kb = kb.to(torch.float32) * k_scale[page][..., None]
+                vb = vb.to(torch.float32) * v_scale[page][..., None]
+        else:
+            kb, vb = k_cache[b, slots], v_cache[b, slots]
+            if quant:
+                row = slots // scale_page
+                kb = kb.to(torch.float32) * k_scale[b, row][..., None]
+                vb = vb.to(torch.float32) * v_scale[b, row][..., None]
+        qf = q[b].to(acc).reshape(S, K, G, D)
+        sc = torch.einsum("skgd,tkd->kgst", qf, kb.to(acc)) * scale
+        if softcap is not None:
+            sc = torch.tanh(sc / softcap) * softcap
+        lo = torch.tensor([x for x, _ in bounds], device=q.device)[:, None]
+        hi = torch.tensor([x for _, x in bounds], device=q.device)[:, None]
+        mask = (slots[None, :] >= lo) & (slots[None, :] < hi)  # (S, n)
+        pv, l, m = _masked_softmax_pv(sc, mask, vb.to(acc), "kgst,tkd->kgsd")
+        o = pv / torch.clamp(l, min=1e-30)  # (K, G, S, D)
+        row_lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-30)),
+                              torch.full_like(l, -math.inf))
+        out[b] = o.permute(2, 0, 1, 3).reshape(S, H, D)
+        lse[b] = row_lse[..., 0].permute(2, 0, 1).reshape(S, H)
+    return out, lse
 
 
 def _ordered_merge(parts):

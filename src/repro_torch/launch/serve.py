@@ -37,6 +37,7 @@ import numpy as np
 
 from repro_torch.configs.base import SHAPES
 from repro_torch.core.program import Program
+from repro_torch.core.strategies.parallelization import AutoShard
 from repro_torch.launch.weave import cuda_kernel_aspects, default_weave
 from repro_torch.models.registry import ARCHS
 from repro_torch.runtime.fleet import ServingFleet, replica_factory
@@ -95,22 +96,34 @@ def _stream(server: Server, prompts, args) -> None:
               f"objective={q['objective']}, energy={q['energy_j']:.1f}J (modeled)")
 
 
-def build_woven(arch: str, *, reduced: bool, device: str, mesh=None):
-    """`Program.from_arch` -> `default_weave`, with the CUDA kernel aspects
-    on the card, laid out for `mesh` (a live one: this rank's) as AutoShard
-    picks — `dp_fsdp` for the recurrent families."""
-    program = Program.from_arch(arch, kind="serve", reduced=reduced, device=device)
-    extra = cuda_kernel_aspects() if program.device.type == "cuda" else None
-    return default_weave(program, SHAPES["prefill_32k"],
-                         dict(mesh.shape) if mesh is not None else {}, extra_aspects=extra)
+def weave_server(program: Program, *, mesh=None, layout: str | None = None):
+    """`default_weave` of a serving `program` as every launcher of the port
+    weaves it: the CUDA kernel aspects on the card, laid out for `mesh` (a
+    live one: this rank's) as AutoShard picks — `dp_fsdp` for the recurrent
+    families, `fsdp_sp` where the heads do not divide `model` — or as
+    `layout` forces it (AutoShard's `layout=`, e.g. `"fsdp_sp"`: the KV
+    caches and pools split over the sequence)."""
+    extra = list(cuda_kernel_aspects()) if program.device.type == "cuda" else []
+    axes = dict(mesh.shape) if mesh is not None else {}
+    if layout is not None:
+        extra.insert(0, AutoShard(axes, train=False, layout=layout))
+    return default_weave(program, SHAPES["prefill_32k"], axes, extra_aspects=extra or None)
+
+
+def build_woven(arch: str, *, reduced: bool, device: str, mesh=None,
+                layout: str | None = None):
+    """`Program.from_arch` -> `weave_server`."""
+    return weave_server(Program.from_arch(arch, kind="serve", reduced=reduced, device=device),
+                        mesh=mesh, layout=layout)
 
 
 def build_server(arch: str, *, reduced: bool, device: str, cfg: ServerConfig,
-                 mesh=None) -> Server:
+                 mesh=None, layout: str | None = None) -> Server:
     """`build_woven` -> `Server`: how every launcher of the port builds a
-    server (on `mesh`, this rank's server of a live mesh)."""
-    return Server(build_woven(arch, reduced=reduced, device=device, mesh=mesh), cfg,
-                  mesh=mesh)
+    server (on `mesh`, this rank's server of a live mesh, in `layout` where
+    it is forced)."""
+    return Server(build_woven(arch, reduced=reduced, device=device, mesh=mesh,
+                              layout=layout), cfg, mesh=mesh)
 
 
 def main(argv=None) -> int:

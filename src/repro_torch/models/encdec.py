@@ -36,7 +36,14 @@ axis does not divide stay whole on every rank, as the reference's
 shape-guarded constraint leaves them: each rank runs the whole encoder,
 and its gradient is then the rank's partial sum (it comes from the
 rank's decoder block alone), which the train step's sum over the
-sequence axis completes.  Decoder tokens the axis does not divide raise.
+sequence axis completes.  Decoder tokens the axis does not divide raise in
+training.  In serving a prompt the axis does not divide, and a decode
+step's tokens, are whole on every rank (`lm.serving_sequence`); the
+caches are split over `kv_seq` where the axis divides their length
+(`sharding.seq_share`): the self caches' slots, whose whole length the
+model then carries as a hoisted `kv_pos` map as the decoder-only LM does,
+and the cross caches' frames (whisper-small's 1500: 750 a rank on two
+ranks), while the encoder states `enc` stay whole.
 """
 
 from __future__ import annotations
@@ -48,8 +55,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.collectives import gather_from
-from repro_torch.distributed.sharding import SEQ_CACHE_ITEM, gather_plan, gather_tree, seq_axis
-from repro_torch.models.lm import sequence_block
+from repro_torch.distributed.sharding import gather_plan, gather_tree, kv_seq_axis, seq_axis
+from repro_torch.models.lm import (advance_kv_pos, last_position, prefill_kv_pos,
+                                   sequence_block, serving_sequence)
 from repro_torch.nn.attention import Attention, cache_spec
 from repro_torch.nn.blocks import MLP, Embedding, LayerNorm, sinusoidal_positions
 from repro_torch.nn.module import Ctx, Module, cast
@@ -111,7 +119,7 @@ class DecoderXBlock(Module):
                 "norm2": self.norm2, "ffn": self.ffn}
 
     def forward(self, params, x, *, ctx: Ctx, mode="dense", cache=None,
-                positions=None, kv_src=None):
+                positions=None, kv_src=None, kv_pos=None):
         with ctx.scope(self.name):
             self_cache = cache.get("self") if cache is not None else None
             cross_cache = cache.get("cross") if cache is not None else None
@@ -119,7 +127,7 @@ class DecoderXBlock(Module):
             h = ctx.constrain(h, ("batch", "seq_act", "embed"))
             h, self_new = self.self_attn(params["self_attn"], h, ctx=ctx,
                                          positions=positions, mode=mode,
-                                         cache=self_cache)
+                                         cache=self_cache, kv_pos=kv_pos)
             x = x + h
             h = self.norm_x(params["norm_x"], x, ctx=ctx)
             h = ctx.constrain(h, ("batch", "seq_act", "embed"))
@@ -192,10 +200,6 @@ class EncDecLM(Module):
         B, S = tokens.shape
         plan = gather_plan(self, ctx.mesh, ctx.rules)
         sp = seq_axis(ctx.mesh, ctx.rules)
-        if sp is not None and mode != "dense":
-            raise NotImplementedError(
-                f"serving under fsdp_sp on a live mesh: its KV caches are "
-                f"sequence-sharded (kv_seq) ({SEQ_CACHE_ITEM})")
 
         def whole(key):  # a top-level weight, its FSDP dims gathered at use
             return gather_tree(params[key], plan and plan[key], ctx.mesh)
@@ -210,6 +214,15 @@ class EncDecLM(Module):
         positions = inputs.get("positions")
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+        ctx, sp = serving_sequence(ctx, sp, mode, S)
+        # a sequence split of the self caches: their whole length, hoisted
+        kv_pos = None
+        if mode != "dense" and kv_seq_axis(ctx.mesh, ctx.rules) is not None:
+            if mode == "decode":
+                kv_pos = advance_kv_pos(cache["kv_pos"], positions)
+            else:
+                kv_pos = prefill_kv_pos(max(int(ctx.extra.get("cache_max_len", S)), S),
+                                        positions)
         x = self.embed(whole("embed"), tokens, ctx=ctx)
         x = x + cast(sinusoidal_positions(positions, cfg.d_model), x.dtype)
         x = ctx.constrain(x, ("batch", "res_seq", "embed"))
@@ -220,22 +233,28 @@ class EncDecLM(Module):
         new_dec_cache = None
         if not ctx.extra.get("skip_trunk"):
             dec_cache = cache.get("decoder") if cache is not None else None
+            block_kwargs = {"kv_src": enc}
+            if kv_pos is not None and mode == "decode":
+                block_kwargs["kv_pos"] = kv_pos
             x, new_dec_cache = self.decoder(
                 params["decoder"], x, ctx=ctx, mode=mode, cache=dec_cache,
-                positions=positions, block_kwargs={"kv_src": enc},
+                positions=positions, block_kwargs=block_kwargs,
                 gather=plan and plan["decoder"],
             )
         if mode == "prefill":
-            x = x[:, -1:]
+            x = last_position(x, ctx, sp)
         x = self.final_norm(whole("final_norm"), x, ctx=ctx)
-        entered = sp is not None and split_vocab
+        entered = sp is not None and mode == "dense" and split_vocab
         if entered:  # the vocab-split logits cover the whole sequence
             x = gather_from(x, ctx.mesh, sp, 1)
         logits = self.embed.attend(whole("embed"), x, ctx=ctx, entered=entered)
         logits = ctx.constrain(logits, ("batch", "res_seq", "vocab"))
         if mode == "dense":
             return logits, None
-        return logits, {"decoder": new_dec_cache, "enc": enc}
+        new_cache = {"decoder": new_dec_cache, "enc": enc}
+        if kv_pos is not None:
+            new_cache["kv_pos"] = kv_pos
+        return logits, new_cache
 
     def component_blocks(self, batch: int, cache_len: int):
         """The encoder's and the decoder's block for compositional roofline

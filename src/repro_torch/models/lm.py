@@ -37,7 +37,13 @@ cover the whole sequence.  A vocab it does not divide (the rules'
 shape-aware drop, `sharding.logical_to_pspec`) stays whole on every rank:
 the logits are then the rank's block of positions over the whole vocab
 (`whole_logits` puts either kind together), as GSPMD lays out the
-reference's `res_seq` / `seq_act` / `vocab` rules.
+reference's `res_seq` / `seq_act` / `vocab` rules.  Serving under
+`fsdp_sp`, a prefill whose length the axis divides splits as training does
+(its last position is the last rank's, gathered: `last_position`); a
+decode step's tokens and a prompt the axis does not divide are whole on
+every rank (`serving_sequence`); the KV caches hold each rank's share of
+their slots (`nn/attention.py`), the hoisted `kv_pos` map their whole
+length.
 
 Caches are plain dicts of tensors, with a leading per-layer dim per stack;
 a decode step (and a paged prefill) updates the KV cache tensors it is given
@@ -46,6 +52,7 @@ in place, while recurrent states come back as new tensors.
 
 from __future__ import annotations
 
+import copy
 from typing import Any
 
 import torch
@@ -53,7 +60,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.collectives import (all_gather, all_reduce, gather_from,
                                                 reduce_from, seq_block)
-from repro_torch.distributed.sharding import SEQ_CACHE_ITEM, gather_plan, gather_tree, seq_axis
+from repro_torch.distributed.sharding import gather_plan, gather_tree, kv_seq_axis, seq_axis
 from repro_torch.nn.attention import Attention, cache_spec
 from repro_torch.nn.blocks import MLP, Embedding, LayerNorm, Linear, RMSNorm
 from repro_torch.nn.module import Ctx, Module
@@ -108,6 +115,53 @@ def sequence_block(x: torch.Tensor, positions: torch.Tensor, ctx: Ctx, sp: str,
     start = ctx.mesh.coord(sp) * size
     block = seq_block(x, ctx.mesh, sp, 1) if gathered_grad else x.narrow(1, start, size)
     return block, positions.narrow(1, start, size)
+
+
+def serving_sequence(ctx: Ctx, sp: str | None, mode: str, length: int):
+    """`fsdp_sp` serving: `(ctx, sp)` for a step over `length` positions.
+    A prefill whose length the sequence axis divides splits it as training
+    does; a decode step's tokens, and a prompt the axis does not divide, are
+    whole on every rank: the ctx drops the residual stream's split (the
+    caches' `kv_seq` split stays), so attention and a MoE layer take the
+    whole sequence, as the reference's shape-guarded constraints leave it."""
+    if sp is None or mode == "dense" or (mode == "prefill"
+                                         and length % ctx.mesh.shape[sp] == 0):
+        return ctx, sp
+    whole = copy.copy(ctx)
+    whole.rules = {**ctx.rules, "res_seq": None, "seq_act": None}
+    return whole, None
+
+
+def last_position(x: torch.Tensor, ctx: Ctx, sp: str | None) -> torch.Tensor:
+    """A prefill's last position (B, 1, ...): the last rank's under a split
+    of the sequence over `sp`, gathered so that every rank holds it."""
+    x = x[:, -1:]
+    if sp is None:
+        return x
+    return all_gather(x, ctx.mesh, sp, 1)[:, -1:]
+
+
+def advance_kv_pos(kv_pos: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """The hoisted (B, T) slot -> position map of linear caches after a
+    decode step writes `positions` (B, S), in place; positions past the
+    cache's end are dropped, as the reference's scatter does: they are
+    pointed at their old contents instead."""
+    B, T = kv_pos.shape
+    pos = positions.to(torch.long)
+    ok = (pos >= 0) & (pos < T)
+    safe = torch.where(ok, pos, torch.zeros_like(pos))
+    rows = torch.arange(B, device=kv_pos.device)[:, None].expand_as(pos)
+    kv_pos[rows, safe] = torch.where(ok, positions.to(kv_pos.dtype), kv_pos[rows, safe])
+    return kv_pos
+
+
+def prefill_kv_pos(T: int, positions: torch.Tensor) -> torch.Tensor:
+    """(B, T) slot -> position map of a linear cache after a prefill of
+    `positions` (the whole prompt's): slot s holds position s for s up to
+    the last position, -1 beyond."""
+    ar = torch.arange(T, dtype=torch.int32, device=positions.device)[None]
+    last = positions[:, -1:].to(torch.int32)
+    return torch.where(ar <= last, ar, torch.full_like(ar, -1))
 
 
 def greedy_argmax(logits: torch.Tensor, mesh, vocab: int) -> torch.Tensor:
@@ -176,7 +230,7 @@ class DecoderBlock(Module):
 
     def forward(self, params, x, *, ctx: Ctx, mode="dense", cache=None,
                 positions=None, kv_pos=None, block_tables=None, prefix_len=0,
-                skip_cache_write=False):
+                skip_cache_write=False, page_size=None):
         with ctx.scope(self.name):
             h = self.norm1(params["norm1"], x, ctx=ctx)
             h = ctx.constrain(h, ("batch", "seq_act", "embed"))
@@ -184,7 +238,8 @@ class DecoderBlock(Module):
                                      mode=mode, cache=cache, kv_pos=kv_pos,
                                      block_tables=block_tables,
                                      prefix_len=prefix_len,
-                                     skip_cache_write=skip_cache_write)
+                                     skip_cache_write=skip_cache_write,
+                                     page_size=page_size)
             x = x + h
             h = self.norm2(params["norm2"], x, ctx=ctx)
             h = ctx.constrain(h, ("batch", "seq_act", "embed"))
@@ -353,8 +408,10 @@ class TransformerLM(Module):
                 raise ValueError("paged prefill with a shared prefix needs "
                                  "explicit (prefix-offset) positions")
             positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+        whole_positions = positions
+        ctx, sp = serving_sequence(ctx, sp, mode, S)
         if sp is not None:
-            x, positions = self._seq_block(x, positions, params, ctx, sp, mode)
+            x, positions = self._seq_block(x, positions, params, ctx, sp)
 
         new_caches: dict[str, Any] = {}
         # Hoisted linear-cache decode positions: updated ONCE per step (an
@@ -367,16 +424,7 @@ class TransformerLM(Module):
         kv_pos = None
         block_tables = None
         if mode == "decode" and cache is not None and "kv_pos" in cache:
-            kv_pos = cache["kv_pos"]
-            T = kv_pos.shape[1]
-            # positions past the cache's end are dropped, as the reference's
-            # scatter does: they are pointed at their old contents instead
-            pos = positions.to(torch.long)
-            ok = (pos >= 0) & (pos < T)
-            safe = torch.where(ok, pos, torch.zeros_like(pos))
-            rows = torch.arange(B, device=x.device)[:, None].expand_as(pos)
-            kv_pos[rows, safe] = torch.where(
-                ok, positions.to(kv_pos.dtype), kv_pos[rows, safe])
+            kv_pos = advance_kv_pos(cache["kv_pos"], positions)
             new_caches["kv_pos"] = kv_pos
         if mode in ("decode", "prefill") and cache is not None \
                 and "block_tables" in cache:
@@ -389,6 +437,8 @@ class TransformerLM(Module):
             shared["block_tables"] = block_tables
             if mode == "prefill":
                 shared["prefix_len"] = prefix_len
+            if "page_size" in cache:  # a page's slots, every rank's
+                shared["page_size"] = cache["page_size"]
         if skip_cache_write:
             # threaded unconditionally: a re-score step against a table-less
             # (dense) cache must reach Attention's contract guard, not
@@ -423,16 +473,21 @@ class TransformerLM(Module):
                                 cache=part_cache, positions=positions, **attn_kw)
                 new_caches[part.name] = c
         if mode == "prefill":
-            kvp = self._prefill_kv_pos(new_caches, positions)
+            # under a split of the caches the map covers every rank's slots
+            length = None
+            if kv_seq_axis(ctx.mesh, ctx.rules) is not None:
+                S_all = whole_positions.shape[1]
+                length = max(int(ctx.extra.get("cache_max_len", S_all)), S_all)
+            kvp = self._prefill_kv_pos(new_caches, whole_positions, length)
             if kvp is not None:
                 new_caches["kv_pos"] = kvp
 
         if mode == "prefill":
-            x = x[:, -1:]
+            x = last_position(x, ctx, sp)
         x = self.final_norm(whole("final_norm"), x, ctx=ctx)
         head = params["head"]["w"].shape[-1] if self.head is not None \
             else params["embed"]["table"].shape[0]
-        entered = sp is not None and head != self.cfg.vocab
+        entered = sp is not None and mode == "dense" and head != self.cfg.vocab
         if entered:  # the vocab-split logits cover the whole sequence
             x = gather_from(x, ctx.mesh, sp, 1)
         if self.head is not None:
@@ -444,15 +499,11 @@ class TransformerLM(Module):
             return logits, None
         return logits, new_caches
 
-    def _seq_block(self, x, positions, params, ctx: Ctx, sp: str, mode: str):
+    def _seq_block(self, x, positions, params, ctx: Ctx, sp: str):
         """`fsdp_sp`: this rank's block of the sequence of the embedded
         tokens (after a VLM's image prefix) and of their positions
         (`sequence_block`); rows of a vocab-split table were added over the
         vocab blocks, so every rank holds them alike."""
-        if mode != "dense":
-            raise NotImplementedError(
-                f"serving under fsdp_sp on a live mesh: its KV caches are "
-                f"sequence-sharded (kv_seq) ({SEQ_CACHE_ITEM})")
         split = params["embed"]["table"].shape[0] != self.cfg.vocab
         return sequence_block(x, positions, ctx, sp, split)
 
@@ -485,17 +536,16 @@ class TransformerLM(Module):
     # -- caches -------------------------------------------------------------------
 
     @staticmethod
-    def _prefill_kv_pos(new_caches, positions):
+    def _prefill_kv_pos(new_caches, positions, length=None):
         """(B, T) slot->position map for the *linear* attention caches, built
         once at prefill and carried in the cache dict (slot s holds position
         s for s < S, -1 beyond).  Ring caches carry their own `pos` and need
-        no shared map."""
+        no shared map.  `length`: the caches' whole length where a rank
+        holds a share of their slots."""
         for c in new_caches.values():
             if isinstance(c, dict) and "k" in c and "pos" not in c:
-                T = c["k"].shape[-3]  # (..., B, T, K, D)
-                ar = torch.arange(T, dtype=torch.int32, device=positions.device)[None]
-                last = positions[:, -1:].to(torch.int32)
-                return torch.where(ar <= last, ar, torch.full_like(ar, -1))
+                T = length or c["k"].shape[-3]  # (..., B, T, K, D)
+                return prefill_kv_pos(T, positions)
         return None
 
     def _layer_cache_spec(self, batch: int, cache_len: int):
@@ -562,7 +612,13 @@ class TransformerLM(Module):
             nonlocal rung
             if "k" in vals[0] and any("pos" in v for v in vals):
                 W = next(v["k"].shape[-3] for v in vals if "pos" in v)
-                rung = rung or not all("pos" in v for v in vals)
+                mixed = not all("pos" in v for v in vals)
+                if mixed and any(v["pos"].shape[-1] != W for v in vals if "pos" in v):
+                    raise ValueError("a batch of prompts on both sides of the window "
+                                     "cannot stack when its caches hold a rank's share "
+                                     "of the slots (the reference cannot stack them "
+                                     "at all)")
+                rung = rung or mixed
                 vals = [v if "pos" in v else _linear_to_ring(v, W) for v in vals]
             out = {}
             for key in vals[0]:

@@ -48,6 +48,18 @@ not divide `model`: there q is replicated over `model` on the whole
 sequence.  Cross-attention's q is the rank's block of decoder tokens and
 its K / V come from the whole encoder output (`models/encdec.py` gathers
 it once over the axis): its output is the rank's block as it stands.
+
+Serving under `fsdp_sp` (`sharding.kv_seq_axis`) a rank holds its share of
+every cache's sequence (`sharding.seq_share`): the block [r T/n, (r+1) T/n)
+of a dense cache of T slots (a ring's W), the slots [r ps/n, (r+1) ps/n)
+of every page of a pool — where n divides T (ps), else the whole cache.  A
+prefill gathers the prompt's K / V and keeps (writes) the rank's slots; a
+decode step's tokens are whole on every rank and each is written by the
+rank that holds its slot.  Every attention over a cache runs over the
+rank's slots alone — `flash_decode`'s block mode, or the plain attention
+with its lse (`eager_attention_lse`) — and the ranks' (o, lse) are merged
+in rank order (`collectives.combine_attention`).  The hoisted `kv_pos`
+(and `page_size`) give a cache's whole length (a page's).
 """
 
 from __future__ import annotations
@@ -57,8 +69,10 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.distributed.collectives import all_gather, copy_to, gather_from
-from repro_torch.distributed.sharding import seq_axis
+from repro_torch.distributed.collectives import (all_gather, combine_attention, copy_to,
+                                                gather_from)
+from repro_torch.distributed.sharding import kv_seq_axis, seq_axis, seq_share
+from repro_torch.kernels.flash_attention.decode import share_count, share_slots
 from repro_torch.kernels.flash_attention.ops import (
     dequantize_kv,
     flash_attention,
@@ -145,6 +159,32 @@ def eager_attention(q, k, v, mask, *, softcap=None, accum_dtype=torch.float32):
     # probabilities drop to v's dtype before P.V, as in the reference
     out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
     return out.reshape(B, S, H, D)
+
+
+def eager_attention_lse(q, k, v, mask, *, softcap=None, accum_dtype=torch.float32):
+    """`eager_attention` over a rank's share of the keys, for the ranks'
+    merge (`collectives.combine_attention`): (o, lse), o (B, S, H, D) fp32
+    normalised over the share (probabilities dropped to v's dtype before
+    P.V, as `eager_attention` drops them) and lse = m + log l (B, S, H)
+    fp32, -inf (and o = 0) where a row sees none of the share's keys."""
+    B, S, H, D = q.shape
+    K = k.shape[2]
+    G = H // K
+    qf = q.to(accum_dtype).reshape(B, S, K, G, D)
+    scores = torch.einsum("bskgd,btkd->bkgst", qf, k.to(accum_dtype)) / np.sqrt(D)
+    if softcap is not None:
+        scores = torch.tanh(scores / softcap) * softcap
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF)).to(torch.float32)
+    live = mask.expand_as(scores)
+    m = torch.amax(scores, dim=-1, keepdim=True)
+    p = torch.exp(scores - m) * live.to(torch.float32)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    probs = p / torch.clamp(l, min=1e-30)
+    out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+    lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-30)),
+                      torch.full_like(l, -np.inf))[..., 0]  # (B, K, G, S)
+    return (out.reshape(B, S, H, D).to(torch.float32),
+            lse.permute(0, 3, 1, 2).reshape(B, S, H))
 
 
 def eager_attention_blocked(
@@ -299,6 +339,7 @@ class Attention(Module):
         block_tables: torch.Tensor | None = None,  # paged caches: (B, NB) pages
         prefix_len: int = 0,  # paged prefill: shared-prefix slots
         skip_cache_write: bool = False,  # paged re-score: no cache mutation
+        page_size: int | None = None,  # paged caches: a page's slots (all ranks')
     ):
         with ctx.scope(self.name):
             policy = ctx.policy()
@@ -317,11 +358,12 @@ class Attention(Module):
             elif mode == "decode":
                 out, new_cache = self._decode(params, q, x, positions, ctx, policy,
                                               cache, kv_pos, block_tables,
-                                              skip_write=skip_cache_write)
+                                              skip_write=skip_cache_write,
+                                              page_size=page_size)
             elif mode == "prefill" and cache is not None and "pk" in cache:
                 out, new_cache = self._prefill_paged(
                     params, q, x, positions, ctx, policy, cache, block_tables,
-                    prefix_len)
+                    prefix_len, page_size)
             else:
                 out, new_cache = self._dense(params, q, x, positions, ctx, policy, mode)
 
@@ -359,8 +401,8 @@ class Attention(Module):
         else:  # fsdp_sp: the whole sequence, then this rank's block of it
             S = q.shape[1]
             q, k, v = (gather_from(t, ctx.mesh, sp, 1) for t in (q, k, v))
-            out = self._attend_dense(q, k, v, all_gather(positions, ctx.mesh, sp, 1),
-                                     ctx, policy)
+            positions = all_gather(positions, ctx.mesh, sp, 1)
+            out = self._attend_dense(q, k, v, positions, ctx, policy)
             out = out.narrow(1, ctx.mesh.coord(sp) * S, S)
 
         new_cache = None
@@ -434,10 +476,14 @@ class Attention(Module):
         return self.n_heads % self.kv_heads == 0
 
     def _build_cache(self, k, v, positions, ctx, policy):
-        """Prefill: pack computed K/V into a cache dict for decode.
+        """Prefill: pack computed K/V (the whole prompt's) into a cache dict
+        for decode.
 
         Linear caches are padded to ctx.extra["cache_max_len"] (default: no
         growth room, where the one new token would occupy the final slot).
+        Under a sequence split of the caches (`sharding.seq_share` of the
+        cache's length) the rank keeps its block of the slots (of a ring's
+        too; its `pos` map stays whole).
         """
         B, S = k.shape[0], k.shape[1]
         if self.mask in ("sliding", "local") and self.window is not None and self.window < S:
@@ -445,15 +491,30 @@ class Attention(Module):
             k_w, v_w = k[:, -W:], v[:, -W:]
             pos_w = positions[0, -W:].to(torch.int32)
             slots = (pos_w % W).to(torch.long)
-            kc = torch.zeros((B, W, *k.shape[2:]), dtype=k.dtype, device=k.device)
-            vc = torch.zeros((B, W, *v.shape[2:]), dtype=v.dtype, device=v.device)
-            kc[:, slots] = k_w
-            vc[:, slots] = v_w
             pos = torch.full((W,), -1, dtype=torch.int32, device=k.device)
             pos[slots] = pos_w
+            share = self._share(ctx, W)
+            n = share[0] if share else W
+            if share:  # the rank's block of the ring's slots
+                own = (slots >= share[2]) & (slots < share[2] + n)
+                k_w, v_w, slots = k_w[:, own], v_w[:, own], slots[own] - share[2]
+            kc = torch.zeros((B, n, *k.shape[2:]), dtype=k.dtype, device=k.device)
+            vc = torch.zeros((B, n, *v.shape[2:]), dtype=v.dtype, device=v.device)
+            kc[:, slots] = k_w
+            vc[:, slots] = v_w
             return {"k": kc, "v": vc, "pos": pos,
                     "index": torch.tensor(S, dtype=torch.int32, device=k.device)}
         max_len = int(ctx.extra.get("cache_max_len", S))
+        share = self._share(ctx, max(max_len, S))
+        if share:  # the rank's block [phase, phase + sub) of the slots
+            sub, _, phase = share
+            kc = torch.zeros((B, sub, *k.shape[2:]), dtype=k.dtype, device=k.device)
+            vc = torch.zeros((B, sub, *v.shape[2:]), dtype=v.dtype, device=v.device)
+            n = max(0, min(S - phase, sub))
+            kc[:, :n] = k[:, phase:phase + n]
+            vc[:, :n] = v[:, phase:phase + n]
+            return {"k": kc, "v": vc,
+                    "index": torch.tensor(S, dtype=torch.int32, device=k.device)}
         if max_len > S:
             kc = torch.zeros((B, max_len, *k.shape[2:]), dtype=k.dtype, device=k.device)
             vc = torch.zeros((B, max_len, *v.shape[2:]), dtype=v.dtype, device=v.device)
@@ -466,7 +527,7 @@ class Attention(Module):
     # -- decode (a block of S >= 1 new tokens against a cache) --------------------
 
     def _decode(self, params, q, x, positions, ctx, policy, cache, kv_pos=None,
-                block_tables=None, skip_write=False):
+                block_tables=None, skip_write=False, page_size=None):
         """S >= 1 new tokens against a linear, ring or *paged* cache.
 
         The cache tensors are updated in place and the attention dispatches
@@ -506,7 +567,7 @@ class Attention(Module):
         if "pk" in cache:
             return self._decode_paged(q, k_new, v_new, positions, ctx, policy,
                                       cache, kv_pos, block_tables,
-                                      skip_write=skip_write)
+                                      skip_write=skip_write, page_size=page_size)
         if skip_write:
             raise ValueError("skip_cache_write (the re-score step) is a "
                              "paged-cache contract — dense caches decode "
@@ -528,7 +589,13 @@ class Attention(Module):
     def _decode_written(self, q, k_new, v_new, positions, ctx, policy, cache,
                         kv_pos):
         """Write S projected tokens into a dense (linear/ring) cache — in
-        place — and attend them: the post-projection body of `_decode`."""
+        place — and attend them: the post-projection body of `_decode`.
+
+        Under a sequence split of the caches the cache holds the rank's
+        block of the slots (`sharding.seq_share` of the ring's W, or of the
+        linear cache's T — the hoisted `kv_pos`'s width): a token is written
+        by the rank that holds its slot, every rank attends its block and
+        the ranks' partials are merged (`_merge`)."""
         B, S = q.shape[0], q.shape[1]
         idx = cache["index"]
         per_req = idx.ndim == 1  # stacked multi-request caches
@@ -541,12 +608,12 @@ class Attention(Module):
         if ring:
             if S != 1:
                 raise ValueError("ring caches decode one token at a time (unrolled)")
-            W = k_all.shape[1]
-            slot = (idx % W).to(torch.long)
             pos = cache["pos"]
+            W = pos.shape[-1]
+            share = self._cache_share(ctx, W, k_all.shape[1])
+            slot = (idx % W).to(torch.long)
             if per_req:
-                k_all[bidx, slot] = k_new[:, 0]
-                v_all[bidx, slot] = v_new[:, 0]
+                _write_rows(k_all, v_all, bidx, slot, k_new[:, 0], v_new[:, 0], share)
                 pos[bidx, slot] = idx  # (B, W)
                 kv_pos = pos
             else:
@@ -554,14 +621,16 @@ class Attention(Module):
                 # tensor reads it on the host (a sync on the card, and
                 # impossible on the meta device the roofline costs on)
                 one = slot.reshape(1)
-                k_all[:, one] = k_new
-                v_all[:, one] = v_new
+                _write_rows(k_all, v_all, slice(None), one, k_new, v_new, share)
                 pos[one] = idx.reshape(1)
                 kv_pos = pos.expand(B, W)
             new_cache = {"k": k_all, "v": v_all, "pos": pos, "index": idx + 1}
             kernel_window = None  # the ring layout *is* the window
         else:
-            T = k_all.shape[1]
+            share = self._cache_share(
+                ctx, kv_pos.shape[1] if kv_pos is not None else k_all.shape[1],
+                k_all.shape[1], hoisted=kv_pos is not None)
+            T = share[1] if share else k_all.shape[1]  # the whole cache's slots
             if per_req:
                 # slots index..index+S-1 per request; slots past the end
                 # (cache full) are dropped, as the reference's scatter does:
@@ -570,17 +639,27 @@ class Attention(Module):
                 ok = slots < T
                 safe = torch.where(ok, slots, torch.zeros_like(slots))
                 rows = bidx[:, None].expand(B, S)
-                keep = ok[..., None, None]
-                k_all[rows, safe] = torch.where(keep, k_new, k_all[rows, safe])
-                v_all[rows, safe] = torch.where(keep, v_new, v_all[rows, safe])
+                if share is None:
+                    keep = ok[..., None, None]
+                    k_all[rows, safe] = torch.where(keep, k_new, k_all[rows, safe])
+                    v_all[rows, safe] = torch.where(keep, v_new, v_all[rows, safe])
+                else:
+                    for s in range(S):  # one token a request at a time: no slot twice
+                        _write_rows(k_all, v_all, bidx, safe[:, s], k_new[:, s],
+                                    v_new[:, s], share, keep=ok[:, s])
             else:
                 # a block that would run past the end is moved back so that
                 # it ends at the last slot, as the reference's
                 # dynamic_update_slice clamps its start
                 start = torch.clamp(idx.to(torch.long), 0, max(T - S, 0))
                 span = start + torch.arange(S, device=dev)
-                k_all[:, span] = k_new
-                v_all[:, span] = v_new
+                if share is None:
+                    k_all[:, span] = k_new
+                    v_all[:, span] = v_new
+                else:
+                    for s in range(S):
+                        _write_rows(k_all, v_all, slice(None), span[s:s + 1],
+                                    k_new[:, s:s + 1], v_new[:, s:s + 1], share)
             if kv_pos is None:
                 # fallback for single-layer callers; the model hoists this
                 # into the cache dict so all layers share one kv_pos
@@ -594,20 +673,66 @@ class Attention(Module):
 
         if self._use_kernel(ctx, q):
             out = flash_decode(q, k_all, v_all, idx, window=kernel_window,
-                               **self._decode_kw(ctx))
-            return out, new_cache
+                               **self._decode_kw(ctx, share))
+            return self._merge(out, ctx, q.dtype, share), new_cache
 
+        if share is not None:  # the positions the rank's slots hold
+            kv_pos = kv_pos[:, share[2]:share[2] + share[0]]
         mask = _mask_dense(positions, kv_pos, self.mask, self.window)[:, None, None]
-        out = eager_attention(q, k_all, v_all, mask, softcap=self.softcap,
-                              accum_dtype=policy.accum_dtype)
-        return out, new_cache
+        out = self._eager(q, k_all, v_all, mask, policy, share)
+        return self._merge(out, ctx, v_all.dtype, share), new_cache
 
-    def _decode_kw(self, ctx) -> dict:
-        """The `flash_decode` options every cache layout shares."""
+    # -- a rank's share of sequence-split caches --------------------------------------
+
+    def _share(self, ctx, length: int):
+        """(sub, span, phase): the rank's share of a cache dim of `length`
+        slots under a sequence split, or None where the dim stays whole."""
+        return seq_share(ctx.mesh, ctx.rules, int(length))
+
+    def _cache_share(self, ctx, length: int, held: int, hoisted: bool = True):
+        """`_share` of a cache whose whole length is `length` and whose rank
+        holds `held` slots, checked against them (None off a sequence
+        split)."""
+        if kv_seq_axis(ctx.mesh, ctx.rules) is None:
+            return None
+        if not hoisted:
+            raise ValueError("a sequence-split linear cache decodes with the "
+                             "model's hoisted kv_pos (its whole length)")
+        share = self._share(ctx, length)
+        if held != (share[0] if share else length):
+            raise ValueError(f"the cache holds {held} slots of {length}: the rank's "
+                             f"share is {share}")
+        return share
+
+    def _eager(self, q, k, v, mask, policy, share):
+        """The plain attention: the whole cache's, or a rank's share's
+        (o, lse) for the merge."""
+        if share is None:
+            return eager_attention(q, k, v, mask, softcap=self.softcap,
+                                   accum_dtype=policy.accum_dtype)
+        return eager_attention_lse(q, k, v, mask, softcap=self.softcap,
+                                   accum_dtype=policy.accum_dtype)
+
+    @staticmethod
+    def _merge(out, ctx, dtype, share):
+        """A whole cache's output as it is; a share's (o, lse) merged over
+        the split axis (`collectives.combine_attention`), rounded to
+        `dtype` once."""
+        if share is None:
+            return out
+        o, lse = out
+        return combine_attention(o, lse, ctx.mesh, kv_seq_axis(ctx.mesh, ctx.rules)).to(dtype)
+
+    def _decode_kw(self, ctx, share=None) -> dict:
+        """The `flash_decode` options every cache layout shares, and a rank's
+        share of the cache's slots where it holds one (`block`)."""
         blk = ctx.extra.get("flash_block_kv_dec")  # woven extras win
-        return {"softcap": self.softcap,
-                "block_kv": int(blk) if blk is not None else None,
-                "pruned": bool(ctx.extra.get("flash_pruned", True))}
+        kw = {"softcap": self.softcap,
+              "block_kv": int(blk) if blk is not None else None,
+              "pruned": bool(ctx.extra.get("flash_pruned", True))}
+        if share is not None:
+            kw["block"] = share
+        return kw
 
     def _kernel_window(self):
         return self.window if self.mask in ("sliding", "local") else None
@@ -615,7 +740,7 @@ class Attention(Module):
     # -- paged pools (K/V live in pages shared by every request) ------------------
 
     def _prefill_paged(self, params, q, x, positions, ctx, policy, cache,
-                       block_tables, prefix_len: int):
+                       block_tables, prefix_len: int, page_size=None):
         """Prefill one request straight into a page pool: the `prefix_len`
         leading slots are already resident (shared pages the request's block
         table maps), only the non-shared suffix is computed here, and its
@@ -640,6 +765,15 @@ class Attention(Module):
         sharing stays bit-invisible), else through the gathered logical view
         and the plain attention.
 
+        Under a sequence split of the pools (`sharding.seq_share` of
+        `page_size`, every rank's page slots) the rank's pool holds its
+        slots of every page: the suffix's tokens are gathered whole (where
+        the prompt is split over the ranks), each rank writes the tokens its
+        slots hold, a quantized page's scale is taken from all the tokens
+        written to the page (every rank has them, so the scales are equal on
+        every rank), and an attention over the pool attends the rank's
+        slots and merges the ranks' partials.
+
         Serving layout only: one request at a time (B = 1).
         """
         if block_tables is None:
@@ -653,9 +787,24 @@ class Attention(Module):
             sin, cos = rope_angles(positions, self.head_dim, self.rope_theta)
             q = apply_rope(q, sin, cos)
             k_new = apply_rope(k_new, sin, cos)
+        sp = seq_axis(ctx.mesh, ctx.rules)
+        if sp is not None:  # the prompt split over the ranks: all of it, then our block
+            q, k_new, v_new = (all_gather(t, ctx.mesh, sp, 1) for t in (q, k_new, v_new))
+            positions = all_gather(positions, ctx.mesh, sp, 1)
+        out, new_cache = self._prefill_paged_whole(q, k_new, v_new, positions, ctx,
+                                                   policy, cache, block_tables,
+                                                   prefix_len, page_size)
+        if sp is not None:
+            out = out.narrow(1, ctx.mesh.coord(sp) * S, S)
+        return out, new_cache
 
+    def _prefill_paged_whole(self, q, k_new, v_new, positions, ctx, policy, cache,
+                             block_tables, prefix_len, page_size):
+        """`_prefill_paged` on the whole suffix (see there)."""
+        B, S = q.shape[0], q.shape[1]
         pk, pv = cache["pk"], cache["pv"]
-        ps = pk.shape[1]
+        ps = int(page_size or pk.shape[1])
+        share = self._pool_share(ctx, ps, pk.shape[1])
         if "pos" in cache:
             # a ring pool never shares a prefix (slot contents depend on the
             # wrap), so the whole prompt is here: keep its last W tokens at
@@ -667,8 +816,10 @@ class Attention(Module):
             slots = (pos_w % W).to(torch.long)
             page = block_tables[0].to(torch.long)[slots // ps]
             off = slots % ps
-            _write_slots(pk, page, off, cast(k_new[0, -keep:], pk.dtype))
-            _write_slots(pv, page, off, cast(v_new[0, -keep:], pv.dtype))
+            _write_share(pk, page, off, cast(k_new[0, -keep:], pk.dtype), share,
+                         one_request=True)
+            _write_share(pv, page, off, cast(v_new[0, -keep:], pv.dtype), share,
+                         one_request=True)
             pos = torch.full((W,), -1, dtype=torch.int32, device=q.device)
             pos[slots] = pos_w
             new_cache = {"pk": pk, "pv": pv, "pos": pos, "index": cache["index"] + S}
@@ -695,8 +846,8 @@ class Attention(Module):
             v_w = quantize_kv_write(v_new[0], vsc[page], pv.dtype)
         else:
             k_w, v_w = cast(k_new[0], pk.dtype), cast(v_new[0], pv.dtype)
-        _write_slots(pk, page, off, k_w)
-        _write_slots(pv, page, off, v_w)
+        _write_share(pk, page, off, k_w, share, one_request=True)
+        _write_share(pv, page, off, v_w, share, one_request=True)
         new_cache = {"pk": pk, "pv": pv, "index": cache["index"] + S}
         if quant:
             new_cache["ksc"], new_cache["vsc"] = ksc, vsc
@@ -706,8 +857,8 @@ class Attention(Module):
             index = torch.full((B,), prefix_len, dtype=torch.int32, device=q.device)
             out = flash_decode(q, pk, pv, index, window=self._kernel_window(),
                                tables=block_tables, kv_len=total, k_scale=ksc,
-                               v_scale=vsc, **self._decode_kw(ctx))
-            return out, new_cache
+                               v_scale=vsc, **self._decode_kw(ctx, share))
+            return self._merge(out, ctx, q.dtype, share), new_cache
         if prefix_len == 0:
             if quant:
                 k_att = dequantize_kv(k_w, ksc[page])[None]
@@ -717,22 +868,38 @@ class Attention(Module):
                 out = self._attend_dense(q, k_new, v_new, positions, ctx, policy)
             return out, new_cache
 
-        k_log, v_log = paged_gather_kv(pk, pv, block_tables, total,
+        n = total if share is None else share_count(total - 1, share)
+        k_log, v_log = paged_gather_kv(pk, pv, block_tables, n,
                                        k_scale=ksc, v_scale=vsc)
-        kv_pos = torch.arange(total, dtype=torch.int32, device=q.device).expand(B, total)
+        # the position each slot holds: the slot itself, or the cache slot
+        # the rank's slot holds
+        slots = torch.arange(n, device=q.device) if share is None else \
+            share_slots(n, share, q.device)
+        kv_pos = slots.to(torch.int32)[None].expand(B, n)
         block = int(ctx.extra.get("eager_attn_block", 1024))
-        if total > 2 * block:  # long prefixes: bounded-memory blocked path
+        if share is None and total > 2 * block:  # long prefixes: bounded-memory blocked path
             out = eager_attention_blocked(
                 q, k_log, v_log, positions, kv_pos, mask_kind=self.mask,
                 window=self.window, softcap=self.softcap, block=block)
-        else:
-            mask = _mask_dense(positions, kv_pos, self.mask, self.window)[:, None, None]
-            out = eager_attention(q, k_log, v_log, mask, softcap=self.softcap,
-                                  accum_dtype=policy.accum_dtype)
-        return out, new_cache
+            return out, new_cache
+        mask = _mask_dense(positions, kv_pos, self.mask, self.window)[:, None, None]
+        out = self._eager(q, k_log, v_log, mask, policy, share)
+        return self._merge(out, ctx, v_log.dtype, share), new_cache
+
+    def _pool_share(self, ctx, page_size: int, held: int):
+        """`_share` of a page pool's pages of `page_size` slots, whose rank
+        holds `held` slots of each, checked against them (None off a
+        sequence split)."""
+        if kv_seq_axis(ctx.mesh, ctx.rules) is None:
+            return None
+        share = self._share(ctx, page_size)
+        if held != (share[0] if share else page_size):
+            raise ValueError(f"the pool holds {held} slots of pages of {page_size}: "
+                             f"the rank's share is {share}")
+        return share
 
     def _decode_paged(self, q, k_new, v_new, positions, ctx, policy, cache,
-                      kv_pos, block_tables, skip_write=False):
+                      kv_pos, block_tables, skip_write=False, page_size=None):
         """Paged-pool decode: the request's logical slot s lives at
         (tables[b, s // ps], s % ps) of the shared pools; `index` is
         per-request (B,).
@@ -752,7 +919,12 @@ class Attention(Module):
         passed) decodes one token at a time: it is written at slot =
         index % W, evicting the position W back, its `pos` entry set, and
         the kernel walks all W slots with no window (the ring layout is the
-        window).  Ring pools never share, so a re-score never reaches one."""
+        window).  Ring pools never share, so a re-score never reaches one.
+
+        Under a sequence split of the pools (`_prefill_paged`) a token is
+        written by the rank whose slots hold it (every rank records a fresh
+        page's scale from the whole token), and every rank attends its
+        slots and merges the ranks' partials."""
         if block_tables is None:
             raise ValueError("paged caches need block_tables (the model "
                              "hoists cache['block_tables'] to every layer)")
@@ -760,12 +932,13 @@ class Attention(Module):
         if idx.ndim != 1:
             raise ValueError("paged caches are per-request: index must be "
                              f"(B,), got shape {tuple(idx.shape)}")
+        pk, pv = cache["pk"], cache["pv"]
+        ps = int(page_size or pk.shape[1])
+        share = self._pool_share(ctx, ps, pk.shape[1])
         if "pos" in cache:
             return self._decode_ring_paged(q, k_new, v_new, positions, ctx, policy,
-                                           cache, block_tables, skip_write)
+                                           cache, block_tables, skip_write, ps, share)
         B, S = q.shape[0], q.shape[1]
-        pk, pv = cache["pk"], cache["pv"]
-        ps = pk.shape[1]
         quant = "ksc" in cache
         ksc, vsc = (cache["ksc"], cache["vsc"]) if quant else (None, None)
         # true logical length: the hoisted kv_pos row width (the table may
@@ -794,8 +967,8 @@ class Attention(Module):
                 v_w = quantize_kv_write(v_new, vsc[page], pv.dtype)
             else:
                 k_w, v_w = cast(k_new, pk.dtype), cast(v_new, pv.dtype)
-            _write_slots(pk, page, off, k_w, keep=ok)
-            _write_slots(pv, page, off, v_w, keep=ok)
+            _write_share(pk, page, off, k_w, share, keep=ok)
+            _write_share(pv, page, off, v_w, share, keep=ok)
         if quant:
             new_cache["ksc"], new_cache["vsc"] = ksc, vsc
         if kv_pos is None:
@@ -807,21 +980,23 @@ class Attention(Module):
         if self._use_kernel(ctx, q):
             out = flash_decode(q, pk, pv, idx, window=self._kernel_window(),
                                tables=block_tables, kv_len=kv_len, k_scale=ksc,
-                               v_scale=vsc, **self._decode_kw(ctx))
-            return out, new_cache
+                               v_scale=vsc, **self._decode_kw(ctx, share))
+            return self._merge(out, ctx, q.dtype, share), new_cache
 
-        # plain path: gather the logical view through the table, then the
-        # dense decode math, masked from the caller's positions
-        k_log, v_log = paged_gather_kv(pk, pv, block_tables, kv_len,
+        # plain path: gather the logical view through the table (the
+        # rank's slots of it under a share), then the dense decode math,
+        # masked from the caller's positions
+        n = kv_len if share is None else share_count(kv_len - 1, share)
+        k_log, v_log = paged_gather_kv(pk, pv, block_tables, n,
                                        k_scale=ksc, v_scale=vsc)
+        if share is not None:
+            kv_pos = kv_pos[:, share_slots(n, share, q.device)]
         mask = _mask_dense(positions, kv_pos, self.mask, self.window)[:, None, None]
-        out = eager_attention(q, k_log, v_log, mask, softcap=self.softcap,
-                              accum_dtype=policy.accum_dtype)
-        return out, new_cache
-
+        out = self._eager(q, k_log, v_log, mask, policy, share)
+        return self._merge(out, ctx, v_log.dtype, share), new_cache
 
     def _decode_ring_paged(self, q, k_new, v_new, positions, ctx, policy, cache,
-                           block_tables, skip_write):
+                           block_tables, skip_write, ps, share):
         """`_decode_paged` over a ring pool (see there)."""
         if q.shape[1] > 1:
             raise ValueError("ring pools decode one token at a time (eviction "
@@ -832,29 +1007,30 @@ class Attention(Module):
                              "ring pools never share")
         idx = cache["index"]
         pk, pv, pos = cache["pk"], cache["pv"], cache["pos"]
-        ps, W = pk.shape[1], pos.shape[-1]
+        W = pos.shape[-1]
         bidx = torch.arange(q.shape[0], device=q.device)
         slot = (idx % W).to(torch.long)
         page = block_tables.to(torch.long)[bidx, slot // ps]
         off = slot % ps
-        _write_slots(pk, page, off, cast(k_new[:, 0], pk.dtype))
-        _write_slots(pv, page, off, cast(v_new[:, 0], pv.dtype))
+        _write_share(pk, page, off, cast(k_new[:, 0], pk.dtype), share)
+        _write_share(pv, page, off, cast(v_new[:, 0], pv.dtype), share)
         pos[bidx, slot] = idx.to(pos.dtype)
         new_cache = {"pk": pk, "pv": pv, "pos": pos, "index": idx + 1}
 
         if self._use_kernel(ctx, q):
             # the ring layout *is* the window: the walk covers all W slots
             out = flash_decode(q, pk, pv, idx, window=None, tables=block_tables,
-                               kv_len=W, **self._decode_kw(ctx))
-            return out, new_cache
+                               kv_len=W, **self._decode_kw(ctx, share))
+            return self._merge(out, ctx, q.dtype, share), new_cache
 
         # plain path: the logical ring view through the table, masked by
         # the position each slot holds
-        k_log, v_log = paged_gather_kv(pk, pv, block_tables, W)
-        mask = _mask_dense(positions, pos, self.mask, self.window)[:, None, None]
-        out = eager_attention(q, k_log, v_log, mask, softcap=self.softcap,
-                              accum_dtype=policy.accum_dtype)
-        return out, new_cache
+        n = W if share is None else share_count(W - 1, share)
+        k_log, v_log = paged_gather_kv(pk, pv, block_tables, n)
+        held = pos if share is None else pos[:, share_slots(n, share, q.device)]
+        mask = _mask_dense(positions, held, self.mask, self.window)[:, None, None]
+        out = self._eager(q, k_log, v_log, mask, policy, share)
+        return self._merge(out, ctx, v_log.dtype, share), new_cache
 
     # -- cross attention (whisper decoder) ----------------------------------------
 
@@ -867,15 +1043,21 @@ class Attention(Module):
         the KV heads of the rank's q heads; under `fsdp_sp` q is the rank's
         block of tokens and `kv_src` the whole encoder output, entering the
         whole K / V projections (the `copy_to` below is Megatron's column
-        split's alone).  A single-token decode step under
+        split's alone), and the cache keeps the rank's block of the frames
+        where the sequence axis divides them (`sharding.seq_share`): a
+        decode step attends the rank's frames and merges the ranks'
+        partials.  A single-token decode step under
         the `cuda` impl attends through `flash_decode` at `index = T - 1`:
         the encoder length is fixed, so every slot is live and the causal
         bound of the last slot is the full mask.  Every multi-token call
         (prefill, dense) takes the plain attention, as in the reference:
         no kernel runs there."""
+        share = None
         if cache is not None and "ck" in cache:
             k, v = cache["ck"], cache["cv"]
             new_cache = cache
+            T = kv_src.shape[1] if kv_src is not None else k.shape[1]
+            share = self._cache_share(ctx, T, k.shape[1])
         else:
             if kv_src is None:
                 raise ValueError("cross-attention needs kv_src or a cached "
@@ -885,17 +1067,64 @@ class Attention(Module):
                 # K / V projections as the residual enters q's
                 kv_src = copy_to(kv_src, ctx.mesh, "model")
             k, v = self._kv_proj(params, kv_src, policy, ctx)
-            new_cache = {"ck": k, "cv": v}
+            keep = self._share(ctx, k.shape[1])
+            new_cache = {"ck": k, "cv": v} if keep is None else {
+                "ck": k[:, keep[2]:keep[2] + keep[0]].contiguous(),
+                "cv": v[:, keep[2]:keep[2] + keep[0]].contiguous()}
         B, S = q.shape[0], q.shape[1]
         T = k.shape[1]
         if mode == "decode" and S == 1 and self._use_kernel(ctx, q):
-            index = torch.full((B,), T - 1, dtype=torch.int32, device=q.device)
-            out = flash_decode(q, k, v, index, **self._decode_kw(ctx))
-            return out, new_cache
+            T_all = T if share is None else share[1]
+            index = torch.full((B,), T_all - 1, dtype=torch.int32, device=q.device)
+            out = flash_decode(q, k, v, index, **self._decode_kw(ctx, share))
+            return self._merge(out, ctx, q.dtype, share), new_cache
         mask = torch.ones((B, 1, 1, S, T), dtype=torch.bool, device=q.device)
-        out = eager_attention(q, k, v, mask, softcap=self.softcap,
-                              accum_dtype=policy.accum_dtype)
-        return out, new_cache
+        out = self._eager(q, k, v, mask, policy, share)
+        return self._merge(out, ctx, v.dtype, share), new_cache
+
+
+def _write_rows(k_all, v_all, rows, slot, k_tok, v_tok, share, keep=None):
+    """k_all[rows, slot] = k_tok and v_all[rows, slot] = v_tok, in place, at
+    a dense cache's slots: under a share the rank writes the slots its block
+    holds (at slot - phase) and the others keep their bytes.  No two of the
+    written (row, slot) may coincide."""
+    if share is None:
+        k_all[rows, slot] = k_tok
+        v_all[rows, slot] = v_tok
+        return
+    sub, _, phase = share
+    own = (slot >= phase) & (slot < phase + sub)
+    if keep is not None:
+        own = own & keep
+    loc = torch.clamp(slot - phase, 0, sub - 1)
+    for cache_t, tok in ((k_all, k_tok), (v_all, v_tok)):
+        mask = own.reshape(own.shape + (1,) * (tok.dim() - own.dim()))
+        cache_t[rows, loc] = torch.where(mask, tok, cache_t[rows, loc])
+
+
+def _write_share(pool, page, off, new, share, keep=None, one_request=False):
+    """`_write_slots` at page offsets of every rank's page (`off` < the
+    whole page's size): under a share the rank writes the slots its pool
+    holds (at off - phase), the others keep their bytes.  `one_request`'s
+    tokens (a prefill's) are selected; a decode step's (B, S) tokens go one
+    token a request at a time, so that no two writes of one scatter land on
+    one slot (a request's pages are its own)."""
+    if share is None:
+        _write_slots(pool, page, off, new, keep=keep)
+        return
+    sub, _, phase = share
+    own = (off >= phase) & (off < phase + sub)
+    if keep is not None:
+        own = own & keep
+    loc = torch.clamp(off - phase, 0, sub - 1)
+    if page.dim() == 2:
+        for s in range(page.shape[1]):
+            _write_slots(pool, page[:, s], loc[:, s], new[:, s], keep=own[:, s])
+    elif one_request:  # a prefill's tokens: the rank's own, selected
+        sel = torch.nonzero(own)[:, 0]
+        _write_slots(pool, page[sel], loc[sel], new[sel])
+    else:  # a token a request, each on its request's own pages
+        _write_slots(pool, page, loc, new, keep=own)
 
 
 def _scatter_max_rows(scales, page, tok):

@@ -47,7 +47,16 @@ rank, and a rank's pools hold the KV heads of its q heads (K is its block of
 the KV heads; an int8 / fp8 pool's (P, K) scale sidecars are those heads'
 scales, and a head several ranks hold — gemma-2b's one KV head — has the
 same scales on each), so `stats()` and the server's
-`last_pool_stats` count one rank's bytes.
+`last_pool_stats` count one rank's bytes.  Under `fsdp_sp` the pools are
+split over the sequence instead (`share`, `sharding.seq_share` of the page
+size): rank r of n holds slots [r·ps/n, (r+1)·ps/n) of every page, so its
+pools are (P, ps/n, K, D) and a short request uses every rank alike.  The
+page tables, the allocator, prefix sharing, copy-on-write (a split copies
+the rank's slice of the page) and rollback are the same on every rank, a
+page id names the same page everywhere, and the views a step consumes
+carry the whole page's `page_size`.  An int8 / fp8 pool's scales stay
+whole and equal on every rank (each is taken from every token written to
+its page, which every rank has).
 
 A speculative verify step writes a whole draft block; `rollback` trims the
 rejected tail by refcount alone (no page copy).  `PoolAuditor` /
@@ -338,9 +347,16 @@ class PagedCacheManager:
     def __init__(self, num_pages: int, page_size: int, *,
                  max_len: int | None = None, window: int | None = None,
                  prefix_sharing: bool = True,
-                 cache_dtype: str | None = None):
+                 cache_dtype: str | None = None,
+                 share: tuple[int, int, int] | None = None):
         self.pool = PagePool(num_pages, page_size)
         self.page_size = page_size
+        # a rank's share (sub, span, phase) of every page's slots under a
+        # sequence split (span == page_size), or None: whole pages
+        if share is not None and share[1] != page_size:
+            raise ValueError(f"a share {share} of pages of {page_size} slots")
+        self.share = share
+        self.slots_held = share[0] if share is not None else page_size
         self.max_len = max_len          # logical linear-cache capacity
         self.window = window            # model's sliding/local window
         self.prefix_sharing = prefix_sharing
@@ -498,7 +514,7 @@ class PagedCacheManager:
             if name in self._pools:
                 continue
             qdt = self._quant_dtype(info)
-            shape = (num_pages, ps, info["kv_heads"], info["head_dim"])
+            shape = (num_pages, self.slots_held, info["kv_heads"], info["head_dim"])
             sshape = (num_pages, info["kv_heads"])
             if info["scanned"]:
                 shape = (info["n"], *shape)
@@ -677,6 +693,8 @@ class PagedCacheManager:
                     if pos is None else pos
             view[name] = group
         view["block_tables"] = self._table_row(rid)
+        if self.share is not None:
+            view["page_size"] = self.page_size
         return view
 
     def absorb_prefill(self, rid, new_cache: dict) -> None:
@@ -740,6 +758,9 @@ class PagedCacheManager:
         `final_len` is the most cache slots this request will ever occupy
         (prompt + decode budget), reserved for deadlock-free growth.
         """
+        if self.share is not None:
+            raise ValueError("a dense prefill cache packs into whole pages only: "
+                             "a sequence-split pool admits by paged prefill")
         if not self._groups:
             self._scan_structure(cache)
             self._ensure_pools(self.pool.num_pages)
@@ -920,6 +941,8 @@ class PagedCacheManager:
                                            dim=1 if info["scanned"] else 0)
             cache[name] = group
         cache["block_tables"] = tables
+        if self.share is not None:
+            cache["page_size"] = self.page_size
         if any("kv_pos" in self._meta[r] for r in rids):
             rows = []
             for r in rids:
@@ -997,7 +1020,7 @@ class PagedCacheManager:
         qdt = self._quant_dtype(info)
         dtype = pools["pk"].dtype if pools else (qdt or info["dtype"])
         quantized = ("ksc" in pools) if pools else qdt is not None
-        per_page = 2 * (self.page_size * info["kv_heads"] * info["head_dim"]
+        per_page = 2 * (self.slots_held * info["kv_heads"] * info["head_dim"]
                         * dtype.itemsize)
         if quantized:
             per_page += 2 * info["kv_heads"] * 4  # k + v fp32 scale rows

@@ -41,6 +41,16 @@ re-selection hands its operating point to every rank (`_RankZeroGovernor`);
 a graceful drain is rank 0's reading of its preemption handler (every rank
 still polls its own); the tuner's runtime feedback refines from rank 0's
 observations, rank 0 writes the cache and every rank returns its knobs.
+Under `fsdp_sp` (the dense, MoE, encoder-decoder and VLM families, where
+AutoShard picks it or it is forced) every rank serves the whole batch too
+(replicated over `data`, as under Megatron's layout) with the whole
+weights (FSDP blocks gathered at use), and holds its share of the
+sequence of every KV cache and page pool (`sharding.seq_share`: a dense
+cache's block of the slots, its slots of every page; an int8 / fp8 pool's
+scales whole): a prompt the sequence axis divides prefills split over the
+ranks, a decode step's tokens are whole on every rank, each rank attends
+its slots and the ranks' partial softmax sums are merged
+(`collectives.combine_attention`); every host decision stays rank 0's.
 
 Both paths serve the dense family (yi-6b, gemma-2b); the recurrent families
 (recurrentgemma-2b's RG-LRU state, rwkv6-3b's WKV state) serve through
@@ -66,7 +76,8 @@ from repro_torch.core.strategies.resilience import (
 )
 from repro_torch.core.weaver import WovenProgram
 from repro_torch.distributed.collectives import broadcast, broadcast_object, on_rank_zero
-from repro_torch.distributed.sharding import gather_shards, input_shardings, local_shard
+from repro_torch.distributed.sharding import (gather_shards, input_shardings, local_shard,
+                                             seq_share)
 from repro_torch.distributed.fault import Watchdog
 from repro_torch.kernels.flash_attention.ops import CACHE_QMAX, DEFAULT_PAGE_SIZE
 from repro_torch.launch.mesh import is_live, require_mesh_on
@@ -240,7 +251,7 @@ class Server:
             from repro_torch.distributed.sharding import param_shardings
             from repro_torch.runtime.steps import check_on_mesh
 
-            check_on_mesh(woven, mesh, serving=True)
+            check_on_mesh(woven, mesh)
             shardings = param_shardings(woven.program.model, mesh, woven.state.rules)
             # the tuned kernel knobs are rank 0's (each rank read its tuner cache)
             for st in [woven.state, *woven.variants.values()]:
@@ -984,7 +995,8 @@ class Server:
         manager = PagedCacheManager(
             pool_pages, ps, max_len=self.cfg.max_cache_len,
             window=getattr(self.woven.program.cfg, "attn_window", None),
-            prefix_sharing=share, cache_dtype=cache_dtype)
+            prefix_sharing=share, cache_dtype=cache_dtype,
+            share=seq_share(self.mesh, state.rules, ps))
         # feedback observations are per knob setting: a fresh window,
         # bucketed by live batch (a step's cost scales with it, and the
         # tuner's signature is keyed to one batch)
@@ -1015,7 +1027,8 @@ class Server:
                 max(sum(cdiv(f, ps) for f in finals), 1), ps,
                 max_len=self.cfg.max_cache_len,
                 window=getattr(draft_srv.woven.program.cfg, "attn_window", None),
-                prefix_sharing=False, cache_dtype=cache_dtype)
+                prefix_sharing=False, cache_dtype=cache_dtype,
+                share=seq_share(draft_srv.mesh, dstate.rules, ps))
             if draft_srv is not self:
                 draft_srv._steps = _step_counts()
 

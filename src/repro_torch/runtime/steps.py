@@ -19,9 +19,11 @@ back the logits gathered over the vocab, and the train step takes the
 global batch, keeps its rows (`sharding.input_shardings`), and sums the
 gradients over the axes whose ranks hold other tokens and means them over
 the batch's (`sharding.grad_axes`).  The dense, MoE, encoder-decoder and
-VLM families run under `megatron_tp` and train under `fsdp_sp`; the ssm
-and hybrid families run under `dp_fsdp`.  `fsdp_sp` serving and the
-layouts a family is not laid out in raise when the step is built.
+VLM families run under `megatron_tp` and `fsdp_sp` (serving under
+`fsdp_sp` holds each rank's share of every KV cache and page pool and keeps
+the batch replicated over `data`, as Megatron's does); the ssm and hybrid
+families run under `dp_fsdp`.  The layouts a family is not laid out in
+raise when the step is built.
 """
 
 from __future__ import annotations
@@ -43,19 +45,17 @@ from repro_torch.optim.tree import rebuild
 
 
 # the layouts each family runs under on a live mesh: AutoShard's own choices
-# (`fsdp_sp` for training only: `sharding.check_layout`)
 _ATTENTION_LAYOUTS = ("megatron_tp", "fsdp_sp")
 MESH_LAYOUTS = {"dense": _ATTENTION_LAYOUTS, "moe": _ATTENTION_LAYOUTS,
                 "encdec": _ATTENTION_LAYOUTS, "vlm": _ATTENTION_LAYOUTS,
                 "ssm": ("dp_fsdp",), "hybrid": ("dp_fsdp",)}
 
 
-def check_on_mesh(woven: WovenProgram, mesh, state=None, *, serving: bool = False):
+def check_on_mesh(woven: WovenProgram, mesh, state=None):
     """`mesh` if a step of `woven` runs on it (`launch/mesh.check_mesh`); a
     live mesh of several ranks takes the dense, MoE, encoder-decoder and
-    VLM families under `megatron_tp` (and `fsdp_sp` for training) and the
-    ssm and hybrid families under `dp_fsdp` (`MESH_LAYOUTS`,
-    `sharding.check_layout`)."""
+    VLM families under `megatron_tp` and `fsdp_sp` and the ssm and hybrid
+    families under `dp_fsdp` (`MESH_LAYOUTS`, `sharding.check_layout`)."""
     mesh = check_mesh(mesh)
     if not is_live(mesh):
         return mesh
@@ -69,7 +69,7 @@ def check_on_mesh(woven: WovenProgram, mesh, state=None, *, serving: bool = Fals
             f"the {family} family ({woven.program.cfg.name}) under {layout} on a live "
             f"mesh: it runs under {' or '.join(MESH_LAYOUTS[family])}, the layouts "
             f"AutoShard picks for it (no layout of AutoShard lays it out so)")
-    check_layout(mesh, state.rules, layout, serving=serving)
+    check_layout(mesh, state.rules, layout)
     return mesh
 
 
@@ -282,7 +282,7 @@ def build_prefill_step(woven: WovenProgram, *, mesh=None, variant: str | None = 
     state, without disturbing the shared state the ordinary prefill reads."""
     program = woven.program
     state = woven.variant_state(variant)
-    check_on_mesh(woven, mesh, state, serving=True)
+    check_on_mesh(woven, mesh, state)
     if cache_max_len is not None:
         state = state.copy()
         state.extra["cache_max_len"] = cache_max_len
@@ -307,7 +307,7 @@ def build_paged_prefill_step(woven: WovenProgram, *, mesh=None,
     never O(max_len)."""
     program = woven.program
     state = woven.variant_state(variant)
-    check_on_mesh(woven, mesh, state, serving=True)
+    check_on_mesh(woven, mesh, state)
     model = program.model
 
     def paged_prefill_step(params, inputs, cache, prefix_len: int = 0):
@@ -333,7 +333,7 @@ def build_decode_step(woven: WovenProgram, *, mesh=None, variant: str | None = N
     touching pages other requests still map."""
     program = woven.program
     state = woven.variant_state(variant)
-    check_on_mesh(woven, mesh, state, serving=True)
+    check_on_mesh(woven, mesh, state)
     model = program.model
     extra_kw = {"skip_cache_write": True} if rescore else {}
 
@@ -365,7 +365,7 @@ def build_verify_step(woven: WovenProgram, *, mesh=None,
     logits come back whole, as the decode step's do."""
     program = woven.program
     state = woven.variant_state(variant)
-    check_on_mesh(woven, mesh, state, serving=True)
+    check_on_mesh(woven, mesh, state)
     if draft_len is not None:
         state = state.copy()
         state.extra["speculative_draft_len"] = int(draft_len)

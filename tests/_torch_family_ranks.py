@@ -283,28 +283,56 @@ def serving(np_by_run, requests, mesh):
             for run, np_params in np_by_run.items()}
 
 
-# -- refusals ------------------------------------------------------------------------
+# -- serving under fsdp_sp ------------------------------------------------------------
+
+def serve_entries(w, tokens, side, mesh=None):
+    """The serving entry points of `w` (on `mesh`, or unmeshed) over the
+    weights drawn from seed 0 (on a mesh, the rank's blocks of them): the
+    prefill step's and one decode step's whole logits (fp32 numpy), and the
+    server's greedy tokens of `tokens` with their side inputs."""
+    from repro_torch.runtime.server import Server, ServerConfig
+    from repro_torch.runtime.steps import build_decode_step, build_prefill_step
+
+    model = w.program.model
+    shardings = None if mesh is None else param_shardings(model, mesh, w.state.rules)
+    params = init_params(model, 0, w.state.policies, "cpu", shardings=shardings)
+    w.state.extra["cache_max_len"] = 16
+    feed = {"tokens": torch.from_numpy(tokens), **_tensors(side)}
+    logits, cache = build_prefill_step(w, mesh=mesh)(params, feed)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    pos = tokens.shape[1] + (side["embeds"].shape[1] if "embeds" in side else 0)
+    step, _ = build_decode_step(w, mesh=mesh)(
+        params, {"tokens": tok, "positions": torch.full_like(tok, pos)}, cache)
+    srv = Server(w, ServerConfig(max_cache_len=16, decode_tokens=3), params=params,
+                 mesh=mesh, device="cpu")
+    return {"prefill": logits[:, -1].float().numpy(), "decode": step[:, -1].float().numpy(),
+            "server": srv.serve(tokens, inputs=side).tolist(),
+            "layout": w.state.extra.get("layout")}
+
+
+def fsdp_sp_woven(run, mesh_axes):
+    """The run's reduced arch at head_dim 64, fp32, under AutoShard's
+    `layout="fsdp_sp"` (what its published width picks on the pod); no
+    layout without a mesh."""
+    arch, _ = RUNS[run]
+    cfg = reduced_config(arch).replace(head_dim=64)
+    program = Program(model=build_model(cfg), cfg=cfg, kind="serve", device="cpu")
+    aspects = [AutoShard(dict(mesh_axes), train=False, layout="fsdp_sp")] if mesh_axes else []
+    w = default_weave(program, SHAPES["prefill_32k"], dict(mesh_axes),
+                      overrides={"tuned_kernels": False}, extra_aspects=aspects)
+    w.state.policies = PolicyResolver.default("f32")
+    return w
+
+
+FSDP_SP_TOKENS = np.random.default_rng(9).integers(0, 512, (2, 8)).astype(np.int32)
+
 
 def fsdp_sp(runs, mesh):
-    """Each run's prefill step built under AutoShard's `layout="fsdp_sp"`
-    (what its published width picks on the pod): the message it raised."""
-    from repro_torch.runtime.steps import build_prefill_step
-
-    out = {}
-    for run in runs:
-        arch, _ = RUNS[run]
-        cfg = reduced_config(arch).replace(head_dim=64)
-        program = Program(model=build_model(cfg), cfg=cfg, kind="serve", device="cpu")
-        w = default_weave(program, SHAPES["prefill_32k"], dict(mesh.shape),
-                          overrides={"tuned_kernels": False},
-                          extra_aspects=[AutoShard(dict(mesh.shape), train=False,
-                                                   layout="fsdp_sp")])
-        try:
-            build_prefill_step(w, mesh=mesh)
-            out[f"{run}/serve"] = "did not raise"
-        except NotImplementedError as e:
-            out[f"{run}/serve"] = str(e)
-    return out
+    """Each run served under AutoShard's `layout="fsdp_sp"`: its entry
+    points' results (`serve_entries`)."""
+    return {f"{run}/serve": serve_entries(fsdp_sp_woven(run, mesh.shape), FSDP_SP_TOKENS,
+                                          side_inputs(run, FSDP_SP_TOKENS.shape[0]), mesh)
+            for run in runs}
 
 
 # -- rwkv6-3b's gradient at depth -----------------------------------------------------
@@ -355,7 +383,7 @@ def local_draws(run, mesh):
 
 
 def apart(runs, layers, batch, mesh):
-    """The `fsdp_sp` serving refusals, rwkv6-3b's meshed gradient and the
+    """The families served under `fsdp_sp`, rwkv6-3b's meshed gradient and the
     local draws, in one spawn."""
     return {"fsdp_sp": fsdp_sp(runs, mesh), "rwkv": rwkv_gradient(layers, batch, mesh),
             "local_draws": local_draws("mixtral-8x22b", mesh)}

@@ -6,7 +6,7 @@ values (rank 0's reach the test)."""
 import numpy as np
 import torch
 
-from _torch_family_ranks import RouteSpy, every_rank, shapes, to_host
+from _torch_family_ranks import RouteSpy, every_rank, serve_entries, shapes, to_host
 from repro_torch.configs.base import SHAPES
 from repro_torch.convert import load_jax_params
 from repro_torch.core.program import Program
@@ -213,27 +213,17 @@ def suite(np_by_run, tokens, batches, mesh):
     return out
 
 
-# -- (f) serving refusals, checkpoints ------------------------------------------------
+# -- (f) serving, checkpoints ---------------------------------------------------------
 
-def serve_refusals(runs, mesh):
-    """Each run's serving entry points under fsdp_sp: the message each
-    raised."""
-    from repro_torch.runtime.server import Server, ServerConfig
-    from repro_torch.runtime.steps import build_decode_step, build_prefill_step
+SERVE_TOKENS = np.random.default_rng(8).integers(0, 512, (2, 8)).astype(np.int32)
 
-    out = {}
-    for run in runs:
-        w = woven(run, "serve", mesh.shape)
-        for name, fn in (("prefill", lambda: build_prefill_step(w, mesh=mesh)),
-                         ("decode", lambda: build_decode_step(w, mesh=mesh)),
-                         ("server", lambda: Server(w, ServerConfig(max_cache_len=16),
-                                                   mesh=mesh, device="cpu"))):
-            try:
-                fn()
-                out[f"{run}/{name}"] = "did not raise"
-            except NotImplementedError as e:
-                out[f"{run}/{name}"] = str(e)
-    return out
+
+def serve_results(runs, mesh):
+    """Each run's serving entry points under fsdp_sp: the prefill and a
+    decode step's logits and the server's tokens (`serve_entries`)."""
+    return {run: serve_entries(woven(run, "serve", mesh.shape if mesh is not None else {}),
+                               SERVE_TOKENS, side_inputs(run, SERVE_TOKENS.shape[0]), mesh)
+            for run in runs}
 
 
 def trainer_checkpoint(run, ckpt_dir, mesh):
@@ -295,8 +285,8 @@ def reshard(run, ckpt_dir, mesh):
 
 
 def apart(runs, ckpt_run, ckpt_dir, reshard_run, reshard_dir, mesh):
-    """The serving refusals, a meshed trainer's checkpoint and a reshard,
-    in one spawn."""
-    return {"refusals": serve_refusals(runs, mesh),
+    """The served entry points, a meshed trainer's checkpoint and a
+    reshard, in one spawn."""
+    return {"served": serve_results(runs, mesh),
             "trainer": trainer_checkpoint(ckpt_run, ckpt_dir, mesh),
             "reshard": reshard(reshard_run, reshard_dir, mesh)}

@@ -3,6 +3,7 @@ rank and imports this module there, so it imports the port and torch only;
 every function takes the rank's live mesh last and returns host values
 (rank 0's reach the test)."""
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -189,8 +190,8 @@ def serve(arch, prompts, solo, mesh):
 
 
 def serving(archs, prompts, solo, mesh):
-    """(d) for every arch and the refusals of `fsdp_sp` serving, in one
-    spawn of the mesh."""
+    """(d) for every arch and gemma-2b's entry points under `fsdp_sp`, in
+    one spawn of the mesh."""
     out = {arch: serve(arch, prompts, solo, mesh) for arch in archs}
     out["fsdp_sp_serving"] = fsdp_sp_serving(mesh)
     return out
@@ -275,22 +276,16 @@ def reshard(arch, ckpt_dir, mesh):
     return manifest["step"], every_rank(verdicts, mesh)
 
 
-# -- refusals ----------------------------------------------------------------------
+# -- serving under fsdp_sp ----------------------------------------------------------
+
+SP_TOKENS = np.random.default_rng(10).integers(0, 512, (2, 8)).astype(np.int32)
+
 
 def fsdp_sp_serving(mesh):
-    """The refusals of `fsdp_sp` serving, by entry point."""
-    from repro_torch.runtime.server import Server, ServerConfig
-    from repro_torch.runtime.steps import build_decode_step, build_prefill_step
+    """gemma-2b's serving entry points under `fsdp_sp` with its FSDP rule
+    over (data, model): the prefill and a decode step's logits and the
+    server's tokens (`serve_entries`; unmeshed where `mesh` is None)."""
+    from _torch_family_ranks import serve_entries
 
-    w = woven("gemma-2b", "serve", mesh.shape)
-    out = {}
-    for name, fn in (("prefill", lambda: build_prefill_step(w, mesh=mesh)),
-                     ("decode", lambda: build_decode_step(w, mesh=mesh)),
-                     ("server", lambda: Server(w, ServerConfig(max_cache_len=16),
-                                               mesh=mesh, device="cpu"))):
-        try:
-            fn()
-            out[name] = "did not raise"
-        except NotImplementedError as e:
-            out[name] = str(e)
-    return out
+    return serve_entries(woven("gemma-2b", "serve", mesh.shape if mesh is not None else {}),
+                         SP_TOKENS, {}, mesh)

@@ -3,6 +3,7 @@ each rank and imports this module there, so it imports the port and torch
 only; every function takes the rank's live mesh last and returns host
 values (rank 0's reach the test)."""
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -225,10 +226,10 @@ def leaves_of(tree):
 
 def refusals(mesh):
     """{case: the message of the NotImplementedError it raised, or a note
-    that it did not raise}."""
+    that it did not raise; for what runs now, whether it served as one
+    device does}."""
     from repro_torch.core.strategies.parallelization import AutoShard
     from repro_torch.nn.module import Ctx
-    from repro_torch.runtime.steps import build_prefill_step
     from repro_torch.launch.mesh import make_test_mesh
 
     out = {}
@@ -242,16 +243,29 @@ def refusals(mesh):
         except Exception as e:  # the wrong refusal: the test reports it
             out[name] = f"{type(e).__name__}: {e}"
 
-    for name, arch in (("whisper_fsdp_sp", "whisper-small"),
-                       ("internvl_fsdp_sp", "internvl2-1b")):
-        fsdp_sp = AutoShard(dict(mesh.shape), train=False, layout="fsdp_sp")
-        attempt(name, lambda a=arch, f=fsdp_sp: build_prefill_step(
-            woven(a, "serve", mesh.shape, head_dim=None, aspects=[f]), mesh=mesh))
-    sp = woven("gemma-2b", "serve", mesh.shape,
-               aspects=[AutoShard(dict(mesh.shape), train=False, layout="fsdp_sp")])
-    attempt("fsdp_sp_serving", lambda: build_prefill_step(sp, mesh=mesh))
+    def served(name, arch, head_dim):
+        """Served under `fsdp_sp` (ROADMAP item 15a-ii): whether the meshed
+        entry points give the unmeshed port's logits and tokens."""
+        from _torch_family_ranks import serve_entries, side_inputs
+
+        side = side_inputs(arch, SP_TOKENS.shape[0]) if arch != "gemma-2b" else {}
+        sp = AutoShard(dict(mesh.shape), train=False, layout="fsdp_sp")
+        got = serve_entries(woven(arch, "serve", mesh.shape, head_dim=head_dim, aspects=[sp]),
+                            SP_TOKENS, side, mesh)
+        want = serve_entries(woven(arch, "serve", {}, head_dim=head_dim), SP_TOKENS, side)
+        err = max(float(np.abs(got[k] - want[k]).max() / np.abs(want[k]).max())
+                  for k in ("prefill", "decode"))
+        out[name] = ("served like one device" if err < 1e-4 and got["server"] == want["server"]
+                     and got["layout"] == "fsdp_sp" else f"served otherwise: {err}, {got}, {want}")
+
+    served("whisper_fsdp_sp", "whisper-small", None)
+    served("internvl_fsdp_sp", "internvl2-1b", None)
+    served("fsdp_sp_serving", "gemma-2b", 64)
     attempt("abstract_mesh", lambda: Ctx(mesh=make_test_mesh((2, 2))))
     return out
+
+
+SP_TOKENS = np.random.default_rng(11).integers(0, 512, (2, 8)).astype(np.int32)
 
 
 # -- run_on_mesh's hand-back ---------------------------------------------------------

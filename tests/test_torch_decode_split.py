@@ -106,8 +106,9 @@ def test_split_chunk_matches_the_compiled_chunk_and_the_binding():
     assert [tdec.split_step_slots(D) for D in (16, 64, 96, 128, 256)] == [32, 32, 16, 16, 16]
     # the entry point's arguments: 8 pointers, 10 ints, 15 strides, then
     # scale_page, window, softcap, scale, block_kv, pruned, part, tickets,
-    # split_chunk, route, stream
-    assert len(build.SIGNATURES["repro_torch_flash_decode"]) == 44
+    # split_chunk, the block mode's sub, span, phase, lse and its two
+    # strides, route, stream
+    assert len(build.SIGNATURES["repro_torch_flash_decode"]) == 50
 
 
 # ---------------------------------------------------------------------------

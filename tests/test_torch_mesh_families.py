@@ -20,9 +20,10 @@ the meshed server against the unmeshed server: mixtral's ring pool through
 `serve_continuous`, whisper's `serve` with frames (its cross caches come
 back unwritten, a rank's heads), internvl's with its image prefix; (e)
 each rank holds its block of every expert leaf and of its AdamW state.
-What the families' servers refuse under `fsdp_sp` (ROADMAP Queue 1 item
-15a-ii; their training under it is `test_torch_mesh_families_sp.py`'s),
-and rwkv6-3b's fp32 gradient at 8 layers under `dp_fsdp` against the
+The families served under `fsdp_sp` (ROADMAP Queue 1 item 15a-ii: each
+entry point against the unmeshed port; their training under it is
+`test_torch_mesh_families_sp.py`'s, their serving traffic
+`test_torch_mesh_serving_sp.py`'s), and rwkv6-3b's fp32 gradient at 8 layers under `dp_fsdp` against the
 unmeshed one.  The rank bodies are in `_torch_family_ranks.py`."""
 
 import functools
@@ -423,8 +424,16 @@ def apart():
 
 @pytest.mark.parametrize("run", ["mixtral-8x22b", "whisper-small", "internvl2-1b"])
 def test_the_families_serving_under_fsdp_sp_wait_for_15a_ii(apart, run):
-    said = apart[0]["fsdp_sp"][f"{run}/serve"]
-    assert "15a-ii" in said and "fsdp_sp" in said, said
+    """Served under `fsdp_sp` since ROADMAP item 15a-ii (the name is the
+    refusal this test checked before): the meshed prefill and decode logits
+    and the server's tokens are the unmeshed port's."""
+    got = apart[0]["fsdp_sp"][f"{run}/serve"]
+    want = ranks.serve_entries(ranks.fsdp_sp_woven(run, {}), ranks.FSDP_SP_TOKENS,
+                               ranks.side_inputs(run, ranks.FSDP_SP_TOKENS.shape[0]))
+    assert got["layout"] == "fsdp_sp"
+    assert rel_rms(got["prefill"], want["prefill"]) < REL_TOL
+    assert rel_rms(got["decode"], want["decode"]) < REL_TOL
+    assert got["server"] == want["server"]
 
 
 RWKV_LAYERS = 8

@@ -23,7 +23,8 @@ input gradient, `moe_drop_frac` equal on every rank; (d) each rank holds
 its blocks and their AdamW state; (e) the gradient of the initial weights,
 the embedding's and the head's among them, equals the unmeshed one (the
 sum over the sequence axis adds nothing twice); (f) serving under
-`fsdp_sp` raises naming ROADMAP item 15a-ii; a meshed trainer's checkpoint
+`fsdp_sp` (ROADMAP item 15a-ii): the meshed prefill and decode logits and
+the server's tokens are the unmeshed port's; a meshed trainer's checkpoint
 restores on one device bit for bit, and `reshard_params` puts each rank's
 blocks (a whole vocab whole) onto the mesh.  The rank bodies are in
 `_torch_family_sp_ranks.py`.  The file takes about 120 s on four CPU
@@ -451,11 +452,23 @@ def apart(tmp_path_factory):
         ranks.apart, SERVE_RUNS, "mixtral-8x22b+embed", str(ckpt), "whisper-small", str(d)))
 
 
+@functools.lru_cache(maxsize=None)
+def _unmeshed_entries(run):
+    return ranks.serve_results([run], None)[run]
+
+
 @pytest.mark.parametrize("entry", ["prefill", "decode", "server"])
 @pytest.mark.parametrize("run", SERVE_RUNS)
 def test_serving_under_fsdp_sp_waits_for_15a_ii(apart, run, entry):
-    said = apart[1]["refusals"][f"{run}/{entry}"]
-    assert "15a-ii" in said and "fsdp_sp" in said, said
+    """Served under `fsdp_sp` since ROADMAP item 15a-ii (the name is the
+    refusal this test checked before): each entry point on the mesh gives
+    the unmeshed port's logits or tokens."""
+    got, want = apart[1]["served"][run], _unmeshed_entries(run)
+    assert got["layout"] == "fsdp_sp"
+    if entry == "server":
+        assert got[entry] == want[entry]
+    else:
+        assert rel_rms(got[entry], want[entry]) < REL_TOL
 
 
 def test_a_meshed_fsdp_sp_trainer_checkpoints_whole_state_one_device_restores(apart):

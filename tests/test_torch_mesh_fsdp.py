@@ -18,7 +18,8 @@ FSDP leaf and of its AdamW state; (d) greedy `serve_batch` / `serve`
 tokens of the recurrent pair; (e) a meshed FSDP trainer's whole checkpoint
 and `reshard_params` under FSDP rules, bit for bit; (f) the FSDP gathers
 are counted as their own kind and no FSDP leaf's gradient is reduced a
-second time; what `fsdp_sp` serving refuses.  The rank bodies are in
+second time; gemma-2b served under `fsdp_sp` as the unmeshed port serves
+it.  The rank bodies are in
 `_torch_fsdp_ranks.py`."""
 
 import functools
@@ -372,7 +373,16 @@ def test_greedy_tokens_on_a_2x2_dp_fsdp_mesh_equal_the_unmeshed_server(served, a
 
 @pytest.mark.parametrize("entry", ["prefill", "decode", "server"])
 def test_fsdp_sp_serving_is_refused(served, entry):
-    assert "15a-ii" in served[2]["fsdp_sp_serving"][entry], served[2]["fsdp_sp_serving"]
+    """Served under `fsdp_sp` since ROADMAP item 15a-ii (the name is the
+    refusal this test checked before): gemma-2b's entry points on the mesh,
+    its FSDP blocks gathered at use, give the unmeshed port's logits or
+    tokens."""
+    got, want = served[2]["fsdp_sp_serving"], ranks.fsdp_sp_serving(None)
+    assert got["layout"] == "fsdp_sp"
+    if entry == "server":
+        assert got[entry] == want[entry]
+    else:
+        assert rel_rms(got[entry], want[entry]) < REL_TOL
 
 
 # -- (e) checkpoints ---------------------------------------------------------------------
@@ -441,7 +451,7 @@ def _fake_live_mesh():
 
 @pytest.mark.parametrize("case", [
     ("megatron_tp", {"batch": ("data",), "embed": ("model",)}, "same tokens"),
-    ("megatron_tp", {"batch": ("data",), "res_seq": "model"}, "15a-ii"),
+    ("megatron_tp", {"batch": ("data",), "res_seq": "model"}, "15a-iii"),
     ("fsdp_sp", {"batch": ("data",), "res_seq": "model", "seq_act": None}, "one axis"),
     ("fsdp_sp", {"batch": ("data",), "res_seq": "model", "seq_act": "model",
                  "mlp": "model"}, "not tensor-parallel"),

@@ -305,9 +305,11 @@ def test_run_on_mesh_leaves_no_result_file_behind(tmp_path, monkeypatch, fn, fai
 
 # -- (g) refusals ------------------------------------------------------------------
 
+# what a live mesh refuses, and (ROADMAP item 15a-ii, refused before) what
+# it now serves as one device does: `fsdp_sp` serving
 REFUSED = {
-    "whisper_fsdp_sp": "15a-ii", "internvl_fsdp_sp": "15a-ii",
-    "fsdp_sp_serving": "15a-ii",
+    "whisper_fsdp_sp": "served like one device", "internvl_fsdp_sp": "served like one device",
+    "fsdp_sp_serving": "served like one device",
     "abstract_mesh": "abstract mesh",
 }
 

@@ -256,7 +256,7 @@ def test_a_mesh_of_more_than_one_device_raises():
     """An abstract mesh of several devices has no ranks to run a step on;
     a live one is built by `make_mesh` / `run_on_mesh` (and runs AutoShard's
     layouts; an FSDP split over ranks that hold the same tokens and
-    `fsdp_sp` serving raise there)."""
+    Megatron's sequence-split rules raise there)."""
     two = make_test_mesh((2, 1))
     with pytest.raises(NotImplementedError, match="abstract mesh"):
         Ctx(mesh=two)
@@ -277,8 +277,11 @@ def test_a_mesh_of_more_than_one_device_raises():
         check_layout(live, dict(rules, embed=("model",)))
     sp = {"batch": ("data",), "res_seq": "model", "seq_act": "model", "vocab": "model"}
     check_layout(live, sp, "fsdp_sp")
-    with pytest.raises(NotImplementedError, match="15a-ii"):
-        check_layout(live, sp, "fsdp_sp", serving=True)
+    # serving under fsdp_sp runs since ROADMAP item 15a-ii: its caches split
+    # over the residual stream's axis; Megatron's sequence rules wait (15a-iii)
+    check_layout(live, dict(sp, kv_seq="model"), "fsdp_sp")
+    with pytest.raises(NotImplementedError, match="15a-iii"):
+        check_layout(live, dict(rules, kv_seq="model"), "megatron_tp")
     check_layout(live, dict(rules, embed=None), "megatron_tp")
     check_layout(two, rules)  # an abstract mesh: the dry run's layouts stand
 

@@ -193,7 +193,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     summary = cs.mesh_phase(torch, counts, requests, backend="nccl", serve_shape=(1, 4),
                             train_shapes={"dp2_tp2": (2, 2)}, fsdp_runs=NCCL_FSDP_RUNS,
-                            family_runs={}, family_sp_runs={}, control_runs=(),
+                            family_runs={}, family_sp_runs={}, serve_sp_runs=(),
+                            control_runs=(),
                             serve_depth=None)
     summary["one_card_serve_s"] = one_card_serve_s
     summary["n3"] = n3_phase()
